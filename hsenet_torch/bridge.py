@@ -1,0 +1,74 @@
+"""Carry a flax parameter tree over to the port's modules.
+
+`flax_to_torch(params)` takes the nested dict that a JAX package model's
+`init` returns (leaves as numpy arrays, or anything `np.asarray` reads) and
+returns a state_dict that the matching port module accepts with
+`load_state_dict(..., strict=True)`:
+
+  * Dense `kernel` (in, out) -> Linear `weight` (out, in);
+  * LayerNorm / RMSNorm `scale` -> `weight`; `bias` stays `bias`;
+  * Embed `embedding` -> `weight` (it also serves the tied LM head);
+  * `pos_embed`, `cls_token`, `lora_a`, `lora_b` keep name and layout;
+  * `nn.scan` stacks (`tower/blocks` of the ViT towers, `decoder/layers`
+    of the Phi decoder) are unstacked on axis 0 into `ModuleList` entries.
+
+A leaf of any other name raises (for example the int8 `kernel_q` of the
+serving slice), so nothing is dropped silently.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_SCAN_STACKS = (("tower", "blocks"), ("decoder", "layers"))
+_SAME_NAME = ("bias", "pos_embed", "cls_token", "lora_a", "lora_b")
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path)
+        else:
+            yield path, value
+
+
+def _leaf(name: str, value: np.ndarray, path) -> Tuple[str, np.ndarray]:
+    if name == "kernel":
+        if value.ndim != 2:
+            raise ValueError(f"{'/'.join(path)}: Dense kernel of shape {value.shape}")
+        return "weight", value.T
+    if name in ("scale", "embedding"):
+        return "weight", value
+    if name in _SAME_NAME:
+        return name, value
+    raise KeyError(f"no torch counterpart for flax leaf {'/'.join(path)}")
+
+
+def _stack_at(path: Tuple[str, ...]):
+    for i in range(len(path) - 1):
+        if path[i:i + 2] in _SCAN_STACKS:
+            return i + 2
+    return None
+
+
+def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax param tree (with or without the top "params" key) -> state_dict."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    state = {}
+    for path, value in _flatten(params):
+        value = np.asarray(value, dtype=np.float32)
+        at = _stack_at(path)
+        if at is None:
+            name, arr = _leaf(path[-1], value, path)
+            state[".".join(path[:-1] + (name,))] = torch.tensor(arr)
+            continue
+        for i, layer_value in enumerate(value):  # unstack the scan axis
+            name, arr = _leaf(path[-1], layer_value, path)
+            key = path[:at] + (str(i),) + path[at:-1] + (name,)
+            state[".".join(key)] = torch.tensor(arr)
+    return state

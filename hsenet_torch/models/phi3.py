@@ -1,0 +1,318 @@
+"""Phi-3 / Phi-4-mini decoder (the port of the JAX package's
+models/phi3.py).
+
+RMSNorm, separate q/k/v projections, GQA, partial rotary embeddings
+(rotary_dim = partial_rotary_factor * head_dim, with optional LongRoPE
+factors), SiLU-gated MLP, tied embeddings.
+
+Batches are right-padded: each row keeps its own KV-cache length, so
+decode writes land right after each prompt. Prefill attends over the whole
+cache capacity with kv_lens = lengths + new tokens and a per-row causal
+query offset = lengths, through the flash kernel when the chunk has at
+least 64 tokens; decode (one token) runs the plain sdpa over the cache.
+
+Unlike the JAX package, whose arrays are immutable, the port writes new
+keys and values into the cache in place and returns the same cache; this
+keeps one copy of the cache in device memory.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from einops import rearrange
+from torch import nn
+
+from hsenet_torch import resolve_device
+from hsenet_torch.configs import Phi3Config
+from hsenet_torch.models.lora import LoRADense
+from hsenet_torch.ops.attention import multi_head_attention
+
+# prefill chunks shorter than this take the plain sdpa, as in the JAX package
+FLASH_MIN_QUERY = 64
+
+
+@dataclass
+class KVCache:
+    """Static-shape bf16 KV cache, updated in place.
+
+    k, v: (num_layers, B, Hkv, T, D); lengths: (B,) int32 valid tokens per
+    row. The int8 cache comes with the serving slice."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+
+    @classmethod
+    def create(cls, config: Phi3Config, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> "KVCache":
+        device = resolve_device(device)
+        if dtype == torch.int8:
+            raise NotImplementedError(
+                "the int8 KV cache comes with the serving slice of the port"
+            )
+        shape = (config.num_layers, batch, config.num_kv_heads, max_len,
+                 config.head_dim)
+        return cls(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+        )
+
+
+def _rope_cos_sin(positions: torch.Tensor, rotary_dim: int, theta: float,
+                  ext_factors=None, attention_scaling: float = 1.0):
+    """positions (B, S) -> cos/sin (B, S, rotary_dim) in f32, half-split
+    layout; `ext_factors`/`attention_scaling` implement LongRoPE."""
+    exponent = (
+        torch.arange(0, rotary_dim, 2, dtype=torch.float32,
+                     device=positions.device) / rotary_dim
+    )
+    inv_freq = 1.0 / torch.pow(
+        torch.tensor(theta, dtype=torch.float32, device=positions.device),
+        exponent,
+    )
+    if ext_factors is not None:
+        inv_freq = inv_freq / torch.tensor(
+            ext_factors, dtype=torch.float32, device=positions.device
+        )
+    freqs = positions[..., None].float() * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb) * attention_scaling, torch.sin(emb) * attention_scaling
+
+
+def _longrope_params(cfg: Phi3Config, total_len: int):
+    """LongRoPE factors and attention scaling for a cache of `total_len`."""
+    if cfg.rope_short_factor is None and cfg.rope_long_factor is None:
+        return None, 1.0
+    use_long = total_len > cfg.original_max_position_embeddings
+    ext = cfg.rope_long_factor if use_long else cfg.rope_short_factor
+    factor = cfg.max_position_embeddings / cfg.original_max_position_embeddings
+    if factor <= 1.0:
+        scaling = 1.0
+    else:
+        scaling = math.sqrt(
+            1 + math.log(factor) / math.log(cfg.original_max_position_embeddings)
+        )
+    return ext, scaling
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rope(q, k, cos, sin, rotary_dim: int):
+    """q, k (B, H, S, D); cos/sin (B, S, rotary_dim). Rotates the first
+    rotary_dim channels in f32 and casts back to the input dtype."""
+    cos = cos[:, None]
+    sin = sin[:, None]
+
+    def rot(x):
+        x_rot, x_pass = x[..., :rotary_dim], x[..., rotary_dim:]
+        x_rot = x_rot * cos + _rotate_half(x_rot) * sin
+        return torch.cat([x_rot, x_pass.to(x_rot.dtype)], dim=-1).to(x.dtype)
+
+    return rot(q), rot(k)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm with an f32 scale, computed in f32, returning the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, *, device="cuda"):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=resolve_device(device))
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        var = x32.pow(2).mean(dim=-1, keepdim=True)
+        return (x32 * torch.rsqrt(var + self.eps) * self.weight).to(x.dtype)
+
+
+def _update_cache_layer(cache_k, cache_v, k_new, v_new, lengths) -> None:
+    """Write (B, Hkv, S, D) keys/values at per-row offsets `lengths`, in
+    place. Offsets are clamped to [0, T - S] as `dynamic_update_slice`
+    clamps them."""
+    batch, _, capacity, _ = cache_k.shape
+    s = k_new.shape[2]
+    start = lengths.long().clamp(0, capacity - s)
+    cols = start[:, None] + torch.arange(s, device=cache_k.device)  # (B, S)
+    rows = torch.arange(batch, device=cache_k.device)[:, None]
+    cache_k[rows, :, cols] = k_new.transpose(1, 2).to(cache_k.dtype)
+    cache_v[rows, :, cols] = v_new.transpose(1, 2).to(cache_v.dtype)
+
+
+class Phi3Block(nn.Module):
+    def __init__(self, config: Phi3Config, *, dtype=torch.bfloat16,
+                 device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        cfg = self.config = config
+        h = cfg.hidden_size
+
+        def dense(name, in_dim, out_dim, bias=False):
+            setattr(self, name, LoRADense(
+                in_dim, out_dim, use_bias=bias, lora=cfg.lora,
+                quantized=cfg.quant_int8, dtype=dtype, device=device,
+            ))
+
+        self.input_norm = RMSNorm(h, cfg.rms_norm_eps, device=device)
+        dense("q_proj", h, cfg.q_dim, cfg.attention_bias)
+        dense("k_proj", h, cfg.kv_dim, cfg.attention_bias)
+        dense("v_proj", h, cfg.kv_dim, cfg.attention_bias)
+        dense("o_proj", cfg.q_dim, h, cfg.attention_bias)
+        self.post_attn_norm = RMSNorm(h, cfg.rms_norm_eps, device=device)
+        dense("gate_proj", h, cfg.intermediate_size)
+        dense("up_proj", h, cfg.intermediate_size)
+        dense("down_proj", cfg.intermediate_size, h)
+
+    def forward(self, x, cos, sin, kv_lens, layer_cache=None):
+        """layer_cache: None or (k, v, lengths) with k/v (B, Hkv, T, D),
+        written in place."""
+        cfg = self.config
+        y = self.input_norm(x)
+        q = rearrange(self.q_proj(y), "b s (n d) -> b n s d", n=cfg.num_heads)
+        k = rearrange(self.k_proj(y), "b s (n d) -> b n s d", n=cfg.num_kv_heads)
+        v = rearrange(self.v_proj(y), "b s (n d) -> b n s d", n=cfg.num_kv_heads)
+        q, k = apply_rope(q, k, cos, sin, cfg.rotary_dim)
+
+        if layer_cache is None:
+            attn = multi_head_attention(q, k, v, kv_lens=kv_lens, causal=True)
+        else:
+            ck, cv, lengths = layer_cache
+            _update_cache_layer(ck, cv, k, v, lengths)
+            k_read, v_read = ck.to(q.dtype), cv.to(q.dtype)
+            s = q.shape[2]
+            if s == 1:
+                # decode: one query over the cache, plain sdpa
+                attn = multi_head_attention(
+                    q, k_read, v_read, kv_lens=lengths + 1, use_flash=False
+                )
+            else:
+                # prefill: causal with per-row query offset = cache lengths
+                attn = multi_head_attention(
+                    q, k_read, v_read, kv_lens=lengths + kv_lens, causal=True,
+                    q_offset=lengths,
+                    use_flash=None if s >= FLASH_MIN_QUERY else False,
+                )
+        x = x + self.o_proj(rearrange(attn, "b n s d -> b s (n d)"))
+        y = self.post_attn_norm(x)
+        y = F.silu(self.gate_proj(y)) * self.up_proj(y)
+        return x + self.down_proj(y)
+
+
+class Phi3Decoder(nn.Module):
+    """Decoder layers + final RMSNorm; operates on embeddings."""
+
+    def __init__(self, config: Phi3Config, *, dtype=torch.bfloat16,
+                 device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        self.dtype = dtype
+        self.layers = nn.ModuleList(
+            Phi3Block(config, dtype=dtype, device=device)
+            for _ in range(config.num_layers)
+        )
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                            device=device)
+
+    def forward(self, inputs_embeds: torch.Tensor, *,
+                kv_lens: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None,
+                positions: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+        cfg = self.config
+        x = inputs_embeds.to(self.dtype)
+        b, s, _ = x.shape
+        steps = torch.arange(s, device=x.device)[None, :]
+        if positions is None:
+            positions = (
+                cache.lengths[:, None] + steps if cache is not None
+                else steps.expand(b, s)
+            )
+        # the LongRoPE choice depends on the longest reachable position:
+        # the cache capacity in generation, the sequence length otherwise
+        total_len = cache.k.shape[3] if cache is not None else s
+        ext_factors, attn_scaling = _longrope_params(cfg, total_len)
+        cos, sin = _rope_cos_sin(
+            positions, cfg.rotary_dim, cfg.rope_theta,
+            ext_factors=ext_factors, attention_scaling=attn_scaling,
+        )
+        if kv_lens is None:
+            kv_lens = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        kv_lens = kv_lens.to(device=x.device, dtype=torch.int32)
+        for i, layer in enumerate(self.layers):
+            layer_cache = (
+                None if cache is None else (cache.k[i], cache.v[i], cache.lengths)
+            )
+            x = layer(x, cos, sin, kv_lens, layer_cache)
+        if cache is not None:
+            cache.lengths = cache.lengths + (1 if s == 1 else kv_lens)
+        return self.norm(x), cache
+
+
+class Phi3ForCausalLM(nn.Module):
+    """Embeddings + decoder + LM head. `embed_tokens` and `decode_embeds`
+    are exposed for the VLM's image-token splice."""
+
+    def __init__(self, config: Phi3Config, *, dtype=torch.bfloat16,
+                 device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        if config.quant_int8_embed:
+            raise NotImplementedError(
+                "the int8 embedding comes with the serving slice of the port"
+            )
+        self.config = config
+        self.embed = nn.Embedding(config.vocab_size, config.hidden_size,
+                                  dtype=dtype, device=device)
+        self.decoder = Phi3Decoder(config, dtype=dtype, device=device)
+        if not config.tie_word_embeddings:
+            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+                                     bias=False, dtype=dtype, device=device)
+
+    def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.embed(input_ids)
+
+    def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        head = (self.embed if self.config.tie_word_embeddings
+                else self.lm_head).weight
+        return F.linear(hidden.to(head.dtype), head)
+
+    def decode_embeds(self, inputs_embeds: torch.Tensor, *,
+                      kv_lens: Optional[torch.Tensor] = None,
+                      cache: Optional[KVCache] = None,
+                      positions: Optional[torch.Tensor] = None,
+                      last_token_only: bool = False):
+        hidden, cache = self.decoder(
+            inputs_embeds, kv_lens=kv_lens, cache=cache, positions=positions
+        )
+        if last_token_only:
+            if kv_lens is not None and hidden.shape[1] > 1:
+                idx = (kv_lens.long() - 1).clamp(min=0)
+                rows = torch.arange(hidden.shape[0], device=hidden.device)
+                hidden = hidden[rows, idx.to(hidden.device)][:, None]
+            else:
+                hidden = hidden[:, -1:]
+        return self.compute_logits(hidden), cache
+
+    def forward(self, input_ids: Optional[torch.Tensor] = None, *,
+                inputs_embeds: Optional[torch.Tensor] = None,
+                kv_lens: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None,
+                positions: Optional[torch.Tensor] = None,
+                last_token_only: bool = False):
+        if inputs_embeds is None:
+            inputs_embeds = self.embed_tokens(input_ids)
+        return self.decode_embeds(
+            inputs_embeds, kv_lens=kv_lens, cache=cache, positions=positions,
+            last_token_only=last_token_only,
+        )

@@ -1,0 +1,77 @@
+"""The weight bridge: every flax leaf of a toy HSENetVLM has a place in the
+port's module, and the port loads the result with strict=True."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hsenet_tpu.models.mllm import HSENetVLM as JaxVLM
+from hsenet_torch.bridge import flax_to_torch
+from hsenet_torch.models.mllm import HSENetVLM
+from test_torch_common import TINY_VLM, to_torch_config
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def flax_params():
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, 64, (1, 12))
+    vol = rng.random((1, 1, 4, 16, 16), np.float32)
+    sl = rng.random((1, 2, 16), np.float32)
+    variables = jax.jit(JaxVLM(TINY_VLM, dtype=jnp.float32).init)(
+        jax.random.PRNGKey(0), jnp.asarray(ids), jnp.asarray(vol),
+        jnp.asarray(sl),
+    )
+    return jax.tree.map(np.asarray, variables)
+
+
+def test_every_leaf_maps_and_loads_strictly(flax_params):
+    state = flax_to_torch(flax_params)
+    # each scanned leaf becomes one entry per layer, every other leaf one
+    expected = 0
+    for path, leaf in jax.tree_util.tree_flatten_with_path(flax_params)[0]:
+        keys = [p.key for p in path]
+        stacked = any(keys[i:i + 2] in (["tower", "blocks"], ["decoder", "layers"])
+                      for i in range(len(keys)))
+        expected += leaf.shape[0] if stacked else 1
+    assert len(state) == expected
+    model = HSENetVLM(to_torch_config(TINY_VLM), dtype=torch.float32,
+                      device="cpu")
+    model.load_state_dict(state, strict=True)
+    assert set(state) == set(model.state_dict())
+
+
+def test_layouts(flax_params):
+    p = flax_params["params"]
+    state = flax_to_torch(flax_params)
+    # Dense kernel (in, out) -> weight (out, in), scan axis unstacked
+    q1 = p["llm"]["decoder"]["layers"]["q_proj"]["kernel"][1]
+    np.testing.assert_array_equal(
+        state["llm.decoder.layers.1.q_proj.weight"].numpy(), q1.T
+    )
+    qkv0 = p["vision_tower"]["tower_stage2"]["tower"]["blocks"]["attn"]["qkv"]
+    np.testing.assert_array_equal(
+        state["vision_tower.tower_stage2.tower.blocks.0.attn.qkv.weight"].numpy(),
+        qkv0["kernel"][0].T,
+    )
+    # LayerNorm scale -> weight; LoRA adapters and embeddings keep layout
+    np.testing.assert_array_equal(
+        state["vision_tower.tower_stage1.tower.norm.weight"].numpy(),
+        p["vision_tower"]["tower_stage1"]["tower"]["norm"]["scale"],
+    )
+    np.testing.assert_array_equal(
+        state["llm.decoder.layers.0.down_proj.lora_a"].numpy(),
+        p["llm"]["decoder"]["layers"]["down_proj"]["lora_a"][0],
+    )
+    np.testing.assert_array_equal(
+        state["llm.embed.weight"].numpy(), p["llm"]["embed"]["embedding"]
+    )
+
+
+def test_unknown_leaf_raises(flax_params):
+    tree = {"params": {"q_proj": {"kernel_q": np.zeros((4, 4), np.int8)}}}
+    with pytest.raises(KeyError, match="kernel_q"):
+        flax_to_torch(tree)
