@@ -1,10 +1,11 @@
 """hsenet_torch: the PyTorch/CUDA port of the HSENet JAX package
 (hsenet-tpu) for NVIDIA Hopper.
 
-The package mirrors the JAX package's module names (`ops/`, `models/`, `eval/`)
-and holds every module against its JAX counterpart in the tests. Entry
-points run on the CUDA card unless the caller passes `device="cpu"`; there
-each hand-written kernel is replaced by its plain PyTorch version.
+The package mirrors the JAX package's module names (`ops/`, `models/`,
+`eval/`, `train/`, `data/`) and holds every module against its JAX
+counterpart in the tests. Entry points run on the CUDA card unless the
+caller passes `device="cpu"`; there each hand-written kernel is replaced by
+its plain PyTorch version.
 """
 
 from __future__ import annotations

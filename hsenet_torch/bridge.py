@@ -14,6 +14,10 @@ returns a state_dict that the matching port module accepts with
 
 A leaf of any other name raises (for example the int8 `kernel_q` of the
 serving slice), so nothing is dropped silently.
+
+`load_flax(module, params)` loads the whole tree (LoRA leaves included)
+into a port module, strictly; for a training module it checks that every
+leaf that requires grad arrived as an f32 master.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _SCAN_STACKS = (("tower", "blocks"), ("decoder", "layers"))
 _SAME_NAME = ("bias", "pos_embed", "cls_token", "lora_a", "lora_b")
@@ -72,3 +77,17 @@ def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
             key = path[:at] + (str(i),) + path[at:-1] + (name,)
             state[".".join(key)] = torch.tensor(arr)
     return state
+
+
+def load_flax(module: nn.Module, params: Mapping) -> nn.Module:
+    """Load a flax param tree into `module` (strict). Each leaf takes the
+    dtype of the module's parameter; a parameter that requires grad must be
+    f32, so trainable leaves keep the tree's f32 values exactly."""
+    low = [name for name, p in module.named_parameters()
+           if p.requires_grad and p.dtype != torch.float32]
+    if low:
+        raise ValueError(
+            f"trainable parameters must be held in f32 before loading: {low[:4]}"
+        )
+    module.load_state_dict(flax_to_torch(params), strict=True)
+    return module

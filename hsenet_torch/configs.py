@@ -1,11 +1,14 @@
 """Typed configuration for the PyTorch port.
 
-The port's own copy of the five dataclasses its main path needs from the
-JAX package's `configs.py`, with the same fields, defaults and derived
+The port's own copy of the dataclasses its paths need from the JAX
+package's `configs.py`, with the same fields, defaults and derived
 properties, so one configuration describes the same model in both packages.
-Two fields of the JAX copy are left out because they tune the TPU alone:
-`ViT3DConfig.attn_block_q` (a VMEM block size) and `Phi3Config.remat_policy`
-(the XLA rematerialisation policy of training).
+Fields of the JAX copy that the port has no use for yet are left out:
+`ViT3DConfig.attn_block_q` (a TPU VMEM block size),
+`Phi3Config.remat_policy` (the port's `remat` recomputes each Phi block in
+full, the JAX package's default "full" policy) and, in `TrainConfig`,
+those of the CLI and of later slices (`batch_size`, `dtype`, `remat`,
+`checkpoint_every`, `zero1`, `device_prefetch`, the device-trace window).
 """
 
 from __future__ import annotations
@@ -185,3 +188,21 @@ class VLMConfig:
         if self.tower_mode == "med2e3":
             return n + self.vision.num_slices
         return n
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and loop settings of a training run."""
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.0
+    warmup_ratio: float = 0.03
+    schedule: str = "cosine"  # cosine | constant
+    total_steps: int = 10000
+    max_grad_norm: float = 1.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    seed: int = 42
+    log_every: int = 50
+    eval_every: int = 500

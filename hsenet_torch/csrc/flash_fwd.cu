@@ -5,7 +5,10 @@
 // head h, query row r) it computes
 //   O[r] = softmax(sm_scale * Q[r] K^T) V
 // over the columns c with c < kv_len[b] and, under `causal`, also
-// c <= r + q_offset[b]. A row with no such column gives 0.
+// c <= r + q_offset[b]. A row with no such column gives 0. When `lse` is
+// given it also writes each row's log-sum-exp, ln sum_c exp(sm_scale Q[r].K[c])
+// in f32, as (B, H, Sq); a row with no valid column gets 1e30 (the JAX
+// package's -NEG_INF), so the backward's exp(s - lse) is 0 there.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s):
 //   * the ViT towers (B x 12 heads x 2049 tokens, d 64, non-causal) are
@@ -35,18 +38,11 @@
 // Q, K, V and O are addressed through (batch, head, row) strides with the
 // last dimension contiguous, so head-split views need no copy.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per CTA (16 per warp)
-constexpr int kBlockN = 64;  // keys per shared-memory tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;  // bf16 of padding per shared-memory row
+using namespace hsenet_flash;
 
 template <int D>
 constexpr int smem_bytes() {  // two stages of one K and one V tile
@@ -54,101 +50,15 @@ constexpr int smem_bytes() {  // two stages of one K and one V tile
 }
 
 struct Strides {
-  long long q_b, q_h, q_s;
-  long long k_b, k_h, k_s;
-  long long v_b, v_h, v_s;
-  long long o_b, o_h, o_s;
+  Strides3 q, k, v, o;
 };
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// 16 bytes global -> shared, asynchronous; zero-fills when !valid
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(a), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// two floats -> one 32-bit register of bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// start copying K and V rows [n0, n0 + kBlockN) into one ring stage; rows
-// at or past n_end are zero-filled, never read
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* k_s,
-                                          __nv_bfloat16* v_s,
-                                          const __nv_bfloat16* k_base,
-                                          const __nv_bfloat16* v_base,
-                                          long long k_stride,
-                                          long long v_stride, int n0,
-                                          int n_end, int tid) {
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int i = tid; i < kBlockN * D / 8; i += kThreads) {
-    const int row = i / (D / 8);
-    const int col = (i % (D / 8)) * 8;
-    const int key = n0 + row;
-    const bool valid = key < n_end;
-    cp_async_16(k_s + row * LD + col, k_base + (valid ? key * k_stride + col : 0),
-                valid);
-    cp_async_16(v_s + row * LD + col, v_base + (valid ? key * v_stride + col : 0),
-                valid);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      const int* __restrict__ kv_lens,
                      const int* __restrict__ q_offset, int sq, int skv,
                      Strides st, int causal, float scale_log2) {
@@ -174,14 +84,14 @@ __global__ void __launch_bounds__(kThreads)
   n_end = max(n_end, 0);
   const int n_tiles = (n_end + kBlockN - 1) / kBlockN;
 
-  const __nv_bfloat16* q_base = q + b * st.q_b + h * st.q_h;
-  const __nv_bfloat16* k_base = k + b * st.k_b + h * st.k_h;
-  const __nv_bfloat16* v_base = v + b * st.v_b + h * st.v_h;
-  __nv_bfloat16* o_base = o + b * st.o_b + h * st.o_h;
+  const __nv_bfloat16* q_base = q + b * st.q.b + h * st.q.h;
+  const __nv_bfloat16* k_base = k + b * st.k.b + h * st.k.h;
+  const __nv_bfloat16* v_base = v + b * st.v.b + h * st.v.h;
+  __nv_bfloat16* o_base = o + b * st.o.b + h * st.o.h;
 
   if (n_tiles > 0) {
-    load_tile<D>(smem, smem + kTile, k_base, v_base, st.k_s, st.v_s, 0, n_end,
-                 tid);
+    load_rows<D>(smem, k_base, st.k.s, 0, n_end, tid);
+    load_rows<D>(smem + kTile, v_base, st.v.s, 0, n_end, tid);
   }
   cp_async_commit();
 
@@ -191,14 +101,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // A fragments of Q (16 rows x D), loaded once
   uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = r0 < sq ? ld32(q_base + r0 * st.q_s + c) : 0u;
-    qf[kk][1] = r1 < sq ? ld32(q_base + r1 * st.q_s + c) : 0u;
-    qf[kk][2] = r0 < sq ? ld32(q_base + r0 * st.q_s + c + 8) : 0u;
-    qf[kk][3] = r1 < sq ? ld32(q_base + r1 * st.q_s + c + 8) : 0u;
-  }
+  load_a_rows<D>(qf, q_base, st.q.s, r0, sq, t);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -216,8 +119,8 @@ __global__ void __launch_bounds__(kThreads)
     const int n0 = tile * kBlockN;
     if (tile + 1 < n_tiles) {  // prefetch the next tile into the other stage
       __nv_bfloat16* nxt = smem + ((tile + 1) & 1) * 2 * kTile;
-      load_tile<D>(nxt, nxt + kTile, k_base, v_base, st.k_s, st.v_s,
-                   n0 + kBlockN, n_end, tid);
+      load_rows<D>(nxt, k_base, st.k.s, n0 + kBlockN, n_end, tid);
+      load_rows<D>(nxt + kTile, v_base, st.v.s, n0 + kBlockN, n_end, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -322,23 +225,18 @@ __global__ void __launch_bounds__(kThreads)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;  // empty row -> 0
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int c = dn * 8 + 2 * t;
-    if (r0 < sq) {
-      *reinterpret_cast<uint32_t*>(o_base + r0 * st.o_s + c) =
-          pack_bf16(acc[dn][0] * inv0, acc[dn][1] * inv0);
-    }
-    if (r1 < sq) {
-      *reinterpret_cast<uint32_t*>(o_base + r1 * st.o_s + c) =
-          pack_bf16(acc[dn][2] * inv1, acc[dn][3] * inv1);
-    }
+  store_rows<D>(o_base, st.o.s, acc, r0, sq, t, inv0, inv1);
+  if (lse != nullptr && t == 0) {
+    // ln(sum exp(scale s)) = (max + log2 sum) ln 2, max in the log2 domain
+    float* lse_bh = lse + (static_cast<long long>(b) * gridDim.y + h) * sq;
+    if (r0 < sq) lse_bh[r0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : kEmptyRowLse;
+    if (r1 < sq) lse_bh[r1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : kEmptyRowLse;
   }
 }
 
 template <int D>
 cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                   const __nv_bfloat16* v, __nv_bfloat16* o,
+                   const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
                    const int* kv_lens, const int* q_offset, int batch,
                    int heads, int sq, int skv, const Strides& st, int causal,
                    float scale_log2, cudaStream_t stream) {
@@ -349,37 +247,41 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBlockM - 1) / kBlockM, heads, batch);
   flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, kv_lens, q_offset, sq, skv, st, causal, scale_log2);
+      q, k, v, o, lse, kv_lens, q_offset, sq, skv, st, causal, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Pointers are device pointers; strides are in elements; the caller checks
-// dtypes, shapes, alignment (16 bytes for every row) and head_dim.
+// Pointers are device pointers; `lse` is null or a contiguous (B, H, Sq)
+// f32 buffer; strides are in elements; the caller checks dtypes, shapes,
+// alignment (16 bytes for every row) and head_dim.
 extern "C" int hsenet_flash_fwd_bf16(
-    const void* q, const void* k, const void* v, void* o, const int* kv_lens,
-    const int* q_offset, int batch, int heads, int sq, int skv, int head_dim,
-    long long q_b, long long q_h, long long q_s, long long k_b, long long k_h,
-    long long k_s, long long v_b, long long v_h, long long v_s, long long o_b,
-    long long o_h, long long o_s, int causal, float sm_scale, void* stream) {
-  const Strides st{q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s};
-  const float scale_log2 = sm_scale * 1.4426950408889634f;  // log2(e)
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const int* kv_lens, const int* q_offset, int batch, int heads, int sq,
+    int skv, int head_dim, long long q_b, long long q_h, long long q_s,
+    long long k_b, long long k_h, long long k_s, long long v_b, long long v_h,
+    long long v_s, long long o_b, long long o_h, long long o_s, int causal,
+    float sm_scale, void* stream) {
+  const Strides st{{q_b, q_h, q_s}, {k_b, k_h, k_s}, {v_b, v_h, v_s},
+                   {o_b, o_h, o_s}};
+  const float scale_log2 = sm_scale * kLog2e;
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   auto* ob = static_cast<__nv_bfloat16*>(o);
+  auto* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return static_cast<int>(launch<64>(qb, kb, vb, ob, kv_lens, q_offset,
+      return static_cast<int>(launch<64>(qb, kb, vb, ob, lf, kv_lens, q_offset,
                                          batch, heads, sq, skv, st, causal,
                                          scale_log2, s));
     case 128:
-      return static_cast<int>(launch<128>(qb, kb, vb, ob, kv_lens, q_offset,
-                                          batch, heads, sq, skv, st, causal,
-                                          scale_log2, s));
+      return static_cast<int>(launch<128>(qb, kb, vb, ob, lf, kv_lens,
+                                          q_offset, batch, heads, sq, skv, st,
+                                          causal, scale_log2, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,8 +3,10 @@ models/lora.py::LoRADense).
 
 The base weight keeps the name `weight` (the Linear layout, (out, in)) and
 the adapters are `lora_a` (in, r) and `lora_b` (r, out), in the JAX
-package's layout. y = x W^T + b + (x A) B * alpha / r. The int8
-weight-only form comes with the serving slice.
+package's layout. y = x W^T + b + (drop(x) A) B * alpha / r, with LoRA
+dropout on the adapter's input only. Every weight is cast to the compute
+dtype at use, so the adapters can be held as f32 masters for training over
+a bf16 base. The int8 weight-only form comes with the serving slice.
 """
 
 from __future__ import annotations
@@ -12,16 +14,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from hsenet_torch import resolve_device
 from hsenet_torch.configs import LoRAConfig
-from hsenet_torch.models.layers import Dense
+from hsenet_torch.models.layers import Dense, dropout
 
 
 class LoRADense(Dense):
-    """Dense with optional LoRA adapters, computing in its weight's dtype."""
+    """Dense with optional LoRA adapters, computing in `dtype`."""
 
     def __init__(self, in_dim: int, features: int, *, use_bias: bool = False,
                  lora: Optional[LoRAConfig] = None, quantized: bool = False,
@@ -42,9 +43,12 @@ class LoRADense(Dense):
                 torch.zeros(lora.rank, features, dtype=dtype, device=device)
             )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
-        y = F.linear(x, self.weight, self.bias)
+    def forward(self, x: torch.Tensor, *,
+                deterministic: bool = True) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
+        y = super().forward(x)
         if self.lora is not None:
-            y = y + (x @ self.lora_a) @ self.lora_b * self.lora.scale
+            dt = self.compute_dtype
+            h = dropout(x, self.lora.dropout_rate, deterministic)
+            y = y + (h @ self.lora_a.to(dt)) @ self.lora_b.to(dt) * self.lora.scale
         return y

@@ -5,6 +5,9 @@ dual spatial packers + Phi LLM.
     `mm_projector2`) -> concat = 256 image tokens.
   * `multimodal_embeds`: embed the token ids, then splice the image
     features over the placeholder block right after BOS.
+  * `forward`: the training/eval forward, logits over the whole sequence;
+    with `stop_tower_gradients` the towers run under `torch.no_grad()`
+    (the JAX package's `stop_gradient` on their features).
   * `prefill` / `decode_step`: generation through `Phi3ForCausalLM` and a
     KV cache.
 """
@@ -37,7 +40,7 @@ def splice_image_embeds(token_embeds: torch.Tensor,
 
 class HSENetVLM(nn.Module):
     def __init__(self, config: VLMConfig, *, dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         for flag, what in (
@@ -58,39 +61,49 @@ class HSENetVLM(nn.Module):
         if config.tower_mode == "dual_vits" and config.use_parallel_projector:
             self.mm_projector2 = build_projector(config.packer, dtype=dtype,
                                                  device=device)
-        self.llm = Phi3ForCausalLM(config.llm, dtype=dtype, device=device)
+        self.llm = Phi3ForCausalLM(config.llm, dtype=dtype, device=device,
+                                   remat=remat)
 
     def encode_images(self, volume: torch.Tensor,
-                      slice_features: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
-        feats = self.vision_tower(volume, slice_features)
-        if self.config.stop_tower_gradients:
-            feats = (tuple(f.detach() for f in feats) if isinstance(feats, tuple)
-                     else feats.detach())
+                      slice_features: Optional[torch.Tensor] = None, *,
+                      deterministic: bool = True) -> torch.Tensor:
+        with torch.set_grad_enabled(
+            torch.is_grad_enabled() and not self.config.stop_tower_gradients
+        ):
+            feats = self.vision_tower(volume, slice_features,
+                                      deterministic=deterministic)
         if self.config.tower_mode == "dual_vits":
             f1, f2 = feats
             proj2 = self.mm_projector2 or self.mm_projector
-            return torch.cat([self.mm_projector(f1), proj2(f2)], dim=1)
-        return self.mm_projector(feats)
+            return torch.cat([
+                self.mm_projector(f1, deterministic=deterministic),
+                proj2(f2, deterministic=deterministic),
+            ], dim=1)
+        return self.mm_projector(feats, deterministic=deterministic)
 
     def multimodal_embeds(self, input_ids: torch.Tensor,
                           volume: Optional[torch.Tensor],
-                          slice_features: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          slice_features: Optional[torch.Tensor] = None, *,
+                          deterministic: bool = True) -> torch.Tensor:
         embeds = self.llm.embed_tokens(input_ids)
         if volume is None:
             return embeds
         return splice_image_embeds(
-            embeds, self.encode_images(volume, slice_features)
+            embeds, self.encode_images(volume, slice_features,
+                                       deterministic=deterministic)
         )
 
     def forward(self, input_ids: torch.Tensor,
                 volume: Optional[torch.Tensor] = None,
                 slice_features: Optional[torch.Tensor] = None, *,
-                kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Training/eval forward: logits (B, S, V)."""
-        embeds = self.multimodal_embeds(input_ids, volume, slice_features)
-        logits, _ = self.llm.decode_embeds(embeds, kv_lens=kv_lens)
+                kv_lens: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        """Training/eval forward: logits (B, S, V). Dropout (deterministic
+        False) draws from the generator of `models.layers.dropout_rng`."""
+        embeds = self.multimodal_embeds(input_ids, volume, slice_features,
+                                        deterministic=deterministic)
+        logits, _ = self.llm.decode_embeds(embeds, kv_lens=kv_lens,
+                                           deterministic=deterministic)
         return logits
 
     def prefill(self, input_ids: torch.Tensor, volume: Optional[torch.Tensor],

@@ -10,6 +10,13 @@ decode writes land right after each prompt. Prefill attends over the whole
 cache capacity with kv_lens = lengths + new tokens and a per-row causal
 query offset = lengths, through the flash kernel when the chunk has at
 least 64 tokens; decode (one token) runs the plain sdpa over the cache.
+Training (no cache) runs causal flash attention with per-row kv_lens, and
+its gradient through the backward kernels.
+
+`remat=True` recomputes each block in the backward pass
+(`torch.utils.checkpoint`), keeping only the block inputs: the JAX
+package's "full" remat policy. The dropout generator's state at the start
+of each block is kept too, so the recomputed block draws the same masks.
 
 Unlike the JAX package, whose arrays are immutable, the port writes new
 keys and values into the cache in place and returns the same cache; this
@@ -26,9 +33,11 @@ import torch
 import torch.nn.functional as F
 from einops import rearrange
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from hsenet_torch import resolve_device
 from hsenet_torch.configs import Phi3Config
+from hsenet_torch.models.layers import current_dropout_rng, dropout_rng
 from hsenet_torch.models.lora import LoRADense
 from hsenet_torch.ops.attention import multi_head_attention
 
@@ -173,14 +182,19 @@ class Phi3Block(nn.Module):
         dense("up_proj", h, cfg.intermediate_size)
         dense("down_proj", cfg.intermediate_size, h)
 
-    def forward(self, x, cos, sin, kv_lens, layer_cache=None):
+    def forward(self, x, cos, sin, kv_lens, layer_cache=None, *,
+                deterministic: bool = True):
         """layer_cache: None or (k, v, lengths) with k/v (B, Hkv, T, D),
         written in place."""
         cfg = self.config
+
+        def proj(name, t):
+            return getattr(self, name)(t, deterministic=deterministic)
+
         y = self.input_norm(x)
-        q = rearrange(self.q_proj(y), "b s (n d) -> b n s d", n=cfg.num_heads)
-        k = rearrange(self.k_proj(y), "b s (n d) -> b n s d", n=cfg.num_kv_heads)
-        v = rearrange(self.v_proj(y), "b s (n d) -> b n s d", n=cfg.num_kv_heads)
+        q = rearrange(proj("q_proj", y), "b s (n d) -> b n s d", n=cfg.num_heads)
+        k = rearrange(proj("k_proj", y), "b s (n d) -> b n s d", n=cfg.num_kv_heads)
+        v = rearrange(proj("v_proj", y), "b s (n d) -> b n s d", n=cfg.num_kv_heads)
         q, k = apply_rope(q, k, cos, sin, cfg.rotary_dim)
 
         if layer_cache is None:
@@ -202,21 +216,32 @@ class Phi3Block(nn.Module):
                     q_offset=lengths,
                     use_flash=None if s >= FLASH_MIN_QUERY else False,
                 )
-        x = x + self.o_proj(rearrange(attn, "b n s d -> b s (n d)"))
+        x = x + proj("o_proj", rearrange(attn, "b n s d -> b s (n d)"))
         y = self.post_attn_norm(x)
-        y = F.silu(self.gate_proj(y)) * self.up_proj(y)
-        return x + self.down_proj(y)
+        y = F.silu(proj("gate_proj", y)) * proj("up_proj", y)
+        return x + proj("down_proj", y)
+
+
+def _block_from_state(block, generator, state, x, cos, sin, kv_lens,
+                      deterministic):
+    """One training block run with the dropout generator set back to
+    `state`: the first run and its recomputation draw the same masks."""
+    if generator is not None:
+        generator.set_state(state)
+    with dropout_rng(generator):
+        return block(x, cos, sin, kv_lens, deterministic=deterministic)
 
 
 class Phi3Decoder(nn.Module):
     """Decoder layers + final RMSNorm; operates on embeddings."""
 
     def __init__(self, config: Phi3Config, *, dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.config = config
         self.dtype = dtype
+        self.remat = remat
         self.layers = nn.ModuleList(
             Phi3Block(config, dtype=dtype, device=device)
             for _ in range(config.num_layers)
@@ -228,6 +253,7 @@ class Phi3Decoder(nn.Module):
                 kv_lens: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None,
                 positions: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         cfg = self.config
         x = inputs_embeds.to(self.dtype)
@@ -249,11 +275,22 @@ class Phi3Decoder(nn.Module):
         if kv_lens is None:
             kv_lens = torch.full((b,), s, dtype=torch.int32, device=x.device)
         kv_lens = kv_lens.to(device=x.device, dtype=torch.int32)
+        remat = self.remat and cache is None and torch.is_grad_enabled()
+        generator = current_dropout_rng()
         for i, layer in enumerate(self.layers):
+            if remat:
+                state = None if generator is None else generator.get_state()
+                x = checkpoint(
+                    _block_from_state, layer, generator, state, x, cos, sin,
+                    kv_lens, deterministic, use_reentrant=False,
+                    preserve_rng_state=False,
+                )
+                continue
             layer_cache = (
                 None if cache is None else (cache.k[i], cache.v[i], cache.lengths)
             )
-            x = layer(x, cos, sin, kv_lens, layer_cache)
+            x = layer(x, cos, sin, kv_lens, layer_cache,
+                      deterministic=deterministic)
         if cache is not None:
             cache.lengths = cache.lengths + (1 if s == 1 else kv_lens)
         return self.norm(x), cache
@@ -261,10 +298,12 @@ class Phi3Decoder(nn.Module):
 
 class Phi3ForCausalLM(nn.Module):
     """Embeddings + decoder + LM head. `embed_tokens` and `decode_embeds`
-    are exposed for the VLM's image-token splice."""
+    are exposed for the VLM's image-token splice. The embedding table (which
+    also serves as the tied LM head) is cast to `dtype` at use, so it can be
+    held as an f32 master for training."""
 
     def __init__(self, config: Phi3Config, *, dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         if config.quant_int8_embed:
@@ -272,28 +311,32 @@ class Phi3ForCausalLM(nn.Module):
                 "the int8 embedding comes with the serving slice of the port"
             )
         self.config = config
+        self.dtype = dtype
         self.embed = nn.Embedding(config.vocab_size, config.hidden_size,
                                   dtype=dtype, device=device)
-        self.decoder = Phi3Decoder(config, dtype=dtype, device=device)
+        self.decoder = Phi3Decoder(config, dtype=dtype, device=device,
+                                   remat=remat)
         if not config.tie_word_embeddings:
             self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
                                      bias=False, dtype=dtype, device=device)
 
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed(input_ids)
+        return self.embed(input_ids).to(self.dtype)
 
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         head = (self.embed if self.config.tie_word_embeddings
                 else self.lm_head).weight
-        return F.linear(hidden.to(head.dtype), head)
+        return F.linear(hidden.to(self.dtype), head.to(self.dtype))
 
     def decode_embeds(self, inputs_embeds: torch.Tensor, *,
                       kv_lens: Optional[torch.Tensor] = None,
                       cache: Optional[KVCache] = None,
                       positions: Optional[torch.Tensor] = None,
+                      deterministic: bool = True,
                       last_token_only: bool = False):
         hidden, cache = self.decoder(
-            inputs_embeds, kv_lens=kv_lens, cache=cache, positions=positions
+            inputs_embeds, kv_lens=kv_lens, cache=cache, positions=positions,
+            deterministic=deterministic,
         )
         if last_token_only:
             if kv_lens is not None and hidden.shape[1] > 1:
@@ -309,10 +352,11 @@ class Phi3ForCausalLM(nn.Module):
                 kv_lens: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None,
                 positions: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
                 last_token_only: bool = False):
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
         return self.decode_embeds(
             inputs_embeds, kv_lens=kv_lens, cache=cache, positions=positions,
-            last_token_only=last_token_only,
+            deterministic=deterministic, last_token_only=last_token_only,
         )

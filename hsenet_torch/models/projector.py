@@ -20,31 +20,36 @@ from torch import nn
 
 from hsenet_torch import resolve_device
 from hsenet_torch.configs import PackerConfig
-from hsenet_torch.models.layers import Dense, LayerNorm
+from hsenet_torch.models.layers import Dense, LayerNorm, dropout
 
 
 class ResolutionAttention(nn.Module):
-    """Per-window single-query cross-attention."""
+    """Per-window single-query cross-attention, dropout on the attention
+    weights and on the projected output."""
 
-    def __init__(self, emb_dim: int, *, dtype=torch.float32, device="cuda"):
+    def __init__(self, emb_dim: int, *, dropout_rate: float = 0.1,
+                 dtype=torch.float32, device="cuda"):
         super().__init__()
         device = resolve_device(device)
         self.emb_dim = emb_dim
+        self.dropout_rate = dropout_rate
         for name in ("wq", "wk", "wv", "out_proj"):
             setattr(self, name, Dense(emb_dim, emb_dim, dtype=dtype,
                                       device=device))
         self.norm = LayerNorm(emb_dim, device=device)
 
-    def forward(self, lr_queries: torch.Tensor,
-                hr_windows: torch.Tensor) -> torch.Tensor:
+    def forward(self, lr_queries: torch.Tensor, hr_windows: torch.Tensor, *,
+                deterministic: bool = True) -> torch.Tensor:
         """lr_queries (B, W, D); hr_windows (B, W, K, D) -> (B, W, D)."""
         q = self.wq(lr_queries)
         k = self.wk(hr_windows)
         v = self.wv(hr_windows)
         s = torch.einsum("bwd,bwkd->bwk", q.float(), k.float())
         p = torch.softmax(s / math.sqrt(self.emb_dim), dim=-1)
+        p = dropout(p, self.dropout_rate, deterministic)
         out = torch.einsum("bwk,bwkd->bwd", p.to(v.dtype), v)
-        return self.norm(q + self.out_proj(out))
+        out = dropout(self.out_proj(out), self.dropout_rate, deterministic)
+        return self.norm(q + out)
 
 
 class VisualPacker(nn.Module):
@@ -56,14 +61,16 @@ class VisualPacker(nn.Module):
         device = resolve_device(device)
         self.config = config
         self.resolution_attention = ResolutionAttention(
-            config.in_dim, dtype=dtype, device=device
+            config.in_dim, dropout_rate=config.dropout_rate, dtype=dtype,
+            device=device,
         )
         self.proj_fc1 = Dense(config.in_dim, config.out_dim, dtype=dtype,
                               device=device)
         self.proj_fc2 = Dense(config.out_dim, config.out_dim, dtype=dtype,
                               device=device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, *,
+                deterministic: bool = True) -> torch.Tensor:
         cfg = self.config
         gd, gh, gw = cfg.grid
         kd, kh, kw = cfg.kernel
@@ -72,7 +79,8 @@ class VisualPacker(nn.Module):
             "b (d wd h wh w ww) c -> b (d h w) (wd wh ww) c",
             d=gd // kd, wd=kd, h=gh // kh, wh=kh, w=gw // kw, ww=kw,
         )
-        packed = self.resolution_attention(hr.mean(dim=2), hr)
+        packed = self.resolution_attention(hr.mean(dim=2), hr,
+                                           deterministic=deterministic)
         return self.proj_fc2(F.gelu(self.proj_fc1(packed)))
 
 

@@ -38,21 +38,23 @@ class TransformerTower(nn.Module):
 
     def __init__(self, hidden: int, num_layers: int, num_heads: int,
                  mlp_dim: int, *, qkv_bias: bool = False,
-                 gelu_approx: bool = False, dtype=torch.float32,
-                 device="cuda"):
+                 dropout_rate: float = 0.0, gelu_approx: bool = False,
+                 dtype=torch.float32, device="cuda"):
         super().__init__()
         device = resolve_device(device)
         self.blocks = nn.ModuleList(
             TransformerBlock(hidden, num_heads, mlp_dim, qkv_bias=qkv_bias,
+                             dropout_rate=dropout_rate,
                              gelu_approx=gelu_approx, dtype=dtype,
                              device=device)
             for _ in range(num_layers)
         )
         self.norm = LayerNorm(hidden, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *,
+                deterministic: bool = True) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x)
+            x = block(x, deterministic=deterministic)
         return self.norm(x)
 
 
@@ -70,11 +72,12 @@ class ViT3D(nn.Module):
         cfg = self.config = config
         self.patch_embed = PatchEmbed3D(
             cfg.patch_size, cfg.in_channels, cfg.num_patches, cfg.hidden_size,
-            dtype=dtype, device=device,
+            dropout_rate=cfg.dropout_rate, dtype=dtype, device=device,
         )
         if cfg.slice_guided:
             self.slice_guided_attention = SingleHeadCrossAttention(
-                cfg.hidden_size, dtype=dtype, device=device
+                cfg.hidden_size, dropout_rate=cfg.slice_dropout_rate,
+                dtype=dtype, device=device,
             )
             self.patch_score_proj = Dense(
                 cfg.hidden_size, 1, dtype=torch.float32, device=device
@@ -85,29 +88,31 @@ class ViT3D(nn.Module):
             )
         self.tower = TransformerTower(
             cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.mlp_dim,
-            qkv_bias=cfg.qkv_bias, gelu_approx=cfg.gelu_approx, dtype=dtype,
-            device=device,
+            qkv_bias=cfg.qkv_bias, dropout_rate=cfg.dropout_rate,
+            gelu_approx=cfg.gelu_approx, dtype=dtype, device=device,
         )
 
     def forward(self, volume: torch.Tensor,
                 slice_features: Optional[torch.Tensor] = None,
-                *, return_scores: bool = False):
+                *, deterministic: bool = True, return_scores: bool = False):
         """volume (B, C, D, H, W) in [0, 1]; slice_features (B, 32, 768)
         for the 2E3 encoder -> (B, seq_len, hidden) f32."""
         cfg = self.config
-        x = self.patch_embed(volume)
+        x = self.patch_embed(volume, deterministic=deterministic)
         scores = None
         if cfg.slice_guided:
             if slice_features is None:
                 raise ValueError("the 2E3 encoder needs slice features")
             sf = slice_features.to(x.dtype)
-            guided, _ = self.slice_guided_attention(x, sf, sf)
+            guided, _ = self.slice_guided_attention(
+                x, sf, sf, deterministic=deterministic
+            )
             scores = torch.sigmoid(self.patch_score_proj(guided))  # (B, N, 1)
             x = x * scores.to(x.dtype)
         if cfg.classification:
             cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
             x = torch.cat([cls, x], dim=1)
-        x = self.tower(x)
+        x = self.tower(x, deterministic=deterministic)
         if return_scores:
             return x, scores
         return x
@@ -148,12 +153,15 @@ class DualVisionTower(nn.Module):
         raise ValueError(f"Unexpected select_feature: {self.select_feature}")
 
     def forward(self, volume: torch.Tensor,
-                slice_features: Optional[torch.Tensor] = None):
+                slice_features: Optional[torch.Tensor] = None, *,
+                deterministic: bool = True):
         outs = []
         if self.tower_mode in ("dual_vits", "3d_vit"):
-            outs.append(self._select(self.tower_stage1(volume)))
+            outs.append(self._select(
+                self.tower_stage1(volume, deterministic=deterministic)))
         if self.tower_mode in ("dual_vits", "2e3_vit"):
-            outs.append(self._select(self.tower_stage2(volume, slice_features)))
+            outs.append(self._select(self.tower_stage2(
+                volume, slice_features, deterministic=deterministic)))
         if self.tower_mode == "dual_vits":
             return tuple(outs)
         return outs[0]

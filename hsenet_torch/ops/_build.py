@@ -2,9 +2,10 @@
 
 `load(name)` compiles `csrc/<name>.cu` with `nvcc` for `sm_90a` into
 `_build/lib<name>-<hash>.so` and opens it with ctypes. The hash covers that
-source and the compiler flags, so an edited source builds anew and an
-unchanged one is reused. Nothing is built at import: the first call that
-launches a kernel builds its library.
+source, the shared headers (`csrc/*.cuh`) and the compiler flags, so an
+edited source builds anew and an unchanged one is reused. Nothing is built
+at import: the first call that launches a kernel builds its library.
+`load_all(names)` starts one nvcc per source at once.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -45,7 +47,8 @@ def _compile(name: str) -> Path:
     """The library of `csrc/<name>.cu`, compiled unless already built."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    digest.update(src.read_bytes())
+    for path in [src, *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
@@ -71,3 +74,12 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_compile(name)))
             _LIBS[name] = lib
         return lib
+
+
+def load_all(names: Sequence[str]) -> None:
+    """Build and open several sources, one nvcc each, all started at once."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = dict(zip(names, pool.map(_compile, names)))
+    with _LOCK:
+        for name, path in paths.items():
+            _LIBS.setdefault(name, ctypes.CDLL(str(path)))

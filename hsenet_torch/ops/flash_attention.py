@@ -1,5 +1,5 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: the hand-written Hopper kernels
+and their plain PyTorch versions.
 
 `flash_attention` computes what the JAX package's `_flash_kernel` computes:
 softmax(sm_scale * Q K^T) V per (batch, head), keeping the columns below
@@ -9,25 +9,37 @@ CUDA tensor it launches `csrc/flash_fwd.cu` (bf16, head_dim 64 or 128);
 on a CPU tensor it runs `flash_attention_reference`. It never falls from
 one to the other.
 
-The kernel reads Q, K and V through their (batch, head, row) strides, so
-the head-split views that `rearrange(..., "b s (n d) -> b n s d")` gives
+When autograd needs its gradient (grad mode on and an input that requires
+grad), the call goes through `_FlashAttention`, the counterpart of the JAX
+package's `_flash_attention_core` and its custom VJP: the forward also
+writes each row's log-sum-exp, and the backward launches the two kernels
+of `_bwd_dq_kernel` and `_bwd_dkv_kernel` (`csrc/flash_bwd_dq.cu`,
+`csrc/flash_bwd_dkv.cu`), or on the CPU runs their plain version
+`flash_attention_backward_reference`. Autograd through
+`flash_attention_reference` itself is the JAX package's recompute route
+(`use_pallas_bwd=False`); nothing on the port's paths takes it.
+
+The kernels read Q, K, V and dO through their (batch, head, row) strides,
+so the head-split views that `rearrange(..., "b s (n d) -> b n s d")` gives
 are taken without a copy; rows must be contiguous and 16-byte aligned.
-Its output is laid out as (B, S, H, D) and returned as the (B, H, S, D)
-view, so merging the heads back is a view too.
+Outputs are laid out as (B, S, H, D) and returned as (B, H, S, D) views, so
+merging the heads back is a view too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from hsenet_torch.ops import _build
 
-_LIB_NAME = "flash_fwd"
 SUPPORTED_HEAD_DIMS = (64, 128)
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the log-sum-exp of a row with no valid column (the JAX package's -NEG_INF)
+EMPTY_ROW_LSE = 1e30
 
 
 def _per_row(x, batch: int, device) -> torch.Tensor:
@@ -35,6 +47,28 @@ def _per_row(x, batch: int, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int32).expand(batch)
     return torch.full((batch,), int(x), dtype=torch.int32, device=device)
+
+
+def _row_args(q, k, kv_lens, q_offset, sm_scale):
+    """(kv_lens, q_offset) as contiguous (B,) int32 and the softmax scale."""
+    batch, d = q.shape[0], q.shape[-1]
+    kv = (
+        torch.full((batch,), k.shape[2], dtype=torch.int32, device=q.device)
+        if kv_lens is None
+        else _per_row(kv_lens, batch, q.device).contiguous()
+    )
+    q_off = _per_row(q_offset, batch, q.device).contiguous()
+    return kv, q_off, 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+
+
+def _valid(q, k, kv, q_off, causal) -> torch.Tensor:
+    """(B, 1, Sq, Skv) mask of the (row, column) pairs the kernels keep."""
+    col = torch.arange(k.shape[2], device=q.device)
+    mask = col[None, None, None, :] < kv[:, None, None, None]
+    if causal:
+        row = torch.arange(q.shape[2], device=q.device)[None, None, :, None]
+        mask = mask & (col[None, None, None, :] <= row + q_off[:, None, None, None])
+    return mask
 
 
 def flash_attention_reference(
@@ -46,28 +80,17 @@ def flash_attention_reference(
     causal: bool = False,
     q_offset=0,
     sm_scale: Optional[float] = None,
-) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, computed in f32.
+    with_lse: bool = False,
+):
+    """The forward kernel's function in plain PyTorch, computed in f32.
 
     Same masking as the kernel; a row with no valid column gives 0 (where
-    `ops.attention.sdpa_reference` gives the mean of V)."""
-    batch, _, sq, d = q.shape
-    skv = k.shape[2]
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
-    kv = (
-        torch.full((batch,), skv, dtype=torch.int32, device=q.device)
-        if kv_lens is None
-        else _per_row(kv_lens, batch, q.device)
-    )
-    q_off = _per_row(q_offset, batch, q.device)
+    `ops.attention.sdpa_reference` gives the mean of V). With `with_lse`
+    it returns (out, lse), lse the (B, H, Sq) f32 log-sum-exp of the
+    scaled scores, 1e30 for a row with no valid column."""
+    kv, q_off, sm_scale = _row_args(q, k, kv_lens, q_offset, sm_scale)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    col = torch.arange(skv, device=q.device)
-    mask = col[None, None, None, :] < kv[:, None, None, None]
-    if causal:
-        row = torch.arange(sq, device=q.device)[None, None, :, None]
-        mask = mask & (col[None, None, None, :] <= row + q_off[:, None, None, None])
-    s = s.masked_fill(~mask, -math.inf)
+    s = s.masked_fill(~_valid(q, k, kv, q_off, causal), -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)  # exactly 0 on masked columns
@@ -75,25 +98,64 @@ def flash_attention_reference(
     out = torch.matmul(p, v.float()) / torch.where(
         denom > 0, denom, torch.ones_like(denom)
     )
-    return out.to(q.dtype)
+    out = out.to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(denom > 0, m + torch.log(denom), EMPTY_ROW_LSE)
+    return out, lse[..., 0]
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    kv_lens: Optional[torch.Tensor] = None,
+    q_offset=0,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' function in plain PyTorch, computed in f32:
+    P = exp(sm_scale Q K^T - lse) on the valid pairs (0 elsewhere),
+    delta = rowsum(dO * O), dS = P (dO V^T - delta) sm_scale, and
+    dQ = dS K, dK = dS^T Q, dV = P^T dO, returned in the inputs' dtypes."""
+    kv, q_off, sm_scale = _row_args(q, k, kv_lens, q_offset, sm_scale)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    p = torch.where(
+        _valid(q, k, kv, q_off, causal),
+        torch.exp(s - lse.float()[..., None]),
+        0.0,
+    )
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta) * sm_scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_operand(name: str, t: torch.Tensor, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, q on {device}")
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"flash kernels take bfloat16, {name} is {t.dtype}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: the head dimension must be contiguous")
+    if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+        raise ValueError(
+            f"{name}: rows must start on 16-byte boundaries (strides {t.stride()})"
+        )
 
 
 def _check_cuda_operands(q, k, v):
-    batch, heads, sq, d = q.shape
+    batch, heads, _, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash kernel takes bfloat16, {name} is {t.dtype}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}: the head dimension must be contiguous")
-        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-            raise ValueError(
-                f"{name}: rows must start on 16-byte boundaries "
-                f"(strides {t.stride()})"
-            )
+        _check_kernel_operand(name, t, q.device)
     if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim 64 or 128, got {d}")
+        raise ValueError(f"flash kernels take head_dim 64 or 128, got {d}")
     if k.shape[:2] != (batch, heads) or v.shape != k.shape or k.shape[3] != d:
         raise ValueError(
             f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}:"
@@ -101,18 +163,156 @@ def _check_cuda_operands(q, k, v):
         )
 
 
-def _library():
-    lib = _build.load(_LIB_NAME)
-    fn = lib.hsenet_flash_fwd_bf16
+_ARGTYPES = {  # pointers, then ints (batch, heads, sq, skv, d), strides
+    "flash_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12,
+    "flash_bwd_dq": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 15,
+    "flash_bwd_dkv": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 18,
+}
+
+
+def _kernel(name: str):
+    fn = getattr(_build.load(name), f"hsenet_{name}_bf16")
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] * 12
-            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        )
+        fn.argtypes = _ARGTYPES[name] + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name: str, pointers, dims, strided, causal, sm_scale, device) -> None:
+    """Launch kernel `name` on the current stream and count the launch."""
+    strides = [s for t in strided for s in t.stride()[:3]]
+    err = _kernel(name)(
+        *pointers, *dims, *strides, int(causal), float(sm_scale),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launches[name] += 1
+
+
+def _bshd(batch, seq, heads, d, like) -> torch.Tensor:
+    """An empty (B, H, S, D) view of a (B, S, H, D) buffer."""
+    return torch.empty(
+        (batch, seq, heads, d), dtype=like.dtype, device=like.device
+    ).permute(0, 2, 1, 3)
+
+
+def _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+    """Launch flash_fwd: (out, lse or None)."""
+    _check_cuda_operands(q, k, v)
+    batch, heads, sq, d = q.shape
+    out = _bshd(batch, sq, heads, d, q)
+    lse = (torch.empty((batch, heads, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel():
+        _launch(
+            "flash_fwd",
+            [t.data_ptr() for t in (q, k, v, out)]
+            + [None if lse is None else lse.data_ptr(), kv.data_ptr(),
+               q_off.data_ptr()],
+            (batch, heads, sq, k.shape[2], d), (q, k, v, out), causal,
+            sm_scale, q.device,
+        )
+        fwd_launches[(d, with_lse)] += 1
+    return out, lse
+
+
+def _check_do(q, do):
+    try:
+        _check_kernel_operand("do", do, q.device)
+    except ValueError:
+        do = do.contiguous()
+        _check_kernel_operand("do", do, q.device)
+    return do
+
+
+def _bwd_dq_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
+    """Launch flash_bwd_dq: dq. `lse` and `delta` are contiguous (B, H, Sq)
+    f32."""
+    batch, heads, sq, d = q.shape
+    dq = _bshd(batch, sq, heads, d, q)
+    if dq.numel():
+        _launch(
+            "flash_bwd_dq",
+            [t.data_ptr() for t in (q, k, v, do, lse, delta, dq, kv, q_off)],
+            (batch, heads, sq, k.shape[2], d), (q, k, v, do, dq), causal,
+            sm_scale, q.device,
+        )
+    return dq
+
+
+def _bwd_dkv_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
+    """Launch flash_bwd_dkv: (dk, dv)."""
+    batch, heads, sq, d = q.shape
+    skv = k.shape[2]
+    dk = _bshd(batch, skv, heads, d, k)
+    dv = _bshd(batch, skv, heads, d, v)
+    if dk.numel():
+        _launch(
+            "flash_bwd_dkv",
+            [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv, kv, q_off)],
+            (batch, heads, sq, skv, d), (q, k, v, do, dk, dv), causal,
+            sm_scale, q.device,
+        )
+    return dk, dv
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    kv_lens: Optional[torch.Tensor] = None,
+    q_offset=0,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention` at output `o` with log-sum-exp
+    `lse` (from the forward) and output gradient `do`. On CUDA tensors it
+    computes delta = rowsum(dO * O) in f32, as the JAX package does outside
+    its kernels, and launches flash_bwd_dq and flash_bwd_dkv; on CPU
+    tensors it runs `flash_attention_backward_reference`."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, o, lse, do, kv_lens, q_offset, causal, sm_scale
+        )
+    kv, q_off, sm_scale = _row_args(q, k, kv_lens, q_offset, sm_scale)
+    _check_cuda_operands(q, k, v)
+    do = _check_do(q, do)
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    lse = lse.contiguous()
+    args = (q, k, v, do, lse, delta, kv, q_off, causal, sm_scale)
+    return (_bwd_dq_kernel(*args), *_bwd_dkv_kernel(*args))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the JAX package's
+    `_flash_attention_core` with its custom VJP). The forward saves q, k, v,
+    the output, the log-sum-exp, kv_lens and q_offset; the backward runs the
+    dQ and dK/dV kernels on the card and their plain version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv, q_off, causal, sm_scale):
+        if q.device.type == "cuda":
+            out, lse = _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, True)
+        else:
+            out, lse = flash_attention_reference(
+                q, k, v, kv_lens=kv, causal=causal, q_offset=q_off,
+                sm_scale=sm_scale, with_lse=True,
+            )
+        ctx.save_for_backward(q, k, v, out, lse, kv, q_off)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, kv, q_off = ctx.saved_tensors
+        grads = flash_attention_backward(
+            q, k, v, out, lse, do, kv, q_off, ctx.causal, ctx.sm_scale
+        )
+        return (*grads, None, None, None, None)
 
 
 def flash_attention(
@@ -136,50 +336,31 @@ def flash_attention(
       q_offset: int or (B,) per-row causal query offset.
       sm_scale: softmax scale, default 1/sqrt(D).
     """
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    kv, q_off, sm_scale = _row_args(q, k, kv_lens, q_offset, sm_scale)
+    if torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad
+    ):
+        return _FlashAttention.apply(q, k, v, kv, q_off, causal, sm_scale)
     if q.device.type == "cpu":
         return flash_attention_reference(
-            q, k, v, kv_lens=kv_lens, causal=causal, q_offset=q_offset,
+            q, k, v, kv_lens=kv, causal=causal, q_offset=q_off,
             sm_scale=sm_scale,
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    _check_cuda_operands(q, k, v)
-    batch, heads, sq, d = q.shape
-    skv = k.shape[2]
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
-    kv = (
-        torch.full((batch,), skv, dtype=torch.int32, device=q.device)
-        if kv_lens is None
-        else _per_row(kv_lens, batch, q.device).contiguous()
-    )
-    q_off = _per_row(q_offset, batch, q.device).contiguous()
-    out = torch.empty(
-        (batch, sq, heads, d), dtype=q.dtype, device=q.device
-    ).permute(0, 2, 1, 3)
-    if out.numel() == 0:
-        return out
-    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]]
-    err = _library()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kv.data_ptr(), q_off.data_ptr(),
-        batch, heads, sq, skv, d, *strides,
-        int(causal), float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    flash_attention.launches += 1
-    flash_attention.launches_by_head_dim[d] += 1
-    return out
+    return _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, False)[0]
 
 
-# kernel launches since the last reset, in all and by head dim (64 in the
-# ViT towers, 128 in LLM prefill); chip_smoke.py reads them to show that
-# the main path went through the kernel, and at which shapes
+# kernel launches since the last reset: by kernel, and the forward's by
+# (head dim, whether it wrote the log-sum-exp). chip_smoke.py reads them to
+# show that the main path went through the kernels, and at which shapes:
+# d 64 without the log-sum-exp in the ViT towers, d 128 in the LLM, with it
+# when autograd records the call.
+launches = dict.fromkeys(KERNELS, 0)
+fwd_launches = {(d, lse): 0 for d in SUPPORTED_HEAD_DIMS for lse in (False, True)}
+
+
 def reset_launch_counts() -> None:
-    flash_attention.launches = 0
-    flash_attention.launches_by_head_dim = dict.fromkeys(SUPPORTED_HEAD_DIMS, 0)
-
-
-reset_launch_counts()
+    for counts in (launches, fwd_launches):
+        for key in counts:
+            counts[key] = 0

@@ -1,0 +1,155 @@
+"""Train state, schedule and optimizer (the port of the JAX package's
+train/train_state.py).
+
+`make_optimizer` is optax's `chain(clip_by_global_norm(max_grad_norm),
+adamw(schedule, b1, b2, eps, weight_decay))`, masked to the trainable
+leaves, written out step for step so that both packages take the same
+update:
+
+  * the global norm covers the trainable gradients only, and scales them by
+    max_norm / norm only when norm >= max_norm (no epsilon);
+  * Adam's moments are mu = (1 - b1) g + b1 mu and nu = (1 - b2) g^2 + b2 nu,
+    bias-corrected by 1 - b^count with count counted from 1, and the update
+    is mu_hat / (sqrt(nu_hat) + eps), plus weight_decay * param;
+  * the learning rate is the schedule at the step count BEFORE it is
+    incremented, so the first step (count 0) takes lr = schedule(0), 0 in
+    warmup.
+
+Parameters are updated in place. Freezing is `requires_grad=False` on the
+leaves the mask leaves out, which also keeps autograd from computing
+their gradients.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Mapping, Optional
+
+import torch
+from torch import nn
+
+from hsenet_torch.configs import TrainConfig
+
+Schedule = Callable[[int], float]
+
+
+def _linear(init: float, end: float, steps: int) -> Schedule:
+    def schedule(count: int) -> float:
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+
+    return schedule
+
+
+def _warmup_cosine(peak: float, warmup: int, decay_steps: int) -> Schedule:
+    """optax.warmup_cosine_decay_schedule(0, peak, warmup, decay_steps, 0)."""
+    rise = _linear(0.0, peak, warmup)
+    span = decay_steps - warmup
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return rise(count)
+        t = min(count - warmup, span)
+        return peak * 0.5 * (1.0 + math.cos(math.pi * t / span))
+
+    return schedule
+
+
+def make_schedule(cfg: TrainConfig) -> Schedule:
+    """Warmup + cosine (or + constant), as the JAX package builds it."""
+    warmup = max(1, int(cfg.total_steps * cfg.warmup_ratio))
+    if cfg.schedule == "cosine":
+        # optax requires decay_steps > warmup_steps; a 1-step run
+        # degenerates to warmup only
+        return _warmup_cosine(
+            cfg.learning_rate, warmup, max(cfg.total_steps, warmup + 1)
+        )
+    if cfg.schedule == "constant":
+        rise = _linear(0.0, cfg.learning_rate, warmup)
+        return lambda count: rise(count) if count < warmup else cfg.learning_rate
+    raise ValueError(cfg.schedule)
+
+
+@dataclass
+class AdamWState:
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+class AdamW:
+    """Global-norm clipping + AdamW over the leaves that `trainable_mask`
+    (parameter name -> bool; None trains every leaf) selects."""
+
+    def __init__(self, cfg: TrainConfig,
+                 trainable_mask: Optional[Mapping[str, bool]] = None):
+        self.schedule = make_schedule(cfg)
+        self.cfg = cfg
+        self.trainable_mask = trainable_mask
+
+    def trainable(self, model: nn.Module) -> Dict[str, nn.Parameter]:
+        """The model's trainable leaves by name; every other leaf is set to
+        requires_grad=False."""
+        out = {}
+        for name, p in model.named_parameters():
+            keep = self.trainable_mask is None or bool(self.trainable_mask[name])
+            p.requires_grad_(keep)
+            if keep:
+                out[name] = p
+        return out
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
+        zeros = [torch.zeros_like(p) for p in params.values()]
+        return AdamWState(0, zeros, [torch.zeros_like(z) for z in zeros])
+
+    @torch.no_grad()
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+             state: AdamWState, grad_norm: torch.Tensor) -> AdamWState:
+        """Clip by `grad_norm` (the global norm of `grads`), then one AdamW
+        update of `params` in place. `grads` may be overwritten."""
+        cfg = self.cfg
+        lr = self.schedule(state.count)
+        count = state.count + 1
+        c1 = 1.0 - cfg.adam_b1 ** count
+        c2 = 1.0 - cfg.adam_b2 ** count
+        # scale by max/norm when norm >= max, else by exactly 1 (a device
+        # scalar, so the step never waits on the host)
+        clip = torch.where(grad_norm < cfg.max_grad_norm, 1.0,
+                           cfg.max_grad_norm / grad_norm)
+        for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
+            g = g.to(p.dtype).mul_(clip)
+            mu.mul_(cfg.adam_b1).add_(g, alpha=1.0 - cfg.adam_b1)
+            nu.mul_(cfg.adam_b2).addcmul_(g, g, value=1.0 - cfg.adam_b2)
+            update = (mu / c1).div_((nu / c2).sqrt_().add_(cfg.adam_eps))
+            if cfg.weight_decay:
+                update.add_(p, alpha=cfg.weight_decay)
+            p.sub_(update, alpha=lr)
+        return AdamWState(count, state.mu, state.nu)
+
+
+def make_optimizer(cfg: TrainConfig,
+                   trainable_mask: Optional[Mapping[str, bool]] = None) -> AdamW:
+    """AdamW + global-norm clipping; `trainable_mask` (name -> bool) picks
+    the leaves it trains, as the JAX package's optax mask does."""
+    return AdamW(cfg, trainable_mask)
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32."""
+    return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+
+
+@dataclass
+class TrainState:
+    """Step count, the model's trainable leaves by name (parameters of the
+    model, updated in place) and the optimizer state."""
+
+    step: int
+    params: Dict[str, nn.Parameter]
+    opt_state: AdamWState
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: AdamW) -> "TrainState":
+        params = tx.trainable(model)
+        return cls(step=0, params=params, opt_state=tx.init(params))

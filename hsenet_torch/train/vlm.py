@@ -1,0 +1,156 @@
+"""VLM finetune train step (the port of the JAX package's train/vlm.py).
+
+Freezing follows the reference's train_VLM.py: the LLM base is frozen; the
+LoRA adapters, both packers and the (tied) token embedding train; the
+vision towers stay frozen. Here freezing is `requires_grad=False`, and the
+trainable leaves are held as f32 masters (`to_training_dtypes`) while the
+modules compute in bf16, casting them at use as the JAX modules cast their
+f32 params. Frozen leaves may stay in bf16: the JAX package casts them to
+bf16 at every use, which gives the same values.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from hsenet_torch.models.layers import dropout_rng
+from hsenet_torch.train.losses import masked_lm_loss
+from hsenet_torch.train.train_state import AdamW, TrainState, global_norm
+
+Batch = Dict[str, torch.Tensor]
+
+
+def vlm_trainable_mask(model: nn.Module) -> Dict[str, bool]:
+    """Parameter name -> trainable: the JAX package's default policy over
+    the port's parameter names. LoRA adapters, both packers and the tied
+    token embedding train; the towers and the LLM base stay frozen."""
+
+    def decide(name: str) -> bool:
+        if "vision_tower" in name:
+            return False
+        return ("lora_a" in name or "lora_b" in name or "mm_projector" in name
+                or name == "llm.embed.weight")
+
+    return {name: decide(name) for name, _ in model.named_parameters()}
+
+
+@torch.no_grad()
+def to_training_dtypes(model: nn.Module, trainable_mask: Mapping[str, bool]):
+    """Hold the trainable leaves as f32 masters and mark the others frozen
+    (requires_grad=False); the modules keep computing in their dtype."""
+    for name, p in model.named_parameters():
+        trainable = bool(trainable_mask[name])
+        if trainable and p.dtype != torch.float32:
+            p.data = p.data.float()
+        p.requires_grad_(trainable)
+    return model
+
+
+def vlm_loss_fn(model: nn.Module, batch: Batch,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """LM loss of one batch; dropout on (drawing from `generator`) unless
+    `generator` is None."""
+    kv_lens = batch["attention_mask"].sum(dim=-1).to(torch.int32)
+    with dropout_rng(generator):
+        logits = model(
+            batch["input_ids"], batch.get("image"), batch.get("image_2d"),
+            kv_lens=kv_lens, deterministic=generator is None,
+        )
+    loss, acc = masked_lm_loss(logits, batch["labels"])
+    return loss, {"loss": loss, "token_acc": acc}
+
+
+def make_vlm_eval_fn(model: nn.Module):
+    """Held-out eval: `evaluate(loader) -> {"val_loss", "val_token_acc"}`,
+    means over the loader's batches, deterministic (no dropout)."""
+    keys = ("input_ids", "labels", "attention_mask", "image", "image_2d")
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def evaluate(loader):
+        rows = []
+        for batch in loader:
+            dev = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
+                   if k in keys}
+            _, metrics = vlm_loss_fn(model, dev)
+            rows.append({k: float(v) for k, v in metrics.items()})
+        if not rows:
+            return {}
+        return {f"val_{k}": float(np.mean([r[k] for r in rows]))
+                for k in rows[0]}
+
+    return evaluate
+
+
+def fold_seed(seed: int, *data: int) -> int:
+    """A 63-bit seed that depends on `seed` and each of `data` in order
+    (the port's fold_in: per-step and per-microbatch dropout streams)."""
+    for x in data:
+        seed = (seed * 0x9E3779B97F4A7C15 + int(x) + 1) % (1 << 63)
+    return seed
+
+
+def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1):
+    """`train_step(state, batch, rng=None) -> (state, metrics)`: the
+    gradient of `loss_fn(batch, generator) -> (loss, metrics)` over the
+    state's trainable leaves, one AdamW update, and the global norm of those
+    gradients as `metrics["grad_norm"]`.
+
+    `rng` is an int seed; the step's dropout generator is seeded from it and
+    the step count (each microbatch's also from its index), on the device of
+    the parameters; with `rng=None` the step is deterministic. `grad_accum
+    > 1` splits the batch into that many equal microbatches along dim 0 and
+    averages their gradients and metrics (the reference's
+    gradient_accumulation_steps; only sound for losses that decompose per
+    sample)."""
+
+    def grads_of(params, batch, generator):
+        loss, metrics = loss_fn(batch, generator)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(state: TrainState, batch: Batch, rng: Optional[int] = None):
+        params = list(state.params.values())
+
+        def generator(*stream):
+            if rng is None:
+                return None
+            return torch.Generator(device=params[0].device).manual_seed(
+                fold_seed(rng, state.step, *stream)
+            )
+
+        if grad_accum > 1:
+            n = next(iter(batch.values())).shape[0] // grad_accum
+            grads, rows = None, []
+            for i in range(grad_accum):
+                micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                g, m = grads_of(params, micro, generator(i))
+                grads = g if grads is None else [a.add_(b) for a, b in zip(grads, g)]
+                rows.append(m)
+            grads = [g.div_(grad_accum) for g in grads]
+            metrics = {k: torch.stack([m[k].float() for m in rows]).mean()
+                       for k in rows[0]}
+        else:
+            grads, metrics = grads_of(params, batch, generator())
+        metrics["grad_norm"] = global_norm(grads)
+        opt_state = tx.step(params, grads, state.opt_state, metrics["grad_norm"])
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt_state=opt_state), metrics
+
+    return train_step
+
+
+def make_vlm_train_step(model: nn.Module, tx: AdamW, grad_accum: int = 1):
+    """The plain VLM finetune step (see `make_masked_train_step`); the
+    trainable leaves are those of the state, which `tx`'s mask picked."""
+    return make_masked_train_step(
+        functools.partial(vlm_loss_fn, model), tx, grad_accum=grad_accum
+    )

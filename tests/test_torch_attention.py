@@ -5,10 +5,20 @@ On a CPU tensor the port's `flash_attention` runs its plain version
 kernel in interpret mode. Both get the same numpy inputs. Tolerance 2e-5
 absolute and relative: both sides compute in f32 and differ only in the
 order of their sums.
+
+Gradients: the port's autograd Function (whose CPU backward is the plain
+version of the dQ and dK/dV kernels, `flash_attention_backward_reference`)
+against `jax.vjp` of the JAX `flash_attention` through each of its three
+backward routes: the resident Pallas kernels (B3), the streaming ones (B4,
+forced with small blocks) and the recompute route (`use_pallas_bwd=False`
+here; in the port autograd through `flash_attention_reference`).
+Tolerance 1e-4 absolute and relative in f32: the backward sums over up to
+100 keys or queries in another order.
 """
 
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,16 +26,19 @@ import torch
 
 import hsenet_tpu.ops.attention as jattn
 import hsenet_tpu.ops.flash_attention as jfa
+import hsenet_torch.ops.flash_attention as tfa
 from hsenet_torch.ops import _build
 from hsenet_torch.ops import attention as tattn
 from hsenet_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_backward_reference,
     flash_attention_reference,
 )
 
 torch.set_num_threads(1)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def _inputs(seed, b, h, hkv, sq, skv, d):
@@ -143,9 +156,9 @@ def test_flash_mode_never_takes_sdpa():
 
 def test_cpu_path_is_the_plain_version_and_counts_no_launch():
     q, k, v = (torch.as_tensor(a) for a in _inputs(6, 1, 2, 2, 9, 9, 64))
-    before = flash_attention.launches
+    before = dict(tfa.launches)
     out = flash_attention(q, k, v, causal=True)
-    assert flash_attention.launches == before
+    assert tfa.launches == before
     torch.testing.assert_close(
         out, flash_attention_reference(q, k, v, causal=True), rtol=0, atol=0
     )
@@ -162,3 +175,156 @@ def test_kernel_build_raises_without_nvcc():
         pytest.skip("nvcc is installed here; the check is for hosts without it")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load("flash_fwd")
+
+
+def _jax_vjp(arrays, do, route, **kw):
+    """(out, (dq, dk, dv)) of the JAX flash_attention through `route`:
+    "resident" (B3), "stream" (B4) or "recompute"."""
+    blocks = dict(block_q=128, block_k=128) if route == "stream" else {}
+
+    def f(q, k, v):
+        return jfa.flash_attention(
+            q, k, v, use_pallas_bwd=route != "recompute", **blocks, **kw
+        )
+
+    try:
+        jfa._FORCE_STREAM = True if route == "stream" else None
+        out, vjp = jax.vjp(f, *(jnp.asarray(a) for a in arrays))
+        grads = vjp(jnp.asarray(do))
+    finally:
+        jfa._FORCE_STREAM = None
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _port_grads(arrays, do, attend=flash_attention, **kw):
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrays]
+    out = attend(*leaves, **kw)
+    return out, torch.autograd.grad(out, leaves, torch.as_tensor(do))
+
+
+def _row_kw(kv_lens, q_off, causal):
+    off = np.asarray(q_off, np.int32) if isinstance(q_off, list) else q_off
+    return dict(kv_lens=np.asarray(kv_lens, np.int32), causal=causal, q_offset=off)
+
+
+@pytest.mark.parametrize("route", ["resident", "stream", "recompute"])
+@pytest.mark.parametrize("causal,sq,skv,d,kv_lens,q_off", FLASH_CASES)
+def test_flash_grads_match_jax(route, causal, sq, skv, d, kv_lens, q_off):
+    arrays = _inputs(7, 2, 3, 3, sq, skv, d)
+    do = np.random.default_rng(8).standard_normal((2, 3, sq, d)).astype(np.float32)
+    kw = _row_kw(kv_lens, q_off, causal)
+    want_out, want = _jax_vjp(arrays, do, route, **kw)
+    out, got = _port_grads(
+        arrays, do,
+        attend=flash_attention_reference if route == "recompute" else flash_attention,
+        **{k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()},
+    )
+    assert out.grad_fn is not None
+    np.testing.assert_allclose(out.detach().numpy(), want_out, **TOL)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("route", ["resident", "stream"])
+def test_flash_grads_of_an_empty_row_are_zero(route):
+    """kv_len 0: the row's output is 0 whatever Q, K and V are, so all its
+    gradients are exactly 0 (the JAX kernels agree; its recompute route
+    differentiates the mean of V instead and is left out)."""
+    arrays = _inputs(9, 2, 2, 2, 16, 16, 64)
+    do = np.random.default_rng(10).standard_normal((2, 2, 16, 64)).astype(np.float32)
+    kv = np.asarray([0, 9], np.int32)
+    _, want = _jax_vjp(arrays, do, route, kv_lens=kv)
+    _, got = _port_grads(arrays, do, kv_lens=torch.as_tensor(kv))
+    for g, w in zip(got, want):
+        assert torch.count_nonzero(g[0]) == 0
+        np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal,sq,skv,d,kv_lens,q_off", FLASH_CASES[1:3])
+def test_backward_reference_matches_jax_kernels(causal, sq, skv, d, kv_lens, q_off):
+    """The plain version alone, fed the JAX forward's output and log-sum-exp."""
+    arrays = _inputs(11, 2, 2, 2, sq, skv, d)
+    do = np.random.default_rng(12).standard_normal((2, 2, sq, d)).astype(np.float32)
+    kw = _row_kw(kv_lens, q_off, causal)
+    out, lse = _jax_lse(arrays, **kw)
+    _, want = _jax_vjp(arrays, do, "resident", **kw)
+    got = flash_attention_backward_reference(
+        *(torch.as_tensor(a) for a in arrays), torch.as_tensor(out),
+        torch.as_tensor(lse), torch.as_tensor(do), torch.as_tensor(kw["kv_lens"]),
+        torch.as_tensor(kw["q_offset"]), causal,
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL)
+
+
+def _jax_lse(arrays, *, kv_lens, causal, q_offset):
+    q, k, v = (jnp.asarray(a) for a in arrays)
+    batch, _, sq, d = q.shape
+    skv = k.shape[2]
+    out, lse = jfa._flash_forward(
+        q, k, v, jnp.asarray(kv_lens),
+        jnp.broadcast_to(jnp.asarray(q_offset, jnp.int32), (batch,)),
+        causal=causal, sm_scale=d ** -0.5,
+        block_q=min(jfa.DEFAULT_BLOCK_Q, -(-sq // 128) * 128),
+        block_k=min(jfa.DEFAULT_BLOCK_K, -(-skv // 128) * 128),
+        interpret=True, with_lse=True,
+    )
+    return np.array(out), np.array(lse[:, :, :sq, 0])
+
+
+@pytest.mark.parametrize(
+    "causal,sq,skv,d,kv_lens,q_off",
+    FLASH_CASES + [(False, 16, 16, 64, [0, 9], 0)],
+)
+def test_lse_matches_jax_forward(causal, sq, skv, d, kv_lens, q_off):
+    """The log-sum-exp the backward reads, 1e30 on a row with no valid
+    column, against the JAX forward's `with_lse=True` output."""
+    arrays = _inputs(13, 2, 2, 2, sq, skv, d)
+    kw = _row_kw(kv_lens, q_off, causal)
+    want_out, want = _jax_lse(arrays, **kw)
+    out, lse = flash_attention_reference(
+        *(torch.as_tensor(a) for a in arrays), with_lse=True,
+        **{k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()},
+    )
+    assert lse.shape == (2, 2, sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), want_out, **TOL)
+    np.testing.assert_allclose(lse.numpy(), want, **TOL)
+
+
+def test_gqa_grads_sum_over_kv_heads():
+    """24q/8kv-style grouping at toy size: the expanded K/V gradients sum
+    back onto the 2 kv heads, as in the JAX package."""
+    arrays = _inputs(14, 2, 6, 2, 70, 80, 128)
+    do = np.random.default_rng(15).standard_normal((2, 6, 70, 128)).astype(np.float32)
+    kv = np.asarray([80, 51], np.int32)
+    off = np.asarray([10, 0], np.int32)
+
+    def f(q, k, v):
+        return jattn.multi_head_attention(
+            q, k, v, kv_lens=jnp.asarray(kv), causal=True,
+            q_offset=jnp.asarray(off), use_flash=True,
+        )
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in arrays))
+    want = vjp(jnp.asarray(do))
+    _, got = _port_grads(
+        arrays, do, attend=tattn.multi_head_attention,
+        kv_lens=torch.as_tensor(kv), causal=True, q_offset=torch.as_tensor(off),
+        use_flash=True,
+    )
+    assert got[1].shape == (2, 2, 80, 128)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+def test_no_grad_path_records_no_graph():
+    """Without grad (the towers under stop_tower_gradients, inference) the
+    forward returns a plain tensor; with it, a differentiable one."""
+    q, k, v = (torch.as_tensor(a) for a in _inputs(16, 1, 2, 2, 9, 9, 64))
+    assert flash_attention(q, k, v).grad_fn is None
+    q.requires_grad_()
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+    assert flash_attention(q, k, v).grad_fn is not None

@@ -95,7 +95,8 @@ def test_port_sources_never_name_jax():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, hsenet_torch, hsenet_torch.bridge, "
-        "hsenet_torch.eval.generate, hsenet_torch.models.mllm; "
+        "hsenet_torch.eval.generate, hsenet_torch.models.mllm, "
+        "hsenet_torch.train.trainer, hsenet_torch.data.datasets; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'flax', 'hsenet_tpu'))]; print(bad); sys.exit(1 if bad else 0)"
     )
