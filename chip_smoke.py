@@ -11,9 +11,14 @@ In order:
    one nvcc per source, all started at once;
 3. [kernel] holds the forward kernel against its plain PyTorch version on
    the card, in bf16, at the shapes the paths give it (towers, prefill,
-   and the LLM training shape with its log-sum-exp output), and times the
-   kernel, the plain version and one PyTorch library call computing the
-   same function (a yardstick only: the port never calls it);
+   the LLM training shape with its log-sum-exp output, and the serving
+   engine's admissions: 512 rows over a 1040-slot cache row, a KV-prefix
+   hit's 255 rows at offset 257, and 512 rows over the 2576-slot row of an
+   engine with a 2048-token output budget, where the TPU streams K/V), and
+   times the kernel, the plain version and one PyTorch library call
+   computing the same function (a yardstick only: the port never calls
+   it); the time over the 2576-slot row must not exceed 1.5 times the
+   time over the 1040-slot row at the same kv_len;
 4. [kernel-bwd] holds the two backward kernels (dQ; dK and dV) against
    their plain version at the LLM training shape (3 x 24 heads x 800
    tokens, d 128, causal, kv_lens 800/700/560) and the tower shape (2 x 12
@@ -22,7 +27,12 @@ In order:
    the diagonal tile dropped miss the limit, and that keys past kv_len and
    a row with kv_len 0 get exactly zero gradients; and times them against
    the bound, the plain version and the backward of one SDPA call;
-5. [main] drives generation at the full width of `VLMConfig()` (dual ViT-B
+5. [kernel-matvec] holds the int8 matvec kernel against its plain version
+   at Phi-4-mini's four projection shapes, M = 8 and M = 1, in bf16, beside
+   two wrong variants that must miss the limit, and times it at M = 8 with
+   the codes read cold, beside its bound, the plain version and a library
+   product on a bf16 copy of the weight;
+6. [main] drives generation at the full width of `VLMConfig()` (dual ViT-B
    towers, two packers, Phi-4-mini with 32 layers, vocab 200064) with
    random bf16 weights drawn on the card from a seeded generator: B=2
    prompts of BOS + 256 image tokens + text (valid lengths 300 and 320)
@@ -31,7 +41,7 @@ In order:
    are finite and tokens inside the vocabulary, and that prefill logits
    through the kernel agree with those of the plain sdpa path (and that
    a kernel without the last 64 keys of each row would not);
-6. [train] runs the VLM LoRA finetune at the configuration of the JAX
+7. [train] runs the VLM LoRA finetune at the configuration of the JAX
    package's `cli/train_vlm.py` (`VLMConfig()` with LoRA r16/a32 on the
    LLM, f32 trainable masters over a bf16 base, towers frozen, remat on)
    through `Trainer` and `make_vlm_train_step`: batch 3 of BOS + 256 image
@@ -41,11 +51,31 @@ In order:
    and checks the flash launches per step: 24 forward d64 (towers), 64
    forward d128 with the log-sum-exp (32 layers, twice under remat), 32 dQ
    and 32 dK/dV;
-7. [train-grads] one step's gradients through the kernels against the same
+8. [train-grads] one step's gradients through the kernels against the same
    step through the plain sdpa path, as relative L2 per group of leaves,
    and shows that steps with a planted fault in the attention backward
    (delta left out; no gradient through attention) miss the limit;
-8. prints one JSON line of kernel numbers, then as its last line
+9. [serve] drives the serving engine at the full width the serving CLI
+   builds for `--quant-int8` (`VLMConfig()` with int8 projections and
+   embedding in Phi-4-mini, no LoRA, towers and packers in bf16; random
+   bf16 weights quantised on the card) and at the CLI's defaults (8 slots,
+   chunks of 16, prompt cap 512, 512 new tokens, bf16 KV cache of 1040
+   slots a row, feature LRU and KV-prefix LRU of 4): 12 requests over 4
+   scans closed loop, then 8 more through `run_open_loop`. It checks that
+   every request finishes with tokens in the vocabulary, the hit and miss
+   counts, flash_fwd launches = 24 per encode miss + 32 per admission and
+   quant_matvec launches = 224 per decode step; prints tokens/s, slot
+   utilization, TTFT and TPOT, peak memory and `hbm_stats()`; holds one
+   decode step's logits through the matvec kernel against the same step
+   through its plain version, and a prefix hit's first-token logits
+   against a full prefill of the same request, each beside a wrong variant;
+10. [serve-kv-int8] the same engine with the int8 KV cache: 4 requests, two
+   of them prefix hits, and first-token logits against the bf16 cache;
+11. [serve-long] an engine with a 2048-token budget (rows of 2576 slots,
+   2 slots, two requests), launches counted; then [profile]s of one
+   admission that misses, one that hits the prefix cache and one decode
+   chunk with 8 live slots;
+12. prints one JSON line of kernel numbers, then as its last line
    {"ok": true, "device": {...}}.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -56,6 +86,7 @@ result and exits non-zero.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import statistics
@@ -107,10 +138,62 @@ LSE_ABS_TOL = 1e-3
 # of the backward, or with no gradient through attention, break it
 TRAIN_GRAD_REL_L2 = 5e-2
 
+# the int8 matvec kernel against its plain version, bf16: |error| as a
+# share of the largest |value| in its output row. Both sum the same exact
+# products in f32 (in another order) and round once to bf16, so they differ
+# by at most one bf16 unit of an element, 2^-8 of the row's largest value
+# or less. check_matvec_kernel shows that versions with the scales shifted
+# by one channel, or the last 16 codes of K dropped, break it.
+MATVEC_ROW_TOL = 8e-3
+# (K, N) of Phi-4-mini's int8 projections, and how many of each a decode
+# step of the 32-layer model launches
+MATVEC_SHAPES = {"qo_3072x3072": (3072, 3072), "kv_3072x1024": (3072, 1024),
+                 "gate_up_3072x8192": (3072, 8192), "down_8192x3072": (8192, 3072)}
+MATVEC_PER_LAYER = {"qo_3072x3072": 2, "kv_3072x1024": 2,
+                    "gate_up_3072x8192": 2, "down_8192x3072": 1}
+# timed launches cycle over enough copies of the codes that each launch
+# reads them from device memory, as a decode step does (its 32 layers hold
+# 3.2 GB of codes), not from the 50 MB L2
+MATVEC_COLD_BYTES = 128e6
+
 EOS_TOKEN_ID = 200020  # Phi-4-mini <|end|>
 IM_PATCH_TOKEN_ID = 200010  # placeholder id under the spliced image block
 MAX_NEW_TOKENS = 32
 KV_LENS = (300, 320)
+# the serving engine at the CLI's defaults: 8 slots, chunks of 16 steps,
+# prompts capped at 512, 512 new tokens: cache rows of 512 + 512 + 16
+SERVE_SLOTS = 8
+SERVE_CHUNK = 16
+SERVE_PROMPT_CAP = 512
+SERVE_MAX_NEW = 512
+SERVE_CAPACITY = SERVE_PROMPT_CAP + SERVE_MAX_NEW + SERVE_CHUNK
+SERVE_PREFIX = 257  # BOS + 256 image tokens, what the KV-prefix cache keeps
+# an engine with a 2048-token output budget: rows of 2576 slots, the key
+# length at which the TPU's dispatch streams K/V
+SERVE_LONG_MAX_NEW = 2048
+SERVE_LONG_CAPACITY = SERVE_PROMPT_CAP + SERVE_LONG_MAX_NEW + SERVE_CHUNK
+# flash_fwd over a 2576-slot row may take this many times what it takes over
+# a 1040-slot row at the same kv_len (it reads the same keys; a kernel that
+# walked the whole row would take 2.5 times)
+CAPACITY_TIME_RATIO = 1.5
+# one decode step's logits (8 slots, 32 layers) through the matvec kernel
+# against the same step through its plain version, relative L2: the two
+# sum in another order, so a projection's output flips by one bf16 unit
+# here and there, and 32 layers carry the flips on. check_serve_logits
+# prints the same distance between two plain versions (f32 and f64 sums)
+# as the floor of such flips, and shows that a step with the scales
+# shifted by one channel breaks the limit
+DECODE_LOGITS_REL_L2 = 5e-2
+# a KV-prefix hit's first-token logits against a full prefill of the same
+# request, relative L2: the question chunk runs as 255 rows where the full
+# prefill runs 512, so GEMMs and flash tiles round at other places in each
+# of 32 bf16 layers; a hit resumed 64 positions early must miss it
+PREFIX_LOGITS_REL_L2 = 5e-2
+# first-token logits with the int8 KV cache against the bf16 cache,
+# relative L2: each key and value carries up to 1/254 of its row's largest
+# value of quantisation error through 32 layers; a prefix hit whose cached
+# prefix lost its scales (the image block reads as zeros) must miss it
+KV_INT8_LOGITS_REL_L2 = 1e-1
 PROMPT_LEN = 320
 # the finetune's traffic: batch 3 (the reference's per-GPU batch), right
 # padded to the MRG max length, rows of different valid length
@@ -199,13 +282,14 @@ def profile_phase(label: str, fn, wall_ms: float, top: int = 6) -> dict:
     kernels.sort(key=lambda e: -e.self_device_time_total)
     heavy = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
              for e in kernels[:top]]
-    # device time by kind of kernel: the port's flash kernels, cuBLAS
-    # matrix products, and everything else (elementwise, norms, reductions,
+    # device time by kind of kernel: the port's flash kernels, its int8
+    # matvec kernel, cuBLAS matrix products, and everything else (elementwise, norms, reductions,
     # copies)
-    kinds = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    kinds = {"flash": 0.0, "matvec": 0.0, "gemm": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         kind = ("flash" if "flash_" in name else
+                "matvec" if "quant_matvec" in name else
                 "gemm" if any(w in name for w in ("nvjet", "gemm", "cutlass"))
                 else "other")
         kinds[kind] += e.self_device_time_total / 1e3
@@ -310,11 +394,27 @@ def check_flash_kernel():
     pv = randn(2, 8, 352, 128).repeat_interleave(3, dim=1)
     # training: 3 x 800 tokens, q from its projection, k/v GQA-expanded
     lq, lk, lv = llm_training_qkv(randn)
+    # serving: one admission's queries over its slot's cache row (8 kv
+    # heads -> 24): the whole padded prompt (512 rows) on a miss, the
+    # question chunk (255 rows from offset 257) on a KV-prefix hit; over the
+    # 1040-slot row of the default engine and the 2576-slot row of an engine
+    # with a 2048-token output budget, where the TPU streams its K/V
+    sq = rearrange(randn(1, SERVE_PROMPT_CAP, 24 * 128), "b s (n d) -> b n s d", n=24)
+    hq = rearrange(randn(1, SERVE_PROMPT_CAP - SERVE_PREFIX, 24 * 128),
+                   "b s (n d) -> b n s d", n=24)
+    sk, sv, gk, gv = (randn(1, 8, t, 128).repeat_interleave(3, dim=1)
+                      for t in (SERVE_CAPACITY, SERVE_CAPACITY,
+                                SERVE_LONG_CAPACITY, SERVE_LONG_CAPACITY))
     cases = [
         ("tower", (tq, tk, tv), (2049, 1900), (0, 0), False),
         ("prefill", (pq, pk, pv), KV_LENS, (0, 0), True),
         ("prefill_q_offset", (pq, pk, pv), (316, 352), (16, 32), True),
         ("train", (lq, lk, lv), TRAIN_KV_LENS, (0, 0, 0), True),
+        ("serve_prefill", (sq, sk, sv), (300,), (0,), True),
+        ("serve_prefill_full", (sq, sk, sv), (512,), (0,), True),
+        ("serve_prefix_hit", (hq, sk, sv), (400,), (SERVE_PREFIX,), True),
+        ("serve_long", (sq, gk, gv), (300,), (0,), True),
+        ("serve_long_full", (sq, gk, gv), (512,), (0,), True),
     ]
     # ragged edges off the main path: Sq and Skv not multiples of 64, an
     # empty row (kv_len 0 -> zeros) and a causal offset; checked, not timed
@@ -384,6 +484,19 @@ def check_flash_kernel():
                   f"/ row's max |ref| {drop_rel:.3e} (must exceed {KERNEL_ROW_TOL})")
             if drop_ok:
                 raise AssertionError("the kernel tolerance passes a dropped key tile")
+        if name.startswith("serve_"):
+            # the limit's power at the serving shapes: attention that skips
+            # the last valid 64-key tile of the row must fail it
+            col = torch.arange(k.shape[2], device=dev)[None, None, None, :]
+            first = (kv_t[:, None, None, None] - 1) // 64 * 64
+            _, drop_rel, drop_ok = compare(
+                forward_dropping(q, k, v, kv_t, off_t, causal, col >= first), ref)
+            print(f"[kernel] flash_fwd {name} without the last valid 64-key "
+                  f"tile: max err / row's max |ref| {drop_rel:.3e} (must "
+                  f"exceed {KERNEL_ROW_TOL})")
+            if drop_ok:
+                raise AssertionError(f"the kernel tolerance passes a dropped "
+                                     f"key tile at {name}")
         # the library yardstick: one SDPA call with the same boolean mask
         col = torch.arange(k.shape[2], device=dev)
         mask = col[None, None, None, :] < kv_t[:, None, None, None]
@@ -413,6 +526,125 @@ def check_flash_kernel():
               f"{r['plain_ms']:.4f} ms, library (SDPA) {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({bound_by}: {r['gflop']:.2f} "
               f"GFLOP, {r['mbytes']:.2f} MB)")
+    # the loop over K/V ends at kv_len and the diagonal, so a longer cache
+    # row must not cost more: the same queries and kv_len over the
+    # 2576-slot row against the 1040-slot row
+    for short, long in (("serve_prefill", "serve_long"),
+                        ("serve_prefill_full", "serve_long_full")):
+        ratio = results[long]["ms"] / results[short]["ms"]
+        print(f"[kernel] flash_fwd {long} over a {SERVE_LONG_CAPACITY}-slot row "
+              f"{results[long]['ms']:.4f} ms against {short} over a "
+              f"{SERVE_CAPACITY}-slot row {results[short]['ms']:.4f} ms: ratio "
+              f"{ratio:.2f} (limit {CAPACITY_TIME_RATIO})")
+        if ratio > CAPACITY_TIME_RATIO:
+            raise AssertionError("flash_fwd's time grows with the cache row's "
+                                 "capacity: it does not stop at kv_len")
+    return results
+
+
+def forward_dropping(q, k, v, kv_t, off_t, causal, drop):
+    """The plain forward with the (row, column) pairs of `drop` left out:
+    what a kernel that skipped those tiles would give."""
+    import torch
+
+    from hsenet_torch.ops import flash_attention as tfa
+
+    keep = tfa._valid(q, k, kv_t, off_t, causal) & ~drop
+    s = (q.float() @ k.float().transpose(-1, -2)) * q.shape[3] ** -0.5
+    p = torch.softmax(s.masked_fill(~keep, -math.inf), dim=-1).nan_to_num(0.0)
+    return (p @ v.float()).to(q.dtype)
+
+
+def check_matvec_kernel():
+    """B5 against its plain version at Phi-4-mini's four (K, N), M = 8 and
+    M = 1, in bf16, with two wrong variants; and its time at M = 8 beside
+    its bound, the plain version and a library product on a bf16 copy of
+    the weight."""
+    import torch
+
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dev = "cuda"
+    results = {}
+
+    def row_share(out, ref):
+        err = (out.float() - ref.float()).abs()
+        scale = ref.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+        share = torch.where(out.float().isfinite(), err / scale, math.inf)
+        return err.max().item(), share.max().item()
+
+    for name, (k, n) in MATVEC_SHAPES.items():
+        copies = int(MATVEC_COLD_BYTES // (k * n)) + 1
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = (0.5 + torch.rand(n, generator=gen, device=dev)) / (127 * k ** 0.5)
+        for m in (8, 1):
+            x = torch.randn(m, k, generator=gen, device=dev, dtype=torch.bfloat16)
+            out = tqm.quant_matvec_kernel(x, w, scale)
+            torch.cuda.synchronize()
+            ref = tqm.quant_matvec_int8_reference(x, w, scale)
+            max_abs, share = row_share(out, ref)
+            wrong = {
+                "scales shifted by one channel":
+                    tqm.quant_matvec_int8_reference(x, w, scale.roll(1)),
+                "last 16 codes of K dropped":
+                    tqm.quant_matvec_int8_reference(x[:, :-16], w[:, :-16], scale),
+            }
+            wrong = {what: row_share(o, ref)[1] for what, o in wrong.items()}
+            print(f"[kernel-matvec] {name} M={m}: x{tuple(x.shape)} w_q"
+                  f"{tuple(w.shape)} int8: max_abs_err {max_abs:.3e} (max |ref| "
+                  f"{ref.float().abs().max().item():.3e}), max err / row's max "
+                  f"|ref| {share:.3e} (tol {MATVEC_ROW_TOL}); wrong variants: "
+                  + ", ".join(f"{what} {v:.3e}" for what, v in wrong.items()))
+            if not share <= MATVEC_ROW_TOL:
+                raise AssertionError(f"quant_matvec {name} M={m} disagrees "
+                                     "with its plain version")
+            for what, v in wrong.items():
+                if v <= MATVEC_ROW_TOL:
+                    raise AssertionError(f"the matvec tolerance passes {what}")
+            if m == 8:
+                kept = (x, max_abs, share)
+        # a dispatcher call with leading dimensions, as the decode step makes
+        x, max_abs, share = kept
+        via = tqm.quant_matvec_int8(x.reshape(8, 1, k), w, scale)
+        if via.shape != (8, 1, n) or not torch.equal(
+                via.reshape(8, n), tqm.quant_matvec_kernel(x, w, scale)):
+            raise AssertionError("quant_matvec_int8 does not reach the kernel")
+
+        ws = [w] + [w.clone() for _ in range(copies - 1)]
+        wbs = [t.to(torch.bfloat16) for t in ws]
+        scale_b = scale.to(torch.bfloat16)
+        turn = itertools.count()
+
+        def cold(fn, pool):
+            return lambda: fn(pool[next(turn) % copies])
+
+        nbytes = k * n + 2 * 8 * k + 2 * 8 * n + 4 * n
+        flops = 2 * 8 * k * n
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        r = results[name] = {
+            "max_abs_err": max_abs,
+            "max_row_rel_err": share,
+            "ms": time_ms(cold(lambda t: tqm.quant_matvec_kernel(x, t, scale), ws)),
+            "plain_ms": time_ms(cold(
+                lambda t: tqm.quant_matvec_int8_reference(x, t, scale), ws), reps=5),
+            "library_ms": time_ms(cold(
+                lambda t: torch.matmul(x, t.t()) * scale_b, wbs)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6,
+            "rows": 8,
+        }
+        print(f"[kernel-matvec] {name} M=8, codes read cold ({copies} copies "
+              f"in turn): kernel {r['ms']:.4f} ms "
+              f"({nbytes / r['ms'] / 1e6:.0f} GB/s), plain {r['plain_ms']:.4f} "
+              f"ms, library (matmul on a bf16 copy) {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{r['mbytes']:.2f} MB, {r['gflop']:.2f} GFLOP)")
+        del ws, wbs
     return results
 
 
@@ -817,16 +1049,14 @@ def training_batch(cfg):
 
 
 def finetune_config():
-    """The finetune's configuration, as the JAX package's
-    `cli/train_vlm.py::build_vlm_config` makes it for a real run:
+    """The finetune's configuration, as `cli.common.build_vlm_config` (the
+    JAX package's `cli/train_vlm.py::build_vlm_config`) makes it for a real run:
     `VLMConfig()` with LoRA (rank 16, alpha 32) on the Phi-4-mini LLM."""
-    import dataclasses
+    import argparse
 
-    from hsenet_torch.configs import LoRAConfig, VLMConfig
+    from hsenet_torch.cli.common import build_vlm_config
 
-    base = VLMConfig()
-    return dataclasses.replace(
-        base, llm=dataclasses.replace(base.llm, lora=LoRAConfig()))
+    return build_vlm_config(argparse.Namespace(synthetic=False))
 
 
 def build_finetune_model(cfg, remat: bool = True):
@@ -1021,6 +1251,472 @@ def check_train_grads():
             "planted_faults_rel_l2": wrong}
 
 
+def build_serving_model():
+    """The serving configuration at full width, as the serving CLI builds
+    it for `--quant-int8`: `VLMConfig()` with int8 projections and
+    embedding in Phi-4-mini and no LoRA, towers and packers in bf16; random
+    bf16 weights (seed 0) quantised on the card by the port's converters."""
+    import argparse
+
+    import torch
+
+    from hsenet_torch.cli.common import (
+        build_vlm_config,
+        int8_serving_config,
+        random_model,
+    )
+    from hsenet_torch.models.mllm import HSENetVLM
+
+    cfg = int8_serving_config(build_vlm_config(argparse.Namespace(synthetic=False)))
+    t0 = time.perf_counter()
+    model = random_model(HSENetVLM, cfg, dtype=torch.bfloat16, device="cuda",
+                         seed=0)
+    torch.cuda.synchronize()
+    n_codes = sum(b.numel() for b in model.buffers() if b.dtype == torch.int8)
+    n_float = sum(p.numel() for p in model.parameters())
+    print(f"[serve] HSENetVLM(VLMConfig(), quant_int8 + quant_int8_embed, no "
+          f"LoRA): {n_codes / 1e9:.3f} B int8 codes, {n_float / 1e9:.3f} B bf16 "
+          f"parameters, random weights (seed 0) quantised on the card, built "
+          f"in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    return cfg, model
+
+
+def serving_traffic(cfg, n_requests: int, n_volumes: int, seed: int):
+    """`n_requests` submit() kwargs over `n_volumes` synthetic scans, asked
+    in turn: prompts of BOS + 256 <im_patch> + 20-200 text tokens, budgets
+    of 16-64 new tokens, from a seeded numpy generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vols = [(rng.random((1, 1, *cfg.vision.image_size), np.float32),
+             rng.standard_normal((1, cfg.vision.num_slices,
+                                  cfg.vision.slice_feature_dim)).astype(np.float32))
+            for _ in range(n_volumes)]
+    requests = []
+    for i in range(n_requests):
+        n_text = int(rng.integers(20, 201))
+        ids = rng.integers(3, 100000, 1 + cfg.num_image_tokens + n_text)
+        ids[0] = 1  # BOS
+        ids[1:1 + cfg.num_image_tokens] = IM_PATCH_TOKEN_ID
+        vol, sl = vols[i % n_volumes]
+        requests.append(dict(prompt_ids=ids, max_new=int(rng.integers(16, 65)),
+                             volume=vol, slice_features=sl))
+    return requests
+
+
+def make_engine(model, **kw):
+    import torch
+
+    from hsenet_torch.serving import ServingEngine
+
+    settings = dict(eos_token_id=EOS_TOKEN_ID, num_slots=SERVE_SLOTS,
+                    prompt_cap=SERVE_PROMPT_CAP, max_new_tokens=SERVE_MAX_NEW,
+                    chunk_size=SERVE_CHUNK, cache_dtype=torch.bfloat16,
+                    multimodal=True, volume_cache_size=4, kv_prefix_cache_size=4)
+    settings.update(kw)
+    return ServingEngine(model, **settings)
+
+
+def reset_counts():
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    tfa.reset_launch_counts()
+    tqm.reset_launch_counts()
+
+
+def check_serve_counts(tag, cfg, eng, n_requests, results, expect):
+    """The checks every serving run shares: all requests finished with
+    tokens inside the vocabulary and within their budgets, the hit and miss
+    counters as expected, B1 launched 24 times per encode miss (two towers
+    of 12 blocks) + 32 times per admission (one per LLM layer), and B5 224
+    times (7 projections x 32 layers) per decode step run."""
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    tokens = [t for toks in results.values() for t in toks]
+    if len(results) != n_requests or not all(
+            0 <= t < cfg.llm.vocab_size for t in tokens) or not all(results.values()):
+        raise AssertionError(f"{tag}: a request did not finish, or a token "
+                             "lies outside the vocabulary")
+    got = {k: getattr(eng, k) for k in ("encode_misses", "encode_hits",
+                                         "prefix_misses", "prefix_hits")}
+    want_b1 = {"d64": 2 * cfg.vision.num_layers * eng.encode_misses,
+               "d128": cfg.llm.num_layers * n_requests}
+    got_b1 = {"d64": tfa.fwd_launches[(64, False)],
+              "d128": tfa.fwd_launches[(128, False)]}
+    per_step = 7 * cfg.llm.num_layers
+    want_b5 = per_step * eng.steps_run
+    print(f"[{tag}] {n_requests} requests finished, {len(tokens)} tokens, "
+          f"{eng.steps_run} decode steps in {eng.steps_run // eng.chunk} "
+          f"chunks; {got} (expected {expect}); flash_fwd launches {got_b1} "
+          f"(expected {want_b1}: 24 per encode miss, 32 per admission); "
+          f"quant_matvec launches {tqm.launches['quant_matvec']} (expected "
+          f"{want_b5} = {per_step} x {eng.steps_run} steps)")
+    if any(got[k] != v for k, v in expect.items()):
+        raise AssertionError(f"{tag}: hit/miss counts {got}, expected {expect}")
+    if got_b1 != want_b1 or sum(tfa.launches.values()) != sum(want_b1.values()):
+        raise AssertionError(f"{tag}: flash launches {got_b1}, not {want_b1}")
+    if tqm.launches["quant_matvec"] != want_b5 or want_b5 == 0:
+        raise AssertionError(f"{tag}: quant_matvec launched "
+                             f"{tqm.launches['quant_matvec']} times, not {want_b5}")
+    return {"tokens": len(tokens), "decode_steps": eng.steps_run,
+            "flash_fwd_launches": got_b1,
+            "quant_matvec_launches": tqm.launches["quant_matvec"], **got}
+
+
+def run_serve_path(card: str, cfg, model):
+    """[serve]: the full-width engine at the CLI's defaults. 12 requests
+    over 4 scans closed loop (counted), then 8 more through run_open_loop
+    (counted again)."""
+    import torch
+
+    from hsenet_torch.serving import run_open_loop
+
+    eng = make_engine(model)
+    if eng.capacity != SERVE_CAPACITY:
+        raise AssertionError(f"cache rows of {eng.capacity} slots, not {SERVE_CAPACITY}")
+    requests = serving_traffic(cfg, 20, 4, seed=11)
+    closed, opened = requests[:12], requests[12:]
+    # warm-up off the record: one request through every program the run
+    # uses (encode, full prefill, prefix-hit prefill, a decode chunk)
+    warm = make_engine(model, num_slots=SERVE_SLOTS)
+    for req in serving_traffic(cfg, 2, 1, seed=12):
+        warm.submit(**{**req, "max_new": 4})
+    warm.run_until_drained()
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the serving path, counted
+    t0 = time.perf_counter()
+    for req in closed:
+        eng.submit(**req)
+    results = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = check_serve_counts(
+        "serve", cfg, eng, 12, results,
+        {"encode_misses": 4, "encode_hits": 0, "prefix_misses": 4,
+         "prefix_hits": 8})
+    stats = eng.latency_stats()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    numbers = {
+        "closed_loop": {
+            **counts, "wall_s": wall, "tokens_per_s": counts["tokens"] / wall,
+            "slot_utilization": eng.utilization, "latency": stats,
+            "peak_memory_gb": peak_gb, "hbm": eng.hbm_stats(),
+        },
+        "slots": SERVE_SLOTS, "chunk": SERVE_CHUNK, "capacity": eng.capacity,
+    }
+    print(f"[serve] on {card}: closed loop, 12 requests over 4 scans, "
+          f"{SERVE_SLOTS} slots: {counts['tokens']} tokens in {wall:.2f} s = "
+          f"{counts['tokens'] / wall:.1f} tokens/s, slot utilization "
+          f"{eng.utilization:.3f}, TTFT p50/p99 {stats['ttft_p50_s']:.3f}/"
+          f"{stats['ttft_p99_s']:.3f} s, TPOT p50/p99 {stats['tpot_p50_s'] * 1e3:.1f}/"
+          f"{stats['tpot_p99_s'] * 1e3:.1f} ms, latency p50/max "
+          f"{stats['p50_s']:.2f}/{stats['max_s']:.2f} s, peak memory "
+          f"{peak_gb:.2f} GB, hbm_stats {eng.hbm_stats()}")
+    print(f"[serve] first tokens of each request: "
+          f"{[toks[:4] for toks in results.values()]}")
+
+    # open loop: 8 more questions about the same 4 scans, one every 0.25 s,
+    # on a fresh engine so that its counters and latencies are its own
+    eng = make_engine(model)
+    offsets = [0.25 * i for i in range(len(opened))]
+    reset_counts()
+    results, makespan = run_open_loop(eng, opened, offsets)
+    torch.cuda.synchronize()
+    counts = check_serve_counts(
+        "serve", cfg, eng, 8, results,
+        {"encode_misses": 4, "prefix_misses": 4, "prefix_hits": 4})
+    stats = eng.latency_stats()
+    numbers["open_loop"] = {
+        **counts, "makespan_s": makespan, "arrival_offsets_s": offsets,
+        "tokens_per_s": counts["tokens"] / makespan,
+        "slot_utilization": eng.utilization, "latency": stats,
+    }
+    print(f"[serve] open loop, 8 requests arriving every 0.25 s: makespan "
+          f"{makespan:.2f} s, {counts['tokens'] / makespan:.1f} tokens/s, slot "
+          f"utilization {eng.utilization:.3f}, TTFT p50/p99 "
+          f"{stats['ttft_p50_s']:.3f}/{stats['ttft_p99_s']:.3f} s, TPOT p50/p99 "
+          f"{stats['tpot_p50_s'] * 1e3:.1f}/{stats['tpot_p99_s'] * 1e3:.1f} ms")
+    return numbers
+
+
+def rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def admission_logits(eng, request):
+    """The first-token logits (1, V) of one admission of `eng`, through the
+    engine's own admission code into slot 0."""
+    import torch
+
+    from hsenet_torch.serving import _Request
+
+    req = _Request(uid=-1, prompt=request["prompt_ids"].astype("int32"),
+                   max_new=1, volume=request["volume"],
+                   slices=request["slice_features"])
+    with torch.inference_mode():
+        return eng._prefill(req, eng._slot_row(0))
+
+
+def check_serve_logits(cfg, model):
+    """One decode step's logits through B5 against the same step through
+    its plain version, and a KV-prefix hit's first-token logits against a
+    full prefill of the same request; each limit beside a wrong variant."""
+    import torch
+
+    from hsenet_torch.models.phi3 import KVCache
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, prompt = SERVE_SLOTS, 320
+    ids = torch.randint(3, 100000, (b, prompt), generator=gen, device=dev)
+    lens = torch.randint(200, prompt + 1, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    sound = tqm.quant_matvec_kernel
+    with torch.inference_mode():
+        cache = KVCache.create(cfg.llm, b, SERVE_CAPACITY, device=dev)
+        logits, cache = model.llm(ids, kv_lens=lens, cache=cache,
+                                  last_token_only=True)
+        token = logits[:, 0].argmax(dim=-1, keepdim=True)
+        lengths = cache.lengths
+
+        def step(matvec):
+            # the step writes each row's new key at `lengths`, so every
+            # variant starts from the same cache
+            tqm.quant_matvec_kernel = matvec
+            try:
+                out, _ = model.decode_step(
+                    token, KVCache(k=cache.k, v=cache.v, lengths=lengths))
+            finally:
+                tqm.quant_matvec_kernel = sound
+            return out
+
+        reset_counts()
+        through_kernel = step(sound)
+        launched = tqm.launches["quant_matvec"]
+        plain = step(tqm.quant_matvec_int8_reference)
+        plain64 = step(lambda x, w, s: (
+            x.double() @ w.double().t() * s.double()).to(x.dtype))
+        wrong = step(lambda x, w, s: tqm.quant_matvec_int8_reference(
+            x, w, s.roll(1)))
+    if launched != 7 * cfg.llm.num_layers:
+        raise AssertionError(f"a decode step launched quant_matvec {launched} times")
+    if not torch.isfinite(through_kernel.float()).all():
+        raise AssertionError("decode logits are not finite")
+    rel, wrong_rel = rel_l2(through_kernel, plain), rel_l2(wrong, plain)
+    floor = rel_l2(plain64, plain)
+    same = (through_kernel.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    print(f"[serve] one decode step at {b} slots, logits through quant_matvec "
+          f"vs through its plain version: rel L2 {rel:.3e} (tol "
+          f"{DECODE_LOGITS_REL_L2}), same argmax in {same:.0%} of rows; the "
+          f"plain version summed in f64 vs in f32: {floor:.3e}; with the "
+          f"scales shifted by one channel: {wrong_rel:.3e}")
+    if rel > DECODE_LOGITS_REL_L2:
+        raise AssertionError("decode logits through the matvec kernel disagree "
+                             "with the plain version")
+    if wrong_rel <= DECODE_LOGITS_REL_L2:
+        raise AssertionError("the decode logits limit passes shifted scales")
+    numbers = {"decode_logits_rel_l2": rel, "decode_shifted_scales_rel_l2": wrong_rel,
+               "decode_plain_f64_vs_f32_rel_l2": floor,
+               "decode_same_argmax": same}
+
+    # a KV-prefix hit against a full prefill of the same request
+    first, second = serving_traffic(cfg, 2, 1, seed=13)
+    hit_eng = make_engine(model, num_slots=1)
+    full_eng = make_engine(model, num_slots=1, kv_prefix_cache_size=0)
+    admission_logits(hit_eng, first)  # the miss that fills the prefix cache
+    hit = admission_logits(hit_eng, second)
+    full = admission_logits(full_eng, second)
+    if (hit_eng.prefix_misses, hit_eng.prefix_hits) != (1, 1):
+        raise AssertionError("the second question about a scan was no prefix hit")
+    # the wrong variant: the hit resumes 64 positions early (positions and
+    # the causal offset both off by 64)
+    n = SERVE_PREFIX - 64
+    row = hit_eng._slot_row(0)
+    with torch.inference_mode():
+        for target, cached in zip((row.k, row.v),
+                                  next(iter(hit_eng._kv_prefix_cache.values()))):
+            target[:, :, :, :n] = cached[:, :, :, :n]
+        row.lengths.fill_(n)
+        q_ids, q_len = hit_eng._padded(second["prompt_ids"][SERVE_PREFIX:],
+                                       SERVE_PROMPT_CAP - SERVE_PREFIX)
+        early, _ = model.prefill_continue(q_ids, row, q_len)
+    rel, early_rel = rel_l2(hit, full), rel_l2(early, full)
+    same = bool(hit.argmax(-1) == full.argmax(-1))
+    print(f"[serve] first-token logits of a KV-prefix hit "
+          f"({SERVE_PROMPT_CAP - SERVE_PREFIX} question rows at offset "
+          f"{SERVE_PREFIX}) vs a full prefill of the same request: "
+          f"rel L2 {rel:.3e} (tol {PREFIX_LOGITS_REL_L2}), same first token: "
+          f"{same}; a hit resumed 64 positions early: {early_rel:.3e}")
+    if rel > PREFIX_LOGITS_REL_L2:
+        raise AssertionError("a prefix hit's logits disagree with a full prefill")
+    if early_rel <= PREFIX_LOGITS_REL_L2:
+        raise AssertionError("the prefix-hit logits limit passes a hit resumed "
+                             "64 positions early")
+    numbers.update(prefix_hit_rel_l2=rel, prefix_hit_early_rel_l2=early_rel,
+                   prefix_hit_same_first_token=same)
+    return numbers
+
+
+def run_serve_kv_int8(cfg, model):
+    """[serve-kv-int8]: the same engine with an int8 KV cache: 4 requests
+    over 2 scans (two prefix hits), and first-token logits of a miss and a
+    hit against the bf16-cache engine."""
+    import torch
+
+    traffic = serving_traffic(cfg, 6, 2, seed=14)
+    requests = traffic[:4]
+    eng = make_engine(model, cache_dtype=torch.int8)
+    if eng._cache.k.dtype != torch.int8 or eng._cache.k_scale is None:
+        raise AssertionError("the engine's cache is not int8")
+    reset_counts()
+    for req in requests:
+        eng.submit(**req)
+    results = eng.run_until_drained()
+    counts = check_serve_counts(
+        "serve-kv-int8", cfg, eng, 4, results,
+        {"encode_misses": 2, "prefix_misses": 2, "prefix_hits": 2})
+
+    # first-token logits, admission by admission, against the bf16 cache
+    q_eng = make_engine(model, num_slots=1, cache_dtype=torch.int8)
+    b_eng = make_engine(model, num_slots=1)
+    rels = {}
+    for kind, req in zip(("miss", "hit"), requests[::2]):  # scan 0 twice
+        rels[kind] = rel_l2(admission_logits(q_eng, req),
+                            admission_logits(b_eng, req))
+    if (q_eng.prefix_misses, q_eng.prefix_hits) != (1, 1):
+        raise AssertionError("expected one prefix miss and one hit")
+    # the wrong variant: a third question about the scan, admitted from a
+    # cached prefix that carries its codes but not their scales
+    with torch.inference_mode():
+        for pkv in q_eng._kv_prefix_cache.values():
+            pkv[2].zero_()
+            pkv[3].zero_()
+    wrong = rel_l2(admission_logits(q_eng, traffic[4]),
+                   admission_logits(b_eng, traffic[4]))
+    if (q_eng.prefix_hits, b_eng.prefix_hits) != (2, 2):
+        raise AssertionError("the third question about a scan was no prefix hit")
+    print(f"[serve-kv-int8] first-token logits, int8 cache vs bf16 cache: rel "
+          f"L2 " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (tol {KV_INT8_LOGITS_REL_L2}); a hit whose cached prefix lost "
+          f"its scales: {wrong:.3e}; cache {eng._cache.k.numel() * 2 / 1e9:.2f} GB of "
+          f"codes + {eng._cache.k_scale.numel() * 8 / 1e9:.3f} GB of scales")
+    if max(rels.values()) > KV_INT8_LOGITS_REL_L2:
+        raise AssertionError("int8-cache logits disagree with the bf16 cache")
+    if wrong <= KV_INT8_LOGITS_REL_L2:
+        raise AssertionError("the int8-cache logits limit passes a prefix "
+                             "without its scales")
+    return {**counts, "logits_rel_l2": rels, "prefix_without_scales_rel_l2": wrong}
+
+
+def run_serve_long(cfg, model):
+    """[serve-long]: an engine with a 2048-token output budget, so that
+    every prefill attends over a 2576-slot row (where the TPU's dispatch
+    picks its streaming kernel): 2 slots, two requests about two scans."""
+    eng = make_engine(model, num_slots=2, max_new_tokens=SERVE_LONG_MAX_NEW)
+    if eng.capacity != SERVE_LONG_CAPACITY or eng._cache.k.shape[3] != SERVE_LONG_CAPACITY:
+        raise AssertionError(f"cache rows of {eng.capacity} slots")
+    requests = serving_traffic(cfg, 2, 2, seed=15)
+    reset_counts()
+    for req in requests:
+        eng.submit(**{**req, "max_new": 24})
+    t0 = time.perf_counter()
+    results = eng.run_until_drained()
+    wall = time.perf_counter() - t0
+    counts = check_serve_counts(
+        "serve-long", cfg, eng, 2, results,
+        {"encode_misses": 2, "prefix_misses": 2, "prefix_hits": 0})
+    print(f"[serve-long] cache rows of {eng.capacity} slots, 2 requests of 24 "
+          f"tokens in {wall:.2f} s; every prefill ran flash_fwd over the "
+          f"{eng.capacity}-slot row")
+    return {**counts, "capacity": eng.capacity, "wall_s": wall}
+
+
+def profile_serve(cfg, model):
+    """[profile] of one admission that misses every cache, one that hits
+    the KV-prefix cache, and one decode chunk with 8 live slots."""
+    import torch
+
+    eng = make_engine(model)
+    first, second = serving_traffic(cfg, 2, 1, seed=16)
+
+    def miss():
+        eng._kv_prefix_cache.clear()
+        eng._vol_cache.clear()
+        admission_logits(eng, first)
+
+    def hit():
+        admission_logits(eng, second)
+
+    miss()
+    profiles = {
+        "admission_miss": profile_phase("admission, miss (encode + 512-row "
+                                        "prefill)", miss, median_wall_ms(miss)),
+        "admission_prefix_hit": profile_phase("admission, prefix hit (255-row "
+                                              "prefill)", hit, median_wall_ms(hit)),
+    }
+    eng = make_engine(model)
+    for req in serving_traffic(cfg, SERVE_SLOTS, 4, seed=17):
+        eng.submit(**{**req, "max_new": SERVE_MAX_NEW})
+    with torch.inference_mode():
+        eng._admit()
+
+        def chunk():
+            eng._decode_chunk().cpu()
+
+        chunk()
+        wall = median_wall_ms(chunk, runs=3)
+        profiles["decode_chunk"] = profile_phase(
+            f"decode chunk ({SERVE_CHUNK} steps x {SERVE_SLOTS} slots)", chunk,
+            wall, top=10)
+    profiles["decode_chunk"]["tokens_per_s"] = SERVE_SLOTS * SERVE_CHUNK / (wall / 1e3)
+    print(f"[profile] decode chunk: {wall / SERVE_CHUNK:.2f} ms a step, "
+          f"{profiles['decode_chunk']['tokens_per_s']:.1f} tokens/s with "
+          f"{SERVE_SLOTS} live slots")
+
+    # two conversions of int8 codes that the plain expressions make on every
+    # call, timed alone: the tied LM head of a decode step (the whole table
+    # to bf16, then the product), and one layer's gate projection at an
+    # admission's 512 rows (above the matvec's 8 rows: codes to bf16, then
+    # the GEMM)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    llm = model.llm
+    gate = llm.decoder.layers[0].gate_proj
+    hidden = torch.randn(SERVE_SLOTS, 1, cfg.llm.hidden_size, generator=gen,
+                         device="cuda", dtype=torch.bfloat16)
+    rows = torch.randn(1, SERVE_PROMPT_CAP, cfg.llm.hidden_size, generator=gen,
+                       device="cuda", dtype=torch.bfloat16)
+    with torch.inference_mode():
+        table = llm.embed.embedding_q.to(torch.bfloat16)
+        gate_w = gate.weight_q.to(torch.bfloat16)
+        conversions = {
+            "lm_head_ms": time_ms(lambda: llm.compute_logits(hidden)),
+            "lm_head_convert_ms": time_ms(
+                lambda: llm.embed.embedding_q.to(torch.bfloat16)),
+            "lm_head_product_ms": time_ms(lambda: hidden @ table.t()),
+            "gate_512_rows_ms": time_ms(lambda: gate(rows)),
+            "gate_512_rows_convert_ms": time_ms(
+                lambda: gate.weight_q.to(torch.bfloat16)),
+            "gate_512_rows_product_ms": time_ms(lambda: rows @ gate_w.t()),
+        }
+    del table, gate_w
+    profiles["conversions"] = conversions
+    print("[profile] int8 conversions of the plain expressions, device ms: "
+          + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in conversions.items())
+          + f" (LM head {cfg.llm.vocab_size} x {cfg.llm.hidden_size} at "
+          f"{SERVE_SLOTS} rows; gate projection at {SERVE_PROMPT_CAP} rows)")
+    return profiles
+
+
 def main() -> int:
     try:
         import torch
@@ -1043,10 +1739,11 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
 
     from hsenet_torch.ops import _build
+    from hsenet_torch.ops import quant_matvec as tqm
     from hsenet_torch.ops.flash_attention import KERNELS
 
     t0 = time.perf_counter()
-    _build.load_all(KERNELS)  # one nvcc per source, all at once
+    _build.load_all((*KERNELS, tqm.KERNEL))  # one nvcc per source, all at once
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(_build.BUILD_LOGS) or 'cached'}")
     for name, log in _build.BUILD_LOGS.items():
@@ -1056,6 +1753,7 @@ def main() -> int:
 
     per_shape = check_flash_kernel()
     bwd = check_flash_bwd_kernels()
+    matvec = check_matvec_kernel()
     launches, counts, numbers = run_main_path(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1063,12 +1761,38 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     grad_numbers = check_train_grads()
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_cfg, serve_model = build_serving_model()
+    serve_numbers = run_serve_path(card, serve_cfg, serve_model)
+    serve_numbers["logits"] = check_serve_logits(serve_cfg, serve_model)
+    serve_numbers["kv_int8"] = run_serve_kv_int8(serve_cfg, serve_model)
+    serve_numbers["long"] = run_serve_long(serve_cfg, serve_model)
+    serve_numbers["profiles"] = profile_serve(serve_cfg, serve_model)
 
-    # launches on the main paths, by shape: one generate run and one
-    # training step (its towers run at the tower shape)
-    fwd_counts = {"tower": counts["tower"] + train_counts["fwd_d64"],
-                  "prefill": counts["prefill"],
-                  "train": train_counts["fwd_d128_lse"]}
+    # launches on the main paths, by shape: one generate run, one training
+    # step (its towers run at the tower shape) and the counted serving runs
+    # (closed loop, open loop, the long-budget engine): 24 tower launches
+    # per encode miss, 32 per admission at its prefill shape
+    served = (serve_numbers["closed_loop"], serve_numbers["open_loop"])
+    long_run = serve_numbers["long"]
+    fwd_counts = {
+        "tower": counts["tower"] + train_counts["fwd_d64"] + sum(
+            r["flash_fwd_launches"]["d64"] for r in (*served, long_run)),
+        "prefill": counts["prefill"],
+        "train": train_counts["fwd_d128_lse"],
+        "serve_prefill": 32 * sum(r["prefix_misses"] for r in served),
+        "serve_prefix_hit": 32 * sum(r["prefix_hits"] for r in served),
+        "serve_long": long_run["flash_fwd_launches"]["d128"],
+    }
+    # the matvec's launches at 8 rows: the decode steps of the closed and
+    # open loops (the long-budget engine runs 2 slots)
+    matvec_steps = sum(r["decode_steps"] for r in served)
+    matvec_counts = {name: 32 * per_layer * matvec_steps
+                     for name, per_layer in MATVEC_PER_LAYER.items()}
+    if sum(matvec_counts.values()) != sum(
+            r["quant_matvec_launches"] for r in served):
+        raise AssertionError("quant_matvec launches by shape do not add up")
     bwd_counts = {"flash_bwd_dq": {"train": train_counts["dq"]},
                   "flash_bwd_dkv": {"train": train_counts["dkv"]}}
 
@@ -1096,8 +1820,9 @@ def main() -> int:
                        for s in shapes},
         }
 
-    note = ("sums over one generate run and one training step: per-launch "
-            "times at each shape x its launches there")
+    note = ("sums over one generate run, one training step and the counted "
+            "serving runs (closed loop, open loop, long-budget engine): "
+            "per-launch times at each shape x its launches there")
     kernels = [
         entry("flash_fwd", "hsenet_torch/csrc/flash_fwd.cu",
               "hsenet_tpu/ops/flash_attention.py:109", per_shape, fwd_counts,
@@ -1110,10 +1835,15 @@ def main() -> int:
               "hsenet_tpu/ops/flash_attention.py:611", bwd["flash_bwd_dkv"],
               bwd_counts["flash_bwd_dkv"],
               note + "; plain and library times compute dQ, dK and dV"),
+        entry("quant_matvec", "hsenet_torch/csrc/quant_matvec.cu",
+              "hsenet_tpu/ops/quant_matvec.py:42", matvec, matvec_counts,
+              "sums over the decode steps of the closed and open serving loops "
+              "at 8 slots: per-launch times at each (K, N), codes read cold, x its "
+              "launches there; library is a matmul on a bf16 copy of the weight"),
     ]
     print(json.dumps({"kernels": kernels, "main_path": numbers,
                       "train": train_numbers, "train_grads": grad_numbers,
-                      "card": card}))
+                      "serve": serve_numbers, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

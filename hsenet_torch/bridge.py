@@ -9,11 +9,16 @@ returns a state_dict that the matching port module accepts with
   * LayerNorm / RMSNorm `scale` -> `weight`; `bias` stays `bias`;
   * Embed `embedding` -> `weight` (it also serves the tied LM head);
   * `pos_embed`, `cls_token`, `lora_a`, `lora_b` keep name and layout;
+  * int8 leaves become the int8 / f32 buffers of the port's modules and
+    keep their dtype: `kernel_q` (in, out) int8 -> `weight_q` (out, in),
+    transposed like `kernel`, so that one output channel is one
+    contiguous row of codes, the layout the int8 matvec kernel reads;
+    `kernel_scale` -> `weight_scale`; a `QuantEmbed`'s `embedding_q` and
+    its per-row `scale` keep name and layout;
   * `nn.scan` stacks (`tower/blocks` of the ViT towers, `decoder/layers`
     of the Phi decoder) are unstacked on axis 0 into `ModuleList` entries.
 
-A leaf of any other name raises (for example the int8 `kernel_q` of the
-serving slice), so nothing is dropped silently.
+A leaf of any other name raises, so nothing is dropped silently.
 
 `load_flax(module, params)` loads the whole tree (LoRA leaves included)
 into a port module, strictly; for a training module it checks that every
@@ -29,7 +34,8 @@ import torch
 from torch import nn
 
 _SCAN_STACKS = (("tower", "blocks"), ("decoder", "layers"))
-_SAME_NAME = ("bias", "pos_embed", "cls_token", "lora_a", "lora_b")
+_SAME_NAME = ("bias", "pos_embed", "cls_token", "lora_a", "lora_b",
+              "embedding_q")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -41,11 +47,16 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield path, value
 
 
-def _leaf(name: str, value: np.ndarray, path) -> Tuple[str, np.ndarray]:
-    if name == "kernel":
+def _leaf(name: str, value: np.ndarray, path,
+          quant_embed: bool = False) -> Tuple[str, np.ndarray]:
+    if name in ("kernel", "kernel_q"):
         if value.ndim != 2:
             raise ValueError(f"{'/'.join(path)}: Dense kernel of shape {value.shape}")
-        return "weight", value.T
+        return ("weight" if name == "kernel" else "weight_q"), value.T
+    if name == "kernel_scale":
+        return "weight_scale", value
+    if name == "scale" and quant_embed:  # a QuantEmbed's per-row scales
+        return "scale", value
     if name in ("scale", "embedding"):
         return "weight", value
     if name in _SAME_NAME:
@@ -65,15 +76,19 @@ def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     if set(params) == {"params"}:
         params = params["params"]
     state = {}
-    for path, value in _flatten(params):
-        value = np.asarray(value, dtype=np.float32)
+    flat = dict(_flatten(params))
+    for path, value in flat.items():
+        value = np.asarray(value)
+        if value.dtype != np.int8:
+            value = value.astype(np.float32)
+        quant_embed = path[:-1] + ("embedding_q",) in flat
         at = _stack_at(path)
         if at is None:
-            name, arr = _leaf(path[-1], value, path)
+            name, arr = _leaf(path[-1], value, path, quant_embed)
             state[".".join(path[:-1] + (name,))] = torch.tensor(arr)
             continue
         for i, layer_value in enumerate(value):  # unstack the scan axis
-            name, arr = _leaf(path[-1], layer_value, path)
+            name, arr = _leaf(path[-1], layer_value, path, quant_embed)
             key = path[:at] + (str(i),) + path[at:-1] + (name,)
             state[".".join(key)] = torch.tensor(arr)
     return state

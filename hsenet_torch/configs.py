@@ -140,7 +140,8 @@ class Phi3Config:
     tie_word_embeddings: bool = True
     attention_bias: bool = False
     lora: Optional[LoRAConfig] = None
-    # int8 weight-only projections / embedding (the serving slice)
+    # int8 weight-only projections (`LoRADense(quantized=True)`) and
+    # embedding with its tied LM head (`QuantEmbed`)
     quant_int8: bool = False
     quant_int8_embed: bool = False
 

@@ -1,39 +1,75 @@
-"""LoRA dense layer (the port of the JAX package's
-models/lora.py::LoRADense).
+"""LoRA dense layer, the int8 weight-only forms and their converters (the
+port of the JAX package's models/lora.py: `LoRADense`, `QuantEmbed`,
+`merge_lora`, `quantize_kernels_int8`, `quantize_embed_int8`).
 
-The base weight keeps the name `weight` (the Linear layout, (out, in)) and
-the adapters are `lora_a` (in, r) and `lora_b` (r, out), in the JAX
-package's layout. y = x W^T + b + (drop(x) A) B * alpha / r, with LoRA
-dropout on the adapter's input only. Every weight is cast to the compute
-dtype at use, so the adapters can be held as f32 masters for training over
-a bf16 base. The int8 weight-only form comes with the serving slice.
+`LoRADense`: the base weight keeps the name `weight` (the Linear layout,
+(out, in)) and the adapters are `lora_a` (in, r) and `lora_b` (r, out), in
+the JAX package's layout. y = x W^T + b + (drop(x) A) B * alpha / r, with
+LoRA dropout on the adapter's input only. Every weight is cast to the
+compute dtype at use, so the adapters can be held as f32 masters for
+training over a bf16 base.
+
+With `quantized=True` the base weight is two buffers instead: `weight_q`,
+int8 codes laid out (out, in) like `weight` (one output channel is one
+contiguous row, the layout `ops/quant_matvec.py`'s kernel reads), and
+`weight_scale`, one f32 scale per output channel. The product goes through
+`ops.quant_matvec.quant_matvec_int8`: at most 8 rows (decode) take the
+kernel's function, which applies the scale in f32 to the f32 sum before
+the cast; more rows (prefill) take the JAX layer's expression, the scale
+applied in the compute dtype after the product. In f32 the two differ by
+summation order only; in bf16 the expression rounds the product, the scale
+and their product where the kernel rounds once, so they lie at most 1.5
+bf16 units (2^-6 relative) apart.
+
+The converters work on the port's own state: a `state_dict` (name ->
+tensor) in, a new one out, which the module built with the matching
+`quant_int8` / `quant_int8_embed` / `lora=None` config loads strictly.
+They round half to even, clip at +-127 and floor the scale at 1e-8, and
+give the codes and scales the JAX package's converters give on the same
+float weights.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from hsenet_torch import resolve_device
 from hsenet_torch.configs import LoRAConfig
 from hsenet_torch.models.layers import Dense, dropout
+from hsenet_torch.ops.quant_matvec import quant_matvec_int8
+
+QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
+                 "gate_proj", "up_proj", "down_proj")
 
 
 class LoRADense(Dense):
-    """Dense with optional LoRA adapters, computing in `dtype`."""
+    """Dense with optional LoRA adapters and optional int8 weight-only
+    storage, computing in `dtype`."""
 
     def __init__(self, in_dim: int, features: int, *, use_bias: bool = False,
                  lora: Optional[LoRAConfig] = None, quantized: bool = False,
                  dtype=torch.float32, device="cuda"):
-        if quantized:
-            raise NotImplementedError(
-                "int8 LoRADense comes with the serving slice of the port"
-            )
         device = resolve_device(device)
-        super().__init__(in_dim, features, bias=use_bias, dtype=dtype,
-                         device=device)
+        if quantized:
+            # no float weight is ever allocated: codes and scales only
+            nn.Module.__init__(self)
+            self.in_features, self.out_features = in_dim, features
+            self.compute_dtype = dtype
+            self.register_parameter("weight", None)
+            self.register_buffer("weight_q", torch.zeros(
+                (features, in_dim), dtype=torch.int8, device=device))
+            self.register_buffer("weight_scale", torch.ones(
+                features, dtype=torch.float32, device=device))
+            self.register_parameter("bias", nn.Parameter(torch.zeros(
+                features, dtype=dtype, device=device)) if use_bias else None)
+        else:
+            super().__init__(in_dim, features, bias=use_bias, dtype=dtype,
+                             device=device)
+        self.quantized = quantized
         self.lora = lora
         if lora is not None:
             self.lora_a = nn.Parameter(
@@ -45,10 +81,110 @@ class LoRADense(Dense):
 
     def forward(self, x: torch.Tensor, *,
                 deterministic: bool = True) -> torch.Tensor:
-        x = x.to(self.compute_dtype)
-        y = super().forward(x)
+        dt = self.compute_dtype
+        x = x.to(dt)
+        if self.quantized:
+            y = quant_matvec_int8(x, self.weight_q, self.weight_scale)
+            if self.bias is not None:
+                y = y + self.bias.to(dt)
+        else:
+            y = super().forward(x)
         if self.lora is not None:
-            dt = self.compute_dtype
             h = dropout(x, self.lora.dropout_rate, deterministic)
             y = y + (h @ self.lora_a.to(dt)) @ self.lora_b.to(dt) * self.lora.scale
         return y
+
+
+class QuantEmbed(nn.Module):
+    """int8 weight-only embedding with a tied LM head (`attend`).
+
+    Buffers `embedding_q` (V, D) int8 and `scale` (V,) f32, one scale per
+    vocabulary row. The lookup gathers int8 rows and rescales them in
+    `dtype`; `attend` is a plain product against the table converted to
+    `dtype`, with the logits scaled after it."""
+
+    def __init__(self, vocab_size: int, features: int, *,
+                 dtype=torch.bfloat16, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.dtype = dtype
+        self.register_buffer("embedding_q", torch.zeros(
+            (vocab_size, features), dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(
+            vocab_size, dtype=torch.float32, device=device))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        ids = ids.long()
+        rows = self.embedding_q[ids].to(self.dtype)
+        return rows * self.scale[ids].to(self.dtype)[..., None]
+
+    def attend(self, hidden: torch.Tensor) -> torch.Tensor:
+        logits = F.linear(hidden.to(self.dtype), self.embedding_q.to(self.dtype))
+        return logits * self.scale.to(self.dtype)
+
+
+def _symmetric_int8(w: torch.Tensor):
+    """(rows, cols) float -> (int8 codes, (rows,) f32 scales), each row
+    quantised to its own largest |value|."""
+    w = w.detach().float()
+    scale = (w.abs().amax(dim=1, keepdim=True) / 127.0).clamp_min(1e-8)
+    q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale[:, 0]
+
+
+def quantize_kernels_int8(
+    state: Dict[str, torch.Tensor],
+    target_names: Sequence[str] = QUANT_TARGETS,
+) -> Dict[str, torch.Tensor]:
+    """`<target>.weight` (out, in) -> `<target>.weight_q` int8 and
+    `<target>.weight_scale` (out,) f32 for the named projection modules:
+    the state a `quant_int8=True` model loads."""
+    out = {}
+    for name, value in state.items():
+        parts = name.split(".")
+        if parts[-1] == "weight" and len(parts) > 1 and parts[-2] in target_names:
+            q, scale = _symmetric_int8(value)
+            prefix = name[: -len("weight")]
+            out[prefix + "weight_q"] = q
+            out[prefix + "weight_scale"] = scale
+        else:
+            out[name] = value
+    return out
+
+
+def quantize_embed_int8(state: Dict[str, torch.Tensor],
+                        embed_name: str = "embed") -> Dict[str, torch.Tensor]:
+    """`<embed_name>.weight` (V, D) -> `<embed_name>.embedding_q` int8 and
+    `<embed_name>.scale` (V,) f32: the state a `quant_int8_embed=True`
+    model loads."""
+    out = {}
+    for name, value in state.items():
+        parts = name.split(".")
+        if parts[-1] == "weight" and len(parts) > 1 and parts[-2] == embed_name:
+            q, scale = _symmetric_int8(value)
+            prefix = name[: -len("weight")]
+            out[prefix + "embedding_q"] = q
+            out[prefix + "scale"] = scale
+        else:
+            out[name] = value
+    return out
+
+
+def merge_lora(state: Dict[str, torch.Tensor],
+               scale_map=None) -> Dict[str, torch.Tensor]:
+    """Fold LoRA adapters into the base weights: wherever `weight`,
+    `lora_a` and `lora_b` stand together, weight + (lora_a @ lora_b)^T *
+    scale, and the adapters go. `scale_map` is the scale (alpha / r),
+    default 2.0 (32 / 16)."""
+    scale = 2.0 if scale_map is None else scale_map
+    out = {}
+    for name, value in state.items():
+        prefix, _, leaf = name.rpartition(".")
+        a, b = state.get(f"{prefix}.lora_a"), state.get(f"{prefix}.lora_b")
+        merged = a is not None and b is not None and f"{prefix}.weight" in state
+        if merged and leaf in ("lora_a", "lora_b"):
+            continue
+        if merged and leaf == "weight":
+            value = value + (a.to(value.dtype) @ b.to(value.dtype)).t() * scale
+        out[name] = value
+    return out

@@ -10,6 +10,10 @@ dual spatial packers + Phi LLM.
     (the JAX package's `stop_gradient` on their features).
   * `prefill` / `decode_step`: generation through `Phi3ForCausalLM` and a
     KV cache.
+  * `encode_images_only` / `prefill_with_features` / `prefill_continue`:
+    the serving engine's split admission: the towers once per volume, the
+    splice and LLM prefill per question, or only the question chunk over a
+    cache row that already holds the BOS + image-block keys and values.
 """
 
 from __future__ import annotations
@@ -113,6 +117,41 @@ class HSENetVLM(nn.Module):
         embeds = self.multimodal_embeds(input_ids, volume, slice_features)
         logits, cache = self.llm.decode_embeds(
             embeds, kv_lens=kv_lens, cache=cache, last_token_only=True
+        )
+        return logits[:, 0], cache
+
+    def encode_images_only(self, volume: torch.Tensor,
+                           slice_features: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """Vision side alone: towers + packers -> (B, n_img, llm_hidden),
+        the prompt-independent part of a multimodal prefill that the
+        serving engine keeps per volume."""
+        return self.encode_images(volume, slice_features, deterministic=True)
+
+    def prefill_with_features(self, input_ids: torch.Tensor,
+                              image_feats: torch.Tensor, cache: KVCache,
+                              kv_lens: torch.Tensor
+                              ) -> Tuple[torch.Tensor, KVCache]:
+        """Prefill from precomputed image features: splice + LLM only.
+        Composes with `encode_images_only` to what `prefill` computes."""
+        embeds = splice_image_embeds(self.llm.embed_tokens(input_ids),
+                                     image_feats)
+        logits, cache = self.llm.decode_embeds(
+            embeds, kv_lens=kv_lens, cache=cache, last_token_only=True
+        )
+        return logits[:, 0], cache
+
+    def prefill_continue(self, input_ids: torch.Tensor, cache: KVCache,
+                         kv_lens: torch.Tensor
+                         ) -> Tuple[torch.Tensor, KVCache]:
+        """Text-only continuation prefill: append a question chunk to a
+        cache row that already holds the prompt prefix. `kv_lens` counts
+        the new valid tokens of `input_ids`; positions and the causal mask
+        continue from `cache.lengths`. No splice: the chunk lies past the
+        image block."""
+        logits, cache = self.llm.decode_embeds(
+            self.llm.embed_tokens(input_ids), kv_lens=kv_lens, cache=cache,
+            last_token_only=True,
         )
         return logits[:, 0], cache
 

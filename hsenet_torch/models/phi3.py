@@ -18,6 +18,13 @@ its gradient through the backward kernels.
 package's "full" remat policy. The dropout generator's state at the start
 of each block is kept too, so the recomputed block draws the same masks.
 
+With `quant_int8` the seven projections of each block hold int8 codes
+(`models.lora.LoRADense(quantized=True)`), with `quant_int8_embed` the
+embedding and its tied LM head are a `QuantEmbed`. A cache created with
+`dtype=torch.int8` stores int8 codes with one f32 absmax scale per (layer,
+row, head, token): new keys and values are quantised where they are
+written and the cache is read back dequantised into the compute dtype.
+
 Unlike the JAX package, whose arrays are immutable, the port writes new
 keys and values into the cache in place and returns the same cache; this
 keeps one copy of the cache in device memory.
@@ -38,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from hsenet_torch import resolve_device
 from hsenet_torch.configs import Phi3Config
 from hsenet_torch.models.layers import current_dropout_rng, dropout_rng
-from hsenet_torch.models.lora import LoRADense
+from hsenet_torch.models.lora import LoRADense, QuantEmbed
 from hsenet_torch.ops.attention import multi_head_attention
 
 # prefill chunks shorter than this take the plain sdpa, as in the JAX package
@@ -47,30 +54,56 @@ FLASH_MIN_QUERY = 64
 
 @dataclass
 class KVCache:
-    """Static-shape bf16 KV cache, updated in place.
+    """Static-shape KV cache, updated in place.
 
     k, v: (num_layers, B, Hkv, T, D); lengths: (B,) int32 valid tokens per
-    row. The int8 cache comes with the serving slice."""
+    row. `dtype=torch.int8` at `create` switches on quantised storage:
+    k and v hold int8 codes and `k_scale` / `v_scale`, (num_layers, B, Hkv,
+    T) f32, their per-token absmax scales (None in a float cache)."""
 
     k: torch.Tensor
     v: torch.Tensor
     lengths: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, config: Phi3Config, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> "KVCache":
         device = resolve_device(device)
-        if dtype == torch.int8:
-            raise NotImplementedError(
-                "the int8 KV cache comes with the serving slice of the port"
-            )
         shape = (config.num_layers, batch, config.num_kv_heads, max_len,
                  config.head_dim)
+        quant = dtype == torch.int8
+
+        def scales():
+            return (torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                    if quant else None)
+
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
             lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+            k_scale=scales(),
+            v_scale=scales(),
         )
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def quantize_kv(x: torch.Tensor):
+    """(..., S, D) -> int8 codes + per-(..., S) f32 scales (absmax / 127,
+    floored at 1e-10)."""
+    x32 = x.float()
+    scale = (x32.abs().amax(dim=-1) / 127.0).clamp_min(1e-10)
+    q = torch.round(x32 / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Inverse of `quantize_kv`, computed in f32 and cast to `dtype`."""
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def _rope_cos_sin(positions: torch.Tensor, rotary_dim: int, theta: float,
@@ -149,13 +182,29 @@ def _update_cache_layer(cache_k, cache_v, k_new, v_new, lengths) -> None:
     """Write (B, Hkv, S, D) keys/values at per-row offsets `lengths`, in
     place. Offsets are clamped to [0, T - S] as `dynamic_update_slice`
     clamps them."""
-    batch, _, capacity, _ = cache_k.shape
-    s = k_new.shape[2]
-    start = lengths.long().clamp(0, capacity - s)
-    cols = start[:, None] + torch.arange(s, device=cache_k.device)  # (B, S)
-    rows = torch.arange(batch, device=cache_k.device)[:, None]
+    rows, cols = _write_index(cache_k, k_new.shape[2], lengths)
     cache_k[rows, :, cols] = k_new.transpose(1, 2).to(cache_k.dtype)
     cache_v[rows, :, cols] = v_new.transpose(1, 2).to(cache_v.dtype)
+
+
+def _write_index(cache_k, s: int, lengths):
+    """(rows (B, 1), cols (B, S)) of the cache slots that S new tokens per
+    row land in."""
+    batch, _, capacity, _ = cache_k.shape
+    start = lengths.long().clamp(0, capacity - s)
+    cols = start[:, None] + torch.arange(s, device=cache_k.device)
+    return torch.arange(batch, device=cache_k.device)[:, None], cols
+
+
+def _update_cache_layer_quant(cache_k, cache_v, k_scale, v_scale, kq, vq,
+                              ks_new, vs_new, lengths) -> None:
+    """Quantised-cache write, in place: int8 codes (B, Hkv, S, D) and their
+    scales (B, Hkv, S) land at the same per-row offsets."""
+    rows, cols = _write_index(cache_k, kq.shape[2], lengths)
+    cache_k[rows, :, cols] = kq.transpose(1, 2)
+    cache_v[rows, :, cols] = vq.transpose(1, 2)
+    k_scale[rows, :, cols] = ks_new.transpose(1, 2)
+    v_scale[rows, :, cols] = vs_new.transpose(1, 2)
 
 
 class Phi3Block(nn.Module):
@@ -184,8 +233,9 @@ class Phi3Block(nn.Module):
 
     def forward(self, x, cos, sin, kv_lens, layer_cache=None, *,
                 deterministic: bool = True):
-        """layer_cache: None or (k, v, lengths) with k/v (B, Hkv, T, D),
-        written in place."""
+        """layer_cache: None, (k, v, lengths) with k/v (B, Hkv, T, D), or
+        for an int8 cache (k, v, k_scale, v_scale, lengths); written in
+        place."""
         cfg = self.config
 
         def proj(name, t):
@@ -200,9 +250,20 @@ class Phi3Block(nn.Module):
         if layer_cache is None:
             attn = multi_head_attention(q, k, v, kv_lens=kv_lens, causal=True)
         else:
-            ck, cv, lengths = layer_cache
-            _update_cache_layer(ck, cv, k, v, lengths)
-            k_read, v_read = ck.to(q.dtype), cv.to(q.dtype)
+            if len(layer_cache) == 5:
+                # int8 cache: quantise the new rows, write codes and scales,
+                # read the cache back dequantised
+                ck, cv, ksc, vsc, lengths = layer_cache
+                kq, ks_new = quantize_kv(k)
+                vq, vs_new = quantize_kv(v)
+                _update_cache_layer_quant(ck, cv, ksc, vsc, kq, vq, ks_new,
+                                          vs_new, lengths)
+                k_read = dequantize_kv(ck, ksc, q.dtype)
+                v_read = dequantize_kv(cv, vsc, q.dtype)
+            else:
+                ck, cv, lengths = layer_cache
+                _update_cache_layer(ck, cv, k, v, lengths)
+                k_read, v_read = ck.to(q.dtype), cv.to(q.dtype)
             s = q.shape[2]
             if s == 1:
                 # decode: one query over the cache, plain sdpa
@@ -286,9 +347,13 @@ class Phi3Decoder(nn.Module):
                     preserve_rng_state=False,
                 )
                 continue
-            layer_cache = (
-                None if cache is None else (cache.k[i], cache.v[i], cache.lengths)
-            )
+            if cache is None:
+                layer_cache = None
+            elif cache.quantized:
+                layer_cache = (cache.k[i], cache.v[i], cache.k_scale[i],
+                               cache.v_scale[i], cache.lengths)
+            else:
+                layer_cache = (cache.k[i], cache.v[i], cache.lengths)
             x = layer(x, cos, sin, kv_lens, layer_cache,
                       deterministic=deterministic)
         if cache is not None:
@@ -300,20 +365,21 @@ class Phi3ForCausalLM(nn.Module):
     """Embeddings + decoder + LM head. `embed_tokens` and `decode_embeds`
     are exposed for the VLM's image-token splice. The embedding table (which
     also serves as the tied LM head) is cast to `dtype` at use, so it can be
-    held as an f32 master for training."""
+    held as an f32 master for training; with `quant_int8_embed` it is a
+    `QuantEmbed` (int8 rows, f32 per-row scales)."""
 
     def __init__(self, config: Phi3Config, *, dtype=torch.bfloat16,
                  device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
-        if config.quant_int8_embed:
-            raise NotImplementedError(
-                "the int8 embedding comes with the serving slice of the port"
-            )
         self.config = config
         self.dtype = dtype
-        self.embed = nn.Embedding(config.vocab_size, config.hidden_size,
-                                  dtype=dtype, device=device)
+        if config.quant_int8_embed:
+            self.embed = QuantEmbed(config.vocab_size, config.hidden_size,
+                                    dtype=dtype, device=device)
+        else:
+            self.embed = nn.Embedding(config.vocab_size, config.hidden_size,
+                                      dtype=dtype, device=device)
         self.decoder = Phi3Decoder(config, dtype=dtype, device=device,
                                    remat=remat)
         if not config.tie_word_embeddings:
@@ -324,8 +390,10 @@ class Phi3ForCausalLM(nn.Module):
         return self.embed(input_ids).to(self.dtype)
 
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        head = (self.embed if self.config.tie_word_embeddings
-                else self.lm_head).weight
+        tied = self.config.tie_word_embeddings
+        if tied and self.config.quant_int8_embed:
+            return self.embed.attend(hidden)
+        head = (self.embed if tied else self.lm_head).weight
         return F.linear(hidden.to(self.dtype), head.to(self.dtype))
 
     def decode_embeds(self, inputs_embeds: torch.Tensor, *,

@@ -67,7 +67,7 @@ class ViT3D(nn.Module):
         device = resolve_device(device)
         if config.quant_w8a8:
             raise NotImplementedError(
-                "the W8A8 ViT comes with the serving slice of the port"
+                "the W8A8 ViT (DenseW8A8) comes with a later slice of the port"
             )
         cfg = self.config = config
         self.patch_embed = PatchEmbed3D(

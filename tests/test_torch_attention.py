@@ -109,6 +109,32 @@ def test_flash_matches_jax_streaming_kernel(causal, sq, skv, d, kv_lens, q_off):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("kv_len,q_off", [(60, 0), (512, 0), (330, 257)])
+def test_flash_matches_jax_production_streaming_dispatch(kv_len, q_off):
+    """A serving engine with a 2048-token output budget prefills over a
+    2576-slot cache row (prompt cap 512 + 2048 + chunk 16). At that key
+    length and head_dim 128 the JAX package's own dispatch (`_needs_stream`
+    with the default blocks, no test hook) picks its streaming kernel; the
+    port's one tiled forward must compute the same function there. One
+    head and 96 query rows keep interpret mode quick (about a second);
+    S_kv is not cut. kv_len 60 cuts the causal rows short, 512 does not, and
+    offset 257 is a KV-prefix hit's question chunk."""
+    skv, d = 2576, 128
+    assert jfa._FORCE_STREAM is None
+    assert jfa._needs_stream(
+        jfa._round_up(skv, jfa.DEFAULT_BLOCK_K), d, jfa.DEFAULT_BLOCK_Q,
+        jfa.DEFAULT_BLOCK_K, 4)
+    assert not jfa._needs_stream(  # the CLI's default 1040-slot row does not
+        jfa._round_up(1040, jfa.DEFAULT_BLOCK_K), d, jfa.DEFAULT_BLOCK_Q,
+        jfa.DEFAULT_BLOCK_K, 4)
+    arrays = _inputs(6, 1, 1, 1, 96, skv, d)
+    got, want = _both(
+        jfa.flash_attention, flash_attention, arrays,
+        kv_lens=np.asarray([kv_len], np.int32), causal=True, q_offset=q_off,
+    )
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 @pytest.mark.parametrize("use_flash", [True, False])
 def test_gqa_multi_head_attention(use_flash):
     """24q/8kv-style grouping at toy size: 6 query heads over 2 kv heads."""

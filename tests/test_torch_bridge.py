@@ -72,6 +72,49 @@ def test_layouts(flax_params):
 
 
 def test_unknown_leaf_raises(flax_params):
-    tree = {"params": {"q_proj": {"kernel_q": np.zeros((4, 4), np.int8)}}}
-    with pytest.raises(KeyError, match="kernel_q"):
+    tree = {"params": {"q_proj": {"act_scale": np.zeros((), np.float32)}}}
+    with pytest.raises(KeyError, match="act_scale"):
         flax_to_torch(tree)
+
+
+def test_int8_tree_loads_strictly(flax_params):
+    """A tree from the JAX package's int8 converters (LoRA merged first)
+    loads strictly into the port's `quant_int8` + `quant_int8_embed` VLM:
+    codes stay int8, transposed like a float kernel and unstacked along the
+    scan axis; scales stay f32; a `QuantEmbed`'s `scale` keeps its name
+    while every norm's `scale` still becomes `weight`."""
+    import dataclasses
+
+    from hsenet_tpu.models.lora import (
+        merge_lora,
+        quantize_embed_int8,
+        quantize_kernels_int8,
+    )
+
+    tree = quantize_embed_int8(quantize_kernels_int8(merge_lora(flax_params)))
+    state = flax_to_torch(tree)
+    cfg = to_torch_config(dataclasses.replace(
+        TINY_VLM, llm=dataclasses.replace(
+            TINY_VLM.llm, lora=None, quant_int8=True, quant_int8_embed=True)))
+    model = HSENetVLM(cfg, dtype=torch.float32, device="cpu")
+    model.load_state_dict(state, strict=True)
+    assert set(state) == set(model.state_dict())
+    layers = tree["params"]["llm"]["decoder"]["layers"]
+    q = model.llm.decoder.layers[1].down_proj
+    assert q.weight_q.dtype == torch.int8 and q.weight_scale.dtype == torch.float32
+    np.testing.assert_array_equal(
+        q.weight_q.numpy(), layers["down_proj"]["kernel_q"][1].T)
+    np.testing.assert_array_equal(
+        q.weight_scale.numpy(), layers["down_proj"]["kernel_scale"][1])
+    embed = tree["params"]["llm"]["embed"]
+    assert model.llm.embed.embedding_q.dtype == torch.int8
+    np.testing.assert_array_equal(model.llm.embed.embedding_q.numpy(),
+                                  embed["embedding_q"])
+    np.testing.assert_array_equal(model.llm.embed.scale.numpy(), embed["scale"])
+    np.testing.assert_array_equal(
+        model.llm.decoder.norm.weight.detach().numpy(),
+        tree["params"]["llm"]["decoder"]["norm"]["scale"])
+    int8_names = [n for n, t in state.items() if t.dtype == torch.int8]
+    assert len(int8_names) == 7 * TINY_VLM.llm.num_layers + 1
+    # the towers and packers stay float parameters
+    assert all(n.startswith("llm.") for n in int8_names)
