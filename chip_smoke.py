@@ -75,7 +75,28 @@ In order:
    2 slots, two requests), launches counted; then [profile]s of one
    admission that misses, one that hits the prefix cache and one decode
    chunk with 8 live slots;
-12. prints one JSON line of kernel numbers, then as its last line
+12. [kernel] / [kernel-bwd] / [kernel-time] at the CLIP paths' shapes: the
+   tower at batch 24 (24 x 12 x 2049, d 64) and BERT (24 x 12 x 128, valid
+   lengths 32-128), the fine-patch tower at 2 x 12 x 16,385 where the TPU
+   streams its forward (B2) and backward (B4), and the LLM's causal 1 x 24
+   x 4096 x 128 at kv_len 4096 and 3000 (checked only); the plain versions
+   run a chunk of batch rows and heads at a time, wrong variants beside each
+   limit; times against the bound, the plain version and one SDPA call, and
+   the time per valid pair at 16,385 tokens within 1.5 times that at 2,049;
+13. [clip-stage1] trains `CLIPModel(CLIPConfig())` (ViT-B 3D tower + BERT-
+   base, bf16 over f32 masters, remat) at batch 24 through `Trainer` and
+   `make_stage1_train_step` on a repeated `SyntheticCTDataset` clip batch:
+   2 warm-up and 4 timed steps, the flash launches per step by shape, a
+   falling loss, one in-training retrieval eval and a profile of one step;
+14. [clip-stage2] trains the 2E3 student against that model as its frozen
+   teacher: 4 steps with the teacher recomputed, 4 served by a
+   `TeacherCache` (hits and misses counted), launches checked by step;
+15. [clip-grads] one stage-1 step's gradients at batch 6 through the kernels
+   against the plain sdpa path, per group, beside two planted faults;
+16. [clip-long] the stage-1 step at `--patch-size 2 8 8` (16,385 tower
+   tokens), batch 2: launches at that shape, finite losses, a non-zero
+   gradient in every tower block, step time, peak memory and a profile;
+17. prints one JSON line of kernel numbers, then as its last line
    {"ok": true, "device": {...}}.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -201,6 +222,33 @@ TRAIN_KV_LENS = (800, 700, 560)
 TRAIN_SEQ = 800
 TRAIN_WARMUP_STEPS = 2
 TRAIN_TIMED_STEPS = 6
+# the CLIP pretraining stages at the JAX CLIs' defaults: global batch 24,
+# text right-padded to 128 tokens, learning rate 1e-4 over a run of 1000
+# steps with 3% warmup (the phases run its first steps). The reports' valid
+# lengths are spread over 32-128, the last four cut at the cap (BOS + words
+# + EOS, truncated)
+CLIP_BATCH = 24
+CLIP_RUN_STEPS = 1000
+CLIP_TEXT_LENS = tuple(min(128, 32 + 5 * i) for i in range(CLIP_BATCH))
+CLIP_WARMUP_STEPS = 2
+CLIP_TIMED_STEPS = 4
+# stage 2: steps with the teacher recomputed, then steps served by the
+# teacher cache (the first of them fills it)
+CLIP2_STEPS = 4
+# [clip-grads]: the plain sdpa path holds 1.2 GB of f32 scores a layer at 6
+CLIP_GRADS_BATCH = 6
+CLIP_GRADS_WARM_STEPS = 5
+# [clip-long]: the finer patching of `--patch-size 2 8 8`, a (16, 32, 32)
+# grid: 16,384 patches + CLS, where the TPU streams the flash forward and
+# backward; batch 2, the least at which the contrastive loss has a gradient
+CLIP_LONG_PATCH = (2, 8, 8)
+CLIP_LONG_BATCH = 2
+CLIP_LONG_WARMUP_STEPS = 1
+CLIP_LONG_TIMED_STEPS = 2
+# the flash kernels' time per valid (query, key) pair at 16,385 tokens may be
+# this many times their time per pair at 2,049 (a kernel that walked tiles
+# it should skip, or thrashed at length, would break it)
+PAIR_TIME_RATIO = 1.5
 
 
 def card_line() -> str:
@@ -831,6 +879,220 @@ def check_flash_bwd_kernels():
                   f"backward, dQ, dK, dV) {library_ms:.4f} ms, bound "
                   f"{bound:.4f} ms ({bound_by}: {r['gflop']:.2f} GFLOP, "
                   f"{r['mbytes']:.2f} MB)")
+    return results
+
+
+def clip_kernel_cases():
+    """Every flash shape the CLIP paths launch, and the LLM's length past
+    which the TPU streams its backward (checked, launched by no path): (name,
+    (batch, heads, tokens, head_dim), kv_lens, causal, (batch rows, heads) a
+    plain call takes at once, the forward's kinds on the paths)."""
+    bert = CLIP_TEXT_LENS
+    fwd_both = ("flash_fwd", "flash_fwd_lse")  # teacher / eval, and trained
+    return [
+        ("clip_tower", (CLIP_BATCH, 12, 2049, 64), (2049,) * CLIP_BATCH, False,
+         (4, 12), fwd_both),
+        ("clip_bert", (CLIP_BATCH, 12, 128, 64), bert, False, (CLIP_BATCH, 12),
+         fwd_both),
+        ("clip_long", (CLIP_LONG_BATCH, 12, 16385, 64), (16385,) * CLIP_LONG_BATCH,
+         False, (1, 1), ("flash_fwd_lse",)),
+        ("clip_long_bert", (CLIP_LONG_BATCH, 12, 128, 64), bert[:CLIP_LONG_BATCH],
+         False, (CLIP_LONG_BATCH, 12), ("flash_fwd_lse",)),
+        ("llm_long_4096", (1, 24, 4096, 128), (4096,), True, (1, 24),
+         ("flash_fwd_lse",)),
+        ("llm_long_3000", (1, 24, 4096, 128), (3000,), True, (1, 24),
+         ("flash_fwd_lse",)),
+    ]
+
+
+def clip_shape_index():
+    """(kind, batch, heads, sq, skv, head_dim) of a launch -> (kernel, shape
+    name in the kernel JSON line), for every shape of `clip_kernel_cases`."""
+    index = {}
+    for name, (b, h, s, d), _, _, _, fwd_kinds in clip_kernel_cases():
+        for kind in fwd_kinds:
+            suffix = "_lse" if kind == "flash_fwd_lse" else ""
+            index[(kind, b, h, s, s, d)] = ("flash_fwd", name + suffix)
+        for kind in ("flash_bwd_dq", "flash_bwd_dkv"):
+            index[(kind, b, h, s, s, d)] = (kind, name)
+    return index
+
+
+def by_chunks(fn, b, h, rows, heads):
+    """`fn(i, hs)` over slices i of `rows` batch rows and hs of `heads`
+    heads, its outputs (each (rows, heads, ...)) put back together: the
+    plain versions at shapes where one call would hold too many f32 scores
+    (one 16,385-token head's are 1.07 GB)."""
+    import torch
+
+    full = None
+    for i0 in range(0, b, rows):
+        for h0 in range(0, h, heads):
+            i, hs = slice(i0, min(b, i0 + rows)), slice(h0, min(h, h0 + heads))
+            outs = fn(i, hs)
+            if full is None:
+                full = [torch.empty((b, h, *o.shape[2:]), dtype=o.dtype,
+                                    device=o.device) for o in outs]
+            for f, o in zip(full, outs):
+                f[i, hs] = o
+    return full
+
+
+def check_clip_kernels():
+    """B1 and B3 at the CLIP paths' shapes (the towers at batch 24, BERT at
+    24 x 12 x 128 with per-row kv_lens), B2 and B4's shapes (the fine-patch
+    tower, 2 x 12 x 16,385 x 64, and the LLM's causal 1 x 24 x 4096 x 128 at
+    kv_len 4096 and 3000) against the plain versions, a chunk of batch rows
+    and heads at a time, beside wrong variants (on the first chunk); each
+    timed against its bound, the plain version and one SDPA call (its
+    backward for dQ, dK/dV). The time per valid (query, key) pair at 16,385
+    tokens must stay within PAIR_TIME_RATIO of the time at 2,049."""
+    import torch
+    import torch.nn.functional as F
+    from einops import rearrange
+
+    from hsenet_torch.ops import flash_attention as tfa
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(9)
+    results = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for name, (b, h, s, d), kv_lens, causal, (rows, heads), fwd_kinds in (
+            clip_kernel_cases()):
+        # q, k, v: head-split views of one packed projection, as the towers
+        # hand them over
+        qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+        q, k, v = (rearrange(t, "b s (n d) -> b n s d", n=h)
+                   for t in qkv.chunk(3, dim=-1))
+        kv_t = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+        off_t = torch.zeros(b, dtype=torch.int32, device=dev)
+        q_off, scale = (0,) * b, d ** -0.5
+        shape = (f"q{tuple(q.shape)} causal={causal} kv_lens "
+                 f"{kv_lens if len(set(kv_lens)) > 1 else kv_lens[0]}")
+
+        def plain_fwd(with_lse):
+            return by_chunks(lambda i, hs: tfa.flash_attention_reference(
+                q[i, hs], k[i, hs], v[i, hs], kv_lens=kv_t[i], causal=causal,
+                q_offset=off_t[i], with_lse=True)[:1 + with_lse], b, h, rows, heads)
+
+        out, lse = tfa._forward_kernel(q, k, v, kv_t, off_t, causal, scale, True)
+        ref, ref_lse = plain_fwd(True)
+        max_abs, rel, ok = compare(out, ref)
+        lse_err = (lse - ref_lse).abs().max().item()
+        # wrong variants on the first chunk: the last 64 valid keys left out
+        # of the output and of the log-sum-exp (at 2,049 and 16,385 tokens
+        # the last 64-key tile holds one key)
+        i, hs = slice(0, min(rows, b)), slice(0, min(heads, h))
+        col = torch.arange(s, device=dev)[None, None, None, :]
+        _, drop_rel, drop_ok = compare(forward_dropping(
+            q[i, hs], k[i, hs], v[i, hs], kv_t[i], off_t[i], causal,
+            col >= kv_t[i, None, None, None] - 64), ref[i, hs])
+        _, short_lse = tfa.flash_attention_reference(
+            q[i, hs], k[i, hs], v[i, hs], kv_lens=kv_t[i] - 64, causal=causal,
+            q_offset=off_t[i], with_lse=True)
+        short_err = (short_lse - ref_lse[i, hs]).abs().max().item()
+        print(f"[kernel] flash_fwd {name}: {shape}: max_abs_err {max_abs:.3e}, "
+              f"max err / row's max |ref| {rel:.3e} (tol {KERNEL_ROW_TOL}), "
+              f"log-sum-exp max abs err {lse_err:.3e} (tol {LSE_ABS_TOL}); "
+              f"without the last 64 valid keys {drop_rel:.3e}, its log-sum-exp "
+              f"{short_err:.3e}")
+        if not ok or not lse_err <= LSE_ABS_TOL:
+            raise AssertionError(f"flash_fwd {name} disagrees with its plain version")
+        if drop_ok or short_err <= LSE_ABS_TOL:
+            raise AssertionError(f"the forward limits pass 64 dropped keys at {name}")
+        del ref, ref_lse
+
+        do = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+        def plain_bwd():
+            return by_chunks(lambda i, hs: tfa.flash_attention_backward_reference(
+                q[i, hs], k[i, hs], v[i, hs], out[i, hs], lse[i, hs], do[i, hs],
+                kv_t[i], off_t[i], causal), b, h, rows, heads)
+
+        got = tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t, off_t, causal)
+        want = plain_bwd()
+        errs = {g: row_rel(a, w) for g, a, w in zip(("dq", "dk", "dv"), got, want)}
+        past_kv = (torch.arange(s, device=dev)[None, None, :, None]
+                   >= kv_t[:, None, None, None])
+        past_kv_zero = all(torch.count_nonzero(torch.where(past_kv, g, 0)) == 0
+                           for g in got[1:])
+        wrong = {}
+        for wname, wgrads in wrong_backwards(
+                q[i, hs], k[i, hs], v[i, hs], out[i, hs], lse[i, hs], do[i, hs],
+                kv_t[i], off_t[i], causal).items():
+            wrong[wname] = max(row_rel(a, w[i, hs])[1] for a, w in zip(wgrads, want))
+            del wgrads
+        print(f"[kernel-bwd] {name}: {shape}: err / row's max |ref| "
+              + ", ".join(f"{g} {e[1]:.3e} (abs {e[0]:.3e})" for g, e in errs.items())
+              + f" (tol {KERNEL_BWD_TOL}); dK, dV exactly 0 past kv_len: "
+              f"{past_kv_zero}; wrong variants: "
+              + ", ".join(f"{w} {e:.3e}" for w, e in wrong.items()))
+        if not past_kv_zero or max(e[1] for e in errs.values()) > KERNEL_BWD_TOL:
+            raise AssertionError(f"flash backward {name} disagrees with its plain version")
+        for wname, e in wrong.items():
+            if e <= KERNEL_BWD_TOL:
+                raise AssertionError(f"the backward tolerance passes {wname} at {name}")
+        del got, want
+
+        # times: the kernels, the plain versions (chunk by chunk), one SDPA
+        # call and its backward (no mask where every key is valid, so that
+        # it takes its flash route)
+        full_kv = not causal and min(kv_lens) == s
+        mask = None if full_kv else tfa._valid(q, k, kv_t, off_t, causal)
+        leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask))
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                      retain_graph=True))
+        del lib_out
+        pairs = h * attention_pairs(s, s, kv_lens, q_off, causal)[0]
+        timed = {}
+        for kind in fwd_kinds:
+            with_lse = kind == "flash_fwd_lse"
+            timed[("flash_fwd", name + ("_lse" if with_lse else ""), kind)] = (
+                lambda with_lse=with_lse: tfa._forward_kernel(
+                    q, k, v, kv_t, off_t, causal, scale, with_lse),
+                time_ms(lambda with_lse=with_lse: plain_fwd(with_lse), reps=1,
+                        warmup=1, runs=3),
+                lib_fwd, max_abs)
+        delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+        args = (q, k, v, do, lse, delta, kv_t, off_t, causal, scale)
+        plain_b = time_ms(plain_bwd, reps=1, warmup=1, runs=3)
+        timed[("flash_bwd_dq", name, "flash_bwd_dq")] = (
+            lambda: tfa._bwd_dq_kernel(*args), plain_b, lib_bwd, errs["dq"][0])
+        timed[("flash_bwd_dkv", name, "flash_bwd_dkv")] = (
+            lambda: tfa._bwd_dkv_kernel(*args), plain_b, lib_bwd,
+            max(errs["dk"][0], errs["dv"][0]))
+        for (kname, key, kind), (fn, plain_ms, lib_ms, err) in timed.items():
+            bound, bound_by, flops, nbytes = kernel_bound(
+                kind, b, h, s, s, d, kv_lens, q_off, causal)
+            r = results[kname][key] = {
+                "max_abs_err": err, "ms": time_ms(fn), "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
+                "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "pairs": pairs,
+            }
+            print(f"[kernel-time] {kname} {key}: kernel {r['ms']:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library (SDPA"
+                  f"{'' if kname == 'flash_fwd' else ' backward, dQ, dK, dV'}) "
+                  f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
+                  f"{r['gflop']:.2f} GFLOP, {r['mbytes']:.2f} MB), "
+                  f"{r['ms'] * 1e9 / pairs:.3f} ps a pair")
+        del q, k, v, qkv, out, lse, do, leaves, delta, args, timed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # B2 and B4 at 16,385 tokens walk 8 times the keys of the tower's 2,049;
+    # their time per valid pair must not grow with it
+    for kname, suffix in (("flash_fwd", "_lse"), ("flash_bwd_dq", ""),
+                          ("flash_bwd_dkv", "")):
+        short, long = (results[kname][n + suffix] for n in ("clip_tower", "clip_long"))
+        ratio = (long["ms"] / long["pairs"]) / (short["ms"] / short["pairs"])
+        print(f"[kernel-time] {kname} per valid pair at 16,385 tokens over "
+              f"2,049: {ratio:.3f} (limit {PAIR_TIME_RATIO})")
+        if ratio > PAIR_TIME_RATIO:
+            raise AssertionError(f"{kname}'s time per pair grows with the length")
+        results[kname]["clip_long" + suffix]["pair_time_ratio"] = ratio
     return results
 
 
@@ -1717,6 +1979,460 @@ def profile_serve(cfg, model):
     return profiles
 
 
+def clip_config(patch_size=(4, 16, 16), slice_guided: bool = False):
+    """`CLIPConfig()` as the CLIP CLIs build it: a ViT-B 3D tower over
+    (32, 256, 256) volumes (the 2E3 tower with `slice_guided`) and
+    BERT-base, projection 768, text of 128 tokens; `patch_size` is the CLIs'
+    `--patch-size`."""
+    from hsenet_torch.configs import CLIPConfig, ViT3DConfig
+
+    return CLIPConfig(vision=ViT3DConfig(patch_size=tuple(patch_size),
+                                         slice_guided=slice_guided))
+
+
+def build_clip_model(cfg, seed: int, remat: bool = True):
+    """`CLIPModel` computing in bf16 with remat (as the CLIs set it for real
+    data), random weights drawn on the card (seed `seed`), every parameter
+    an f32 master: the CLIP stages train all of them."""
+    import torch
+
+    from hsenet_torch.models import init_random_
+    from hsenet_torch.models.clip import CLIPModel
+    from hsenet_torch.train.vlm import to_training_dtypes
+
+    model = CLIPModel(cfg, dtype=torch.bfloat16, remat=remat, device="cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(seed))
+    return to_training_dtypes(model, {n: True for n, _ in model.named_parameters()})
+
+
+def clip_batch(cfg, n: int, mode: str, seed: int):
+    """One batch of `n` samples of `SyntheticCTDataset` in `mode` (clip or
+    clip2) through the port's loader, with signal a random model can see:
+    sample i's report is seeded random words from a vocabulary of 16 words
+    of its own, its valid length CLIP_TEXT_LENS[i] (BOS + words + EOS, cut
+    at 128), and its volume the dataset's noise mixed half and half with a
+    pattern of its own repeated in every patch. On i.i.d. noise and words
+    alone a random ViT-B and BERT give every sample nearly one feature: the
+    contrastive loss sits at ln(batch) and its gradient is rounding noise."""
+    import numpy as np
+
+    from hsenet_torch.data.datasets import (
+        DataArgs,
+        DataLoader,
+        SimpleTokenizer,
+        SyntheticCTDataset,
+    )
+
+    rng = np.random.default_rng(seed)
+    lens = CLIP_TEXT_LENS[:n]
+    reports = [" ".join(f"w{16 * i + w}" for w in rng.integers(
+        0, 16, n_tok - 2 if n_tok < cfg.max_text_len else cfg.max_text_len + 12))
+        for i, n_tok in enumerate(lens)]
+    ds = SyntheticCTDataset(
+        n=n, shape=(cfg.vision.in_channels, *cfg.vision.image_size),
+        tokenizer=SimpleTokenizer(vocab_size=cfg.text.vocab_size), mode=mode,
+        args=DataArgs(max_text_len=cfg.max_text_len),
+        num_slices=cfg.vision.num_slices, slice_dim=cfg.vision.slice_feature_dim,
+        reports=reports)
+    batch = next(iter(DataLoader(ds, n, shuffle=False)))
+    valid = tuple(int(x) for x in batch["attention_mask"].sum(axis=1))
+    if valid != lens:
+        raise AssertionError(f"text valid lengths {valid}, not {lens}")
+    patch = cfg.vision.patch_size
+    reps = [size // p for size, p in zip(cfg.vision.image_size, patch)]
+    pattern = rng.random((n, cfg.vision.in_channels, *patch), np.float32)
+    batch["image"] = 0.5 * batch["image"] + 0.5 * np.tile(pattern, [1, 1, *reps])
+    return batch
+
+
+def clip_launches(cfg, batch: int, teacher: bool = False):
+    """The flash launches one CLIP training step makes, by (kind, batch,
+    heads, sq, skv, head_dim): the trained tower's forward twice per block
+    under remat (with the log-sum-exp), BERT's once, dQ and dK/dV once per
+    block of each; with `teacher` also the frozen stage-1 teacher's
+    forwards (no log-sum-exp) of both towers."""
+    v, t = cfg.vision, cfg.text
+    tower = (batch, v.num_heads, v.seq_len, v.seq_len, v.hidden_size // v.num_heads)
+    text = (batch, t.num_heads, cfg.max_text_len, cfg.max_text_len,
+            t.hidden_size // t.num_heads)
+    want = {("flash_fwd_lse", *tower): 2 * v.num_layers,
+            ("flash_fwd_lse", *text): t.num_layers}
+    for kind in ("flash_bwd_dq", "flash_bwd_dkv"):
+        want.update({(kind, *tower): v.num_layers, (kind, *text): t.num_layers})
+    if teacher:
+        want.update({("flash_fwd", *tower): v.num_layers,
+                     ("flash_fwd", *text): t.num_layers})
+    return want
+
+
+def per_step(counts, steps):
+    """Launches per step from counts over `steps` steps."""
+    return {k: n // steps if n % steps == 0 else n / steps
+            for k, n in counts.items()}
+
+
+def run_clip_stage1(card: str):
+    """[clip-stage1]: `CLIPModel(CLIPConfig())` at batch 24 through `Trainer`
+    and `make_stage1_train_step`, on one repeated `SyntheticCTDataset` clip
+    batch: warm-up and timed steps, launches per step, one in-training
+    retrieval eval (`TrainerHooks.on_eval`) and a profile of one step.
+    Returns the trained model (stage 2's teacher) and the phase's numbers."""
+    import torch
+
+    from hsenet_torch.configs import TrainConfig
+    from hsenet_torch.eval.retrieval import make_clip_retrieval_eval_fn
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.train.stage1 import make_stage1_train_step
+    from hsenet_torch.train.train_state import TrainState, make_optimizer
+    from hsenet_torch.train.trainer import Trainer, TrainerHooks
+
+    cfg = clip_config()
+    t0 = time.perf_counter()
+    model = build_clip_model(cfg, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[clip-stage1] CLIPModel(CLIPConfig()): ViT-B 3D tower over "
+          f"{cfg.vision.seq_len} tokens + BERT-base, {n_params / 1e6:.1f} M "
+          f"parameters, all trained (f32 masters, bf16 compute), remat on, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    batch = clip_batch(cfg, CLIP_BATCH, "clip", seed=21)
+    total = CLIP_WARMUP_STEPS + CLIP_TIMED_STEPS
+    train_cfg = TrainConfig(learning_rate=1e-4, total_steps=CLIP_RUN_STEPS,
+                            log_every=1, eval_every=total, seed=0)
+    tx = make_optimizer(train_cfg)  # no mask: every parameter trains
+    step_fn = make_stage1_train_step(model, tx)
+    evaluate = make_clip_retrieval_eval_fn(model, ks=(5, 10))
+    counts, evals = {}, {}
+
+    def on_log(step, row):
+        if step == CLIP_WARMUP_STEPS:  # the timed steps start here
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tfa.reset_launch_counts()
+        if step == total:
+            counts.update(tfa.shape_launches)
+
+    def on_eval(step, state):
+        evals.update(evaluate([batch]))
+        return evals
+
+    trainer = Trainer(step_fn, TrainState.create(model, tx), lambda: [batch],
+                      train_cfg, hooks=TrainerHooks(on_log=on_log, on_eval=on_eval))
+    state = trainer.fit(total)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = trainer.history
+    losses = [row["loss"] for row in hist]
+    step_ms = [1e3 / row["steps_per_sec"] for row in hist[CLIP_WARMUP_STEPS:]]
+    med = statistics.median(step_ms)
+    got, want = per_step(counts, CLIP_TIMED_STEPS), clip_launches(cfg, CLIP_BATCH)
+    print(f"[clip-stage1] losses by step: {[round(x, 4) for x in losses]}")
+    print(f"[clip-stage1] retrieval_acc by step: "
+          f"{[round(r['retrieval_acc'], 4) for r in hist]}; grad norms: "
+          f"{[round(r['grad_norm'], 4) for r in hist]}; logit scale "
+          f"{hist[-1]['logit_scale']:.6f}")
+    print(f"[clip-stage1] flash launches per step by (kind, batch, heads, sq, "
+          f"skv, d): {got} (expected {want})")
+    print(f"[clip-stage1] in-training retrieval eval on the batch: {evals}")
+    print(f"[clip-stage1] on {card}: step {med:.1f} ms median of "
+          f"{CLIP_TIMED_STEPS} (min {min(step_ms):.1f}, max {max(step_ms):.1f}), "
+          f"{CLIP_BATCH / (med / 1e3):.1f} samples/s, peak memory {peak_gb:.2f} GB")
+    if got != want:
+        raise AssertionError(f"[clip-stage1] flash launches per step {got}, not {want}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[CLIP_WARMUP_STEPS]:
+        raise AssertionError(f"the stage-1 loss did not fall: {losses}")
+    if set(evals) != {"i2t_r@5", "t2i_r@5", "i2t_r@10", "t2i_r@10"}:
+        raise AssertionError(f"the in-training eval gave {evals}")
+
+    device_batch = trainer._place(batch)
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], device_batch, 7)
+
+    profile = profile_phase("clip-stage1 step", one_step, med, top=10)
+    numbers = {
+        "step_ms_median": med, "step_ms": step_ms, "losses": losses,
+        "retrieval_acc": [r["retrieval_acc"] for r in hist],
+        "grad_norm": [r["grad_norm"] for r in hist],
+        "samples_per_s": CLIP_BATCH / (med / 1e3), "peak_memory_gb": peak_gb,
+        "eval": evals, "profile": profile, "batch": CLIP_BATCH,
+        "text_lens": list(CLIP_TEXT_LENS),
+    }
+    return model, got, numbers
+
+
+def run_clip_stage2(card: str, teacher):
+    """[clip-stage2]: the 2E3 student at batch 24 against the frozen
+    stage-1 teacher that [clip-stage1] trained (handed over in process),
+    its BERT and projections warm-started from copies of the teacher's:
+    steps with the teacher recomputed, then steps served by a
+    `TeacherCache` (one miss per sample, then hits)."""
+    import torch
+
+    from hsenet_torch.configs import TrainConfig
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.train.stage2 import (
+        TeacherCache,
+        make_stage2_train_step,
+        make_teacher_embed_fn,
+    )
+    from hsenet_torch.train.train_state import TrainState, make_optimizer
+    from hsenet_torch.train.trainer import Trainer, TrainerHooks
+
+    cfg = clip_config(slice_guided=True)
+    student = build_clip_model(cfg, seed=1)
+    with torch.no_grad():
+        for name in ("language_encoder", "mm_vision_proj", "mm_language_proj"):
+            for dst, src in zip(getattr(student, name).parameters(),
+                                getattr(teacher, name).parameters()):
+                dst.copy_(src)
+    batch = clip_batch(cfg, CLIP_BATCH, "clip2", seed=22)
+    total = 2 * CLIP2_STEPS
+    train_cfg = TrainConfig(learning_rate=1e-4, total_steps=CLIP_RUN_STEPS,
+                            log_every=1, eval_every=0, seed=1)
+    tx = make_optimizer(train_cfg)
+    steps = {}
+
+    def on_log(step, row):  # each step's launches, teacher cache fill included
+        steps[step] = dict(tfa.shape_launches)
+        tfa.reset_launch_counts()
+
+    hooks = TrainerHooks(on_log=on_log)
+    tfa.reset_launch_counts()
+    first = Trainer(make_stage2_train_step(student, teacher, cfg, tx),
+                    TrainState.create(student, tx), lambda: [batch], train_cfg,
+                    hooks=hooks)
+    state = first.fit(CLIP2_STEPS)
+    cache = TeacherCache(make_teacher_embed_fn(teacher))
+    second = Trainer(make_stage2_train_step(student, teacher, cfg, tx,
+                                            cached_teacher=True),
+                     state, lambda: (cache.attach(b) for b in [batch]),
+                     train_cfg, hooks=hooks)
+    second.fit(total)
+    hist = first.history + second.history
+    with_teacher = clip_launches(cfg, CLIP_BATCH, teacher=True)
+    student_only = clip_launches(cfg, CLIP_BATCH)
+    # the recompute steps and the cached mode's first step (which fills the
+    # cache) run the teacher; the cached hits run the student alone
+    want = {s: with_teacher if s <= CLIP2_STEPS + 1 else student_only
+            for s in range(1, total + 1)}
+    keys = ("loss", "loss_cl", "loss_relation", "relation_weight",
+            "retrieval_acc", "grad_norm")
+    for row in hist:
+        print(f"[clip-stage2] step {row['step']}: "
+              + ", ".join(f"{k} {row[k]:.5f}" for k in keys)
+              + f", {1e3 / row['steps_per_sec']:.1f} ms")
+    print(f"[clip-stage2] teacher cache: {cache.misses} misses, {cache.hits} hits "
+          f"(expected {CLIP_BATCH} and {(CLIP2_STEPS - 1) * CLIP_BATCH}); flash "
+          f"launches of a recompute step {steps[2]}, of a cached hit "
+          f"{steps[total]}")
+    if steps != want:
+        raise AssertionError(f"[clip-stage2] flash launches by step {steps}, not {want}")
+    if (cache.misses, cache.hits) != (CLIP_BATCH, (CLIP2_STEPS - 1) * CLIP_BATCH):
+        raise AssertionError("[clip-stage2] teacher cache counts are off")
+    counts = {"misses": cache.misses, "hits": cache.hits}
+    # what the cache serves is what the teacher computes in a recompute step
+    # (a misplaced or stale row would be off by a feature's whole size,
+    # ~0.04 a component; rounding differs by under a bf16 unit, ~1e-4)
+    served = cache.attach(batch)
+    fresh = make_teacher_embed_fn(teacher)(batch)
+    cache_err = max((torch.as_tensor(served[k]) - v.float().cpu()).abs().max().item()
+                    for k, v in fresh.items())
+    print(f"[clip-stage2] cached teacher features vs a fresh teacher forward: "
+          f"max abs difference {cache_err:.3e}")
+    if not cache_err <= 1e-3:
+        raise AssertionError("the teacher cache serves other features than the teacher's")
+    losses = [row["loss"] for row in hist]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[1]:
+        raise AssertionError(f"the stage-2 loss did not fall: {losses}")
+    step_ms = {"recompute": statistics.median(
+        1e3 / r["steps_per_sec"] for r in first.history[1:]),
+        "cached_hit": statistics.median(
+        1e3 / r["steps_per_sec"] for r in second.history[1:])}
+    print(f"[clip-stage2] on {card}: step {step_ms['recompute']:.1f} ms with the "
+          f"teacher recomputed, {step_ms['cached_hit']:.1f} ms on cached hits "
+          f"(medians of {CLIP2_STEPS - 1})")
+    return {"recompute": per_step(steps[2], 1),
+            "cached_hit": per_step(steps[total], 1)}, {
+        "history": hist, "step_ms": step_ms,
+        "teacher_cache": counts, "cache_vs_teacher_max_abs": cache_err}
+
+
+def check_clip_grads():
+    """[clip-grads]: one stage-1 step's gradients at batch 6 through the
+    kernels against the same step through the plain sdpa path, relative L2
+    per group (tower, BERT, projections with the logit scale), after a few
+    steps on the batch; then the same step with planted faults in the
+    attention backward."""
+    import numpy as np
+    import torch
+
+    from hsenet_torch.configs import TrainConfig
+    from hsenet_torch.ops import attention
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.train.stage1 import make_stage1_train_step, stage1_loss_fn
+    from hsenet_torch.train.train_state import TrainState, make_optimizer
+
+    cfg = clip_config()
+    model = build_clip_model(cfg, seed=3)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             clip_batch(cfg, CLIP_GRADS_BATCH, "clip", seed=23).items()
+             if isinstance(v, np.ndarray)}
+    # at random init every sample's features nearly coincide (cosines of
+    # 0.97-0.99), so the contrastive gradient is a difference of nearly
+    # equal vectors that bf16 rounding decides, whatever attention does; a
+    # few steps on the batch (through the kernels) pull the features apart
+    tx = make_optimizer(TrainConfig(learning_rate=1e-4, warmup_ratio=0.0,
+                                    schedule="constant"))
+    state, step = TrainState.create(model, tx), make_stage1_train_step(model, tx)
+    for _ in range(CLIP_GRADS_WARM_STEPS):
+        state, metrics = step(state, batch, 0)
+    print(f"[clip-grads] after {CLIP_GRADS_WARM_STEPS} steps on the batch: loss "
+          f"{float(metrics['loss']):.4f}")
+    names, params = zip(*model.named_parameters())
+    groups = {"tower": ("vision_encoder.",), "bert": ("language_encoder.",),
+              "projections": ("mm_", "logit_scale")}
+
+    def grads():
+        loss, _ = stage1_loss_fn(model, batch)
+        return loss.item(), torch.autograd.grad(loss, params)
+
+    def rel_l2(g, ref):
+        rel = {}
+        for group, prefixes in groups.items():
+            idx = [i for i, n in enumerate(names) if n.startswith(prefixes)]
+            num = sum((g[i].float() - ref[i].float()).pow(2).sum() for i in idx)
+            den = sum(ref[i].float().pow(2).sum() for i in idx)
+            rel[group] = (num / den).sqrt().item()
+        return rel
+
+    loss_k, g_k = grads()
+    try:
+        attention.set_flash_mode("never")
+        loss_p, g_p = grads()
+    finally:
+        attention.set_flash_mode("auto")
+    rel = rel_l2(g_k, g_p)
+    del g_k
+    print(f"[clip-grads] batch {CLIP_GRADS_BATCH}: loss kernel {loss_k:.6f} vs "
+          f"plain sdpa {loss_p:.6f}; gradient rel L2 by "
+          + ", ".join(f"{g} {r:.3e}" for g, r in rel.items())
+          + f" (tol {TRAIN_GRAD_REL_L2})")
+    if max(rel.values()) > TRAIN_GRAD_REL_L2:
+        raise AssertionError("CLIP gradients through the kernels disagree with "
+                             "the plain path")
+    sound = tfa.flash_attention_backward
+    faults = {
+        "delta left out": lambda q, k, v, o, *rest: sound(
+            q, k, v, torch.zeros_like(o), *rest),
+        "no attention gradient": lambda q, k, v, *rest: tuple(
+            torch.zeros_like(t) for t in (q, k, v)),
+    }
+    wrong = {}
+    for fault, backward in faults.items():
+        try:
+            tfa.flash_attention_backward = backward
+            _, g_w = grads()
+        finally:
+            tfa.flash_attention_backward = sound
+        wrong[fault] = rel_l2(g_w, g_p)
+        del g_w
+        print(f"[clip-grads] {fault}: gradient rel L2 by "
+              + ", ".join(f"{g} {r:.3e}" for g, r in wrong[fault].items()))
+        if max(wrong[fault].values()) <= TRAIN_GRAD_REL_L2:
+            raise AssertionError(f"the CLIP gradient limit passes {fault}")
+    del model, params, g_p
+    return {"loss_kernel": loss_k, "loss_plain": loss_p, "grad_rel_l2": rel,
+            "planted_faults_rel_l2": wrong, "batch": CLIP_GRADS_BATCH}
+
+
+def run_clip_long(card: str):
+    """[clip-long]: the stage-1 step at `--patch-size 2 8 8` (16,385 tower
+    tokens), batch 2, remat on, through `Trainer`: launches per step at
+    the long shape, finite losses, a finite non-zero gradient in every
+    tower block, step time, peak memory and a profile."""
+    import torch
+
+    from hsenet_torch.configs import TrainConfig
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.train.stage1 import make_stage1_train_step, stage1_loss_fn
+    from hsenet_torch.train.train_state import TrainState, make_optimizer
+    from hsenet_torch.train.trainer import Trainer, TrainerHooks
+
+    cfg = clip_config(patch_size=CLIP_LONG_PATCH)
+    model = build_clip_model(cfg, seed=4)
+    batch = clip_batch(cfg, CLIP_LONG_BATCH, "clip", seed=24)
+    total = CLIP_LONG_WARMUP_STEPS + CLIP_LONG_TIMED_STEPS
+    train_cfg = TrainConfig(learning_rate=1e-4, total_steps=CLIP_RUN_STEPS,
+                            log_every=1, eval_every=0, seed=2)
+    tx = make_optimizer(train_cfg)
+    step_fn = make_stage1_train_step(model, tx)
+    counts = {}
+
+    def on_log(step, row):
+        if step == CLIP_LONG_WARMUP_STEPS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tfa.reset_launch_counts()
+        if step == total:
+            counts.update(tfa.shape_launches)
+
+    trainer = Trainer(step_fn, TrainState.create(model, tx), lambda: [batch],
+                      train_cfg, hooks=TrainerHooks(on_log=on_log))
+    state = trainer.fit(total)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = trainer.history
+    losses = [row["loss"] for row in hist]
+    step_ms = [1e3 / r["steps_per_sec"] for r in hist[CLIP_LONG_WARMUP_STEPS:]]
+    med = statistics.median(step_ms)
+    got = per_step(counts, CLIP_LONG_TIMED_STEPS)
+    want = clip_launches(cfg, CLIP_LONG_BATCH)
+
+    # every tower block's gradient, from one more forward and backward
+    device_batch = trainer._place(batch)
+    blocks = model.vision_encoder.tower.blocks
+    loss, _ = stage1_loss_fn(model, device_batch)
+    block_grads = torch.autograd.grad(loss, list(blocks.parameters()))
+    sizes = [len(list(b.parameters())) for b in blocks]
+    norms, at = [], 0
+    for n in sizes:
+        norms.append(torch.sqrt(sum(g.float().pow(2).sum()
+                                    for g in block_grads[at:at + n])).item())
+        at += n
+    del block_grads, loss
+    print(f"[clip-long] CLIPConfig() at --patch-size {' '.join(map(str, CLIP_LONG_PATCH))}: "
+          f"{cfg.vision.seq_len} tower tokens, batch {CLIP_LONG_BATCH}: losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(r['grad_norm'], 4) for r in hist]}")
+    print(f"[clip-long] tower block gradient norms: "
+          f"{[f'{x:.3e}' for x in norms]}")
+    print(f"[clip-long] flash launches per step: {got} (expected {want})")
+    print(f"[clip-long] on {card}: step {med:.1f} ms median of "
+          f"{CLIP_LONG_TIMED_STEPS} ({[round(x, 1) for x in step_ms]}), peak "
+          f"memory {peak_gb:.2f} GB")
+    if got != want:
+        raise AssertionError(f"[clip-long] flash launches per step {got}, not {want}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[clip-long] loss not finite: {losses}")
+    if not all(math.isfinite(x) and x > 0 for x in norms):
+        raise AssertionError(f"[clip-long] a tower block has no finite gradient: {norms}")
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], device_batch, 7)
+
+    profile = profile_phase("clip-long step", one_step, med, top=8)
+    if profile["device_ms"]:
+        profile["flash_share"] = profile["by_kind_ms"]["flash"] / profile["device_ms"]
+        print(f"[profile] clip-long step: flash kernels take "
+              f"{profile['flash_share']:.1%} of device time")
+    return got, {"step_ms_median": med, "step_ms": step_ms, "losses": losses,
+                 "grad_norm": [r["grad_norm"] for r in hist],
+                 "tower_block_grad_norms": norms, "peak_memory_gb": peak_gb,
+                 "profile": profile, "batch": CLIP_LONG_BATCH,
+                 "tokens": cfg.vision.seq_len,
+                 "samples_per_s": CLIP_LONG_BATCH / (med / 1e3)}
+
+
 def main() -> int:
     try:
         import torch
@@ -1753,6 +2469,7 @@ def main() -> int:
 
     per_shape = check_flash_kernel()
     bwd = check_flash_bwd_kernels()
+    clip_kernels = check_clip_kernels()
     matvec = check_matvec_kernel()
     launches, counts, numbers = run_main_path(card)
     gc.collect()
@@ -1769,6 +2486,22 @@ def main() -> int:
     serve_numbers["kv_int8"] = run_serve_kv_int8(serve_cfg, serve_model)
     serve_numbers["long"] = run_serve_long(serve_cfg, serve_model)
     serve_numbers["profiles"] = profile_serve(serve_cfg, serve_model)
+    del serve_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLIP pretraining stages: stage 1, stage 2 against the stage-1
+    # model it just trained, one step's gradients against the plain path,
+    # and the stage-1 step at 16,385 tower tokens
+    teacher, stage1_counts, stage1_numbers = run_clip_stage1(card)
+    stage2_counts, stage2_numbers = run_clip_stage2(card, teacher)
+    del teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip_grad_numbers = check_clip_grads()
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_counts, long_numbers = run_clip_long(card)
 
     # launches on the main paths, by shape: one generate run, one training
     # step (its towers run at the tower shape) and the counted serving runs
@@ -1795,6 +2528,19 @@ def main() -> int:
         raise AssertionError("quant_matvec launches by shape do not add up")
     bwd_counts = {"flash_bwd_dq": {"train": train_counts["dq"]},
                   "flash_bwd_dkv": {"train": train_counts["dkv"]}}
+    # the CLIP steps' launches by shape: one step each of [clip-stage1],
+    # [clip-stage2] with the teacher recomputed and served from the cache,
+    # and [clip-long]
+    index = clip_shape_index()
+    clip_counts = {k: {} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for counts in (stage1_counts, stage2_counts["recompute"],
+                   stage2_counts["cached_hit"], long_counts):
+        for key, n in counts.items():
+            kernel, shape = index[key]
+            clip_counts[kernel][shape] = clip_counts[kernel].get(shape, 0) + n
+    fwd_counts.update(clip_counts["flash_fwd"])
+    for kname in bwd_counts:
+        bwd_counts[kname].update(clip_counts[kname])
 
     def entry(name, source, replaces, shapes, path_counts, note):
         def per_run(key):  # per-launch times x launches at each shape
@@ -1820,19 +2566,24 @@ def main() -> int:
                        for s in shapes},
         }
 
-    note = ("sums over one generate run, one training step and the counted "
-            "serving runs (closed loop, open loop, long-budget engine): "
-            "per-launch times at each shape x its launches there")
+    note = ("sums over one generate run, one finetune step, the counted "
+            "serving runs (closed loop, open loop, long-budget engine) and one "
+            "step each of [clip-stage1], [clip-stage2] (teacher recomputed, "
+            "and a teacher-cache hit) and [clip-long]: per-launch times at "
+            "each shape x its launches there")
+    jax_fa = "hsenet_tpu/ops/flash_attention.py"
     kernels = [
         entry("flash_fwd", "hsenet_torch/csrc/flash_fwd.cu",
-              "hsenet_tpu/ops/flash_attention.py:109", per_shape, fwd_counts,
-              note),
+              f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
+              {**per_shape, **clip_kernels["flash_fwd"]}, fwd_counts, note),
         entry("flash_bwd_dq", "hsenet_torch/csrc/flash_bwd_dq.cu",
-              "hsenet_tpu/ops/flash_attention.py:552", bwd["flash_bwd_dq"],
+              f"{jax_fa}:552 (_bwd_dq_kernel), {jax_fa}:678 (_bwd_dq_kernel_stream)",
+              {**bwd["flash_bwd_dq"], **clip_kernels["flash_bwd_dq"]},
               bwd_counts["flash_bwd_dq"],
               note + "; plain and library times compute dQ, dK and dV"),
         entry("flash_bwd_dkv", "hsenet_torch/csrc/flash_bwd_dkv.cu",
-              "hsenet_tpu/ops/flash_attention.py:611", bwd["flash_bwd_dkv"],
+              f"{jax_fa}:611 (_bwd_dkv_kernel), {jax_fa}:750 (_bwd_dkv_kernel_stream)",
+              {**bwd["flash_bwd_dkv"], **clip_kernels["flash_bwd_dkv"]},
               bwd_counts["flash_bwd_dkv"],
               note + "; plain and library times compute dQ, dK and dV"),
         entry("quant_matvec", "hsenet_torch/csrc/quant_matvec.cu",
@@ -1841,9 +2592,17 @@ def main() -> int:
               "at 8 slots: per-launch times at each (K, N), codes read cold, x its "
               "launches there; library is a matmul on a bf16 copy of the weight"),
     ]
+    clip = {"stage1": stage1_numbers, "stage2": stage2_numbers,
+            "grads": clip_grad_numbers, "long": long_numbers,
+            "launches_per_step": {
+                name: {" ".join(map(str, k)): n for k, n in c.items()}
+                for name, c in (("stage1", stage1_counts),
+                                ("stage2_recompute", stage2_counts["recompute"]),
+                                ("stage2_cached_hit", stage2_counts["cached_hit"]),
+                                ("long", long_counts))}}
     print(json.dumps({"kernels": kernels, "main_path": numbers,
                       "train": train_numbers, "train_grads": grad_numbers,
-                      "serve": serve_numbers, "card": card}))
+                      "serve": serve_numbers, "clip": clip, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ returns a state_dict that the matching port module accepts with
   * Dense `kernel` (in, out) -> Linear `weight` (out, in);
   * LayerNorm / RMSNorm `scale` -> `weight`; `bias` stays `bias`;
   * Embed `embedding` -> `weight` (it also serves the tied LM head);
-  * `pos_embed`, `cls_token`, `lora_a`, `lora_b` keep name and layout;
+  * `pos_embed`, `cls_token`, `lora_a`, `lora_b` and CLIP's 0-d
+    `logit_scale` keep name and layout;
   * int8 leaves become the int8 / f32 buffers of the port's modules and
     keep their dtype: `kernel_q` (in, out) int8 -> `weight_q` (out, in),
     transposed like `kernel`, so that one output channel is one
@@ -16,7 +17,8 @@ returns a state_dict that the matching port module accepts with
     `kernel_scale` -> `weight_scale`; a `QuantEmbed`'s `embedding_q` and
     its per-row `scale` keep name and layout;
   * `nn.scan` stacks (`tower/blocks` of the ViT towers, `decoder/layers`
-    of the Phi decoder) are unstacked on axis 0 into `ModuleList` entries.
+    of the Phi decoder, `language_encoder/layers` of CLIP's BERT) are
+    unstacked on axis 0 into `ModuleList` entries.
 
 A leaf of any other name raises, so nothing is dropped silently.
 
@@ -33,9 +35,10 @@ import numpy as np
 import torch
 from torch import nn
 
-_SCAN_STACKS = (("tower", "blocks"), ("decoder", "layers"))
+_SCAN_STACKS = (("tower", "blocks"), ("decoder", "layers"),
+                ("language_encoder", "layers"))
 _SAME_NAME = ("bias", "pos_embed", "cls_token", "lora_a", "lora_b",
-              "embedding_q")
+              "embedding_q", "logit_scale")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):

@@ -63,6 +63,41 @@ class ViT3DConfig:
 
 
 @dataclass(frozen=True)
+class BertConfig:
+    """BERT-base text encoder of the CLIP stages (post-LN, vocab 30522)."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    pad_token_id: int = 0
+
+
+@dataclass(frozen=True)
+class CLIPConfig:
+    """Dual-encoder CLIP (stage 1: 3D ViT + BERT; stage 2: the 2E3 tower).
+
+    `scale_is_log=False` multiplies the learnable logit_scale in raw form
+    (initialised to log(1/0.07), never exponentiated), as the reference
+    does; True applies exp() like OpenAI CLIP."""
+
+    vision: ViT3DConfig = field(default_factory=ViT3DConfig)
+    text: BertConfig = field(default_factory=BertConfig)
+    projection_dim: int = 768
+    logit_scale_init: float = 2.6592600369327783  # log(1/0.07)
+    scale_is_log: bool = False
+    max_text_len: int = 128
+    gather_loss: bool = True  # global (all-device) contrastive batch
+    # stage-2 semantic-consistency regulation: weight 0.1 (1 - step/5000)
+    relation_max_weighted_step: int = 5000
+    relation_base_weight: float = 0.1
+
+
+@dataclass(frozen=True)
 class PackerConfig:
     """`VisualPacker_3d_phi_v3`: 2048 tokens viewed as an (8,16,16) grid,
     (1,4,4) windows -> 128 pooled queries, each cross-attending its window,

@@ -1,8 +1,9 @@
 """The part of the JAX package's data/datasets.py that the VLM finetune's
-batches need: the tokenization rule, the word-level tokenizer of tests and
-synthetic runs, batching and the host loader, and the synthetic CT dataset
-in caption mode. The host side is plain numpy, as in the JAX package; the
-trainer moves each batch to the device.
+and the CLIP stages' batches need: the tokenization rule, the word-level
+tokenizer of tests and synthetic runs, batching and the host loader, and
+the synthetic CT dataset in caption, clip and clip2 modes. The host side is
+plain numpy, as in the JAX package; the trainer moves each batch to the
+device. The CT-RATE datasets come with the port's CLIP CLIs.
 
 Reproduced semantics: question = [BOS] + "<im_patch>" * proj_out_num +
 prompt; question + " " + answer tokenized right-padded, EOS patched at the
@@ -14,7 +15,7 @@ from __future__ import annotations
 import random
 import re
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -265,17 +266,19 @@ class DataLoader:
 
 class SyntheticCTDataset(_RetryDataset):
     """In-memory synthetic volumes + toy reports, same sample dicts as the
-    real datasets — lets every train path run without CT-RATE on disk."""
+    real datasets — lets every train path run without CT-RATE on disk.
+    `reports`, when given, replaces the toy reports (one text per sample)."""
 
     def __init__(
         self,
         n: int = 32,
         shape=(1, 32, 256, 256),
         tokenizer=None,
-        mode: str = "caption",  # caption (clip, clip2, seg: later slices)
+        mode: str = "clip",  # clip | clip2 | caption (seg: a later slice)
         args: Optional[DataArgs] = None,
         num_slices: int = 32,
         slice_dim: int = 768,
+        reports: Optional[Sequence[str]] = None,
     ):
         self.n = n
         self.shape = shape
@@ -285,21 +288,44 @@ class SyntheticCTDataset(_RetryDataset):
         self.num_slices = num_slices
         self.slice_dim = slice_dim
         self.data_list = list(range(n))
-        self._reports = [
+        self._reports = list(reports) if reports is not None else [
             f"Synthetic report {i}. No acute abnormality. Lungs are clear."
             for i in range(n)
         ]
 
     def get(self, idx):
-        if self.mode != "caption":
+        if self.mode not in ("clip", "clip2", "caption"):
             raise NotImplementedError(
                 f"SyntheticCTDataset mode {self.mode!r} comes with a later "
-                "slice of the port (the CLIP and SEG stages)"
+                "slice of the port (the SEG stage)"
             )
         rng = np.random.default_rng(idx)
         image = rng.random(self.shape, np.float32)
         text = self._reports[idx]
+        if self.mode == "clip":
+            tok = self.tokenizer(
+                text, max_length=self.args.max_text_len, truncation=True,
+                padding="max_length",
+            )
+            return {
+                "image": image,
+                "input_ids": tok["input_ids"][0],
+                "attention_mask": tok["attention_mask"][0],
+                "text": text,
+            }
         image_2d = rng.random((self.num_slices, self.slice_dim), np.float32)
+        if self.mode == "clip2":
+            tok = self.tokenizer(
+                text, max_length=self.args.max_text_len, truncation=True,
+                padding="max_length",
+            )
+            return {
+                "image": image,
+                "image_2d": image_2d,
+                "input_ids": tok["input_ids"][0],
+                "attention_mask": tok["attention_mask"][0],
+                "text": text,
+            }
         question = IM_PATCH_TOKEN * self.args.proj_out_num + "Describe the scan."
         tok = tokenize_qa_sample(
             self.tokenizer, question, text, self.args.max_length

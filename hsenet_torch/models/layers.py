@@ -18,6 +18,8 @@ Dropout is flax's `nn.Dropout`: off when `deterministic`, else each element
 is kept with probability 1 - rate and scaled by 1 / (1 - rate). Its masks
 come from the `torch.Generator` that `dropout_rng` installs around the call
 (the counterpart of `rngs={"dropout": key}` in flax's `apply`).
+`checkpointed` runs a block under activation checkpointing with the same
+masks in its recomputation.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from einops import rearrange
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from hsenet_torch import resolve_device
 from hsenet_torch.ops.attention import multi_head_attention
@@ -50,10 +53,6 @@ def dropout_rng(generator: Optional[torch.Generator]) -> Iterator[None]:
         _DROPOUT_RNG = previous
 
 
-def current_dropout_rng() -> Optional[torch.Generator]:
-    return _DROPOUT_RNG
-
-
 def dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
     """flax `nn.Dropout(rate)(x, deterministic=...)`, masks drawn from the
     generator of `dropout_rng`."""
@@ -69,6 +68,26 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
     keep = torch.rand(x.shape, generator=_DROPOUT_RNG, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
+
+
+def _run_from_state(block, generator, state, deterministic, x, *args):
+    if generator is not None:
+        generator.set_state(state)
+    with dropout_rng(generator):
+        return block(x, *args, deterministic=deterministic)
+
+
+def checkpointed(block: nn.Module, x: torch.Tensor, *args,
+                 deterministic: bool) -> torch.Tensor:
+    """`block(x, *args, deterministic=...)` under activation checkpointing
+    (the JAX package's `nn.remat` with its default "full" policy): only the
+    block's inputs are kept, and the backward recomputes the block. The
+    dropout generator is set back to its state before the block, so the
+    recomputation draws the same masks as the first run."""
+    generator = _DROPOUT_RNG
+    state = None if generator is None else generator.get_state()
+    return checkpoint(_run_from_state, block, generator, state, deterministic,
+                      x, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class Dense(nn.Linear):
@@ -88,12 +107,26 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
-class LayerNorm(nn.LayerNorm):
-    """flax `nn.LayerNorm(dtype=float32)`: eps 1e-6, f32 parameters, f32
-    output whatever the input dtype."""
+class Embed(nn.Embedding):
+    """flax `nn.Embed(dtype=...)`: the looked-up rows are cast to `dtype`,
+    whatever dtype the table is held in (an f32 master for training)."""
 
-    def __init__(self, dim: int, *, device="cuda"):
-        super().__init__(dim, eps=1e-6, device=resolve_device(device),
+    def __init__(self, num_embeddings: int, dim: int, *,
+                 dtype=torch.float32, device="cuda"):
+        super().__init__(num_embeddings, dim, dtype=dtype,
+                         device=resolve_device(device))
+        self.compute_dtype = dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight).to(self.compute_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax `nn.LayerNorm(dtype=float32)`: eps 1e-6 unless given (BERT's is
+    1e-12), f32 parameters, f32 output whatever the input dtype."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-6, device="cuda"):
+        super().__init__(dim, eps=eps, device=resolve_device(device),
                          dtype=torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

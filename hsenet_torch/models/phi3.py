@@ -40,11 +40,10 @@ import torch
 import torch.nn.functional as F
 from einops import rearrange
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from hsenet_torch import resolve_device
 from hsenet_torch.configs import Phi3Config
-from hsenet_torch.models.layers import current_dropout_rng, dropout_rng
+from hsenet_torch.models.layers import checkpointed
 from hsenet_torch.models.lora import LoRADense, QuantEmbed
 from hsenet_torch.ops.attention import multi_head_attention
 
@@ -283,16 +282,6 @@ class Phi3Block(nn.Module):
         return x + proj("down_proj", y)
 
 
-def _block_from_state(block, generator, state, x, cos, sin, kv_lens,
-                      deterministic):
-    """One training block run with the dropout generator set back to
-    `state`: the first run and its recomputation draw the same masks."""
-    if generator is not None:
-        generator.set_state(state)
-    with dropout_rng(generator):
-        return block(x, cos, sin, kv_lens, deterministic=deterministic)
-
-
 class Phi3Decoder(nn.Module):
     """Decoder layers + final RMSNorm; operates on embeddings."""
 
@@ -337,15 +326,10 @@ class Phi3Decoder(nn.Module):
             kv_lens = torch.full((b,), s, dtype=torch.int32, device=x.device)
         kv_lens = kv_lens.to(device=x.device, dtype=torch.int32)
         remat = self.remat and cache is None and torch.is_grad_enabled()
-        generator = current_dropout_rng()
         for i, layer in enumerate(self.layers):
             if remat:
-                state = None if generator is None else generator.get_state()
-                x = checkpoint(
-                    _block_from_state, layer, generator, state, x, cos, sin,
-                    kv_lens, deterministic, use_reentrant=False,
-                    preserve_rng_state=False,
-                )
+                x = checkpointed(layer, x, cos, sin, kv_lens,
+                                 deterministic=deterministic)
                 continue
             if cache is None:
                 layer_cache = None

@@ -11,7 +11,8 @@ its 2E3 slice-guided form (stage 2) and the dual-encoder tower.
 
 The JAX package runs the tower as an `nn.scan` over stacked weights; here
 it is an `nn.ModuleList` of blocks (`hsenet_torch.bridge` unstacks the
-scanned weights).
+scanned weights). `remat=True` recomputes each block in the backward pass
+(`models.layers.checkpointed`), as the JAX tower's `nn.remat` does.
 """
 
 from __future__ import annotations
@@ -30,18 +31,21 @@ from hsenet_torch.models.layers import (
     PatchEmbed3D,
     SingleHeadCrossAttention,
     TransformerBlock,
+    checkpointed,
 )
 
 
 class TransformerTower(nn.Module):
-    """num_layers pre-LN blocks + final LayerNorm."""
+    """num_layers pre-LN blocks + final LayerNorm; with `remat` each block
+    is recomputed in the backward pass."""
 
     def __init__(self, hidden: int, num_layers: int, num_heads: int,
                  mlp_dim: int, *, qkv_bias: bool = False,
                  dropout_rate: float = 0.0, gelu_approx: bool = False,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
+        self.remat = remat
         self.blocks = nn.ModuleList(
             TransformerBlock(hidden, num_heads, mlp_dim, qkv_bias=qkv_bias,
                              dropout_rate=dropout_rate,
@@ -53,8 +57,12 @@ class TransformerTower(nn.Module):
 
     def forward(self, x: torch.Tensor, *,
                 deterministic: bool = True) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, deterministic=deterministic)
+            if remat:
+                x = checkpointed(block, x, deterministic=deterministic)
+            else:
+                x = block(x, deterministic=deterministic)
         return self.norm(x)
 
 
@@ -62,7 +70,7 @@ class ViT3D(nn.Module):
     """Stage-1 3D ViT; with `config.slice_guided=True` the 2E3 encoder."""
 
     def __init__(self, config: ViT3DConfig, *, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         if config.quant_w8a8:
@@ -90,6 +98,7 @@ class ViT3D(nn.Module):
             cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.mlp_dim,
             qkv_bias=cfg.qkv_bias, dropout_rate=cfg.dropout_rate,
             gelu_approx=cfg.gelu_approx, dtype=dtype, device=device,
+            remat=remat,
         )
 
     def forward(self, volume: torch.Tensor,

@@ -19,6 +19,13 @@ of `_bwd_dq_kernel` and `_bwd_dkv_kernel` (`csrc/flash_bwd_dq.cu`,
 `flash_attention_reference` itself is the JAX package's recompute route
 (`use_pallas_bwd=False`); nothing on the port's paths takes it.
 
+The same three kernels serve the JAX package's streaming kernels too
+(B2 `_flash_kernel_stream`, B4 `_bwd_dq_kernel_stream` and
+`_bwd_dkv_kernel_stream`), which it takes when a (batch, head)'s K/V or
+Q/dO would not fit its VMEM budget (above 2304 tokens at head_dim 64): each
+CUDA kernel streams the other side through shared memory in 64-row tiles at
+any length, and ends its loop at kv_len and at the diagonal.
+
 The kernels read Q, K, V and dO through their (batch, head, row) strides,
 so the head-split views that `rearrange(..., "b s (n d) -> b n s d")` gives
 are taken without a copy; rows must be contiguous and 16-byte aligned.
@@ -28,6 +35,7 @@ merging the heads back is a view too.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Optional, Tuple
@@ -178,8 +186,10 @@ def _kernel(name: str):
     return fn
 
 
-def _launch(name: str, pointers, dims, strided, causal, sm_scale, device) -> None:
-    """Launch kernel `name` on the current stream and count the launch."""
+def _launch(name: str, pointers, dims, strided, causal, sm_scale, device,
+            kind: Optional[str] = None) -> None:
+    """Launch kernel `name` on the current stream and count the launch, by
+    kernel and by (`kind`, batch, heads, sq, skv, head_dim)."""
     strides = [s for t in strided for s in t.stride()[:3]]
     err = _kernel(name)(
         *pointers, *dims, *strides, int(causal), float(sm_scale),
@@ -188,6 +198,7 @@ def _launch(name: str, pointers, dims, strided, causal, sm_scale, device) -> Non
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1
+    shape_launches[(kind or name, *dims)] += 1
 
 
 def _bshd(batch, seq, heads, d, like) -> torch.Tensor:
@@ -211,7 +222,7 @@ def _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse):
             + [None if lse is None else lse.data_ptr(), kv.data_ptr(),
                q_off.data_ptr()],
             (batch, heads, sq, k.shape[2], d), (q, k, v, out), causal,
-            sm_scale, q.device,
+            sm_scale, q.device, "flash_fwd_lse" if with_lse else "flash_fwd",
         )
         fwd_launches[(d, with_lse)] += 1
     return out, lse
@@ -351,16 +362,19 @@ def flash_attention(
     return _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, False)[0]
 
 
-# kernel launches since the last reset: by kernel, and the forward's by
-# (head dim, whether it wrote the log-sum-exp). chip_smoke.py reads them to
-# show that the main path went through the kernels, and at which shapes:
-# d 64 without the log-sum-exp in the ViT towers, d 128 in the LLM, with it
-# when autograd records the call.
+# kernel launches since the last reset: by kernel; the forward's by (head
+# dim, whether it wrote the log-sum-exp); and every launch by (kind, batch,
+# heads, sq, skv, head_dim), kind "flash_fwd", "flash_fwd_lse" (the forward
+# that autograd records), "flash_bwd_dq" or "flash_bwd_dkv". chip_smoke.py
+# reads them to show that the main path went through the kernels, and at
+# which shapes (the towers, BERT, the LLM, the fine-patch tower).
 launches = dict.fromkeys(KERNELS, 0)
 fwd_launches = {(d, lse): 0 for d in SUPPORTED_HEAD_DIMS for lse in (False, True)}
+shape_launches: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     for counts in (launches, fwd_launches):
         for key in counts:
             counts[key] = 0
+    shape_launches.clear()

@@ -96,11 +96,14 @@ def fold_seed(seed: int, *data: int) -> int:
     return seed
 
 
-def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1):
+def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1,
+                           takes_step: bool = False):
     """`train_step(state, batch, rng=None) -> (state, metrics)`: the
     gradient of `loss_fn(batch, generator) -> (loss, metrics)` over the
     state's trainable leaves, one AdamW update, and the global norm of those
-    gradients as `metrics["grad_norm"]`.
+    gradients as `metrics["grad_norm"]`. With `takes_step` the loss is
+    called as `loss_fn(batch, step, generator)`, the state's step count
+    before the update (stage 2's relation weight reads it).
 
     `rng` is an int seed; the step's dropout generator is seeded from it and
     the step count (each microbatch's also from its index), on the device of
@@ -110,8 +113,9 @@ def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1)
     gradient_accumulation_steps; only sound for losses that decompose per
     sample)."""
 
-    def grads_of(params, batch, generator):
-        loss, metrics = loss_fn(batch, generator)
+    def grads_of(params, batch, generator, step):
+        loss, metrics = (loss_fn(batch, step, generator) if takes_step
+                         else loss_fn(batch, generator))
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
@@ -132,14 +136,14 @@ def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1)
             grads, rows = None, []
             for i in range(grad_accum):
                 micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                g, m = grads_of(params, micro, generator(i))
+                g, m = grads_of(params, micro, generator(i), state.step)
                 grads = g if grads is None else [a.add_(b) for a, b in zip(grads, g)]
                 rows.append(m)
             grads = [g.div_(grad_accum) for g in grads]
             metrics = {k: torch.stack([m[k].float() for m in rows]).mean()
                        for k in rows[0]}
         else:
-            grads, metrics = grads_of(params, batch, generator())
+            grads, metrics = grads_of(params, batch, generator(), state.step)
         metrics["grad_norm"] = global_norm(grads)
         opt_state = tx.step(params, grads, state.opt_state, metrics["grad_norm"])
         return TrainState(step=state.step + 1, params=state.params,

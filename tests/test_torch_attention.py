@@ -205,7 +205,8 @@ def test_kernel_build_raises_without_nvcc():
 
 def _jax_vjp(arrays, do, route, **kw):
     """(out, (dq, dk, dv)) of the JAX flash_attention through `route`:
-    "resident" (B3), "stream" (B4) or "recompute"."""
+    "resident" (B3), "stream" (B4 with small blocks), "recompute", or
+    "production" (the default blocks, no hook: `_needs_stream` decides)."""
     blocks = dict(block_q=128, block_k=128) if route == "stream" else {}
 
     def f(q, k, v):
@@ -247,6 +248,43 @@ def test_flash_grads_match_jax(route, causal, sq, skv, d, kv_lens, q_off):
            for k, v in kw.items()},
     )
     assert out.grad_fn is not None
+    np.testing.assert_allclose(out.detach().numpy(), want_out, **TOL)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL)
+
+
+def _bwd_blocks(sq, skv, d):
+    """The JAX backward's padded lengths and blocks at its default blocks."""
+    block_q = min(jfa.DEFAULT_BLOCK_Q, jfa._round_up(sq, 128), 512)
+    block_k = min(jfa.DEFAULT_BLOCK_K, jfa._round_up(skv, 128))
+    return (jfa._round_up(sq, block_q), jfa._round_up(skv, block_k), d,
+            block_q, block_k)
+
+
+@pytest.mark.parametrize("kv_len,causal", [(3200, False), (2000, False),
+                                           (2500, True)])
+def test_flash_grads_match_jax_production_streaming_dispatch(kv_len, causal):
+    """At 3200 tokens of one f32 head at d 64 the JAX package's own
+    dispatch (`_needs_stream` with the default blocks, no test hook) picks
+    both streaming backward kernels (B4: dQ streams K/V, dK/dV streams Q
+    and dO), as it does for the fine-patch tower's 16,385 bf16 tokens; at
+    the production tower's 2049 it picks neither. The port's one tiled
+    backward must give the same gradients there. A few seconds in
+    interpret mode."""
+    s, d = 3200, 64
+    assert jfa._FORCE_STREAM is None
+    sq_pad, skv_pad, _, bq, bk = _bwd_blocks(s, s, d)
+    assert jfa._needs_stream(skv_pad, d, bq, bk, 4)  # dQ streams K/V
+    assert jfa._needs_stream(sq_pad, d, bq, bk, 4)  # dK/dV streams Q/dO
+    sq_pad, skv_pad, _, bq, bk = _bwd_blocks(2049, 2049, d)
+    assert not jfa._needs_stream(skv_pad, d, bq, bk, 2)
+    assert not jfa._needs_stream(sq_pad, d, bq, bk, 2)
+    arrays = _inputs(14, 1, 1, 1, s, s, d)
+    do = np.random.default_rng(15).standard_normal((1, 1, s, d)).astype(np.float32)
+    kw = _row_kw([kv_len], 0, causal)
+    want_out, want = _jax_vjp(arrays, do, "production", **kw)
+    out, got = _port_grads(arrays, do, kv_lens=torch.as_tensor(kw["kv_lens"]),
+                           causal=causal)
     np.testing.assert_allclose(out.detach().numpy(), want_out, **TOL)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL)

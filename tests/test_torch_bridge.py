@@ -118,3 +118,53 @@ def test_int8_tree_loads_strictly(flax_params):
     assert len(int8_names) == 7 * TINY_VLM.llm.num_layers + 1
     # the towers and packers stay float parameters
     assert all(n.startswith("llm.") for n in int8_names)
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_clip_tree_loads_strictly(stage):
+    """A stage-1 (3D ViT + BERT) or stage-2 (2E3 + BERT) CLIP tree: BERT's
+    scan stack `language_encoder/layers` is unstacked, its word, position
+    and token-type embeddings and the 0-d logit scale carry over, and the
+    port's `CLIPModel` loads every leaf strictly."""
+    import dataclasses
+
+    import hsenet_tpu.configs as jcfg
+    from hsenet_tpu.models.clip import CLIPModel as JaxCLIP
+    from hsenet_torch.models.clip import CLIPModel
+
+    vit = jcfg.ViT3DConfig(
+        image_size=(4, 16, 16), patch_size=(2, 8, 8), hidden_size=16,
+        mlp_dim=32, num_layers=2, num_heads=2, num_slices=2,
+        slice_feature_dim=16, slice_guided=stage == 2)
+    bert = jcfg.BertConfig(vocab_size=64, hidden_size=16, num_layers=3,
+                           num_heads=2, intermediate_size=32,
+                           max_position_embeddings=16)
+    cfg = jcfg.CLIPConfig(vision=vit, text=bert, projection_dim=8)
+    rng = np.random.default_rng(1)
+    args = [rng.random((1, 1, 4, 16, 16), np.float32),
+            rng.integers(1, 64, (1, 6)), np.ones((1, 6), np.int32)]
+    if stage == 2:
+        args.append(rng.random((1, 2, 16), np.float32))
+    variables = jax.tree.map(np.asarray, jax.jit(JaxCLIP(cfg).init)(
+        jax.random.PRNGKey(0), *map(jnp.asarray, args)))
+    state = flax_to_torch(variables)
+    model = CLIPModel(to_torch_config(cfg), device="cpu")
+    model.load_state_dict(state, strict=True)
+    assert set(state) == set(model.state_dict())
+    p = variables["params"]
+    layers = p["language_encoder"]["layers"]
+    np.testing.assert_array_equal(
+        state["language_encoder.layers.2.ffn_in.weight"].numpy(),
+        layers["ffn_in"]["kernel"][2].T)
+    np.testing.assert_array_equal(
+        state["language_encoder.layers.1.attn_norm.weight"].numpy(),
+        layers["attn_norm"]["scale"][1])
+    emb = p["language_encoder"]["embeddings"]
+    for name in ("word", "position", "token_type"):
+        np.testing.assert_array_equal(
+            state[f"language_encoder.embeddings.{name}.weight"].numpy(),
+            emb[name]["embedding"])
+    assert state["logit_scale"].shape == ()
+    assert state["logit_scale"].item() == pytest.approx(cfg.logit_scale_init)
+    assert dataclasses.asdict(model.config) == dataclasses.asdict(
+        to_torch_config(cfg))

@@ -98,7 +98,9 @@ def test_importing_the_port_loads_no_jax():
         "hsenet_torch.eval.generate, hsenet_torch.models.mllm, "
         "hsenet_torch.train.trainer, hsenet_torch.data.datasets, "
         "hsenet_torch.serving, hsenet_torch.cli.serve, hsenet_torch.cli.common, "
-        "hsenet_torch.ops.quant_matvec; "
+        "hsenet_torch.ops.quant_matvec, hsenet_torch.models.clip, "
+        "hsenet_torch.train.stage1, hsenet_torch.train.stage2, "
+        "hsenet_torch.eval.retrieval; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'flax', 'hsenet_tpu'))]; print(bad); sys.exit(1 if bad else 0)"
     )

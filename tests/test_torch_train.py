@@ -423,4 +423,4 @@ def test_finetune_data_matches_jax():
     row = batches[1][0]
     assert (row["labels"][:, :1 + 4 + 3] == -100).all()  # BOS, image, prompt
     with pytest.raises(NotImplementedError):
-        tdata.SyntheticCTDataset(n=2, mode="clip").get(0)
+        tdata.SyntheticCTDataset(n=2, mode="seg").get(0)
