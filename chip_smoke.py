@@ -32,6 +32,19 @@ In order:
    two wrong variants that must miss the limit, and times it at M = 8 with
    the codes read cold, beside its bound, the plain version and a library
    product on a bf16 copy of the weight;
+5a. [kernel-pv] holds the P.V probe kernel (B6) against its plain version
+   in its four modes at the JAX probe's shapes (G 192, M 1152, K 2176,
+   N 64): the integer modes bit-equal, bf16 within 1e-4 of each row's
+   largest value, beside versions with the last 32 of K dropped (and P
+   quantised at 128) that must miss; times it beside its bound, the plain
+   version and, for bf16, one torch.bmm; then drives the probe entry
+   (`python -m hsenet_torch.scripts.probe_int8_pv`) with launches counted;
+5b. [encode-w8a8] the W8A8 serving encode of bench.py at full width,
+   batch 8 (both towers with static activation scales calibrated on 2
+   volumes and tanh GELU, two packers, random weights quantised on the
+   card) against the bf16/erf encode of the same weights: per-token
+   cosine of the tower features beside two wrong variants, 24 flash
+   launches an encode, vol/s of both, a profile of each;
 6. [main] drives generation at the full width of `VLMConfig()` (dual ViT-B
    towers, two packers, Phi-4-mini with 32 layers, vocab 200064) with
    random bf16 weights drawn on the card from a seeded generator: B=2
@@ -75,6 +88,18 @@ In order:
    2 slots, two requests), launches counted; then [profile]s of one
    admission that misses, one that hits the prefix cache and one decode
    chunk with 8 live slots;
+11a. [serve-spec] the engine with speculative=True (drafts of 7 from
+   2-grams) on [serve]'s 12 closed-loop requests and, with the int8 KV
+   cache, on [serve-kv-int8]'s 4: tokens/s, mean_accepted, TTFT and TPOT
+   beside [serve]'s, flash launches counted, tokens against the greedy
+   engine's (where they part, greedy's top-2 logit margin must be a
+   near-tie);
+11b. [spec] prompt-lookup decoding at batch 1 on the same Phi-4-mini
+   (int8 projections and embedding) against greedy decoding: a 320-token
+   prompt of one repeated phrase, 64 new tokens; rounds, mean committed
+   per round, tokens/s of both, 224 matvec launches per verify round (8
+   rows each), first with the random weights, then with constant weights
+   that accept every draft (the ceiling bench.py measures);
 12. [kernel] / [kernel-bwd] / [kernel-time] at the CLIP paths' shapes: the
    tower at batch 24 (24 x 12 x 2049, d 64) and BERT (24 x 12 x 128, valid
    lengths 32-128), the fine-patch tower at 2 x 12 x 16,385 where the TPU
@@ -120,6 +145,8 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM dense peaks (NVIDIA data sheet) for the bound of each kernel
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 # device-side sleep that the timed calls queue behind (~10 ms at the
@@ -251,6 +278,44 @@ CLIP_LONG_TIMED_STEPS = 2
 PAIR_TIME_RATIO = 1.5
 
 
+# [kernel-pv]: B6 against its plain version at the probe's shapes. The
+# integer modes must be bit-equal (both sides sum integer codes exactly and
+# convert once); bf16 sums the same exact bf16 products in f32 in another
+# order, so |error| may reach this share of its row's largest |value|.
+# Each mode runs beside a version with the last 32 of K dropped (and, for
+# quant_then_int8, P quantised with a scale of 128), which must miss.
+PV_BF16_ROW_TOL = 1e-4
+PV_DROPPED_K = 32
+# [encode-w8a8]: the serving encode of bench.py at batch 8; the W8A8 towers
+# calibrated on 2 volumes. The per-token cosine of their features against
+# the float bf16/erf towers of the same weights must reach W8A8_COSINE_MIN
+# on every token (read 0.99949 at the lowest token on an H100 80GB HBM3);
+# the same towers with the first block's activation scales divided by 4
+# (activations clipped at a quarter of their range; read 0.858), and with
+# one dense's weight scales shifted by a channel in each tower (read
+# 0.992), must miss it.
+ENCODE_BATCH = 8
+W8A8_CALIB_VOLUMES = 2
+W8A8_COSINE_MIN = 0.995
+# [spec]: prompt-lookup decoding at the batch-1 decode configuration of
+# bench.py (Phi-4-mini, 32 layers, int8 projections and embedding): a
+# 320-token prompt of one 40-token phrase repeated, SPEC_NEW_TOKENS new
+# tokens, drafts of 7 from 2-grams
+SPEC_PHRASE = 40
+SPEC_NEW_TOKENS = 64
+SPEC_DRAFT_LEN = 7
+SPEC_NGRAM = 2
+# where speculative tokens leave greedy ones, the token speculative
+# decoding chose must lie within a near-tie of greedy's top logit there
+# (from a prefill of the prompt and the greedy tokens before it): at most
+# this share of the logits' RMS below it. Two bf16 routes through the 32
+# layers put a logit ~1.6e-2 of that RMS apart (the decode-logits reading
+# of check_serve_logits), so a flip needs a gap under about twice that; a
+# draft accepted past its first mismatch ([spec]'s wrong variant) must
+# miss the limit
+NEAR_TIE_SHARE = 0.05
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -331,15 +396,17 @@ def profile_phase(label: str, fn, wall_ms: float, top: int = 6) -> dict:
     heavy = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
              for e in kernels[:top]]
     # device time by kind of kernel: the port's flash kernels, its int8
-    # matvec kernel, cuBLAS matrix products, and everything else (elementwise, norms, reductions,
-    # copies)
-    kinds = {"flash": 0.0, "matvec": 0.0, "gemm": 0.0, "other": 0.0}
+    # matvec kernel, the library's int8 and float matrix products, and
+    # everything else (elementwise, norms, reductions, copies)
+    kinds = {"flash": 0.0, "matvec": 0.0, "int8_gemm": 0.0, "gemm": 0.0,
+             "other": 0.0}
     for e in kernels:
         name = e.key.lower()
+        gemm = any(w in name for w in ("nvjet", "gemm", "cutlass"))
         kind = ("flash" if "flash_" in name else
                 "matvec" if "quant_matvec" in name else
-                "gemm" if any(w in name for w in ("nvjet", "gemm", "cutlass"))
-                else "other")
+                "int8_gemm" if gemm and any(w in name for w in ("s8", "i8", "imma"))
+                else "gemm" if gemm else "other")
         kinds[kind] += e.self_device_time_total / 1e3
     out = {"wall_ms": wall_ms, "device_ms": busy_ms,
            "idle_share": max(0.0, 1 - busy_ms / wall_ms), "by_kind_ms": kinds}
@@ -1631,7 +1698,8 @@ def check_serve_counts(tag, cfg, eng, n_requests, results, expect):
 def run_serve_path(card: str, cfg, model):
     """[serve]: the full-width engine at the CLI's defaults. 12 requests
     over 4 scans closed loop (counted), then 8 more through run_open_loop
-    (counted again)."""
+    (counted again). Returns the numbers and the closed loop's tokens by
+    request."""
     import torch
 
     from hsenet_torch.serving import run_open_loop
@@ -1660,6 +1728,7 @@ def run_serve_path(card: str, cfg, model):
     results = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    closed_tokens = [results[u] for u in sorted(results)]
     counts = check_serve_counts(
         "serve", cfg, eng, 12, results,
         {"encode_misses": 4, "encode_hits": 0, "prefix_misses": 4,
@@ -1706,7 +1775,7 @@ def run_serve_path(card: str, cfg, model):
           f"utilization {eng.utilization:.3f}, TTFT p50/p99 "
           f"{stats['ttft_p50_s']:.3f}/{stats['ttft_p99_s']:.3f} s, TPOT p50/p99 "
           f"{stats['tpot_p50_s'] * 1e3:.1f}/{stats['tpot_p99_s'] * 1e3:.1f} ms")
-    return numbers
+    return numbers, closed_tokens
 
 
 def rel_l2(got, want):
@@ -1832,7 +1901,8 @@ def check_serve_logits(cfg, model):
 def run_serve_kv_int8(cfg, model):
     """[serve-kv-int8]: the same engine with an int8 KV cache: 4 requests
     over 2 scans (two prefix hits), and first-token logits of a miss and a
-    hit against the bf16-cache engine."""
+    hit against the bf16-cache engine. Returns the numbers and the tokens
+    by request."""
     import torch
 
     traffic = serving_traffic(cfg, 6, 2, seed=14)
@@ -1847,6 +1917,7 @@ def run_serve_kv_int8(cfg, model):
     counts = check_serve_counts(
         "serve-kv-int8", cfg, eng, 4, results,
         {"encode_misses": 2, "prefix_misses": 2, "prefix_hits": 2})
+    tokens = [results[u] for u in sorted(results)]
 
     # first-token logits, admission by admission, against the bf16 cache
     q_eng = make_engine(model, num_slots=1, cache_dtype=torch.int8)
@@ -1877,7 +1948,8 @@ def run_serve_kv_int8(cfg, model):
     if wrong <= KV_INT8_LOGITS_REL_L2:
         raise AssertionError("the int8-cache logits limit passes a prefix "
                              "without its scales")
-    return {**counts, "logits_rel_l2": rels, "prefix_without_scales_rel_l2": wrong}
+    return ({**counts, "logits_rel_l2": rels, "prefix_without_scales_rel_l2": wrong},
+            tokens)
 
 
 def run_serve_long(cfg, model):
@@ -2433,6 +2505,590 @@ def run_clip_long(card: str):
                  "samples_per_s": CLIP_LONG_BATCH / (med / 1e3)}
 
 
+def pv_bound(mode, g, m, k, n):
+    """(bound_ms, bound_by, operations, bytes) of one B6 launch: P read once
+    in its mode's dtype, V once (not in glue_only), the f32 output written
+    once; 2 M K N operations per cell on the tensor cores at the bf16 or
+    int8 peak, or for glue_only 3 per element of P (multiply, round, add)
+    on the CUDA cores at the f32 peak."""
+    p_bytes = {"bf16": 2, "int8_pre": 1, "quant_then_int8": 4, "glue_only": 4}[mode]
+    v_bytes = {"bf16": 2, "int8_pre": 1, "quant_then_int8": 1, "glue_only": 0}[mode]
+    nbytes = g * m * k * p_bytes + g * k * n * v_bytes + 4 * g * m * n
+    if mode == "glue_only":
+        ops, peak = 3 * g * m * k, PEAK_F32_FLOPS
+    else:
+        ops = 2 * g * m * k * n
+        peak = PEAK_BF16_FLOPS if mode == "bf16" else PEAK_INT8_OPS
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", ops, nbytes
+    return t_bytes, "bytes", ops, nbytes
+
+
+def check_pv_kernel():
+    """[kernel-pv]: B6 in its four modes at the probe's shapes against its
+    plain version, each beside wrong variants that must miss; its time
+    beside the bound, the plain version and, for bf16, one batched library
+    product (no single PyTorch call computes the integer modes)."""
+    import torch
+
+    from hsenet_torch.ops import int8_pv as tpv
+    from hsenet_torch.scripts import probe_int8_pv as probe
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the bf16 plain version needs full-f32 products")
+    g, m, k, n = probe.SHAPES
+    results = {}
+    for mode in tpv.MODES:
+        p, v = probe.make_inputs(mode, probe.SHAPES, device="cuda")
+        out = tpv.int8_pv_kernel(p, v, mode)
+        torch.cuda.synchronize()
+        ref = tpv.int8_pv_reference(p, v, mode)
+        row_max = ref.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+
+        def share(o):
+            err = (o - ref).abs()
+            return torch.where(o.isfinite(), err / row_max, math.inf).max().item()
+
+        kept = p[..., :-PV_DROPPED_K]
+        wrong = {f"last {PV_DROPPED_K} of K dropped": tpv.int8_pv_reference(
+            kept, None if v is None else v[:, :-PV_DROPPED_K], mode)}
+        if mode == "quant_then_int8":
+            wrong["P quantised with a scale of 128"] = tpv.int8_pv_reference(
+                torch.round(p * 128.0).clamp(-128, 127).to(torch.int8), v,
+                "int8_pre")
+        err = share(out)
+        missed = {what: share(o) for what, o in wrong.items()}
+        if mode == "bf16":
+            ok = err <= PV_BF16_ROW_TOL
+            passes = [w for w, e in missed.items() if e <= PV_BF16_ROW_TOL]
+            limit = f"max err / row's max |ref| {err:.3e} (tol {PV_BF16_ROW_TOL})"
+        else:
+            ok = torch.equal(out, ref)
+            passes = [w for w, o in wrong.items() if torch.equal(o, ref)]
+            limit = f"bit-equal: {ok}"
+        max_abs = (out - ref).abs().max().item()
+        print(f"[kernel-pv] {mode}: P{tuple(p.shape)} {p.dtype}, V"
+              f"{tuple(v.shape)} {v.dtype}: max_abs_err {max_abs:.3e} (max "
+              f"|ref| {ref.abs().max().item():.3e}), {limit}; wrong variants "
+              "(max err / row's max |ref|): "
+              + ", ".join(f"{w} {e:.3e}" for w, e in missed.items()))
+        if not ok:
+            raise AssertionError(f"int8_pv {mode} disagrees with its plain version")
+        if passes:
+            raise AssertionError(f"int8_pv {mode}: the check passes {passes}")
+        del wrong, kept
+        library = None
+        if mode == "bf16":  # one batched product with f32 output
+            library = time_ms(lambda: torch.bmm(p, v, out_dtype=torch.float32))
+        bound, bound_by, ops, nbytes = pv_bound(mode, g, m, k, n)
+        r = results[mode] = {
+            "max_abs_err": max_abs,
+            "max_row_rel_err": err,
+            "ms": time_ms(lambda: tpv.int8_pv_kernel(p, v, mode)),
+            "plain_ms": time_ms(lambda: tpv.int8_pv_reference(p, v, mode),
+                                reps=2, warmup=1, runs=3),
+            "library_ms": library,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "gops": ops / 1e9,
+            "mbytes": nbytes / 1e6,
+        }
+        r["tflops"] = 2 * g * m * k * n / r["ms"] / 1e9
+        lib = ("— (no single PyTorch call: torch has no batched int8 product)"
+               if library is None
+               else f"{library:.4f} ms (torch.bmm(..., out_dtype=float32))")
+        print(f"[kernel-pv] {mode}: kernel {r['ms']:.4f} ms ({r['tflops']:.0f} "
+              f"TF/s, {nbytes / r['ms'] / 1e6:.0f} GB/s), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}, bound {bound:.4f} ms "
+              f"({bound_by}: {nbytes / 1e9:.3f} GB, {ops / 1e9:.1f} G operations)")
+        del p, v, out, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def run_pv_probe():
+    """B6's path: the probe entry `hsenet_torch.scripts.probe_int8_pv` over
+    its four modes, launches counted by mode."""
+    from hsenet_torch.ops import int8_pv as tpv
+    from hsenet_torch.scripts import probe_int8_pv as probe
+
+    tpv.reset_launch_counts()  # the probe's run, counted
+    probe.probe(tpv.MODES, probe.SHAPES, device="cuda")
+    launches = dict(tpv.launches)
+    print(f"[kernel-pv] probe run: int8_pv launches by mode {launches}")
+    if not all(launches[mode] > 0 for mode in tpv.MODES):
+        raise AssertionError(f"the probe did not launch int8_pv in every mode: {launches}")
+    return launches
+
+
+def build_encode_path(vit_cfg):
+    """bench.py's encode model: both towers and the two packer_v3
+    projectors, in bf16 on the card, returning the packed image tokens and
+    the two towers' features."""
+    import torch
+    from torch import nn
+
+    from hsenet_torch.configs import PackerConfig
+    from hsenet_torch.models.projector import build_projector
+    from hsenet_torch.models.vit import DualVisionTower
+
+    class EncodePath(nn.Module):
+        def __init__(self):
+            super().__init__()
+            kw = dict(dtype=torch.bfloat16, device="cuda")
+            self.tower = DualVisionTower(vit_cfg, **kw)
+            self.p1 = build_projector(PackerConfig(), **kw)
+            self.p2 = build_projector(PackerConfig(), **kw)
+
+        def forward(self, volume, slices):
+            f1, f2 = self.tower(volume, slices)
+            return torch.cat([self.p1(f1), self.p2(f2)], dim=1), (f1, f2)
+
+    return EncodePath().eval()
+
+
+def token_cosines(got, want):
+    """Per-token cosine of two (..., D) feature tensors, in f32."""
+    a, b = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(1e-30)
+
+
+def run_encode_w8a8(card: str):
+    """[encode-w8a8]: the W8A8 serving encode of bench.py at full width and
+    batch 8 (static activation scales from 2 volumes, tanh GELU) against
+    the float bf16/erf encode of the same weights: per-token cosine of the
+    tower features beside a wrong variant, flash launches per encode, vol/s
+    of both, a profile, and B1's time at the batch-8 tower shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from hsenet_torch.configs import ViT3DConfig, VLMConfig
+    from hsenet_torch.models import init_random_
+    from hsenet_torch.models.lora import (
+        DenseW8A8,
+        calibrate_w8a8_act_scales,
+        quantize_towers_w8a8,
+    )
+    from hsenet_torch.ops import flash_attention as tfa
+
+    t0 = time.perf_counter()
+    float_path = build_encode_path(ViT3DConfig())
+    init_random_(float_path, torch.Generator(device="cuda").manual_seed(3))
+    w8a8_cfg = ViT3DConfig(quant_w8a8=True, quant_w8a8_static=True,
+                           gelu_approx=True)
+    w8a8_path = build_encode_path(w8a8_cfg)
+    w8a8_path.load_state_dict(
+        quantize_towers_w8a8(float_path.state_dict(), static=True), strict=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    vol = torch.rand((ENCODE_BATCH, 1, *w8a8_cfg.image_size), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    sl = torch.rand((ENCODE_BATCH, w8a8_cfg.num_slices,
+                     w8a8_cfg.slice_feature_dim), generator=gen, device="cuda")
+    calibrate_w8a8_act_scales(
+        w8a8_path, [(vol[:W8A8_CALIB_VOLUMES], sl[:W8A8_CALIB_VOLUMES])])
+    denses = [m for m in w8a8_path.modules() if isinstance(m, DenseW8A8)]
+    torch.cuda.synchronize()
+    print(f"[encode-w8a8] float and W8A8 encode paths (2 ViT-B towers + 2 "
+          f"packers, bf16; {len(denses)} DenseW8A8 calibrated on "
+          f"{W8A8_CALIB_VOLUMES} volumes), built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    with torch.inference_mode():
+        ref_packed, ref_feats = float_path(vol, sl)
+        tfa.reset_launch_counts()  # one W8A8 encode, counted
+        packed, feats = w8a8_path(vol, sl)
+        torch.cuda.synchronize()
+        flash, flash_all = tfa.fwd_launches[(64, False)], sum(tfa.launches.values())
+        cos = torch.cat([token_cosines(f, r) for f, r in zip(feats, ref_feats)])
+        cos_packed = token_cosines(packed, ref_packed)
+        # the limit's power: the first block of each tower with its
+        # activation scales divided by 4
+        first = [m for tower in (w8a8_path.tower.tower_stage1,
+                                 w8a8_path.tower.tower_stage2)
+                 for m in tower.tower.blocks[0].modules()
+                 if isinstance(m, DenseW8A8)]
+        for m in first:
+            m.act_scale /= 4
+        _, clipped = w8a8_path(vol, sl)
+        for m in first:
+            m.act_scale *= 4
+        clipped_cos = torch.cat([token_cosines(f, r) for f, r in zip(clipped, ref_feats)])
+        # and one dense's weight scales shifted by one channel in each tower
+        for m in first[:1] + first[4:5]:
+            m.weight_scale.copy_(m.weight_scale.roll(1))
+        _, shifted = w8a8_path(vol, sl)
+        for m in first[:1] + first[4:5]:
+            m.weight_scale.copy_(m.weight_scale.roll(-1))
+        shifted_cos = torch.cat([token_cosines(f, r) for f, r in zip(shifted, ref_feats)])
+    finite = all(bool(f.float().isfinite().all()) for f in (packed, *feats))
+    print(f"[encode-w8a8] batch {ENCODE_BATCH}: packed tokens "
+          f"{tuple(packed.shape)}, finite {finite}; per-token cosine of the W8A8 "
+          f"tower features vs the float bf16/erf towers: min {cos.min().item():.5f}, "
+          f"mean {cos.mean().item():.5f} (limit: min >= {W8A8_COSINE_MIN}); packed "
+          f"tokens min {cos_packed.min().item():.5f}; first block's activation "
+          f"scales / 4: min {clipped_cos.min().item():.5f}, mean "
+          f"{clipped_cos.mean().item():.5f}; one dense's weight scales shifted "
+          f"by a channel: min {shifted_cos.min().item():.5f}; flash launches "
+          f"{flash} (expected {2 * w8a8_cfg.num_layers})")
+    n_img = VLMConfig().num_image_tokens
+    if not finite or packed.shape != (ENCODE_BATCH, n_img, VLMConfig().llm.hidden_size):
+        raise AssertionError("the W8A8 encode gave non-finite or misshapen tokens")
+    if cos.min().item() < W8A8_COSINE_MIN:
+        raise AssertionError("W8A8 tower features disagree with the float towers")
+    if clipped_cos.min().item() >= W8A8_COSINE_MIN:
+        raise AssertionError("the cosine limit passes clipped activations")
+    if shifted_cos.min().item() >= W8A8_COSINE_MIN:
+        raise AssertionError("the cosine limit passes shifted weight scales")
+    if flash != 2 * w8a8_cfg.num_layers or flash_all != flash:
+        raise AssertionError(f"a W8A8 encode launched flash_fwd {flash} times")
+
+    with torch.inference_mode():
+        w8a8_ms = median_wall_ms(lambda: w8a8_path(vol, sl))
+        float_ms = median_wall_ms(lambda: float_path(vol, sl))
+        profiles = {
+            "w8a8": profile_phase(f"encode W8A8, batch {ENCODE_BATCH}",
+                                  lambda: w8a8_path(vol, sl), w8a8_ms, top=8),
+            "float": profile_phase(f"encode bf16/erf, batch {ENCODE_BATCH}",
+                                   lambda: float_path(vol, sl), float_ms, top=8),
+        }
+    # the quantisation glue: the W8A8 encode's elementwise device time
+    # (conversions, division, rounding, clipping, rescaling) beyond the
+    # float encode's
+    kinds = [profiles[k].get("by_kind_ms") for k in ("w8a8", "float")]
+    glue_ms = None if None in kinds else kinds[0]["other"] - kinds[1]["other"]
+    numbers = {
+        "batch": ENCODE_BATCH,
+        "w8a8_ms": w8a8_ms, "float_ms": float_ms,
+        "w8a8_vol_per_s": ENCODE_BATCH / (w8a8_ms / 1e3),
+        "float_vol_per_s": ENCODE_BATCH / (float_ms / 1e3),
+        "cosine_min": cos.min().item(), "cosine_mean": cos.mean().item(),
+        "packed_cosine_min": cos_packed.min().item(),
+        "clipped_cosine_min": clipped_cos.min().item(),
+        "shifted_scales_cosine_min": shifted_cos.min().item(),
+        "flash_launches": flash,
+        "quant_glue_device_ms": glue_ms,
+        "profiles": profiles,
+    }
+    print(f"[encode-w8a8] on {card}: W8A8 (static scales, tanh GELU) "
+          f"{numbers['w8a8_vol_per_s']:.2f} vol/s ({w8a8_ms:.2f} ms), bf16/erf "
+          f"{numbers['float_vol_per_s']:.2f} vol/s ({float_ms:.2f} ms) at batch "
+          f"{ENCODE_BATCH}; quantise glue (device time of the W8A8 encode's "
+          f"elementwise kernels beyond the float encode's) "
+          f"{'not measured' if glue_ms is None else f'{glue_ms:.2f} ms'}")
+
+    # B1 at the batch-8 tower shape, for the launches of this path
+    q, k, v = (t.contiguous() for t in torch.randn(
+        3, ENCODE_BATCH, 12, 2049, 64, generator=gen, device="cuda",
+        dtype=torch.bfloat16))
+    kv_t = torch.full((ENCODE_BATCH,), 2049, dtype=torch.int32, device="cuda")
+    out = tfa.flash_attention(q, k, v, kv_lens=kv_t)
+    ref = tfa.flash_attention_reference(q, k, v, kv_lens=kv_t)
+    max_abs, row_rel, ok = compare(out, ref)
+    if not ok:
+        raise AssertionError("flash_fwd disagrees at the batch-8 tower shape")
+    bound, bound_by, flops, nbytes = kernel_bound(
+        "flash_fwd", ENCODE_BATCH, 12, 2049, 2049, 64, (2049,) * ENCODE_BATCH,
+        (0,) * ENCODE_BATCH, False)
+    tower_b8 = {
+        "max_abs_err": max_abs, "max_row_rel_err": row_rel,
+        "ms": time_ms(lambda: tfa.flash_attention(q, k, v, kv_lens=kv_t)),
+        "plain_ms": time_ms(lambda: tfa.flash_attention_reference(
+            q, k, v, kv_lens=kv_t), reps=2, warmup=1, runs=3),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        "bound_ms": bound, "bound_by": bound_by,
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+    }
+    print(f"[kernel] flash_fwd encode_w8a8_tower q{tuple(q.shape)}: max err / "
+          f"row's max |ref| {row_rel:.3e} (tol {KERNEL_ROW_TOL}); kernel "
+          f"{tower_b8['ms']:.4f} ms, plain {tower_b8['plain_ms']:.4f} ms, library "
+          f"(SDPA) {tower_b8['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+    return numbers, {"encode_w8a8_tower": tower_b8}
+
+
+def next_token_margin(logits, token):
+    """Of one (V,) greedy logits row where speculative decoding chose
+    `token` (None where its output had ended): (top-1 minus top-2 logit,
+    top-1 minus the chosen token's logit, that gap over the logits' RMS).
+    The gap is the top-2 margin when the chosen token is greedy's
+    runner-up, and an arbitrary token's distance from the top otherwise."""
+    x = logits.float().reshape(-1)
+    top = x.topk(2).values
+    margin = (top[0] - top[1]).item()
+    gap = margin if token is None else (top[0] - x[token]).item()
+    return margin, gap, gap / x.pow(2).mean().sqrt().item()
+
+
+def first_divergence(got, want):
+    """The first position where two token lists differ, or None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i
+    return None if len(got) == len(want) else min(len(got), len(want))
+
+
+def check_near_ties(tag, diverged):
+    """`diverged` lists (request, position, top-2 margin, chosen token's
+    gap, gap's share of RMS): every divergence must pick a token within a
+    near-tie of greedy's top logit."""
+    for req, pos, margin, gap, share in diverged:
+        print(f"[{tag}] request {req} leaves greedy at token {pos}: greedy's "
+              f"top-2 logit margin there {margin:.4e}, the chosen token "
+              f"{gap:.4e} below the top = {share:.3e} of the logits' RMS "
+              f"(near-tie limit {NEAR_TIE_SHARE})")
+    far = [d for d in diverged if d[4] > NEAR_TIE_SHARE]
+    if far:
+        raise AssertionError(f"{tag}: speculative tokens leave greedy away from "
+                             f"a near-tie: {far}")
+
+
+def greedy_divergences(cfg, llm, ids, got, want):
+    """Where the token list `got` first leaves greedy's `want` for the
+    batch-1 prompt `ids`: (position or None, [(0, position, *margins)]),
+    the margins from a prefill of the prompt and the greedy tokens before
+    that position."""
+    import torch
+
+    from hsenet_torch.models.phi3 import KVCache
+
+    div = first_divergence(got, want)
+    if div is None:
+        return None, []
+    with torch.inference_mode():
+        prefix = torch.cat([ids, torch.tensor([want[:div]], dtype=ids.dtype,
+                                              device=ids.device)], dim=1)
+        cache = KVCache.create(cfg.llm, 1, prefix.shape[1], device="cuda")
+        logits, _ = llm(prefix, cache=cache, last_token_only=True,
+                        kv_lens=torch.tensor([prefix.shape[1]], device="cuda"))
+    chosen = got[div] if div < len(got) else None
+    return div, [(0, div, *next_token_margin(logits[0, 0], chosen))]
+
+
+class AcceptOnePastMismatch:
+    """[spec]'s wrong variant: the LLM with each verify forward's logits
+    edited so that the round accepts the draft at its first mismatch too,
+    one draft past the last correct one."""
+
+    def __init__(self, llm):
+        self.llm, self.config = llm, llm.config
+
+    def __call__(self, tokens, **kw):
+        logits, cache = self.llm(tokens, **kw)
+        if tokens.shape[1] == SPEC_DRAFT_LEN + 1 and not kw.get("last_token_only"):
+            drafts = tokens[0, 1:]
+            miss = (drafts != logits[0, :-1].argmax(dim=-1)).nonzero()
+            if len(miss):
+                at = int(miss[0, 0])
+                logits[0, at, drafts[at]] = logits[0, at].max() + 1
+        return logits, cache
+
+
+def wrong_acceptance_misses(cfg, llm, ids, lens, want):
+    """Prompt-lookup decoding that accepts one draft past its first
+    mismatch must leave greedy away from a near-tie: the near-tie check
+    has to refuse it. Returns the divergence it printed."""
+    import torch
+
+    from hsenet_torch.eval.speculative import make_pld_generate_llm_only
+
+    wrong = make_pld_generate_llm_only(
+        AcceptOnePastMismatch(llm), max_new_tokens=SPEC_NEW_TOKENS,
+        draft_len=SPEC_DRAFT_LEN, ngram=SPEC_NGRAM, eos_token_id=EOS_TOKEN_ID,
+        cache_dtype=torch.bfloat16)(ids, lens)
+    div, diverged = greedy_divergences(cfg, llm, ids, wrong[0].tolist(), want)
+    if div is None:
+        raise AssertionError("the wrong-acceptance variant equals greedy")
+    try:
+        check_near_ties("spec wrong variant", diverged)
+    except AssertionError:
+        print(f"[spec] wrong variant (one draft accepted past its first "
+              f"mismatch) misses the near-tie limit, as it must")
+        return diverged
+    raise AssertionError("the near-tie check passes a wrong acceptance")
+
+
+def spec_against_greedy(tag, cfg, llm, ids, lens):
+    """One prompt through greedy decoding and through prompt-lookup
+    decoding on `llm`: tokens, rounds, tokens/s of both, launches of the
+    speculative run, and greedy's margin where the two part; and greedy's
+    tokens."""
+    import torch
+
+    from hsenet_torch.eval.generate import make_greedy_generate_llm_only
+    from hsenet_torch.eval.speculative import make_pld_generate_llm_only
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    kw = dict(eos_token_id=EOS_TOKEN_ID, cache_dtype=torch.bfloat16)
+    spec_kw = dict(draft_len=SPEC_DRAFT_LEN, ngram=SPEC_NGRAM, **kw)
+    # warm-up off the record: a few tokens through each
+    make_greedy_generate_llm_only(llm, max_new_tokens=4, **kw)(ids, lens)
+    make_pld_generate_llm_only(llm, max_new_tokens=16, **spec_kw)(ids, lens)
+    greedy = make_greedy_generate_llm_only(llm, max_new_tokens=SPEC_NEW_TOKENS, **kw)
+    spec = make_pld_generate_llm_only(llm, max_new_tokens=SPEC_NEW_TOKENS,
+                                      collect_stats=True, **spec_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = greedy(ids, lens)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    reset_counts()  # the speculative run, counted
+    t0 = time.perf_counter()
+    got, rounds, emitted = spec(ids, lens)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    b5 = tqm.launches["quant_matvec"]
+    flash = sum(tfa.launches.values())
+    per_round = 7 * cfg.llm.num_layers
+    mean_committed = int(emitted.sum()) / rounds
+    got_l, want_l = got[0].tolist(), want[0].tolist()
+    div, diverged = greedy_divergences(cfg, llm, ids, got_l, want_l)
+    numbers = {
+        "rounds": rounds, "mean_committed_per_round": mean_committed,
+        "spec_tokens_per_s": SPEC_NEW_TOKENS / spec_s,
+        "greedy_tokens_per_s": SPEC_NEW_TOKENS / greedy_s,
+        "quant_matvec_launches": b5, "flash_fwd_launches": flash,
+        "equal_to_greedy": div is None, "divergences": diverged,
+    }
+    print(f"[spec] {tag}: {rounds} verify rounds, mean committed per round "
+          f"{mean_committed:.2f}, {numbers['spec_tokens_per_s']:.1f} tokens/s "
+          f"against greedy {numbers['greedy_tokens_per_s']:.1f} tokens/s "
+          f"(x{numbers['spec_tokens_per_s'] / numbers['greedy_tokens_per_s']:.2f}); "
+          f"tokens equal greedy: {div is None}; quant_matvec launches {b5} "
+          f"(expected {per_round} x {rounds} rounds: 7 projections x "
+          f"{cfg.llm.num_layers} layers, each at 1 slot x {SPEC_DRAFT_LEN + 1} "
+          f"positions = {SPEC_DRAFT_LEN + 1} rows), flash_fwd {flash} (expected "
+          f"{cfg.llm.num_layers}: the prefill)")
+    print(f"[spec] {tag}: first tokens: speculative {got_l[:10]}, greedy {want_l[:10]}")
+    if b5 != per_round * rounds or flash != cfg.llm.num_layers:
+        raise AssertionError("the verify rounds did not go through the kernels")
+    if int(emitted.sum()) != SPEC_NEW_TOKENS and EOS_TOKEN_ID not in got_l:
+        raise AssertionError("speculative decoding emitted the wrong count")
+    check_near_ties("spec", diverged)
+    return numbers, want_l
+
+
+def run_spec(card: str, cfg, model):
+    """[spec]: prompt-lookup decoding at batch 1 on the serving model's
+    Phi-4-mini (32 layers, int8 projections and embedding) against greedy
+    decoding of the same prompt: with the random weights, then with
+    bench.py's constant weights (int8 codes 1, every float 0.01), whose
+    greedy output is one token repeated, so that every draft is accepted:
+    the full-acceptance ceiling. The second overwrites the model's LLM."""
+    import torch
+
+    llm = model.llm
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    phrase = torch.randint(3, 100000, (SPEC_PHRASE,), generator=gen, device="cuda")
+    ids = phrase.repeat(PROMPT_LEN // SPEC_PHRASE)[None, :]
+    lens = torch.tensor([PROMPT_LEN], dtype=torch.int32, device="cuda")
+    print(f"[spec] on {card}: Phi-4-mini, int8 projections and embedding, "
+          f"batch 1, a prompt of {PROMPT_LEN} tokens ({PROMPT_LEN // SPEC_PHRASE} "
+          f"x one {SPEC_PHRASE}-token phrase), {SPEC_NEW_TOKENS} new tokens, "
+          f"drafts of {SPEC_DRAFT_LEN} from {SPEC_NGRAM}-grams")
+    numbers = {"prompt_len": PROMPT_LEN, "new_tokens": SPEC_NEW_TOKENS,
+               "draft_len": SPEC_DRAFT_LEN, "ngram": SPEC_NGRAM}
+    numbers["random_weights"], want = spec_against_greedy(
+        "random weights", cfg, llm, ids, lens)
+    numbers["wrong_variant_divergence"] = wrong_acceptance_misses(
+        cfg, llm, ids, lens, want)
+    with torch.no_grad():
+        for t in [*llm.parameters(), *llm.buffers()]:
+            t.fill_(1 if t.dtype == torch.int8 else 0.01)
+    numbers["constant_weights"], _ = spec_against_greedy(
+        "constant weights (full acceptance)", cfg, llm, ids, lens)
+    return numbers
+
+
+def run_serve_spec(card: str, cfg, model, serve_numbers, serve_tokens,
+                   kv_int8_tokens):
+    """[serve-spec]: the [serve] engine with speculative=True on [serve]'s
+    closed-loop requests, tokens against the greedy engine's, and the same
+    with the int8 KV cache on [serve-kv-int8]'s requests."""
+    import numpy as np
+    import torch
+
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    spec = dict(speculative=True, draft_len=SPEC_DRAFT_LEN, ngram=SPEC_NGRAM)
+    warm = make_engine(model, **spec)
+    for req in serving_traffic(cfg, 2, 1, seed=12):
+        warm.submit(**{**req, "max_new": 4})
+    warm.run_until_drained()
+    del warm
+    numbers = {}
+    runs = (("bf16 cache", torch.bfloat16, serving_traffic(cfg, 20, 4, seed=11)[:12],
+             serve_tokens),
+            ("int8 cache", torch.int8, serving_traffic(cfg, 6, 2, seed=14)[:4],
+             kv_int8_tokens))
+    for label, cache_dtype, requests, want in runs:
+        eng = make_engine(model, cache_dtype=cache_dtype, **spec)
+        if eng.capacity != SERVE_CAPACITY:  # 2 x (7 + 1) = the chunk of 16
+            raise AssertionError(f"speculative cache rows of {eng.capacity} slots")
+        torch.cuda.synchronize()
+        reset_counts()  # the speculative engine, counted
+        t0 = time.perf_counter()
+        for req in requests:
+            eng.submit(**req)
+        results = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [results[u] for u in sorted(results)]
+        n_tokens = sum(map(len, got))
+        want_b1 = {"d64": 2 * cfg.vision.num_layers * eng.encode_misses,
+                   "d128": cfg.llm.num_layers * len(requests)}
+        got_b1 = {"d64": tfa.fwd_launches[(64, False)],
+                  "d128": tfa.fwd_launches[(128, False)]}
+        if len(got) != len(requests) or got_b1 != want_b1:
+            raise AssertionError(f"serve-spec {label}: {len(got)} requests "
+                                 f"finished, flash launches {got_b1}, not {want_b1}")
+        if tqm.launches["quant_matvec"] != 0:
+            raise AssertionError("a verify round of 8 slots took the matvec kernel")
+        diverged = []
+        for r, (g_toks, w_toks) in enumerate(zip(got, want)):
+            div = first_divergence(g_toks, w_toks)
+            if div is None:
+                continue
+            req = requests[r]
+            probe_eng = make_engine(model, num_slots=1, prompt_cap=640,
+                                    volume_cache_size=0, kv_prefix_cache_size=0,
+                                    cache_dtype=cache_dtype)
+            logits = admission_logits(probe_eng, {
+                **req, "prompt_ids": np.concatenate(
+                    [req["prompt_ids"], np.asarray(w_toks[:div])])})
+            diverged.append((r, div, *next_token_margin(
+                logits[0], g_toks[div] if div < len(g_toks) else None)))
+            del probe_eng
+        stats = eng.latency_stats()
+        numbers[label] = {
+            "requests": len(requests), "tokens": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall, "mean_accepted": eng.mean_accepted,
+            "verify_rounds": eng.verify_rounds_used, "latency": stats,
+            "equal_requests": len(requests) - len(diverged),
+            "divergences": diverged, "flash_fwd_launches": got_b1,
+            "prefix_misses": eng.prefix_misses, "prefix_hits": eng.prefix_hits,
+        }
+        base = serve_numbers["closed_loop"] if label == "bf16 cache" else None
+        beside = "" if base is None else (
+            f" ([serve]: {base['tokens_per_s']:.1f} tokens/s, TTFT p50/p99 "
+            f"{base['latency']['ttft_p50_s']:.3f}/{base['latency']['ttft_p99_s']:.3f}"
+            f" s, TPOT p50/p99 {base['latency']['tpot_p50_s'] * 1e3:.1f}/"
+            f"{base['latency']['tpot_p99_s'] * 1e3:.1f} ms)")
+        print(f"[serve-spec] on {card}, {label}, {len(requests)} requests closed "
+              f"loop, {SERVE_SLOTS} slots, chunks of {SERVE_CHUNK} verify rounds: "
+              f"{n_tokens} tokens in {wall:.2f} s = {n_tokens / wall:.1f} tokens/s, "
+              f"mean_accepted {eng.mean_accepted:.2f} over "
+              f"{eng.verify_rounds_used} slot-rounds, TTFT p50/p99 "
+              f"{stats['ttft_p50_s']:.3f}/{stats['ttft_p99_s']:.3f} s, TPOT "
+              f"p50/p99 {stats['tpot_p50_s'] * 1e3:.1f}/"
+              f"{stats['tpot_p99_s'] * 1e3:.1f} ms{beside}; requests equal to the "
+              f"greedy engine's: {len(requests) - len(diverged)} of "
+              f"{len(requests)}; flash_fwd {got_b1}")
+        check_near_ties("serve-spec", diverged)
+    return numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -2455,11 +3111,13 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
 
     from hsenet_torch.ops import _build
+    from hsenet_torch.ops import int8_pv as tpv
     from hsenet_torch.ops import quant_matvec as tqm
     from hsenet_torch.ops.flash_attention import KERNELS
 
     t0 = time.perf_counter()
-    _build.load_all((*KERNELS, tqm.KERNEL))  # one nvcc per source, all at once
+    # one nvcc per source, all at once
+    _build.load_all((*KERNELS, tqm.KERNEL, tpv.KERNEL))
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(_build.BUILD_LOGS) or 'cached'}")
     for name, log in _build.BUILD_LOGS.items():
@@ -2471,6 +3129,11 @@ def main() -> int:
     bwd = check_flash_bwd_kernels()
     clip_kernels = check_clip_kernels()
     matvec = check_matvec_kernel()
+    pv = check_pv_kernel()
+    pv_launches = run_pv_probe()
+    encode_numbers, encode_shapes = run_encode_w8a8(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches, counts, numbers = run_main_path(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2481,11 +3144,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve_cfg, serve_model = build_serving_model()
-    serve_numbers = run_serve_path(card, serve_cfg, serve_model)
+    serve_numbers, serve_tokens = run_serve_path(card, serve_cfg, serve_model)
     serve_numbers["logits"] = check_serve_logits(serve_cfg, serve_model)
-    serve_numbers["kv_int8"] = run_serve_kv_int8(serve_cfg, serve_model)
+    serve_numbers["kv_int8"], kv_int8_tokens = run_serve_kv_int8(serve_cfg, serve_model)
     serve_numbers["long"] = run_serve_long(serve_cfg, serve_model)
     serve_numbers["profiles"] = profile_serve(serve_cfg, serve_model)
+    # prompt-lookup speculative decoding on the same model: the engine,
+    # then batch 1 on the bare LLM (last: its ceiling run overwrites the
+    # LLM's weights)
+    spec_engine = run_serve_spec(card, serve_cfg, serve_model, serve_numbers,
+                                 serve_tokens, kv_int8_tokens)
+    spec_numbers = run_spec(card, serve_cfg, serve_model)
+    spec_numbers["engine"] = spec_engine
     del serve_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2508,14 +3178,17 @@ def main() -> int:
     # (closed loop, open loop, the long-budget engine): 24 tower launches
     # per encode miss, 32 per admission at its prefill shape
     served = (serve_numbers["closed_loop"], serve_numbers["open_loop"])
+    admitted = (*served, *spec_numbers["engine"].values())
     long_run = serve_numbers["long"]
     fwd_counts = {
         "tower": counts["tower"] + train_counts["fwd_d64"] + sum(
-            r["flash_fwd_launches"]["d64"] for r in (*served, long_run)),
+            r["flash_fwd_launches"]["d64"] for r in (*admitted, long_run)),
+        "encode_w8a8_tower": encode_numbers["flash_launches"],
         "prefill": counts["prefill"],
         "train": train_counts["fwd_d128_lse"],
-        "serve_prefill": 32 * sum(r["prefix_misses"] for r in served),
-        "serve_prefix_hit": 32 * sum(r["prefix_hits"] for r in served),
+        # admissions of the greedy and the speculative engines
+        "serve_prefill": 32 * sum(r["prefix_misses"] for r in admitted),
+        "serve_prefix_hit": 32 * sum(r["prefix_hits"] for r in admitted),
         "serve_long": long_run["flash_fwd_launches"]["d128"],
     }
     # the matvec's launches at 8 rows: the decode steps of the closed and
@@ -2544,7 +3217,10 @@ def main() -> int:
 
     def entry(name, source, replaces, shapes, path_counts, note):
         def per_run(key):  # per-launch times x launches at each shape
-            return sum(shapes[s][key] * n for s, n in path_counts.items())
+            timed = [(shapes[s][key], n) for s, n in path_counts.items()]
+            if any(t is None for t, _ in timed):  # no partial sums
+                return None
+            return sum(t * n for t, n in timed)
 
         # the shape that holds most of the bound names what bounds it
         heaviest = max(path_counts,
@@ -2575,7 +3251,10 @@ def main() -> int:
     kernels = [
         entry("flash_fwd", "hsenet_torch/csrc/flash_fwd.cu",
               f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
-              {**per_shape, **clip_kernels["flash_fwd"]}, fwd_counts, note),
+              {**per_shape, **clip_kernels["flash_fwd"], **encode_shapes},
+              fwd_counts, note + "; one W8A8 encode at its batch-8 tower shape "
+              "and the speculative engine's admissions ([spec]'s one prefill "
+              "is left out)"),
         entry("flash_bwd_dq", "hsenet_torch/csrc/flash_bwd_dq.cu",
               f"{jax_fa}:552 (_bwd_dq_kernel), {jax_fa}:678 (_bwd_dq_kernel_stream)",
               {**bwd["flash_bwd_dq"], **clip_kernels["flash_bwd_dq"]},
@@ -2591,6 +3270,13 @@ def main() -> int:
               "sums over the decode steps of the closed and open serving loops "
               "at 8 slots: per-launch times at each (K, N), codes read cold, x its "
               "launches there; library is a matmul on a bf16 copy of the weight"),
+        entry("int8_pv", "hsenet_torch/csrc/int8_pv.cu",
+              "scripts/_probe_pallas_int8.py:10 (make_kernel)", pv, pv_launches,
+              "sums over the probe run (python -m hsenet_torch.scripts."
+              "probe_int8_pv, all four modes at G 192, M 1152, K 2176, N 64): "
+              "per-launch times of each mode x its launches; library_ms is "
+              "null: no single PyTorch call computes the integer modes, and "
+              "the bf16 mode's torch.bmm time stands under shapes"),
     ]
     clip = {"stage1": stage1_numbers, "stage2": stage2_numbers,
             "grads": clip_grad_numbers, "long": long_numbers,
@@ -2602,7 +3288,9 @@ def main() -> int:
                                 ("long", long_counts))}}
     print(json.dumps({"kernels": kernels, "main_path": numbers,
                       "train": train_numbers, "train_grads": grad_numbers,
-                      "serve": serve_numbers, "clip": clip, "card": card}))
+                      "serve": serve_numbers, "clip": clip,
+                      "encode_w8a8": encode_numbers, "spec": spec_numbers,
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -14,11 +14,16 @@ bare LLM (the port of the JAX package's cli/serve.py), built on
     python -m hsenet_torch.cli.serve --quant-int8 --requests req.jsonl \
         --output out.jsonl --slots 8 --chunk 16
 
+    # prompt-lookup speculative decoding: a chunk is --chunk verify rounds
+    # of --draft-len drafted tokens each (lossless: the greedy tokens)
+    python -m hsenet_torch.cli.serve --quant-int8 --llm-only --synthetic \
+        --speculative --draft-len 7 --ngram 2
+
 `volume` / `slice_features` are .npy paths; omit them with --llm-only to
 serve the bare decoder. Weights are random, drawn from --seed: --checkpoint
 waits for the checkpoint slice of the port, --tp > 1 for the parallel
-slice, --speculative and --do-sample for the speculative-decoding and
-sampling slices; each raises `NotImplementedError`.
+slice, --do-sample for the sampling slice; each raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -71,8 +76,8 @@ def main(argv=None, *, device="cuda"):
     p.add_argument("--top-p", type=float, default=None)
     p.add_argument("--gen-seed", type=int, default=0)
     p.add_argument("--speculative", action="store_true",
-                   help="prompt-lookup speculative decoding (waits for the "
-                        "speculative-decoding slice)")
+                   help="prompt-lookup speculative decoding (lossless; "
+                        "the chunk becomes verify rounds)")
     p.add_argument("--draft-len", type=int, default=7)
     p.add_argument("--ngram", type=int, default=2)
     p.add_argument("--kv-int8", action="store_true",
@@ -97,8 +102,6 @@ def main(argv=None, *, device="cuda"):
     for flag, what in (
         (args.checkpoint, "--checkpoint waits for the checkpoint slice"),
         (args.tp > 1, "--tp > 1 waits for the parallel slice"),
-        (args.speculative, "--speculative waits for the speculative-"
-                           "decoding slice"),
         (args.do_sample, "--do-sample waits for the sampling slice"),
     ):
         if flag:
@@ -157,6 +160,9 @@ def main(argv=None, *, device="cuda"):
         cache_dtype=torch.int8 if args.kv_int8
         else (torch.float32 if args.synthetic else torch.bfloat16),
         multimodal=multimodal,
+        speculative=args.speculative,
+        draft_len=args.draft_len,
+        ngram=args.ngram,
         volume_cache_size=args.vol_cache if multimodal else 0,
         kv_prefix_cache_size=args.kv_prefix_cache if multimodal else 0,
         device=device,
@@ -251,6 +257,8 @@ def main(argv=None, *, device="cuda"):
         "slots": args.slots,
         "tp": args.tp,
     }
+    if args.speculative:
+        summary["mean_committed_per_round"] = round(eng.mean_accepted, 2)
     if args.vol_cache:
         summary["encode_hits"] = eng.encode_hits
         summary["encode_misses"] = eng.encode_misses

@@ -37,7 +37,10 @@ class ViT3DConfig:
     slice_dropout_rate: float = 0.1
     num_slices: int = 32  # rows of the (32, 768) slice-feature matrix
     slice_feature_dim: int = 768
-    # int8 W8A8 serving mode (a later slice of the port)
+    # int8 W8A8 serving mode: the tower blocks' dense modules run int8 x
+    # int8 -> int32 (models.lora.DenseW8A8), per-output-channel weight
+    # scales; dynamic per-token activation scales, or with
+    # quant_w8a8_static per-layer scales set by calibrate_w8a8_act_scales
     quant_w8a8: bool = False
     quant_w8a8_static: bool = False
     # tanh-approximate GELU in the block MLPs (exact erf by default)

@@ -8,6 +8,10 @@ package's models/layers.py).
   * `SingleHeadCrossAttention`: full-width single-head cross attention,
     residual on the projected query, post-LN.
 
+With `quant` the dense modules of `MlpBlock` and `SelfAttention` are the
+W8A8 serving dense `models.lora.DenseW8A8` (`quant_static`: calibrated
+static activation scales), as the JAX package's `_dense` switch makes them.
+
 Dtype flow follows the JAX package: each Dense computes in the module's
 dtype (its input and its weights are cast to it at use, so a weight kept
 as an f32 master for training computes in bf16 like a bf16 one), LayerNorms
@@ -135,16 +139,32 @@ class LayerNorm(nn.LayerNorm):
         )
 
 
+def _dense(in_dim: int, features: int, *, quant: bool, dtype, device,
+           bias: bool = True, quant_static: bool = False) -> nn.Module:
+    """`Dense`, or the W8A8 serving dense when `quant` (same buffer names
+    as `LoRADense(quantized=True)`, so one converter serves both)."""
+    if quant:
+        from hsenet_torch.models.lora import DenseW8A8
+
+        return DenseW8A8(in_dim, features, use_bias=bias,
+                         static_act_scale=quant_static, dtype=dtype,
+                         device=device)
+    return Dense(in_dim, features, bias=bias, dtype=dtype, device=device)
+
+
 class MlpBlock(nn.Module):
     """Linear-GELU-Linear (exact erf GELU unless `gelu_approx`)."""
 
     def __init__(self, in_dim: int, mlp_dim: int, out_dim: int, *,
                  dropout_rate: float = 0.0, gelu_approx: bool = False,
+                 quant: bool = False, quant_static: bool = False,
                  dtype=torch.float32, device="cuda"):
         super().__init__()
         device = resolve_device(device)
-        self.fc1 = Dense(in_dim, mlp_dim, dtype=dtype, device=device)
-        self.fc2 = Dense(mlp_dim, out_dim, dtype=dtype, device=device)
+        kw = dict(quant=quant, quant_static=quant_static, dtype=dtype,
+                  device=device)
+        self.fc1 = _dense(in_dim, mlp_dim, **kw)
+        self.fc2 = _dense(mlp_dim, out_dim, **kw)
         self.dropout_rate = dropout_rate
         self.gelu_approx = "tanh" if gelu_approx else "none"
 
@@ -157,15 +177,17 @@ class MlpBlock(nn.Module):
 
 class SelfAttention(nn.Module):
     def __init__(self, hidden: int, num_heads: int, *, qkv_bias: bool = False,
-                 dropout_rate: float = 0.0, dtype=torch.float32,
+                 dropout_rate: float = 0.0, quant: bool = False,
+                 quant_static: bool = False, dtype=torch.float32,
                  device="cuda"):
         super().__init__()
         device = resolve_device(device)
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
-        self.qkv = Dense(hidden, 3 * hidden, bias=qkv_bias, dtype=dtype,
-                         device=device)
-        self.out_proj = Dense(hidden, hidden, dtype=dtype, device=device)
+        kw = dict(quant=quant, quant_static=quant_static, dtype=dtype,
+                  device=device)
+        self.qkv = _dense(hidden, 3 * hidden, bias=qkv_bias, **kw)
+        self.out_proj = _dense(hidden, hidden, **kw)
 
     def forward(self, x: torch.Tensor, *,
                 deterministic: bool = True) -> torch.Tensor:
@@ -181,18 +203,19 @@ class SelfAttention(nn.Module):
 class TransformerBlock(nn.Module):
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int, *,
                  qkv_bias: bool = False, dropout_rate: float = 0.0,
-                 gelu_approx: bool = False, dtype=torch.float32,
+                 gelu_approx: bool = False, quant: bool = False,
+                 quant_static: bool = False, dtype=torch.float32,
                  device="cuda"):
         super().__init__()
         device = resolve_device(device)
+        kw = dict(quant=quant, quant_static=quant_static, dtype=dtype,
+                  device=device)
         self.norm1 = LayerNorm(hidden, device=device)
         self.attn = SelfAttention(hidden, num_heads, qkv_bias=qkv_bias,
-                                  dropout_rate=dropout_rate, dtype=dtype,
-                                  device=device)
+                                  dropout_rate=dropout_rate, **kw)
         self.norm2 = LayerNorm(hidden, device=device)
         self.mlp = MlpBlock(hidden, mlp_dim, hidden, dropout_rate=dropout_rate,
-                            gelu_approx=gelu_approx, dtype=dtype,
-                            device=device)
+                            gelu_approx=gelu_approx, **kw)
 
     def forward(self, x: torch.Tensor, *,
                 deterministic: bool = True) -> torch.Tensor:

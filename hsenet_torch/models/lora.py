@@ -1,6 +1,7 @@
-"""LoRA dense layer, the int8 weight-only forms and their converters (the
-port of the JAX package's models/lora.py: `LoRADense`, `QuantEmbed`,
-`merge_lora`, `quantize_kernels_int8`, `quantize_embed_int8`).
+"""LoRA dense layer, the int8 forms and their converters (the port of the
+JAX package's models/lora.py: `LoRADense`, `QuantEmbed`, `DenseW8A8`,
+`calibrate_w8a8_act_scales`, `merge_lora`, `quantize_kernels_int8`,
+`quantize_embed_int8`).
 
 `LoRADense`: the base weight keeps the name `weight` (the Linear layout,
 (out, in)) and the adapters are `lora_a` (in, r) and `lora_b` (r, out), in
@@ -27,6 +28,12 @@ tensor) in, a new one out, which the module built with the matching
 They round half to even, clip at +-127 and floor the scale at 1e-8, and
 give the codes and scales the JAX package's converters give on the same
 float weights.
+
+`DenseW8A8` is the W8A8 serving dense of the vision towers: int8 weights
+(the same `weight_q` / `weight_scale` buffers, so `quantize_kernels_int8`
+converts both forms) times int8 activations, summed in int32 by the
+library's integer product `torch._int_mm` (the JAX package leaves this
+product to XLA, outside any Pallas kernel), rescaled exactly in f32.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ from hsenet_torch.ops.quant_matvec import quant_matvec_int8
 
 QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
                  "gate_proj", "up_proj", "down_proj")
+# the tower blocks' dense modules of the W8A8 encode serving mode
+VIT_QUANT_TARGETS = ("qkv", "out_proj", "fc1", "fc2")
 
 
 class LoRADense(Dense):
@@ -123,6 +132,98 @@ class QuantEmbed(nn.Module):
         return logits * self.scale.to(self.dtype)
 
 
+class DenseW8A8(nn.Module):
+    """int8 x int8 -> int32 dense for the W8A8 encode serving mode.
+
+    Buffers `weight_q` (out, in) int8 and `weight_scale` (out,) f32 (one
+    scale per output channel, as `LoRADense(quantized=True)`); an f32
+    `bias`; with `static_act_scale`, a 0-d f32 `act_scale` buffer, the
+    calibrated largest |activation| of the layer. Activations are
+    quantised in f32 with the JAX layer's arithmetic, so the codes agree:
+
+      * dynamic: one scale per row, max(rowmax |x|, 1e-8) / 127, codes
+        round(x / scale) (half to even);
+      * static: scale max(act_scale, 1e-8) / 127, codes clipped at +-127;
+      * calibrating (`calibrating = True`, static modules only): records
+        the running max of |x| in `amax` and quantises dynamically, so
+        that deeper layers calibrate on undistorted activations.
+
+    y = int32 sums * act scale * weight scale + bias in f32, cast to
+    `dtype`. Inference only: nothing here has a gradient. On a CUDA tensor
+    the library's integer product takes more than 16 rows and K, N
+    multiples of 8: the towers give it B x 2049 rows of widths 768, 2304
+    and 3072. The weight goes in as the column-major view `weight_q.t()`,
+    never a copy."""
+
+    def __init__(self, in_dim: int, features: int, *, use_bias: bool = True,
+                 static_act_scale: bool = False, dtype=torch.bfloat16,
+                 device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.in_features, self.out_features = in_dim, features
+        self.compute_dtype = dtype
+        self.static_act_scale = static_act_scale
+        self.register_buffer("weight_q", torch.zeros(
+            (features, in_dim), dtype=torch.int8, device=device))
+        self.register_buffer("weight_scale", torch.ones(
+            features, dtype=torch.float32, device=device))
+        if static_act_scale:
+            self.register_buffer("act_scale", torch.ones(
+                (), dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            features, dtype=torch.float32, device=device)) if use_bias else None
+        self.calibrating = False
+        self.amax: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.static_act_scale and not self.calibrating:
+            ascale = self.act_scale.clamp_min(1e-8) / 127.0
+            xq = torch.round(xf / ascale).clamp(-127.0, 127.0)
+        else:
+            if self.calibrating:
+                amax = xf.abs().amax()
+                self.amax = amax if self.amax is None else torch.maximum(
+                    self.amax, amax)
+            ascale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+            xq = torch.round(xf / ascale)
+        lead = x.shape[:-1]
+        acc = torch._int_mm(xq.to(torch.int8).reshape(-1, self.in_features),
+                            self.weight_q.t())
+        y = acc.reshape(*lead, self.out_features).float() * ascale
+        y = y * self.weight_scale
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(self.compute_dtype)
+
+
+@torch.no_grad()
+def calibrate_w8a8_act_scales(model: nn.Module, batches, fn=None) -> nn.Module:
+    """Set every static-scale `DenseW8A8`'s `act_scale` in `model` to the
+    largest |activation| it sees over `batches` (tuples of arguments to
+    `fn`, by default the model itself), in place. During the pass each
+    such layer quantises dynamically, as the JAX package's calibration
+    does. Returns `model`."""
+    layers = [m for m in model.modules()
+              if isinstance(m, DenseW8A8) and m.static_act_scale]
+    if not layers:
+        raise ValueError("the model has no DenseW8A8 with static_act_scale")
+    fn = model if fn is None else fn
+    for layer in layers:
+        layer.calibrating, layer.amax = True, None
+    try:
+        for batch in batches:
+            fn(*batch)
+        for layer in layers:
+            if layer.amax is None:
+                raise ValueError("a static-scale DenseW8A8 saw no activation")
+            layer.act_scale.copy_(layer.amax)
+    finally:
+        for layer in layers:
+            layer.calibrating, layer.amax = False, None
+    return model
+
+
 def _symmetric_int8(w: torch.Tensor):
     """(rows, cols) float -> (int8 codes, (rows,) f32 scales), each row
     quantised to its own largest |value|."""
@@ -149,6 +250,24 @@ def quantize_kernels_int8(
             out[prefix + "weight_scale"] = scale
         else:
             out[name] = value
+    return out
+
+
+def quantize_towers_w8a8(state: Dict[str, torch.Tensor], *,
+                         static: bool = False) -> Dict[str, torch.Tensor]:
+    """`quantize_kernels_int8(..., VIT_QUANT_TARGETS)` over the ViT tower
+    blocks of a float state (`*.tower.blocks.*`), the state a `quant_w8a8`
+    tower loads. Only the blocks: the slice-guided cross-attention's
+    `out_proj` shares a target name but stays a float dense in the W8A8
+    mode. With `static`, every quantised module also gets an `act_scale`
+    of 1.0 (the JAX layer's initial value) for calibration to overwrite."""
+    blocks = {k: v for k, v in state.items() if ".tower.blocks." in f".{k}"}
+    out = {k: v for k, v in state.items() if k not in blocks}
+    for name, value in quantize_kernels_int8(blocks, VIT_QUANT_TARGETS).items():
+        out[name] = value
+        if static and name.endswith(".weight_scale"):
+            out[name[: -len("weight_scale")] + "act_scale"] = torch.ones(
+                (), dtype=torch.float32, device=value.device)
     return out
 
 

@@ -161,3 +161,12 @@ class HSENetVLM(nn.Module):
         embeds = self.llm.embed_tokens(token)
         logits, cache = self.llm.decode_embeds(embeds, cache=cache)
         return logits[:, 0], cache
+
+    def verify_step(self, tokens: torch.Tensor, cache: KVCache,
+                    kv_lens: torch.Tensor) -> Tuple[torch.Tensor, KVCache]:
+        """Multi-token decode for speculative verification: tokens (B, K)
+        -> (logits (B, K, V), cache), through the chunked-prefill path
+        (per-row causal offsets over the cache), so that one forward
+        scores K draft positions (`eval/speculative.py`)."""
+        embeds = self.llm.embed_tokens(tokens)
+        return self.llm.decode_embeds(embeds, kv_lens=kv_lens, cache=cache)

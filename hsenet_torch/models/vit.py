@@ -13,6 +13,11 @@ The JAX package runs the tower as an `nn.scan` over stacked weights; here
 it is an `nn.ModuleList` of blocks (`hsenet_torch.bridge` unstacks the
 scanned weights). `remat=True` recomputes each block in the backward pass
 (`models.layers.checkpointed`), as the JAX tower's `nn.remat` does.
+
+`config.quant_w8a8` makes the blocks' dense modules the W8A8 serving dense
+(`models.lora.DenseW8A8`; `quant_w8a8_static` with calibrated activation
+scales). Patch embedding, the slice-guided cross-attention and attention
+itself stay in the compute dtype, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ class TransformerTower(nn.Module):
     def __init__(self, hidden: int, num_layers: int, num_heads: int,
                  mlp_dim: int, *, qkv_bias: bool = False,
                  dropout_rate: float = 0.0, gelu_approx: bool = False,
+                 quant: bool = False, quant_static: bool = False,
                  dtype=torch.float32, device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
@@ -49,7 +55,8 @@ class TransformerTower(nn.Module):
         self.blocks = nn.ModuleList(
             TransformerBlock(hidden, num_heads, mlp_dim, qkv_bias=qkv_bias,
                              dropout_rate=dropout_rate,
-                             gelu_approx=gelu_approx, dtype=dtype,
+                             gelu_approx=gelu_approx, quant=quant,
+                             quant_static=quant_static, dtype=dtype,
                              device=device)
             for _ in range(num_layers)
         )
@@ -73,10 +80,6 @@ class ViT3D(nn.Module):
                  device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
-        if config.quant_w8a8:
-            raise NotImplementedError(
-                "the W8A8 ViT (DenseW8A8) comes with a later slice of the port"
-            )
         cfg = self.config = config
         self.patch_embed = PatchEmbed3D(
             cfg.patch_size, cfg.in_channels, cfg.num_patches, cfg.hidden_size,
@@ -97,7 +100,8 @@ class ViT3D(nn.Module):
         self.tower = TransformerTower(
             cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.mlp_dim,
             qkv_bias=cfg.qkv_bias, dropout_rate=cfg.dropout_rate,
-            gelu_approx=cfg.gelu_approx, dtype=dtype, device=device,
+            gelu_approx=cfg.gelu_approx, quant=cfg.quant_w8a8,
+            quant_static=cfg.quant_w8a8_static, dtype=dtype, device=device,
             remat=remat,
         )
 

@@ -24,9 +24,17 @@ keys and values of the BOS + image-block PREFIX per volume (a hit prefills
 the question chunk only). A prefix miss costs nothing extra: the cached
 prefix is sliced out of the row the full prefill built.
 
-The engine is greedy. Speculative decoding (`speculative=True`), sampling
-(`do_sample=True`) and a device mesh (`mesh=`) wait for later slices of
-the port and raise `NotImplementedError`.
+With `speculative=True` a chunk is `chunk_size` prompt-lookup verify
+ROUNDS (`eval/speculative.pld_round`): each round drafts `draft_len` tokens
+per slot from the slot's own context and verifies them in one forward over
+the live cache, committing 1 to draft_len + 1 greedy tokens, so the tokens
+stay those of the greedy engine. The per-slot context buffer, its length
+and the token budget live on the device; the candidates and commit counts
+of a chunk's rounds reach the host in one copy.
+
+The engine is greedy. Sampling (`do_sample=True`, and so speculative
+sampling) and a device mesh (`mesh=`) wait for later slices of the port
+and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 
 from hsenet_torch import resolve_device
 from hsenet_torch.eval.generate import _make_next_token
+from hsenet_torch.eval.speculative import pld_round
 from hsenet_torch.models.phi3 import KVCache
 
 
@@ -93,13 +102,13 @@ class ServingEngine:
         multimodal: bool = False,
         do_sample: bool = False,
         speculative: bool = False,
+        draft_len: int = 7,
+        ngram: int = 2,
         volume_cache_size: int = 0,
         kv_prefix_cache_size: int = 0,
         device="cuda",
     ):
         for flag, what in (
-            (speculative, "speculative=True waits for the speculative-"
-                          "decoding slice of the port"),
             (do_sample, "do_sample=True waits for the sampling slice of "
                         "the port"),
             (mesh is not None, "mesh= waits for the parallel slice of the "
@@ -116,7 +125,16 @@ class ServingEngine:
         self.max_new = max_new_tokens
         self.chunk = chunk_size
         self.multimodal = multimodal
-        self.capacity = prompt_cap + max_new_tokens + chunk_size
+        self.speculative = speculative
+        self.draft_len = draft_len
+        self.ngram = ngram
+        if speculative:
+            # a verify writes draft_len + 1 entries at each row's offset, and
+            # the budget may overshoot by one round before `done` latches
+            # (pld_round clamps at capacity - (draft_len + 1) besides)
+            self.capacity = prompt_cap + max_new_tokens + 2 * (draft_len + 1)
+        else:
+            self.capacity = prompt_cap + max_new_tokens + chunk_size
         self._next_token = _make_next_token()
 
         cfg = model.config.llm if multimodal else model.config
@@ -127,6 +145,16 @@ class ServingEngine:
         # all slots start free
         self._done = torch.ones(num_slots, dtype=torch.bool,
                                 device=self.device)
+        if speculative:
+            # per-slot context for drafting, and the budget state on the
+            # device (a free slot has limit 0, so it commits nothing)
+            zeros = dict(dtype=torch.int32, device=self.device)
+            self._ctx = torch.zeros((num_slots, self.capacity), **zeros)
+            self._ctx_len = torch.zeros(num_slots, **zeros)
+            self._emitted = torch.zeros(num_slots, **zeros)
+            self._limit = torch.zeros(num_slots, **zeros)
+        self.verify_rounds_used = 0  # active-slot verify rounds (speculative)
+        self.tokens_committed = 0
         self._slots: List[Optional[_Request]] = [None] * num_slots
         self._queue: List[_Request] = []
         self._uid = itertools.count()
@@ -234,6 +262,8 @@ class ServingEngine:
         self._admit()
         if self.active == 0:
             return {}
+        if self.speculative:
+            return self._step_spec()
         block = self._decode_chunk().cpu().numpy()  # the one host sync
         now = time.perf_counter()  # when this chunk's tokens became visible
         self.steps_run += self.chunk
@@ -263,6 +293,55 @@ class ServingEngine:
                 self._slots[s] = None
                 self._done[s] = True
         return finished
+
+    def _step_spec(self) -> Dict[int, List[int]]:
+        """One speculative cycle: `chunk_size` verify rounds, then each
+        round's committed window per slot (the rounds already cut at EOS
+        and at the budget, and commit nothing for done rows)."""
+        blocks, counts = (t.cpu().numpy() for t in self._spec_chunk())
+        now = time.perf_counter()  # when this chunk's tokens became visible
+        self.steps_run += self.chunk
+        finished: Dict[int, List[int]] = {}
+        for s, req in enumerate(self._slots):
+            if req is None:
+                continue
+            self.slot_steps_used += self.chunk
+            fresh = not req.tokens
+            for r in range(self.chunk):
+                n = int(counts[r, s])
+                if n:
+                    self.verify_rounds_used += 1
+                    self.tokens_committed += n
+                for t in blocks[r, s, :n]:
+                    t = int(t)
+                    if req.done:
+                        break
+                    req.tokens.append(t)
+                    if t == self.eos or len(req.tokens) >= req.max_new:
+                        req.done = True
+                if req.done:
+                    break
+            if fresh and req.tokens:
+                req.first_token_at = now
+                self.ttfts.append(now - req.submitted_at)
+            if req.done:
+                finished[req.uid] = req.tokens
+                self.latencies.append(now - req.submitted_at)
+                if len(req.tokens) > 1:
+                    self.tpots.append(
+                        (now - req.first_token_at) / (len(req.tokens) - 1)
+                    )
+                self._slots[s] = None
+                self._done[s] = True
+        return finished
+
+    @property
+    def mean_accepted(self) -> float:
+        """Mean committed tokens per verify round (1 = no draft accepted,
+        draft_len + 1 = all accepted); speculative mode only."""
+        if not self.verify_rounds_used:
+            return 0.0
+        return self.tokens_committed / self.verify_rounds_used
 
     def latency_stats(self) -> Dict[str, float]:
         """Submit-to-finish wall-clock percentiles over finished requests
@@ -346,6 +425,31 @@ class ServingEngine:
             token, done = nxt, done_next
         self._cache, self._token, self._done = cache, token, done
         return torch.stack(emitted, dim=1)
+
+    def _spec_chunk(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`chunk_size` verify rounds over every slot, no host sync inside.
+        Returns the rounds' candidates (chunk, slots, draft_len + 1) and
+        commit counts (chunk, slots) on the device."""
+        verify_lens = torch.full((self.num_slots,), self.draft_len + 1,
+                                 dtype=torch.int32, device=self.device)
+
+        def verify(tokens, cache):
+            if self.multimodal:
+                return self.model.verify_step(tokens, cache, verify_lens)
+            return self.model(tokens, cache=cache, kv_lens=verify_lens)
+
+        toks, counts = [], []
+        for _ in range(self.chunk):
+            (self._token, self._cache, self._ctx, self._ctx_len, self._done,
+             self._emitted, inputs, commit) = pld_round(
+                verify, self._token, self._cache, self._ctx, self._ctx_len,
+                self._done, self._emitted, self._limit,
+                draft_len=self.draft_len, ngram=self.ngram,
+                eos_token_id=self.eos, pad_token_id=self.pad,
+            )
+            toks.append(inputs)
+            counts.append(commit)
+        return torch.stack(toks), torch.stack(counts)
 
     def _slot_row(self, s: int) -> KVCache:
         """A batch-1 cache that is a view of slot `s` of the live cache,
@@ -466,7 +570,22 @@ class ServingEngine:
             self._cache.lengths[s] = row.lengths[0]
             self._token[s] = self._next_token(logits)[0]
             self._done[s] = False
+            if self.speculative:
+                self._seed_context(s, req)
             self._slots[s] = req
+
+    def _seed_context(self, s: int, req: _Request) -> None:
+        """The speculative state of a newly admitted slot: its context is
+        the padded prompt with the first token after the prompt; its budget
+        starts anew."""
+        n = len(req.prompt)
+        self._ctx[s].zero_()
+        self._ctx[s, : self.prompt_cap] = self.pad
+        self._ctx[s, :n] = torch.as_tensor(req.prompt, device=self.device)
+        self._ctx[s, n] = self._token[s]
+        self._ctx_len[s] = n + 1
+        self._emitted[s] = 0
+        self._limit[s] = req.max_new
 
 
 def run_open_loop(engine: ServingEngine, requests, arrival_offsets):

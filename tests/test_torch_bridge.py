@@ -72,8 +72,9 @@ def test_layouts(flax_params):
 
 
 def test_unknown_leaf_raises(flax_params):
-    tree = {"params": {"q_proj": {"act_scale": np.zeros((), np.float32)}}}
-    with pytest.raises(KeyError, match="act_scale"):
+    # a leaf no module of either package has
+    tree = {"params": {"q_proj": {"zero_point": np.zeros((), np.float32)}}}
+    with pytest.raises(KeyError, match="zero_point"):
         flax_to_torch(tree)
 
 

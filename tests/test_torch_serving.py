@@ -349,7 +349,10 @@ def test_latency_stats_and_backdating(llm):
 
 @pytest.mark.parametrize(
     "kwargs,slice_name",
-    [(dict(speculative=True), "speculative"), (dict(do_sample=True), "sampling"),
+    # speculative decoding is ported; speculative sampling waits for the
+    # sampling slice
+    [(dict(speculative=True, do_sample=True), "sampling"),
+     (dict(do_sample=True), "sampling"),
      (dict(mesh=object()), "parallel")],
     ids=["speculative", "do_sample", "mesh"],
 )
@@ -421,7 +424,7 @@ def test_cli_rejects_caches_with_llm_only(flag, capsys):
 @pytest.mark.parametrize(
     "flags,slice_name",
     [(["--checkpoint", "ckpt"], "checkpoint"), (["--tp", "2"], "parallel"),
-     (["--speculative"], "speculative"), (["--do-sample"], "sampling")],
+     (["--speculative", "--do-sample"], "sampling"), (["--do-sample"], "sampling")],
     ids=["checkpoint", "tp", "speculative", "do-sample"],
 )
 def test_cli_options_of_later_slices_raise(flags, slice_name):
