@@ -19,14 +19,31 @@ In order:
    computing the same function (a yardstick only: the port never calls
    it); the time over the 2576-slot row must not exceed 1.5 times the
    time over the 1040-slot row at the same kv_len;
-4. [kernel-bwd] holds the two backward kernels (dQ; dK and dV) against
-   their plain version at the LLM training shape (3 x 24 heads x 800
-   tokens, d 128, causal, kv_lens 800/700/560) and the tower shape (2 x 12
-   x 2049, d 64), each error a share of its row's largest value; shows
-   that versions with delta left out, the last valid key tile dropped or
-   the diagonal tile dropped miss the limit, and that keys past kv_len and
-   a row with kv_len 0 get exactly zero gradients; and times them against
-   the bound, the plain version and the backward of one SDPA call;
+4. [kernel-bwd] holds the bf16 backward kernel (flash_bwd: dQ, dK and dV,
+   wgmma/TMA) against its plain version at the LLM training shape (3 x 24
+   heads x 800 tokens, d 128, causal, kv_lens 800/700/560) and the tower
+   shape (2 x 12 x 2049, d 64), each error a share of its row's largest
+   value; shows that versions with delta left out, the last valid key tile
+   dropped or the diagonal tile dropped miss the limit, that keys past
+   kv_len and a row with kv_len 0 get exactly zero gradients, and how far
+   dQ moves between two runs (its f32 adds land in another order); and
+   times it against the bound, the plain version, the backward of one SDPA
+   call and the two mma.sync kernels it replaced (their bf16 build, which
+   no path launches);
+4a. [cli-serve] runs the serving CLI's documented examples on the card
+   (`--synthetic --num-requests 6`; `--quant-int8 --llm-only --synthetic
+   --speculative`): tiny f32 models with head dims 8 and 16, so every flash
+   launch is f32 at the padded width 64; every request must finish;
+4b. [train-f32] the VLM finetune step at the same `--synthetic`
+   configuration in f32: 8 forward, 2 dQ and 2 dK/dV f32 launches a step;
+4c. [kernel-f32] holds the f32 route of the forward (with and without the
+   log-sum-exp), dQ and dK/dV, through the head-dim padding, against the
+   f32 plain versions at the shapes those paths launched, QFormer's head
+   dim 96 and the CLIP tower (2 x 12 x 2049 x 64): 5e-3 of the largest
+   value of each (batch, head) slice (TF32 products), beside versions with
+   the softmax scale of the padded width and without the last 64 valid keys
+   that must miss; times against the bound at the TF32 peak, the plain
+   version and f32 SDPA;
 5. [kernel-matvec] holds the int8 matvec kernel against its plain version
    at Phi-4-mini's four projection shapes, M = 8 and M = 1, in bf16, beside
    two wrong variants that must miss the limit, and times it at M = 8 with
@@ -100,7 +117,8 @@ In order:
    per round, tokens/s of both, 224 matvec launches per verify round (8
    rows each), first with the random weights, then with constant weights
    that accept every draft (the ceiling bench.py measures);
-12. [kernel] / [kernel-bwd] / [kernel-time] at the CLIP paths' shapes: the
+12. [kernel] / [kernel-bwd] / [kernel-time] (flash_fwd and flash_bwd, the
+   latter beside the old dQ + dK/dV pair) at the CLIP paths' shapes: the
    tower at batch 24 (24 x 12 x 2049, d 64) and BERT (24 x 12 x 128, valid
    lengths 32-128), the fine-patch tower at 2 x 12 x 16,385 where the TPU
    streams its forward (B2) and backward (B4), and the LLM's causal 1 x 24
@@ -146,6 +164,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM dense peaks (NVIDIA data sheet) for the bound of each kernel
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_TF32_FLOPS = 495e12  # the f32 flash kernels' TF32 products
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -177,6 +196,22 @@ LOGITS_REL_L2 = 5e-2
 # batch row with kv_len 0, must get exact zeros.
 KERNEL_BWD_TOL = 2e-2
 BWD_ROW_FLOOR = 1e-4
+# the f32 route of the flash kernels (forward, dQ, dK/dV) against its f32
+# plain version, as a share of the largest |value| of its (batch, head)
+# slice: the kernels multiply on the tensor cores in TF32, which rounds
+# each operand to within 2^-11 of its value, and sum in f32, so an error
+# stays near 1e-3 of the scale of the terms it sums; nothing is rounded on
+# output. A row share is no measure here: a query row with one valid key
+# has dQ = 0 exactly (dP equals delta), which the kernel gets as the
+# difference of two TF32 sums, so its error sits at the terms' scale, not
+# its own. check_f32_kernels prints the forward's row share beside it, and
+# shows that a forward and backward with the softmax scale of the padded
+# width, or without the last 64 valid keys, break the limit.
+KERNEL_F32_TOL = 5e-3
+# the f32 forward's log-sum-exp against the plain version's, absolute: the
+# scores carry the TF32 rounding of Q and K (about 5e-4 at these widths);
+# without the last 64 valid keys it moves by 0.03 or more
+LSE_F32_ABS_TOL = 5e-3
 # the forward's log-sum-exp against the plain version's, absolute: both
 # sum the same bf16 products in f32
 LSE_ABS_TOL = 1e-3
@@ -439,40 +474,43 @@ def attention_pairs(sq, skv, kv_lens, q_off, causal):
     return pairs, kv_rows
 
 
-def kernel_bound(kind, b, h, sq, skv, d, kv_lens, q_off, causal):
+def kernel_bound(kind, b, h, sq, skv, d, kv_lens, q_off, causal, elem=2,
+                 peak=PEAK_BF16_FLOPS):
     """(bound_ms, bound_by, flops, bytes) of one launch of `kind`: each
-    input read once and each output written once in bf16 (K and V only up
-    to the last column some row needs; log-sum-exp and delta in f32), and
-    2 d operations per product per valid (row, column) pair: 2 products
-    (S, PV) for flash_fwd, 3 (S, dP, dQ) for flash_bwd_dq and 4 (S, dP,
-    dV, dK) for flash_bwd_dkv."""
+    input read once and each output written once in `elem`-byte elements
+    (K and V only up to the last column some row needs; log-sum-exp and
+    delta in f32), and 2 d operations per product per valid (row, column)
+    pair at `peak`: 2 products (S, PV) for flash_fwd, 5 (S, dP, dV, dK, dQ)
+    for flash_bwd, 3 (S, dP, dQ) for flash_bwd_dq and 4 (S, dP, dV, dK) for
+    flash_bwd_dkv."""
     pairs, kv_rows = attention_pairs(sq, skv, kv_lens, q_off, causal)
-    q_bytes = 2 * b * h * sq * d  # one (B, H, Sq, D) bf16 tensor
-    kv_bytes = 2 * 2 * h * kv_rows * d  # K and V below the valid edge
+    q_bytes = elem * b * h * sq * d  # one (B, H, Sq, D) tensor
+    kv_bytes = 2 * elem * h * kv_rows * d  # K and V below the valid edge
+    dkv_bytes = 2 * elem * b * h * skv * d  # dK and dV
     rows = 4 * b * h * sq  # one f32 value per query row
     products, nbytes = {
         "flash_fwd": (2, 2 * q_bytes + kv_bytes),
         "flash_fwd_lse": (2, 2 * q_bytes + kv_bytes + rows),
+        "flash_bwd": (5, 3 * q_bytes + kv_bytes + 2 * rows + dkv_bytes),
         "flash_bwd_dq": (3, 3 * q_bytes + kv_bytes + 2 * rows),
-        "flash_bwd_dkv": (4, 2 * q_bytes + kv_bytes + 2 * rows
-                          + 2 * 2 * b * h * skv * d),
+        "flash_bwd_dkv": (4, 2 * q_bytes + kv_bytes + 2 * rows + dkv_bytes),
     }[kind]
     flops = products * 2 * d * h * pairs
     nbytes += 8 * b  # kv_lens and q_offset
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     if t_ops >= t_bytes:
         return t_ops, "operations", flops, nbytes
     return t_bytes, "bytes", flops, nbytes
 
 
-def compare(out, ref):
-    """(max abs error, max error over its row's largest |ref|, within the
-    bf16 tolerance and finite) of a kernel's output against its plain
-    version's."""
+def compare(out, ref, tol=KERNEL_ROW_TOL):
+    """(max abs error, max error over its row's largest |ref|, within `tol`
+    (the bf16 tolerance unless given) and finite) of a kernel's output
+    against its plain version's."""
     err = (out.float() - ref.float()).abs()
     scale = ref.float().abs().amax(dim=-1, keepdim=True)
-    ok = bool((err <= KERNEL_ROW_TOL * scale).all())
+    ok = bool((err <= tol * scale).all())
     row_rel = (err / scale.clamp_min(1e-30)).max().item()
     return err.max().item(), row_rel, ok and bool(out.float().isfinite().all())
 
@@ -834,8 +872,9 @@ def wrong_backwards(q, k, v, out, lse, do, kv_t, off_t, causal):
 
 
 def check_flash_bwd_kernels():
-    """B3 (dQ; dK and dV) against its plain version at the training and
-    tower shapes, with edge cases and wrong variants."""
+    """B3 (flash_bwd: dQ, dK and dV in one kernel) against its plain version
+    at the training and tower shapes, with edge cases and wrong variants;
+    timed beside the two kernels it replaced."""
     import torch
     import torch.nn.functional as F
     from einops import rearrange
@@ -912,8 +951,14 @@ def check_flash_bwd_kernels():
                 raise AssertionError(f"the backward tolerance passes {wname}")
             del wgrads
 
-        # per-kernel device times, against the bound, the plain version (it
-        # computes dQ, dK and dV together) and one SDPA call's backward
+        # dQ is summed by the TMA's reduce-add, in an order that changes
+        # from run to run: the same call again, dQ's largest difference
+        rerun = (tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t, off_t,
+                                              causal)[0].float()
+                 - got[0].float()).abs().max().item()
+        # device times against the bound, the plain version, one SDPA call's
+        # backward, and the two mma.sync kernels flash_bwd replaced (their
+        # bf16 instantiation, which no path launches any more)
         delta = (do.float() * out.float()).sum(dim=-1).contiguous()
         args = (q, k, v, do, lse, delta, kv_t, off_t, causal, scale)
         plain_ms = time_ms(lambda: tfa.flash_attention_backward_reference(
@@ -923,29 +968,29 @@ def check_flash_bwd_kernels():
         lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
         library_ms = time_ms(lambda: torch.autograd.grad(
             lib_out, leaves, do, retain_graph=True))
-        shape_args = (q.shape[0], q.shape[1], q.shape[2], k.shape[2],
-                      q.shape[3], kv_lens, q_off, causal)
-        for kname, fn in (("flash_bwd_dq", tfa._bwd_dq_kernel),
-                          ("flash_bwd_dkv", tfa._bwd_dkv_kernel)):
-            bound, bound_by, flops, nbytes = kernel_bound(kname, *shape_args)
-            errs_k = ([errs["dq"]] if kname == "flash_bwd_dq"
-                      else [errs["dk"], errs["dv"]])
-            r = results.setdefault(kname, {})[name] = {
-                "max_abs_err": max(e[0] for e in errs_k),
-                "max_rel_err": max(e[1] for e in errs_k),
-                "ms": time_ms(lambda fn=fn: fn(*args)),
-                "plain_ms": plain_ms,
-                "library_ms": library_ms,
-                "bound_ms": bound,
-                "bound_by": bound_by,
-                "gflop": flops / 1e9,
-                "mbytes": nbytes / 1e6,
-            }
-            print(f"[kernel-bwd] {kname} {name}: kernel {r['ms']:.4f} ms, "
-                  f"plain (dQ, dK, dV) {plain_ms:.4f} ms, library (SDPA "
-                  f"backward, dQ, dK, dV) {library_ms:.4f} ms, bound "
-                  f"{bound:.4f} ms ({bound_by}: {r['gflop']:.2f} GFLOP, "
-                  f"{r['mbytes']:.2f} MB)")
+        bound, bound_by, flops, nbytes = kernel_bound(
+            "flash_bwd", q.shape[0], q.shape[1], q.shape[2], k.shape[2],
+            q.shape[3], kv_lens, q_off, causal)
+        r = results[name] = {
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "max_rel_err": max(e[1] for e in errs.values()),
+            "dq_rerun_max_abs_diff": rerun,
+            "ms": time_ms(lambda: tfa._bwd_kernel(*args)),
+            "old_pair_ms": time_ms(lambda: (tfa._bwd_dq_kernel(*args),
+                                            tfa._bwd_dkv_kernel(*args))),
+            "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6,
+        }
+        print(f"[kernel-bwd] flash_bwd {name}: kernel {r['ms']:.4f} ms (the "
+              f"old dQ + dK/dV pair {r['old_pair_ms']:.4f} ms), plain {plain_ms:.4f} "
+              f"ms, library (SDPA backward) {library_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({bound_by}: {r['gflop']:.2f} GFLOP, "
+              f"{r['mbytes']:.2f} MB); dQ of a second run differs by at most "
+              f"{rerun:.3e}")
     return results
 
 
@@ -980,8 +1025,7 @@ def clip_shape_index():
         for kind in fwd_kinds:
             suffix = "_lse" if kind == "flash_fwd_lse" else ""
             index[(kind, b, h, s, s, d)] = ("flash_fwd", name + suffix)
-        for kind in ("flash_bwd_dq", "flash_bwd_dkv"):
-            index[(kind, b, h, s, s, d)] = (kind, name)
+        index[("flash_bwd", b, h, s, s, d)] = ("flash_bwd", name)
     return index
 
 
@@ -1022,7 +1066,7 @@ def check_clip_kernels():
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(9)
-    results = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    results = {"flash_fwd": {}, "flash_bwd": {}}
     for name, (b, h, s, d), kv_lens, causal, (rows, heads), fwd_kinds in (
             clip_kernel_cases()):
         # q, k, v: head-split views of one packed projection, as the towers
@@ -1077,6 +1121,9 @@ def check_clip_kernels():
                 kv_t[i], off_t[i], causal), b, h, rows, heads)
 
         got = tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t, off_t, causal)
+        rerun = (tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t, off_t,
+                                              causal)[0].float()
+                 - got[0].float()).abs().max().item()
         want = plain_bwd()
         errs = {g: row_rel(a, w) for g, a, w in zip(("dq", "dk", "dv"), got, want)}
         past_kv = (torch.arange(s, device=dev)[None, None, :, None]
@@ -1092,7 +1139,8 @@ def check_clip_kernels():
         print(f"[kernel-bwd] {name}: {shape}: err / row's max |ref| "
               + ", ".join(f"{g} {e[1]:.3e} (abs {e[0]:.3e})" for g, e in errs.items())
               + f" (tol {KERNEL_BWD_TOL}); dK, dV exactly 0 past kv_len: "
-              f"{past_kv_zero}; wrong variants: "
+              f"{past_kv_zero}; dQ of a second run differs by at most "
+              f"{rerun:.3e}; wrong variants: "
               + ", ".join(f"{w} {e:.3e}" for w, e in wrong.items()))
         if not past_kv_zero or max(e[1] for e in errs.values()) > KERNEL_BWD_TOL:
             raise AssertionError(f"flash backward {name} disagrees with its plain version")
@@ -1126,11 +1174,9 @@ def check_clip_kernels():
         delta = (do.float() * out.float()).sum(dim=-1).contiguous()
         args = (q, k, v, do, lse, delta, kv_t, off_t, causal, scale)
         plain_b = time_ms(plain_bwd, reps=1, warmup=1, runs=3)
-        timed[("flash_bwd_dq", name, "flash_bwd_dq")] = (
-            lambda: tfa._bwd_dq_kernel(*args), plain_b, lib_bwd, errs["dq"][0])
-        timed[("flash_bwd_dkv", name, "flash_bwd_dkv")] = (
-            lambda: tfa._bwd_dkv_kernel(*args), plain_b, lib_bwd,
-            max(errs["dk"][0], errs["dv"][0]))
+        timed[("flash_bwd", name, "flash_bwd")] = (
+            lambda: tfa._bwd_kernel(*args), plain_b, lib_bwd,
+            max(e[0] for e in errs.values()))
         for (kname, key, kind), (fn, plain_ms, lib_ms, err) in timed.items():
             bound, bound_by, flops, nbytes = kernel_bound(
                 kind, b, h, s, s, d, kv_lens, q_off, causal)
@@ -1139,8 +1185,15 @@ def check_clip_kernels():
                 "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
                 "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "pairs": pairs,
             }
-            print(f"[kernel-time] {kname} {key}: kernel {r['ms']:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library (SDPA"
+            old = ""
+            if kname == "flash_bwd":
+                # the two mma.sync kernels flash_bwd replaced, in bf16
+                r["old_pair_ms"] = time_ms(lambda: (tfa._bwd_dq_kernel(*args),
+                                                    tfa._bwd_dkv_kernel(*args)))
+                r["dq_rerun_max_abs_diff"] = rerun
+                old = f" (the old dQ + dK/dV pair {r['old_pair_ms']:.4f} ms)"
+            print(f"[kernel-time] {kname} {key}: kernel {r['ms']:.4f} ms{old}, "
+                  f"plain {plain_ms:.4f} ms, library (SDPA"
                   f"{'' if kname == 'flash_fwd' else ' backward, dQ, dK, dV'}) "
                   f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
                   f"{r['gflop']:.2f} GFLOP, {r['mbytes']:.2f} MB), "
@@ -1151,8 +1204,7 @@ def check_clip_kernels():
 
     # B2 and B4 at 16,385 tokens walk 8 times the keys of the tower's 2,049;
     # their time per valid pair must not grow with it
-    for kname, suffix in (("flash_fwd", "_lse"), ("flash_bwd_dq", ""),
-                          ("flash_bwd_dkv", "")):
+    for kname, suffix in (("flash_fwd", "_lse"), ("flash_bwd", "")):
         short, long = (results[kname][n + suffix] for n in ("clip_tower", "clip_long"))
         ratio = (long["ms"] / long["pairs"]) / (short["ms"] / short["pairs"])
         print(f"[kernel-time] {kname} per valid pair at 16,385 tokens over "
@@ -1161,6 +1213,308 @@ def check_clip_kernels():
             raise AssertionError(f"{kname}'s time per pair grows with the length")
         results[kname]["clip_long" + suffix]["pair_time_ratio"] = ratio
     return results
+
+
+def synthetic_config():
+    """The VLM of the CLIs' `--synthetic` runs (`cli.common.build_vlm_config`):
+    f32, towers of hidden 32 over 4 heads (head dim 8) on 65 tokens, an LLM
+    of 4 heads of 16."""
+    import argparse
+
+    from hsenet_torch.cli.common import build_vlm_config
+
+    return build_vlm_config(argparse.Namespace(synthetic=True))
+
+
+def run_cli_serve(card: str):
+    """[cli-serve]: the serving CLI's documented examples on the card, as a
+    user runs them (`python -m hsenet_torch.cli.serve ...`): the tiny f32
+    VLM (towers at head dim 8, the LLM at 16), and the tiny int8 LLM with
+    speculative decoding. Every request must finish, and every flash launch
+    must be an f32 launch at the padded width 64. Returns the summaries and
+    the launches by (kind, batch, heads, sq, skv, head_dim)."""
+    import torch
+
+    from hsenet_torch.cli.serve import main as serve_main
+    from hsenet_torch.ops import flash_attention as tfa
+
+    runs = {
+        "synthetic": (["--synthetic", "--num-requests", "6"], 6),
+        "speculative": (["--quant-int8", "--llm-only", "--synthetic",
+                         "--speculative", "--draft-len", "7", "--ngram", "2"], 8),
+    }
+    numbers, shapes = {}, {}
+    for name, (argv, n_requests) in runs.items():
+        tfa.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = serve_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        f32 = {f"{kernel}_d{d}": n for (kernel, d), n in tfa.f32_launches.items()}
+        all_fwd = tfa.launches["flash_fwd"]
+        print(f"[cli-serve] {name}: hsenet_torch.cli.serve {' '.join(argv)} on "
+              f"{card}: {summary['requests']} of {n_requests} requests, "
+              f"{summary['tokens']} tokens, {wall:.1f} s; flash launches "
+              f"{all_fwd}, f32 by (kernel, padded head dim) {f32}")
+        if summary["requests"] != n_requests or summary["tokens"] < n_requests:
+            raise AssertionError(f"cli serve {name}: not every request finished")
+        if not all_fwd or tfa.f32_launches[("flash_fwd", 64)] != all_fwd:
+            raise AssertionError(f"cli serve {name}: the flash forward did not "
+                                 "run in f32 at the padded width")
+        for key, n in tfa.shape_launches.items():
+            shapes[key] = shapes.get(key, 0) + n
+        numbers[name] = {**summary, "wall_s_measured": wall,
+                         "f32_launches": f32}
+    return numbers, shapes
+
+
+def run_train_f32(card: str):
+    """[train-f32]: the VLM finetune step in f32 at the `--synthetic`
+    configuration (towers frozen at head dim 8, LoRA on the LLM at head dim
+    16, remat on), batch 3 of the finetune's lengths through `Trainer`: the
+    f32 forward and the f32 dQ and dK/dV kernels at the padded width 64,
+    launches counted over the timed steps, losses finite. Returns the
+    numbers and the launches of one step by (kind, batch, heads, sq, skv,
+    head_dim)."""
+    import torch
+
+    from hsenet_torch.configs import TrainConfig
+    from hsenet_torch.models import init_random_
+    from hsenet_torch.models.mllm import HSENetVLM
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.train.train_state import TrainState, make_optimizer
+    from hsenet_torch.train.trainer import Trainer, TrainerHooks
+    from hsenet_torch.train.vlm import (
+        make_vlm_train_step,
+        to_training_dtypes,
+        vlm_trainable_mask,
+    )
+
+    cfg = synthetic_config()
+    model = HSENetVLM(cfg, dtype=torch.float32, device="cuda", remat=True)
+    init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    mask = vlm_trainable_mask(model)
+    to_training_dtypes(model, mask)
+    batch = training_batch(cfg)
+    warm, timed = 1, 2
+    train_cfg = TrainConfig(learning_rate=1e-3, total_steps=warm + timed,
+                            log_every=1, eval_every=0, seed=0)
+    tx = make_optimizer(train_cfg, mask)
+    counts = {}
+
+    def on_log(step, row):
+        if step == warm:
+            torch.cuda.synchronize()
+            tfa.reset_launch_counts()
+        if step == warm + timed:
+            torch.cuda.synchronize()
+            counts.update(f32=dict(tfa.f32_launches), all=dict(tfa.launches),
+                          shapes=dict(tfa.shape_launches))
+
+    trainer = Trainer(make_vlm_train_step(model, tx),
+                      TrainState.create(model, tx), lambda: [batch], train_cfg,
+                      hooks=TrainerHooks(on_log=on_log))
+    trainer.fit()
+    losses = [row["loss"] for row in trainer.history]
+    step_ms = [1e3 / row["steps_per_sec"] for row in trainer.history[warm:]]
+    per_step = {f"{k}_d{d}": n / timed for (k, d), n in counts["f32"].items()}
+    expected = {"flash_fwd_d64": 2 * cfg.vision.num_layers + 2 * cfg.llm.num_layers,
+                "flash_bwd_dq_d64": cfg.llm.num_layers,
+                "flash_bwd_dkv_d64": cfg.llm.num_layers}
+    print(f"[train-f32] on {card}: losses {[round(x, 4) for x in losses]}, "
+          f"step {statistics.median(step_ms):.1f} ms; f32 flash launches per "
+          f"step by (kernel, padded head dim) {per_step} (expected {expected})")
+    if per_step != expected or sum(counts["all"].values()) != sum(
+            counts["f32"].values()):
+        raise AssertionError(f"f32 flash launches per step {per_step}, not {expected}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"f32 finetune losses not finite: {losses}")
+    del model, trainer
+    return ({"losses": losses, "step_ms": step_ms, "launches_per_step": per_step},
+            {k: n // timed for k, n in counts["shapes"].items()})
+
+
+def f32_kernel_cases(path_shapes):
+    """The f32 shapes to check: each shape the f32 paths launched ([cli-serve],
+    [train-f32]; towers non-causal over all their tokens, LLM shapes causal
+    with the finetune's valid lengths or a whole prompt), QFormer's head dim
+    96 over 8 heads, and the CLIP tower at 2 x 12 x 2049 x 64. (name, (batch,
+    heads, sq, skv, true head dim), kv_lens, causal) by name, and the path's
+    (kind, batch, heads, sq, skv, padded head dim) -> name."""
+    cfg = synthetic_config()
+    tower_d = cfg.vision.hidden_size // cfg.vision.num_heads
+    cases, index = {}, {}
+    for key in sorted(path_shapes):
+        _, b, h, sq, skv, _ = key
+        tower = sq == skv == cfg.vision.seq_len
+        name = f"{'tower' if tower else 'llm'}_{b}x{h}x{sq}x{skv}"
+        if tower:
+            kv = (skv,) * b
+        elif (b, sq) == (len(TRAIN_KV_LENS), TRAIN_SEQ):
+            kv = TRAIN_KV_LENS
+        else:
+            kv = (min(sq, skv),) * b
+        cases[name] = ((b, h, sq, skv, tower_d if tower else cfg.llm.head_dim),
+                       kv, not tower)
+        index[key] = name
+    cases["qformer_d96"] = ((2, 8, 257, 257, 96), (257, 200), False)
+    cases["clip_tower_f32"] = ((2, 12, 2049, 2049, 64), (2049, 2049), False)
+    return cases, index
+
+
+def slice_rel(out, ref):
+    """(max |out - ref|, max over (batch, head) slices of |out - ref| over
+    the slice's largest |ref|), the f32 route's measure; a non-finite value
+    gives inf."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    scale = ref.abs().amax(dim=(-2, -1), keepdim=True).clamp_min(1e-30)
+    share = torch.where(out.isfinite(), err / scale, math.inf)
+    return err.max().item(), share.max().item()
+
+
+def check_f32_kernels(path_shapes):
+    """[kernel-f32]: the f32 route of flash_fwd (with and without the
+    log-sum-exp), flash_bwd_dq and flash_bwd_dkv through the padding at the
+    shapes of `f32_kernel_cases`, against the f32 plain versions at the true
+    width, each beside a version with the softmax scale of the padded width
+    (where the width is padded) and one without the last 64 valid keys that
+    must miss the limits; times at the padded width against the bound at
+    the TF32 peak, the plain version and f32 SDPA. Returns the results by
+    kernel and shape name, and the path's launch key -> (kernel, name)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hsenet_torch.ops import flash_attention as tfa
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases, names = f32_kernel_cases(path_shapes)
+    results = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for name, ((b, h, sq, skv, d), kv_lens, causal) in cases.items():
+        q = torch.randn(b, h, sq, d, generator=gen, device=dev)
+        k, v = (torch.randn(b, h, skv, d, generator=gen, device=dev) for _ in range(2))
+        do = torch.randn(b, h, sq, d, generator=gen, device=dev)
+        kv_t = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+        off_t = torch.zeros(b, dtype=torch.int32, device=dev)
+        q_off, scale, width = (0,) * b, d ** -0.5, tfa.kernel_head_dim(d)
+        kw = dict(kv_lens=kv_t, causal=causal, q_offset=off_t)
+
+        out = tfa.flash_attention(q, k, v, **kw)
+        out_l, lse = tfa._forward(q, k, v, kv_t, off_t, causal, scale, True)
+        got = tfa.flash_attention_backward(q, k, v, out_l, lse, do, kv_t, off_t,
+                                           causal)
+        ref, ref_lse = tfa.flash_attention_reference(q, k, v, with_lse=True, **kw)
+        want = tfa.flash_attention_backward_reference(q, k, v, out_l, lse, do,
+                                                      kv_t, off_t, causal)
+        fwd_abs, fwd_rel = slice_rel(out, ref)
+        fwd_rel_l = slice_rel(out_l, ref)[1]
+        fwd_row = compare(out, ref, KERNEL_F32_TOL)[1]
+        lse_err = (lse - ref_lse).abs().max().item()
+        errs = [slice_rel(g, w) for g, w in zip(got, want)]
+        past_kv = (torch.arange(skv, device=dev)[None, None, :, None]
+                   >= kv_t[:, None, None, None])
+        zeros = all(torch.count_nonzero(torch.where(past_kv, g, 0)) == 0
+                    for g in got[1:])
+        # the limits' power: the true width's scale replaced by the padded
+        # width's, and the last 64 valid keys dropped
+        wrong = {}
+        if width != d:
+            pad_scale = width ** -0.5
+            w_out, w_lse = tfa.flash_attention_reference(
+                q, k, v, with_lse=True, sm_scale=pad_scale, **kw)
+            w_grads = tfa.flash_attention_backward_reference(
+                q, k, v, out_l, lse, do, kv_t, off_t, causal, pad_scale)
+            wrong["sm_scale of the padded width"] = (
+                slice_rel(w_out, ref)[1],
+                (w_lse - ref_lse).abs().max().item(),
+                max(slice_rel(g, w)[1] for g, w in zip(w_grads, want)))
+        col = torch.arange(skv, device=dev)[None, None, None, :]
+        drop = col >= kv_t[:, None, None, None] - 64
+        _, short_lse = tfa.flash_attention_reference(
+            q, k, v, with_lse=True, **{**kw, "kv_lens": kv_t - 64})
+        wrong["last 64 valid keys dropped"] = (
+            slice_rel(forward_dropping(q, k, v, kv_t, off_t, causal, drop),
+                      ref)[1],
+            (short_lse - ref_lse).abs().max().item(),
+            max(slice_rel(g, w)[1] for g, w in zip(backward_dropping(
+                q, k, v, out_l, lse, do, kv_t, off_t, causal, drop), want)))
+        print(f"[kernel-f32] {name}: q{tuple(q.shape)} k{tuple(k.shape)} f32, "
+              f"padded to {width}, causal={causal} kv_lens "
+              f"{kv_lens if len(set(kv_lens)) > 1 else kv_lens[0]}: err / "
+              f"(batch, head) slice's max |ref|: forward {fwd_rel:.3e} (with "
+              f"the log-sum-exp {fwd_rel_l:.3e}; per row {fwd_row:.3e}), "
+              f"log-sum-exp abs {lse_err:.3e} (tol "
+              f"{LSE_F32_ABS_TOL}), dQ/dK/dV {errs[0][1]:.3e} {errs[1][1]:.3e} "
+              f"{errs[2][1]:.3e} (tol {KERNEL_F32_TOL}); dK, dV exactly 0 "
+              f"past kv_len: {zeros}; wrong variants (forward, log-sum-exp, "
+              "backward): " + ", ".join(
+                  f"{w} {e[0]:.3e} {e[1]:.3e} {e[2]:.3e}" for w, e in wrong.items()))
+        if not (max(fwd_rel, fwd_rel_l, *(e[1] for e in errs)) <= KERNEL_F32_TOL
+                and lse_err <= LSE_F32_ABS_TOL and zeros):
+            raise AssertionError(f"f32 flash kernels disagree with their plain "
+                                 f"versions at {name}")
+        for w, (e_fwd, e_lse, e_bwd) in wrong.items():
+            if (e_fwd <= KERNEL_F32_TOL or e_lse <= LSE_F32_ABS_TOL
+                    or e_bwd <= KERNEL_F32_TOL):
+                raise AssertionError(f"the f32 limits pass {w} at {name}")
+
+        # times at the padded width (the launchers on padded operands)
+        pad = [F.pad(t, (0, width - d)) for t in (q, k, v, out_l, do)]
+        qp, kp, vp, op, dop = pad
+        delta = (dop * op).sum(dim=-1).contiguous()
+        args = (qp, kp, vp, dop, lse, delta, kv_t, off_t, causal, scale)
+        mask = tfa._valid(q, k, kv_t, off_t, causal)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask))
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                      retain_graph=True))
+        plain_fwd = time_ms(lambda: tfa.flash_attention_reference(q, k, v, **kw),
+                            reps=3)
+        plain_bwd = time_ms(lambda: tfa.flash_attention_backward_reference(
+            q, k, v, out_l, lse, do, kv_t, off_t, causal), reps=3)
+        timed = {
+            ("flash_fwd", name, "flash_fwd"): (
+                lambda: tfa._forward_kernel(qp, kp, vp, kv_t, off_t, causal,
+                                            scale, False),
+                plain_fwd, lib_fwd, fwd_abs),
+            ("flash_fwd", name + "_lse", "flash_fwd_lse"): (
+                lambda: tfa._forward_kernel(qp, kp, vp, kv_t, off_t, causal,
+                                            scale, True),
+                plain_fwd, lib_fwd, fwd_abs),
+            ("flash_bwd_dq", name, "flash_bwd_dq"): (
+                lambda: tfa._bwd_dq_kernel(*args), plain_bwd, lib_bwd, errs[0][0]),
+            ("flash_bwd_dkv", name, "flash_bwd_dkv"): (
+                lambda: tfa._bwd_dkv_kernel(*args), plain_bwd, lib_bwd,
+                max(errs[1][0], errs[2][0])),
+        }
+        for (kname, key, kind), (fn, plain_ms, lib_ms, err) in timed.items():
+            bound, bound_by, flops, nbytes = kernel_bound(
+                kind, b, h, sq, skv, d, kv_lens, q_off, causal, elem=4,
+                peak=PEAK_TF32_FLOPS)
+            r = results[kname][key] = {
+                "max_abs_err": err, "ms": time_ms(fn), "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
+                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            }
+            print(f"[kernel-f32] {kname} {key}: kernel {r['ms']:.4f} ms at "
+                  f"width {width}, plain {plain_ms:.4f} ms, library (f32 SDPA"
+                  f"{'' if kname == 'flash_fwd' else ' backward, dQ, dK, dV'}) "
+                  f"{lib_ms:.4f} ms, bound {bound:.4f} ms at the TF32 peak "
+                  f"({bound_by}: {r['gflop']:.3f} GFLOP, {r['mbytes']:.2f} MB)")
+        del q, k, v, do, out, out_l, lse, got, want, pad, args, leaves, lib_out
+        gc.collect()
+        torch.cuda.empty_cache()
+    index = {}
+    for key, name in names.items():
+        kind = key[0]
+        kernel = "flash_fwd" if kind.startswith("flash_fwd") else kind
+        index[key] = (kernel, name + ("_lse" if kind == "flash_fwd_lse" else ""))
+    return results, index
 
 
 def run_main_path(card: str):
@@ -1274,8 +1628,8 @@ def run_main_path(card: str):
     # valid keys of each row must miss it
     sound = tfa._forward_kernel
     try:
-        tfa._forward_kernel = lambda q, k, v, kv, *rest: sound(
-            q, k, v, (kv - 64).clamp_min(1), *rest)
+        tfa._forward_kernel = lambda q, k, v, kv, *rest, **kw: sound(
+            q, k, v, (kv - 64).clamp_min(1), *rest, **kw)
         with torch.inference_mode():
             short_logits, _ = prefill()
     finally:
@@ -1455,12 +1809,11 @@ def run_train_path(card: str):
     per_step = {
         "fwd_d64": counts["fwd"][(64, False)] / TRAIN_TIMED_STEPS,
         "fwd_d128_lse": counts["fwd"][(128, True)] / TRAIN_TIMED_STEPS,
-        "dq": counts["kernels"]["flash_bwd_dq"] / TRAIN_TIMED_STEPS,
-        "dkv": counts["kernels"]["flash_bwd_dkv"] / TRAIN_TIMED_STEPS,
+        "bwd": counts["kernels"]["flash_bwd"] / TRAIN_TIMED_STEPS,
     }
     expected = {"fwd_d64": 2 * cfg.vision.num_layers,
                 "fwd_d128_lse": 2 * cfg.llm.num_layers,
-                "dq": cfg.llm.num_layers, "dkv": cfg.llm.num_layers}
+                "bwd": cfg.llm.num_layers}
     print(f"[train] losses by step: {[round(x, 4) for x in losses]}")
     print(f"[train] grad norms by step: "
           f"{[round(row['grad_norm'], 4) for row in hist]}")
@@ -2129,8 +2482,8 @@ def clip_launches(cfg, batch: int, teacher: bool = False):
             t.hidden_size // t.num_heads)
     want = {("flash_fwd_lse", *tower): 2 * v.num_layers,
             ("flash_fwd_lse", *text): t.num_layers}
-    for kind in ("flash_bwd_dq", "flash_bwd_dkv"):
-        want.update({(kind, *tower): v.num_layers, (kind, *text): t.num_layers})
+    want.update({("flash_bwd", *tower): v.num_layers,
+                 ("flash_bwd", *text): t.num_layers})
     if teacher:
         want.update({("flash_fwd", *tower): v.num_layers,
                      ("flash_fwd", *text): t.num_layers})
@@ -3128,6 +3481,12 @@ def main() -> int:
     per_shape = check_flash_kernel()
     bwd = check_flash_bwd_kernels()
     clip_kernels = check_clip_kernels()
+    # the f32 route: the CLIs' --synthetic paths on the card, then the f32
+    # kernels at the shapes they launched and at QFormer's and the CLIP
+    # tower's
+    cli_numbers, cli_shapes = run_cli_serve(card)
+    train_f32_numbers, train_f32_shapes = run_train_f32(card)
+    f32_kernels, f32_index = check_f32_kernels({**cli_shapes, **train_f32_shapes})
     matvec = check_matvec_kernel()
     pv = check_pv_kernel()
     pv_launches = run_pv_probe()
@@ -3199,21 +3558,26 @@ def main() -> int:
     if sum(matvec_counts.values()) != sum(
             r["quant_matvec_launches"] for r in served):
         raise AssertionError("quant_matvec launches by shape do not add up")
-    bwd_counts = {"flash_bwd_dq": {"train": train_counts["dq"]},
-                  "flash_bwd_dkv": {"train": train_counts["dkv"]}}
+    bwd_counts = {"train": train_counts["bwd"]}
     # the CLIP steps' launches by shape: one step each of [clip-stage1],
     # [clip-stage2] with the teacher recomputed and served from the cache,
     # and [clip-long]
     index = clip_shape_index()
-    clip_counts = {k: {} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    clip_counts = {k: {} for k in ("flash_fwd", "flash_bwd")}
     for counts in (stage1_counts, stage2_counts["recompute"],
                    stage2_counts["cached_hit"], long_counts):
         for key, n in counts.items():
             kernel, shape = index[key]
             clip_counts[kernel][shape] = clip_counts[kernel].get(shape, 0) + n
     fwd_counts.update(clip_counts["flash_fwd"])
-    for kname in bwd_counts:
-        bwd_counts[kname].update(clip_counts[kname])
+    bwd_counts.update(clip_counts["flash_bwd"])
+    # the f32 launches by shape: the two [cli-serve] runs and one step of
+    # [train-f32]
+    f32_counts = {k: {} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for counts in (cli_shapes, train_f32_shapes):
+        for key, n in counts.items():
+            kernel, shape = f32_index[key]
+            f32_counts[kernel][shape] = f32_counts[kernel].get(shape, 0) + n
 
     def entry(name, source, replaces, shapes, path_counts, note):
         def per_run(key):  # per-launch times x launches at each shape
@@ -3248,6 +3612,10 @@ def main() -> int:
             "and a teacher-cache hit) and [clip-long]: per-launch times at "
             "each shape x its launches there")
     jax_fa = "hsenet_tpu/ops/flash_attention.py"
+    f32_note = ("f32 route (TF32 products), sums over the two [cli-serve] runs "
+                "and one step of [train-f32]: per-launch times at the padded "
+                "width at each shape x its launches there; bound at the TF32 "
+                "peak; library is f32 SDPA")
     kernels = [
         entry("flash_fwd", "hsenet_torch/csrc/flash_fwd.cu",
               f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
@@ -3255,16 +3623,23 @@ def main() -> int:
               fwd_counts, note + "; one W8A8 encode at its batch-8 tower shape "
               "and the speculative engine's admissions ([spec]'s one prefill "
               "is left out)"),
-        entry("flash_bwd_dq", "hsenet_torch/csrc/flash_bwd_dq.cu",
+        entry("flash_bwd", "hsenet_torch/csrc/flash_bwd.cu",
+              f"{jax_fa}:552 (_bwd_dq_kernel), {jax_fa}:611 (_bwd_dkv_kernel), "
+              f"{jax_fa}:678 (_bwd_dq_kernel_stream), {jax_fa}:750 "
+              "(_bwd_dkv_kernel_stream)",
+              {**bwd, **clip_kernels["flash_bwd"]}, bwd_counts,
+              note + "; bf16; plain and library times compute dQ, dK and dV"),
+        entry("flash_fwd_f32", "hsenet_torch/csrc/flash_fwd.cu",
+              f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
+              f32_kernels["flash_fwd"], f32_counts["flash_fwd"], f32_note),
+        entry("flash_bwd_dq_f32", "hsenet_torch/csrc/flash_bwd_dq.cu",
               f"{jax_fa}:552 (_bwd_dq_kernel), {jax_fa}:678 (_bwd_dq_kernel_stream)",
-              {**bwd["flash_bwd_dq"], **clip_kernels["flash_bwd_dq"]},
-              bwd_counts["flash_bwd_dq"],
-              note + "; plain and library times compute dQ, dK and dV"),
-        entry("flash_bwd_dkv", "hsenet_torch/csrc/flash_bwd_dkv.cu",
+              f32_kernels["flash_bwd_dq"], f32_counts["flash_bwd_dq"],
+              f32_note + "; plain and library times compute dQ, dK and dV"),
+        entry("flash_bwd_dkv_f32", "hsenet_torch/csrc/flash_bwd_dkv.cu",
               f"{jax_fa}:611 (_bwd_dkv_kernel), {jax_fa}:750 (_bwd_dkv_kernel_stream)",
-              {**bwd["flash_bwd_dkv"], **clip_kernels["flash_bwd_dkv"]},
-              bwd_counts["flash_bwd_dkv"],
-              note + "; plain and library times compute dQ, dK and dV"),
+              f32_kernels["flash_bwd_dkv"], f32_counts["flash_bwd_dkv"],
+              f32_note + "; plain and library times compute dQ, dK and dV"),
         entry("quant_matvec", "hsenet_torch/csrc/quant_matvec.cu",
               "hsenet_tpu/ops/quant_matvec.py:42", matvec, matvec_counts,
               "sums over the decode steps of the closed and open serving loops "
@@ -3287,6 +3662,7 @@ def main() -> int:
                                 ("stage2_cached_hit", stage2_counts["cached_hit"]),
                                 ("long", long_counts))}}
     print(json.dumps({"kernels": kernels, "main_path": numbers,
+                      "cli_serve": cli_numbers, "train_f32": train_f32_numbers,
                       "train": train_numbers, "train_grads": grad_numbers,
                       "serve": serve_numbers, "clip": clip,
                       "encode_w8a8": encode_numbers, "spec": spec_numbers,

@@ -1,5 +1,7 @@
-// Flash-attention backward, dK and dV, for Hopper (sm_90a): bf16 in and
-// out, f32 accumulation.
+// Flash-attention backward, dK and dV, for Hopper (sm_90a): the f32 route
+// (f32 in and out, TF32 products, f32 accumulation). The bf16 route of the
+// port's backward is flash_bwd.cu; this file's bf16 instantiation stays as
+// the yardstick chip_smoke.py times the new kernel against.
 //
 // Replaces the TPU kernel `_bwd_dkv_kernel` of the JAX package
 // (ops/flash_attention.py, launched by `_flash_backward`). Per (batch b,
@@ -19,7 +21,9 @@
 // the K and V rows below kv_len, and dK and dV (25 us): bytes, narrowly.
 // chip_smoke.py recomputes the bound from the shapes and data it runs.
 //
-// Design (mma.sync; wgmma/TMA come later):
+// Design (mma.sync, for both element types; f32 runs the same tiling with
+// TF32 m16n8k8 products on 32-bit shared-memory loads, 8 query rows at a
+// time, see flash_common.cuh):
 //   * one CTA of 4 warps per (b, h, 64-key tile); its K and V rows stay in
 //     shared memory and each warp owns 16 keys, accumulating their dK and
 //     dV rows in f32 registers;
@@ -42,12 +46,11 @@ namespace {
 
 using namespace hsenet_flash;
 
-template <int D>
+template <typename T, int D>
 constexpr int smem_bytes() {
   // resident K and V tiles, then two stages of a Q and a dO tile and of
   // their 64 log-sum-exp and delta values
-  return (2 + 2 * 2) * kBlockM * (D + kPad) *
-             static_cast<int>(sizeof(__nv_bfloat16)) +
+  return (2 + 2 * 2) * kBlockM * (D + kPadOf<T>) * static_cast<int>(sizeof(T)) +
          2 * 2 * kBlockM * static_cast<int>(sizeof(float));
 }
 
@@ -63,28 +66,26 @@ __device__ __forceinline__ void zero_acc(float (&acc)[D / 8][4]) {
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ d_o,
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ d_o,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv,
                          const int* __restrict__ kv_lens,
                          const int* __restrict__ q_offset, int sq, int skv,
                          Strides st, int causal, float scale_log2,
                          float sm_scale) {
-  constexpr int LD = D + kPad;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int LD = D + kPadOf<T>;
   constexpr int kTile = kBlockM * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = smem;
-  __nv_bfloat16* v_s = smem + kTile;
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* k_s = smem;
+  T* v_s = smem + kTile;
   // stage s: Q at ring[2 s kTile], dO at ring[(2 s + 1) kTile]
-  __nv_bfloat16* ring = smem + 2 * kTile;
+  T* ring = smem + 2 * kTile;
   // stage s: log-sum-exp (log2 domain) at stats[2 s 64], delta after it
   float* stats = reinterpret_cast<float*>(smem + 6 * kTile);
 
@@ -116,15 +117,15 @@ __global__ void __launch_bounds__(kThreads)
   zero_acc<D>(acc_dk);
   zero_acc<D>(acc_dv);
 
-  const __nv_bfloat16* q_base = q + b * st.q.b + h * st.q.h;
-  const __nv_bfloat16* do_base = d_o + b * st.d_o.b + h * st.d_o.h;
+  const T* q_base = q + b * st.q.b + h * st.q.h;
+  const T* do_base = d_o + b * st.d_o.b + h * st.d_o.h;
   const long long row_base = (static_cast<long long>(b) * gridDim.y + h) * sq;
 
   // fill one stage with the query tile at m0
   auto load_stage = [&](int stage, int m0) {
-    __nv_bfloat16* dst = ring + stage * 2 * kTile;
-    load_rows<D>(dst, q_base, st.q.s, m0, sq, tid);
-    load_rows<D>(dst + kTile, do_base, st.d_o.s, m0, sq, tid);
+    T* dst = ring + stage * 2 * kTile;
+    load_rows<T, D>(dst, q_base, st.q.s, m0, sq, tid);
+    load_rows<T, D>(dst + kTile, do_base, st.d_o.s, m0, sq, tid);
     float* lse_s = stats + stage * 2 * kBlockM;
     for (int i = tid; i < kBlockM; i += kThreads) {
       const int r = m0 + i;
@@ -135,10 +136,10 @@ __global__ void __launch_bounds__(kThreads)
   };
 
   if (n_qtiles > 0) {
-    load_rows<D>(k_s, k + b * st.k.b + h * st.k.h, st.k.s, k_start, kv_len,
-                 tid);
-    load_rows<D>(v_s, v + b * st.v.b + h * st.v.h, st.v.s, k_start, kv_len,
-                 tid);
+    load_rows<T, D>(k_s, k + b * st.k.b + h * st.k.h, st.k.s, k_start, kv_len,
+                    tid);
+    load_rows<T, D>(v_s, v + b * st.v.b + h * st.v.h, st.v.s, k_start, kv_len,
+                    tid);
     load_stage(0, m_first);
   }
   cp_async_commit();
@@ -153,13 +154,56 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();  // this stage (and the K/V tiles) are in shared memory
-    const __nv_bfloat16* q_s = ring + (it & 1) * 2 * kTile;
-    const __nv_bfloat16* do_s = q_s + kTile;
+    const T* q_s = ring + (it & 1) * 2 * kTile;
+    const T* do_s = q_s + kTile;
     const float* lse_s = stats + (it & 1) * 2 * kBlockM;
     const float* dl_s = lse_s + kBlockM;
     const bool whole = k_start + kBlockN <= kv_len &&
                        (!causal || k_start + kBlockN - 1 <= m0 + q_off);
 
+    if constexpr (kF32) {
+      // 8 query rows at a time: S^T and dP^T (the warp's 16 keys x 8 rows),
+      // then P^T and dS^T as TF32 A fragments (rows in the order of
+      // acc_as_a_tf32) against the rows 2t, 2t + 1 of dO and Q
+#pragma unroll 2
+      for (int qc = 0; qc < kBlockM / 8; ++qc) {
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+        const T* ka = k_s + (warp * 16 + g) * LD + t;
+        const T* va = v_s + (warp * 16 + g) * LD + t;
+        const T* qb = q_s + (qc * 8 + g) * LD + t;
+        const T* db = do_s + (qc * 8 + g) * LD + t;
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const int c = kk * 8;
+          const uint32_t kf[4] = {tf32(ka[c]), tf32(ka[8 * LD + c]),
+                                  tf32(ka[c + 4]), tf32(ka[8 * LD + c + 4])};
+          const uint32_t vf[4] = {tf32(va[c]), tf32(va[8 * LD + c]),
+                                  tf32(va[c + 4]), tf32(va[8 * LD + c + 4])};
+          mma_1688(s, kf, tf32(qb[c]), tf32(qb[c + 4]));
+          mma_1688(dp, vf, tf32(db[c]), tf32(db[c + 4]));
+        }
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = qc * 8 + 2 * t + (e & 1);  // row in tile
+          const int key = e < 2 ? c0 : c1;
+          const bool ok = whole || (key < kv_len &&
+                                    (!causal || key <= m0 + i + q_off));
+          p[e] = ok ? exp2f(s[e] * scale_log2 - lse_s[i]) : 0.f;
+          ds[e] = p[e] * (dp[e] - dl_s[i]) * sm_scale;
+        }
+        uint32_t pa[4], dsa[4];
+        acc_as_a_tf32(pa, p[0], p[1], p[2], p[3]);
+        acc_as_a_tf32(dsa, ds[0], ds[1], ds[2], ds[3]);
+        const T* orow = do_s + (qc * 8 + 2 * t) * LD + g;
+        const T* qrow = q_s + (qc * 8 + 2 * t) * LD + g;
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          mma_1688(acc_dv[dn], pa, tf32(orow[dn * 8]), tf32(orow[LD + dn * 8]));
+          mma_1688(acc_dk[dn], dsa, tf32(qrow[dn * 8]), tf32(qrow[LD + dn * 8]));
+        }
+      }
+    } else {
 #pragma unroll
     for (int qc = 0; qc < kBlockM / 16; ++qc) {
       // S^T and dP^T for 16 keys x 16 query rows: two 8-row output tiles
@@ -221,65 +265,83 @@ __global__ void __launch_bounds__(kThreads)
         mma_16816(acc_dk[dn + 1], dsa, qb[2], qb[3]);
       }
     }
+    }
     __syncthreads();  // every warp is done with this stage before refill
   }
 
-  store_rows<D>(dk + b * st.dk.b + h * st.dk.h, st.dk.s, acc_dk, c0, skv, t);
-  store_rows<D>(dv + b * st.dv.b + h * st.dv.h, st.dv.s, acc_dv, c0, skv, t);
+  store_rows<T, D>(dk + b * st.dk.b + h * st.dk.h, st.dk.s, acc_dk, c0, skv, t);
+  store_rows<T, D>(dv + b * st.dv.b + h * st.dv.h, st.dv.s, acc_dv, c0, skv, t);
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* d_o, const float* lse, const float* delta,
                    void* dk, void* dv, const int* kv_lens,
                    const int* q_offset, int batch, int heads, int sq, int skv,
                    const Strides& st, int causal, float sm_scale,
                    cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
+  constexpr int bytes = smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((skv + kBlockN - 1) / kBlockN, heads, batch);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(d_o), lse, delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      kv_lens, q_offset, sq, skv, st, causal, sm_scale * kLog2e, sm_scale);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(d_o), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), kv_lens, q_offset, sq, skv, st,
+      causal, sm_scale * kLog2e, sm_scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Pointers are device pointers; `lse` and `delta` are contiguous (B, H, Sq)
-// f32; strides are in elements; the caller checks dtypes, shapes,
-// alignment (16 bytes for every row) and head_dim.
-extern "C" int hsenet_flash_bwd_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* d_o,
-    const void* lse, const void* delta, void* dk, void* dv, const int* kv_lens,
-    const int* q_offset, int batch, int heads, int sq, int skv, int head_dim,
-    long long q_b, long long q_h, long long q_s, long long k_b, long long k_h,
-    long long k_s, long long v_b, long long v_h, long long v_s, long long do_b,
-    long long do_h, long long do_s, long long dk_b, long long dk_h,
-    long long dk_s, long long dv_b, long long dv_h, long long dv_s, int causal,
-    float sm_scale, void* stream) {
-  const Strides st{{q_b, q_h, q_s},    {k_b, k_h, k_s},    {v_b, v_h, v_s},
-                   {do_b, do_h, do_s}, {dk_b, dk_h, dk_s}, {dv_b, dv_h, dv_s}};
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* d_o,
+             const void* lse, const void* delta, void* dk, void* dv,
+             const int* kv_lens, const int* q_offset, int batch, int heads,
+             int sq, int skv, int head_dim, const Strides& st, int causal,
+             float sm_scale, void* stream) {
   const auto* lf = static_cast<const float*>(lse);
   const auto* df = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return static_cast<int>(launch<64>(q, k, v, d_o, lf, df, dk, dv,
-                                         kv_lens, q_offset, batch, heads, sq,
-                                         skv, st, causal, sm_scale, s));
+      return static_cast<int>(launch<T, 64>(q, k, v, d_o, lf, df, dk, dv,
+                                            kv_lens, q_offset, batch, heads,
+                                            sq, skv, st, causal, sm_scale, s));
     case 128:
-      return static_cast<int>(launch<128>(q, k, v, d_o, lf, df, dk, dv,
-                                          kv_lens, q_offset, batch, heads, sq,
-                                          skv, st, causal, sm_scale, s));
+      return static_cast<int>(launch<T, 128>(q, k, v, d_o, lf, df, dk, dv,
+                                             kv_lens, q_offset, batch, heads,
+                                             sq, skv, st, causal, sm_scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+}  // namespace
+
+// Launch on `stream` and return cudaGetLastError() (0 on success); `_f32`
+// takes f32 Q, K, V, dO, dK and dV, `_bf16` bf16 ones. Pointers are device
+// pointers; `lse` and `delta` are contiguous (B, H, Sq) f32; strides are in
+// elements; the caller checks dtypes, shapes, alignment (16 bytes for every
+// row) and head_dim (64 or 128).
+#define HSENET_FLASH_BWD_DKV_ENTRY(NAME, T)                                    \
+  extern "C" int NAME(                                                         \
+      const void* q, const void* k, const void* v, const void* d_o,            \
+      const void* lse, const void* delta, void* dk, void* dv,                  \
+      const int* kv_lens, const int* q_offset, int batch, int heads, int sq,   \
+      int skv, int head_dim, long long q_b, long long q_h, long long q_s,      \
+      long long k_b, long long k_h, long long k_s, long long v_b,              \
+      long long v_h, long long v_s, long long do_b, long long do_h,            \
+      long long do_s, long long dk_b, long long dk_h, long long dk_s,          \
+      long long dv_b, long long dv_h, long long dv_s, int causal,              \
+      float sm_scale, void* stream) {                                          \
+    const Strides st{{q_b, q_h, q_s},    {k_b, k_h, k_s},                      \
+                     {v_b, v_h, v_s},    {do_b, do_h, do_s},                   \
+                     {dk_b, dk_h, dk_s}, {dv_b, dv_h, dv_s}};                  \
+    return dispatch<T>(q, k, v, d_o, lse, delta, dk, dv, kv_lens, q_offset,    \
+                       batch, heads, sq, skv, head_dim, st, causal, sm_scale,  \
+                       stream);                                                \
+  }
+
+HSENET_FLASH_BWD_DKV_ENTRY(hsenet_flash_bwd_dkv_bf16, __nv_bfloat16)
+HSENET_FLASH_BWD_DKV_ENTRY(hsenet_flash_bwd_dkv_f32, float)

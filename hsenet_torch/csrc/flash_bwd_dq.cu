@@ -1,5 +1,7 @@
-// Flash-attention backward, dQ, for Hopper (sm_90a): bf16 in and out, f32
-// accumulation.
+// Flash-attention backward, dQ, for Hopper (sm_90a): the f32 route (f32 in
+// and out, TF32 products, f32 accumulation). The bf16 route of the port's
+// backward is flash_bwd.cu; this file's bf16 instantiation stays as the
+// yardstick chip_smoke.py times the new kernel against.
 //
 // Replaces the TPU kernel `_bwd_dq_kernel` of the JAX package
 // (ops/flash_attention.py, launched by `_flash_backward`). Per (batch b,
@@ -18,8 +20,9 @@
 // the K and V rows below kv_len (21 us): bytes, narrowly.
 // chip_smoke.py recomputes the bound from the shapes and data it runs.
 //
-// Design (mma.sync; wgmma/TMA come later), the forward's layout turned to
-// the gradient:
+// Design (mma.sync, for both element types; f32 runs the same tiling with
+// TF32 m16n8k8 products on 32-bit shared-memory loads, see
+// flash_common.cuh), the forward's layout turned to the gradient:
 //   * one CTA of 4 warps per (b, h, 64-row query tile); each warp keeps the
 //     A fragments of its 16 rows of Q and of dO in registers, and their
 //     log-sum-exp and delta;
@@ -39,32 +42,31 @@ namespace {
 
 using namespace hsenet_flash;
 
-template <int D>
+template <typename T, int D>
 constexpr int smem_bytes() {  // two stages of one K and one V tile
-  return 2 * 2 * kBlockN * (D + kPad) * static_cast<int>(sizeof(__nv_bfloat16));
+  return 2 * 2 * kBlockN * (D + kPadOf<T>) * static_cast<int>(sizeof(T));
 }
 
 struct Strides {
   Strides3 q, k, v, d_o, dq;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ d_o,
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ d_o,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq,
+                        const float* __restrict__ delta, T* __restrict__ dq,
                         const int* __restrict__ kv_lens,
                         const int* __restrict__ q_offset, int sq, int skv,
                         Strides st, int causal, float scale_log2,
                         float sm_scale) {
-  constexpr int LD = D + kPad;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int LD = D + kPadOf<T>;
   constexpr int kTile = kBlockN * LD;
+  constexpr int KS = kStepOf<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -84,18 +86,18 @@ __global__ void __launch_bounds__(kThreads)
   n_end = max(n_end, 0);
   const int n_tiles = (n_end + kBlockN - 1) / kBlockN;
 
-  const __nv_bfloat16* k_base = k + b * st.k.b + h * st.k.h;
-  const __nv_bfloat16* v_base = v + b * st.v.b + h * st.v.h;
+  const T* k_base = k + b * st.k.b + h * st.k.h;
+  const T* v_base = v + b * st.v.b + h * st.v.h;
   if (n_tiles > 0) {
-    load_rows<D>(smem, k_base, st.k.s, 0, n_end, tid);
-    load_rows<D>(smem + kTile, v_base, st.v.s, 0, n_end, tid);
+    load_rows<T, D>(smem, k_base, st.k.s, 0, n_end, tid);
+    load_rows<T, D>(smem + kTile, v_base, st.v.s, 0, n_end, tid);
   }
   cp_async_commit();
 
   const int r0 = q_start + warp * 16 + g;
   const int r1 = r0 + 8;
-  uint32_t qf[D / 16][4];
-  uint32_t df[D / 16][4];
+  uint32_t qf[D / KS][4];
+  uint32_t df[D / KS][4];
   load_a_rows<D>(qf, q + b * st.q.b + h * st.q.h, st.q.s, r0, sq, t);
   load_a_rows<D>(df, d_o + b * st.d_o.b + h * st.d_o.h, st.d_o.s, r0, sq, t);
   // log-sum-exp in the log2 domain; rows past sq get +inf so P is 0
@@ -114,20 +116,53 @@ __global__ void __launch_bounds__(kThreads)
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int n0 = tile * kBlockN;
     if (tile + 1 < n_tiles) {
-      __nv_bfloat16* nxt = smem + ((tile + 1) & 1) * 2 * kTile;
-      load_rows<D>(nxt, k_base, st.k.s, n0 + kBlockN, n_end, tid);
-      load_rows<D>(nxt + kTile, v_base, st.v.s, n0 + kBlockN, n_end, tid);
+      T* nxt = smem + ((tile + 1) & 1) * 2 * kTile;
+      load_rows<T, D>(nxt, k_base, st.k.s, n0 + kBlockN, n_end, tid);
+      load_rows<T, D>(nxt + kTile, v_base, st.v.s, n0 + kBlockN, n_end, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* k_s = smem + (tile & 1) * 2 * kTile;
-    const __nv_bfloat16* v_s = k_s + kTile;
+    const T* k_s = smem + (tile & 1) * 2 * kTile;
+    const T* v_s = k_s + kTile;
     const bool whole = n0 + kBlockN <= kv_len &&
                        (!causal || n0 + kBlockN - 1 <= q_start + q_off);
 
+    if constexpr (kF32) {
+      // 8 keys at a time: S, dP, then dS as one TF32 A fragment (keys in
+      // the order of acc_as_a_tf32) and dQ += dS K on K's rows 2t, 2t + 1
+#pragma unroll
+      for (int kc = 0; kc < kBlockN / 8; ++kc) {
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+        const T* kr = k_s + (kc * 8 + g) * LD + t;
+        const T* vr = v_s + (kc * 8 + g) * LD + t;
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          mma_1688(s, qf[kk], tf32(kr[kk * 8]), tf32(kr[kk * 8 + 4]));
+          mma_1688(dp, df[kk], tf32(vr[kk * 8]), tf32(vr[kk * 8 + 4]));
+        }
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n0 + kc * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? r0 : r1;
+          const bool ok =
+              whole || (col < kv_len && (!causal || col <= row + q_off));
+          const float p =
+              ok ? exp2f(s[e] * scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
+          ds[e] = p * (dp[e] - (e < 2 ? dl0 : dl1)) * sm_scale;
+        }
+        uint32_t dsf[4];
+        acc_as_a_tf32(dsf, ds[0], ds[1], ds[2], ds[3]);
+        const T* kt = k_s + (kc * 8 + 2 * t) * LD + g;
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          mma_1688(acc[dn], dsf, tf32(kt[dn * 8]), tf32(kt[LD + dn * 8]));
+        }
+      }
+    } else {
 #pragma unroll
     for (int kc = 0; kc < kBlockN / 16; ++kc) {
       // S and dP for 16 rows x 16 keys: two 8-key output tiles each
@@ -176,62 +211,79 @@ __global__ void __launch_bounds__(kThreads)
         mma_16816(acc[dn + 1], dsf, kb[2], kb[3]);
       }
     }
+    }
     __syncthreads();  // every warp is done with this stage before refill
   }
 
-  store_rows<D>(dq + b * st.dq.b + h * st.dq.h, st.dq.s, acc, r0, sq, t);
+  store_rows<T, D>(dq + b * st.dq.b + h * st.dq.h, st.dq.s, acc, r0, sq, t);
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* d_o, const float* lse, const float* delta,
                    void* dq, const int* kv_lens, const int* q_offset,
                    int batch, int heads, int sq, int skv, const Strides& st,
                    int causal, float sm_scale, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
+  constexpr int bytes = smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBlockM - 1) / kBlockM, heads, batch);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(d_o), lse, delta,
-      static_cast<__nv_bfloat16*>(dq), kv_lens, q_offset, sq, skv, st, causal,
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(d_o), lse, delta,
+      static_cast<T*>(dq), kv_lens, q_offset, sq, skv, st, causal,
       sm_scale * kLog2e, sm_scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Pointers are device pointers; `lse` and `delta` are contiguous (B, H, Sq)
-// f32; strides are in elements; the caller checks dtypes, shapes,
-// alignment (16 bytes for every row) and head_dim.
-extern "C" int hsenet_flash_bwd_dq_bf16(
-    const void* q, const void* k, const void* v, const void* d_o,
-    const void* lse, const void* delta, void* dq, const int* kv_lens,
-    const int* q_offset, int batch, int heads, int sq, int skv, int head_dim,
-    long long q_b, long long q_h, long long q_s, long long k_b, long long k_h,
-    long long k_s, long long v_b, long long v_h, long long v_s, long long do_b,
-    long long do_h, long long do_s, long long dq_b, long long dq_h,
-    long long dq_s, int causal, float sm_scale, void* stream) {
-  const Strides st{{q_b, q_h, q_s}, {k_b, k_h, k_s}, {v_b, v_h, v_s},
-                   {do_b, do_h, do_s}, {dq_b, dq_h, dq_s}};
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* d_o,
+             const void* lse, const void* delta, void* dq, const int* kv_lens,
+             const int* q_offset, int batch, int heads, int sq, int skv,
+             int head_dim, const Strides& st, int causal, float sm_scale,
+             void* stream) {
   const auto* lf = static_cast<const float*>(lse);
   const auto* df = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return static_cast<int>(launch<64>(q, k, v, d_o, lf, df, dq, kv_lens,
-                                         q_offset, batch, heads, sq, skv, st,
-                                         causal, sm_scale, s));
+      return static_cast<int>(launch<T, 64>(q, k, v, d_o, lf, df, dq, kv_lens,
+                                            q_offset, batch, heads, sq, skv,
+                                            st, causal, sm_scale, s));
     case 128:
-      return static_cast<int>(launch<128>(q, k, v, d_o, lf, df, dq, kv_lens,
-                                          q_offset, batch, heads, sq, skv, st,
-                                          causal, sm_scale, s));
+      return static_cast<int>(launch<T, 128>(q, k, v, d_o, lf, df, dq,
+                                             kv_lens, q_offset, batch, heads,
+                                             sq, skv, st, causal, sm_scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+}  // namespace
+
+// Launch on `stream` and return cudaGetLastError() (0 on success); `_f32`
+// takes f32 Q, K, V, dO and dQ, `_bf16` bf16 ones. Pointers are device
+// pointers; `lse` and `delta` are contiguous (B, H, Sq) f32; strides are in
+// elements; the caller checks dtypes, shapes, alignment (16 bytes for every
+// row) and head_dim (64 or 128).
+#define HSENET_FLASH_BWD_DQ_ENTRY(NAME, T)                                     \
+  extern "C" int NAME(                                                         \
+      const void* q, const void* k, const void* v, const void* d_o,            \
+      const void* lse, const void* delta, void* dq, const int* kv_lens,        \
+      const int* q_offset, int batch, int heads, int sq, int skv,              \
+      int head_dim, long long q_b, long long q_h, long long q_s,               \
+      long long k_b, long long k_h, long long k_s, long long v_b,              \
+      long long v_h, long long v_s, long long do_b, long long do_h,            \
+      long long do_s, long long dq_b, long long dq_h, long long dq_s,          \
+      int causal, float sm_scale, void* stream) {                              \
+    const Strides st{{q_b, q_h, q_s}, {k_b, k_h, k_s}, {v_b, v_h, v_s},        \
+                     {do_b, do_h, do_s}, {dq_b, dq_h, dq_s}};                  \
+    return dispatch<T>(q, k, v, d_o, lse, delta, dq, kv_lens, q_offset,        \
+                       batch, heads, sq, skv, head_dim, st, causal, sm_scale,  \
+                       stream);                                                \
+  }
+
+HSENET_FLASH_BWD_DQ_ENTRY(hsenet_flash_bwd_dq_bf16, __nv_bfloat16)
+HSENET_FLASH_BWD_DQ_ENTRY(hsenet_flash_bwd_dq_f32, float)

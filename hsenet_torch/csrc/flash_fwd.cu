@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in and out, f32 softmax.
+// Flash-attention forward for Hopper (sm_90a): bf16 or f32 in and out (the
+// caller pads the head dim to 64 or 128), softmax in f32.
 //
 // Replaces the TPU kernel `_flash_kernel` of the JAX package
 // (ops/flash_attention.py, launched by `_flash_forward`). Per (batch b,
@@ -20,7 +21,8 @@
 //     (1.26 GFLOP) takes 1.3 us.
 // chip_smoke.py recomputes both bounds from the shapes and data it runs.
 //
-// Design (mma.sync; wgmma/TMA come later):
+// Design (mma.sync, for both element types; the f32 route runs the same
+// tiling with TF32 m16n8k8 products, see flash_common.cuh for why TF32):
 //   * one CTA of 4 warps per (b, h, 64-row query tile); each warp owns 16
 //     query rows and keeps their Q fragments in registers for the whole
 //     loop;
@@ -29,7 +31,9 @@
 //     rows are padded by 8 bf16 so ldmatrix reads hit 32 distinct banks;
 //   * QK^T and PV run on the tensor cores with mma.sync m16n8k16
 //     (bf16 x bf16 -> f32), their B operands read by ldmatrix (.trans for
-//     V); P is rounded to bf16 for PV, as on the TPU;
+//     V); P is rounded to bf16 for PV, as on the TPU. In f32, m16n8k8 on
+//     TF32 operands read by 32-bit shared-memory loads (ldmatrix moves
+//     16-bit elements), P rounded to TF32;
 //   * scores are scaled in f32 and masked before the row max (tiles that
 //     no mask touches skip the mask); the online softmax keeps its max
 //     and sum in f32 (log2 domain);
@@ -44,29 +48,30 @@ namespace {
 
 using namespace hsenet_flash;
 
-template <int D>
+template <typename T, int D>
 constexpr int smem_bytes() {  // two stages of one K and one V tile
-  return 2 * 2 * kBlockN * (D + kPad) * static_cast<int>(sizeof(__nv_bfloat16));
+  return 2 * 2 * kBlockN * (D + kPadOf<T>) * static_cast<int>(sizeof(T));
 }
 
 struct Strides {
   Strides3 q, k, v, o;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse,
                      const int* __restrict__ kv_lens,
                      const int* __restrict__ q_offset, int sq, int skv,
                      Strides st, int causal, float scale_log2) {
-  constexpr int LD = D + kPad;
-  constexpr int kTile = kBlockN * LD;  // bf16 per K or V tile
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int LD = D + kPadOf<T>;
+  constexpr int kTile = kBlockN * LD;  // elements per K or V tile
+  constexpr int KS = kStepOf<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // ring stage s: K at smem[2 s kTile], V at smem[(2 s + 1) kTile]
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -84,14 +89,14 @@ __global__ void __launch_bounds__(kThreads)
   n_end = max(n_end, 0);
   const int n_tiles = (n_end + kBlockN - 1) / kBlockN;
 
-  const __nv_bfloat16* q_base = q + b * st.q.b + h * st.q.h;
-  const __nv_bfloat16* k_base = k + b * st.k.b + h * st.k.h;
-  const __nv_bfloat16* v_base = v + b * st.v.b + h * st.v.h;
-  __nv_bfloat16* o_base = o + b * st.o.b + h * st.o.h;
+  const T* q_base = q + b * st.q.b + h * st.q.h;
+  const T* k_base = k + b * st.k.b + h * st.k.h;
+  const T* v_base = v + b * st.v.b + h * st.v.h;
+  T* o_base = o + b * st.o.b + h * st.o.h;
 
   if (n_tiles > 0) {
-    load_rows<D>(smem, k_base, st.k.s, 0, n_end, tid);
-    load_rows<D>(smem + kTile, v_base, st.v.s, 0, n_end, tid);
+    load_rows<T, D>(smem, k_base, st.k.s, 0, n_end, tid);
+    load_rows<T, D>(smem + kTile, v_base, st.v.s, 0, n_end, tid);
   }
   cp_async_commit();
 
@@ -100,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
   const int r1 = r0 + 8;
 
   // A fragments of Q (16 rows x D), loaded once
-  uint32_t qf[D / 16][4];
+  uint32_t qf[D / KS][4];
   load_a_rows<D>(qf, q_base, st.q.s, r0, sq, t);
 
   float acc[D / 8][4];
@@ -118,30 +123,38 @@ __global__ void __launch_bounds__(kThreads)
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int n0 = tile * kBlockN;
     if (tile + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      __nv_bfloat16* nxt = smem + ((tile + 1) & 1) * 2 * kTile;
-      load_rows<D>(nxt, k_base, st.k.s, n0 + kBlockN, n_end, tid);
-      load_rows<D>(nxt + kTile, v_base, st.v.s, n0 + kBlockN, n_end, tid);
+      T* nxt = smem + ((tile + 1) & 1) * 2 * kTile;
+      load_rows<T, D>(nxt, k_base, st.k.s, n0 + kBlockN, n_end, tid);
+      load_rows<T, D>(nxt + kTile, v_base, st.v.s, n0 + kBlockN, n_end, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // this tile is in shared memory for every warp
-    const __nv_bfloat16* k_s = smem + (tile & 1) * 2 * kTile;
-    const __nv_bfloat16* v_s = k_s + kTile;
+    const T* k_s = smem + (tile & 1) * 2 * kTile;
+    const T* v_s = k_s + kTile;
 
-    // S = Q K^T: 16 rows x 64 keys per warp, as 8 tiles of 16 x 8; one
-    // ldmatrix.x4 gives the B operands of two k-steps
+    // S = Q K^T: 16 rows x 64 keys per warp, as 8 tiles of 16 x 8; in bf16
+    // one ldmatrix.x4 gives the B operands of two k-steps
     float s[kBlockN / 8][4];
 #pragma unroll
     for (int j = 0; j < kBlockN / 8; ++j) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      if constexpr (kF32) {
+        const T* kr = k_s + (j * 8 + g) * LD + t;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; kk += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, k_s + (j * 8 + lrow) * LD + kk * 16 + lmat * 8);
-        mma_16816(s[j], qf[kk], kb[0], kb[1]);
-        mma_16816(s[j], qf[kk + 1], kb[2], kb[3]);
+        for (int kk = 0; kk < D / 8; ++kk) {
+          mma_1688(s[j], qf[kk], tf32(kr[kk * 8]), tf32(kr[kk * 8 + 4]));
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; kk += 2) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, k_s + (j * 8 + lrow) * LD + kk * 16 + lmat * 8);
+          mma_16816(s[j], qf[kk], kb[0], kb[1]);
+          mma_16816(s[j], qf[kk + 1], kb[2], kb[3]);
+        }
       }
     }
 
@@ -187,9 +200,10 @@ __global__ void __launch_bounds__(kThreads)
       acc[dn][3] *= corr1;
     }
 
-    // P = exp2(S - max); the f32 values feed the row sum, bf16 feeds PV.
-    // Two adjacent 16x8 score tiles form one 16x16 A fragment.
-    uint32_t pf[kBlockN / 16][4];
+    // P = exp2(S - max); the f32 values feed the row sum, bf16 (TF32)
+    // feeds PV. Two adjacent 16x8 score tiles form one 16x16 bf16 A
+    // fragment; in f32 each tile is one k-step's A fragment.
+    uint32_t pf[kBlockN / KS][4];
 #pragma unroll
     for (int j = 0; j < kBlockN / 8; ++j) {
       const float p0 = exp2f(s[j][0] - base0);
@@ -198,12 +212,27 @@ __global__ void __launch_bounds__(kThreads)
       const float p3 = exp2f(s[j][3] - base1);
       l0 += p0 + p1;
       l1 += p2 + p3;
-      pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
-      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      if constexpr (kF32) {
+        acc_as_a_tf32(pf[j], p0, p1, p2, p3);
+      } else {
+        pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      }
     }
 
     // O += P V: ldmatrix.trans of four 8x8 V blocks (keys +0/+8 x columns
-    // +0/+8) gives the B operands of two 8-column output tiles
+    // +0/+8) gives the B operands of two 8-column output tiles; in f32 the
+    // step's keys 2t and 2t + 1 (the order of acc_as_a_tf32)
+    if constexpr (kF32) {
+#pragma unroll
+      for (int kc = 0; kc < kBlockN / 8; ++kc) {
+        const T* vr = v_s + (kc * 8 + 2 * t) * LD + g;
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          mma_1688(acc[dn], pf[kc], tf32(vr[dn * 8]), tf32(vr[LD + dn * 8]));
+        }
+      }
+    } else {
 #pragma unroll
     for (int kc = 0; kc < kBlockN / 16; ++kc) {
 #pragma unroll
@@ -216,6 +245,7 @@ __global__ void __launch_bounds__(kThreads)
         mma_16816(acc[dn + 1], pf[kc], vb[2], vb[3]);
       }
     }
+    }
     __syncthreads();  // every warp is done with this stage before refill
   }
 
@@ -225,7 +255,7 @@ __global__ void __launch_bounds__(kThreads)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;  // empty row -> 0
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  store_rows<D>(o_base, st.o.s, acc, r0, sq, t, inv0, inv1);
+  store_rows<T, D>(o_base, st.o.s, acc, r0, sq, t, inv0, inv1);
   if (lse != nullptr && t == 0) {
     // ln(sum exp(scale s)) = (max + log2 sum) ln 2, max in the log2 domain
     float* lse_bh = lse + (static_cast<long long>(b) * gridDim.y + h) * sq;
@@ -234,55 +264,67 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
-cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                   const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
-                   const int* kv_lens, const int* q_offset, int batch,
-                   int heads, int sq, int skv, const Strides& st, int causal,
-                   float scale_log2, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, const int* kv_lens, const int* q_offset,
+                   int batch, int heads, int sq, int skv, const Strides& st,
+                   int causal, float scale_log2, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<T, D>();
   // above 48 KB a block's shared memory must be opted into
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBlockM - 1) / kBlockM, heads, batch);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, lse, kv_lens, q_offset, sq, skv, st, causal, scale_log2);
+  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, kv_lens, q_offset, sq,
+      skv, st, causal, scale_log2);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Pointers are device pointers; `lse` is null or a contiguous (B, H, Sq)
-// f32 buffer; strides are in elements; the caller checks dtypes, shapes,
-// alignment (16 bytes for every row) and head_dim.
-extern "C" int hsenet_flash_fwd_bf16(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    const int* kv_lens, const int* q_offset, int batch, int heads, int sq,
-    int skv, int head_dim, long long q_b, long long q_h, long long q_s,
-    long long k_b, long long k_h, long long k_s, long long v_b, long long v_h,
-    long long v_s, long long o_b, long long o_h, long long o_s, int causal,
-    float sm_scale, void* stream) {
-  const Strides st{{q_b, q_h, q_s}, {k_b, k_h, k_s}, {v_b, v_h, v_s},
-                   {o_b, o_h, o_s}};
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             const int* kv_lens, const int* q_offset, int batch, int heads,
+             int sq, int skv, int head_dim, const Strides& st, int causal,
+             float sm_scale, void* stream) {
   const float scale_log2 = sm_scale * kLog2e;
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  auto* ob = static_cast<__nv_bfloat16*>(o);
   auto* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return static_cast<int>(launch<64>(qb, kb, vb, ob, lf, kv_lens, q_offset,
-                                         batch, heads, sq, skv, st, causal,
-                                         scale_log2, s));
+      return static_cast<int>(launch<T, 64>(q, k, v, o, lf, kv_lens, q_offset,
+                                            batch, heads, sq, skv, st, causal,
+                                            scale_log2, s));
     case 128:
-      return static_cast<int>(launch<128>(qb, kb, vb, ob, lf, kv_lens,
-                                          q_offset, batch, heads, sq, skv, st,
-                                          causal, scale_log2, s));
+      return static_cast<int>(launch<T, 128>(q, k, v, o, lf, kv_lens,
+                                             q_offset, batch, heads, sq, skv,
+                                             st, causal, scale_log2, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+}  // namespace
+
+// Launch on `stream` and return cudaGetLastError() (0 on success); `_bf16`
+// takes bf16 Q, K, V and O, `_f32` f32 ones. Pointers are device pointers;
+// `lse` is null or a contiguous (B, H, Sq) f32 buffer; strides are in
+// elements; the caller checks dtypes, shapes, alignment (16 bytes for every
+// row) and head_dim (64 or 128: it pads other widths).
+#define HSENET_FLASH_FWD_ENTRY(NAME, T)                                        \
+  extern "C" int NAME(                                                         \
+      const void* q, const void* k, const void* v, void* o, void* lse,         \
+      const int* kv_lens, const int* q_offset, int batch, int heads, int sq,   \
+      int skv, int head_dim, long long q_b, long long q_h, long long q_s,      \
+      long long k_b, long long k_h, long long k_s, long long v_b,              \
+      long long v_h, long long v_s, long long o_b, long long o_h,              \
+      long long o_s, int causal, float sm_scale, void* stream) {               \
+    const Strides st{{q_b, q_h, q_s}, {k_b, k_h, k_s}, {v_b, v_h, v_s},        \
+                     {o_b, o_h, o_s}};                                         \
+    return dispatch<T>(q, k, v, o, lse, kv_lens, q_offset, batch, heads, sq,   \
+                       skv, head_dim, st, causal, sm_scale, stream);           \
+  }
+
+HSENET_FLASH_FWD_ENTRY(hsenet_flash_fwd_bf16, __nv_bfloat16)
+HSENET_FLASH_FWD_ENTRY(hsenet_flash_fwd_f32, float)

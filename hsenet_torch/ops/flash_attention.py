@@ -5,26 +5,37 @@ and their plain PyTorch versions.
 softmax(sm_scale * Q K^T) V per (batch, head), keeping the columns below
 `kv_lens[b]` and, under `causal`, those at or left of `row + q_offset[b]`,
 with the softmax in f32 and a row that has no valid column giving 0. On a
-CUDA tensor it launches `csrc/flash_fwd.cu` (bf16, head_dim 64 or 128);
-on a CPU tensor it runs `flash_attention_reference`. It never falls from
-one to the other.
+CUDA tensor it launches `csrc/flash_fwd.cu`; on a CPU tensor it runs
+`flash_attention_reference`. It never falls from one to the other.
+
+The kernels take bf16 or f32 operands (one dtype for q, k, v; f32 runs
+TF32 products, see `csrc/flash_common.cuh`) at head_dim 64 or 128. Every
+other width up to 128 goes through `with_head_dim_padded`, which gives q,
+k, v (and o, dO) zero columns up to 64 or 128 and slices the outputs back,
+with the softmax scale of the true width; the CPU route pads the same way,
+so the CPU tests hold the padded route to the JAX kernels. Above 128, and
+for f16, `check_operands` raises (ROADMAP C2; the JAX kernels pad to a
+multiple of 128 and take f16).
 
 When autograd needs its gradient (grad mode on and an input that requires
 grad), the call goes through `_FlashAttention`, the counterpart of the JAX
 package's `_flash_attention_core` and its custom VJP: the forward also
-writes each row's log-sum-exp, and the backward launches the two kernels
-of `_bwd_dq_kernel` and `_bwd_dkv_kernel` (`csrc/flash_bwd_dq.cu`,
-`csrc/flash_bwd_dkv.cu`), or on the CPU runs their plain version
-`flash_attention_backward_reference`. Autograd through
-`flash_attention_reference` itself is the JAX package's recompute route
-(`use_pallas_bwd=False`); nothing on the port's paths takes it.
+writes each row's log-sum-exp, and the backward launches `csrc/flash_bwd.cu`
+in bf16 (one wgmma/TMA kernel for dQ, dK and dV, the port of
+`_bwd_dq_kernel` and `_bwd_dkv_kernel`; dQ is summed across key tiles by
+f32 reduce-adds, so it is not bit-reproducible run to run) or the two
+mma.sync kernels `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu` in f32,
+or on the CPU runs their plain version `flash_attention_backward_reference`.
+Autograd through `flash_attention_reference` itself is the JAX package's
+recompute route (`use_pallas_bwd=False`); nothing on the port's paths takes
+it.
 
-The same three kernels serve the JAX package's streaming kernels too
-(B2 `_flash_kernel_stream`, B4 `_bwd_dq_kernel_stream` and
+The same kernels serve the JAX package's streaming kernels too (B2
+`_flash_kernel_stream`, B4 `_bwd_dq_kernel_stream` and
 `_bwd_dkv_kernel_stream`), which it takes when a (batch, head)'s K/V or
 Q/dO would not fit its VMEM budget (above 2304 tokens at head_dim 64): each
-CUDA kernel streams the other side through shared memory in 64-row tiles at
-any length, and ends its loop at kv_len and at the diagonal.
+CUDA kernel streams the other side through shared memory at any length,
+and ends its loop at kv_len and at the diagonal.
 
 The kernels read Q, K, V and dO through their (batch, head, row) strides,
 so the head-split views that `rearrange(..., "b s (n d) -> b n s d")` gives
@@ -44,8 +55,11 @@ import torch
 
 from hsenet_torch.ops import _build
 
-SUPPORTED_HEAD_DIMS = (64, 128)
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SUPPORTED_HEAD_DIMS = (64, 128)  # the kernels' widths; others are padded
+MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# flash_bwd is the bf16 backward; flash_bwd_dq and flash_bwd_dkv the f32 one
+KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the log-sum-exp of a row with no valid column (the JAX package's -NEG_INF)
 EMPTY_ROW_LSE = 1e30
 
@@ -145,25 +159,61 @@ def flash_attention_backward_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_kernel_operand(name: str, t: torch.Tensor, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"flash kernels take bfloat16, {name} is {t.dtype}")
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name}: the head dimension must be contiguous")
-    if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+def kernel_head_dim(d: int) -> int:
+    """The kernel width a head dim `d` is padded to: 64 up to 64, 128 up to
+    128. Above 128 it raises (the JAX kernels pad to a multiple of 128;
+    no configuration of either package goes above 128)."""
+    if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(
-            f"{name}: rows must start on 16-byte boundaries (strides {t.stride()})"
+            f"flash kernels take head_dim 1..{MAX_HEAD_DIM} (padded to 64 or "
+            f"128), got {d}"
         )
+    return next(w for w in SUPPORTED_HEAD_DIMS if d <= w)
 
 
-def _check_cuda_operands(q, k, v):
+def with_head_dim_padded(fn, *args, sm_scale: float, **kw):
+    """`fn(*args, sm_scale=sm_scale, **kw)` at the kernel width: every 4-D
+    tensor among `args` (q, k, v, and o and dO in the backward; their last
+    axis is the head dim d) gets zero columns up to `kernel_head_dim(d)`,
+    and every 4-D tensor `fn` returns (the output; dQ, dK, dV) is sliced
+    back to d. A zero column adds nothing to a score, so the softmax, the
+    log-sum-exp and delta are those of the true width; `sm_scale` must be
+    the true width's (1/sqrt(d), not 1/sqrt of the padded width), so the
+    caller passes it. At d = 64 or 128 nothing is copied."""
+    d = args[0].shape[-1]
+    width = kernel_head_dim(d)
+    if width == d:
+        return fn(*args, sm_scale=sm_scale, **kw)
+    pad = [
+        torch.nn.functional.pad(a, (0, width - d))
+        if isinstance(a, torch.Tensor) and a.dim() == 4 else a
+        for a in args
+    ]
+    out = fn(*pad, sm_scale=sm_scale, **kw)
+
+    def cut(t):
+        return t[..., :d] if isinstance(t, torch.Tensor) and t.dim() == 4 else t
+
+    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
+
+
+def check_operands(q, k, v) -> None:
+    """What the CUDA route takes, checked before the head dim is padded: q,
+    k and v on one device, of one dtype, bfloat16 or float32 (float16 and
+    mixed dtypes raise), head_dim at most 128, GQA heads expanded."""
     batch, heads, _, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_kernel_operand(name, t, q.device)
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim 64 or 128, got {d}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype not in KERNEL_DTYPES:
+            raise ValueError(
+                f"flash kernels take bfloat16 or float32, {name} is {t.dtype}"
+            )
+        if t.dtype != q.dtype:
+            raise ValueError(
+                f"{name} is {t.dtype}, q is {q.dtype}: one dtype for all"
+            )
+    kernel_head_dim(d)
     if k.shape[:2] != (batch, heads) or v.shape != k.shape or k.shape[3] != d:
         raise ValueError(
             f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}:"
@@ -171,34 +221,65 @@ def _check_cuda_operands(q, k, v):
         )
 
 
+def _check_layout(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
+    """An operand as a kernel reads it: q's device and dtype, rows
+    contiguous and starting on 16-byte boundaries."""
+    if t.device != q.device or t.dtype != q.dtype:
+        raise ValueError(f"{name} is {t.dtype} on {t.device}, q {q.dtype} on {q.device}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: the head dimension must be contiguous")
+    if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
+        raise ValueError(
+            f"{name}: rows must start on 16-byte boundaries (strides {t.stride()})"
+        )
+
+
+def _check_cuda_operands(q, k, v):
+    """The kernels' operands after padding: `check_operands`, the kernel
+    widths 64 and 128, and the row layout."""
+    check_operands(q, k, v)
+    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(
+            f"the kernels run at head_dim 64 or 128, got {q.shape[-1]}: pad "
+            "through with_head_dim_padded"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_layout(name, t, q)
+
+
 _ARGTYPES = {  # pointers, then ints (batch, heads, sq, skv, d), strides
     "flash_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12,
+    "flash_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 21,
     "flash_bwd_dq": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 15,
     "flash_bwd_dkv": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 18,
 }
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
-def _kernel(name: str):
-    fn = getattr(_build.load(name), f"hsenet_{name}_bf16")
+def _kernel(name: str, dtype: torch.dtype):
+    fn = getattr(_build.load(name), f"hsenet_{name}_{_SUFFIX[dtype]}")
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name] + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, pointers, dims, strided, causal, sm_scale, device,
+def _launch(name: str, pointers, dims, strided, causal, sm_scale, q,
             kind: Optional[str] = None) -> None:
-    """Launch kernel `name` on the current stream and count the launch, by
-    kernel and by (`kind`, batch, heads, sq, skv, head_dim)."""
+    """Launch kernel `name` at q's dtype on the current stream and count the
+    launch: by kernel, by (`kind`, batch, heads, sq, skv, head_dim), and an
+    f32 launch also by (kernel, head_dim)."""
     strides = [s for t in strided for s in t.stride()[:3]]
-    err = _kernel(name)(
+    err = _kernel(name, q.dtype)(
         *pointers, *dims, *strides, int(causal), float(sm_scale),
-        torch.cuda.current_stream(device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1
     shape_launches[(kind or name, *dims)] += 1
+    if q.dtype == torch.float32:
+        f32_launches[(name, dims[-1])] += 1
 
 
 def _bshd(batch, seq, heads, d, like) -> torch.Tensor:
@@ -222,7 +303,7 @@ def _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse):
             + [None if lse is None else lse.data_ptr(), kv.data_ptr(),
                q_off.data_ptr()],
             (batch, heads, sq, k.shape[2], d), (q, k, v, out), causal,
-            sm_scale, q.device, "flash_fwd_lse" if with_lse else "flash_fwd",
+            sm_scale, q, "flash_fwd_lse" if with_lse else "flash_fwd",
         )
         fwd_launches[(d, with_lse)] += 1
     return out, lse
@@ -230,11 +311,37 @@ def _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse):
 
 def _check_do(q, do):
     try:
-        _check_kernel_operand("do", do, q.device)
+        _check_layout("do", do, q)
     except ValueError:
         do = do.contiguous()
-        _check_kernel_operand("do", do, q.device)
+        _check_layout("do", do, q)
     return do
+
+
+def _bwd_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
+    """Launch flash_bwd (bf16): (dq, dk, dv). `lse` and `delta` are
+    contiguous (B, H, Sq) f32. The kernel adds dQ across key tiles into a
+    zeroed f32 (B, H, Sq, D) buffer allocated here, and a second kernel of
+    the same source converts it into dq."""
+    batch, heads, sq, d = q.shape
+    skv = k.shape[2]
+    dq = _bshd(batch, sq, heads, d, q)
+    dk = _bshd(batch, skv, heads, d, k)
+    dv = _bshd(batch, skv, heads, d, v)
+    if dq.numel() and dk.numel():
+        dq_acc = torch.zeros((batch, heads, sq, d), dtype=torch.float32,
+                             device=q.device)
+        _launch(
+            "flash_bwd",
+            [t.data_ptr() for t in (q, k, v, do, lse, delta, dq_acc, dq, dk, dv,
+                                    kv, q_off)],
+            (batch, heads, sq, skv, d), (q, k, v, do, dq, dk, dv), causal,
+            sm_scale, q,
+        )
+    elif dq.numel() or dk.numel():  # no keys or no queries: no gradient
+        for t in (dq, dk, dv):
+            t.zero_()
+    return dq, dk, dv
 
 
 def _bwd_dq_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
@@ -247,7 +354,7 @@ def _bwd_dq_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
             "flash_bwd_dq",
             [t.data_ptr() for t in (q, k, v, do, lse, delta, dq, kv, q_off)],
             (batch, heads, sq, k.shape[2], d), (q, k, v, do, dq), causal,
-            sm_scale, q.device,
+            sm_scale, q,
         )
     return dq
 
@@ -263,9 +370,22 @@ def _bwd_dkv_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
             "flash_bwd_dkv",
             [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv, kv, q_off)],
             (batch, heads, sq, skv, d), (q, k, v, do, dk, dv), causal,
-            sm_scale, q.device,
+            sm_scale, q,
         )
     return dk, dv
+
+
+def _backward_kernels(q, k, v, o, lse, do, kv, q_off, causal, sm_scale):
+    """(dq, dk, dv) by the kernels at the kernel width: flash_bwd in bf16,
+    flash_bwd_dq and flash_bwd_dkv in f32. delta = rowsum(dO * O) in f32,
+    as the JAX package computes it outside its kernels."""
+    _check_cuda_operands(q, k, v)
+    do = _check_do(q, do)
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    args = (q, k, v, do, lse.contiguous(), delta, kv, q_off, causal, sm_scale)
+    if q.dtype == torch.bfloat16:
+        return _bwd_kernel(*args)
+    return (_bwd_dq_kernel(*args), *_bwd_dkv_kernel(*args))
 
 
 def flash_attention_backward(
@@ -282,37 +402,49 @@ def flash_attention_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of `flash_attention` at output `o` with log-sum-exp
     `lse` (from the forward) and output gradient `do`. On CUDA tensors it
-    computes delta = rowsum(dO * O) in f32, as the JAX package does outside
-    its kernels, and launches flash_bwd_dq and flash_bwd_dkv; on CPU
-    tensors it runs `flash_attention_backward_reference`."""
-    if q.device.type == "cpu":
-        return flash_attention_backward_reference(
-            q, k, v, o, lse, do, kv_lens, q_offset, causal, sm_scale
-        )
+    launches the backward kernels (`_backward_kernels`), on CPU tensors it
+    runs `flash_attention_backward_reference`, both at the kernel width
+    (`with_head_dim_padded`)."""
     kv, q_off, sm_scale = _row_args(q, k, kv_lens, q_offset, sm_scale)
-    _check_cuda_operands(q, k, v)
-    do = _check_do(q, do)
-    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
-    lse = lse.contiguous()
-    args = (q, k, v, do, lse, delta, kv, q_off, causal, sm_scale)
-    return (_bwd_dq_kernel(*args), *_bwd_dkv_kernel(*args))
+    fn = (_backward_kernels if q.device.type == "cuda"
+          else flash_attention_backward_reference)
+    return with_head_dim_padded(
+        fn, q, k, v, o, lse, do, kv, q_off, causal, sm_scale=sm_scale
+    )
+
+
+def _plain_forward(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+    """`flash_attention_reference` with `_forward_kernel`'s signature."""
+    out = flash_attention_reference(
+        q, k, v, kv_lens=kv, causal=causal, q_offset=q_off, sm_scale=sm_scale,
+        with_lse=with_lse,
+    )
+    return out if with_lse else (out, None)
+
+
+def _forward(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+    """(out, lse or None) at the kernel width: the forward kernel on CUDA
+    tensors, its plain version on CPU tensors."""
+    if q.device.type == "cuda":
+        check_operands(q, k, v)
+        fn = _forward_kernel
+    else:
+        fn = _plain_forward
+    return with_head_dim_padded(
+        fn, q, k, v, kv, q_off, causal, sm_scale=sm_scale, with_lse=with_lse
+    )
 
 
 class _FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (the JAX package's
     `_flash_attention_core` with its custom VJP). The forward saves q, k, v,
-    the output, the log-sum-exp, kv_lens and q_offset; the backward runs the
-    dQ and dK/dV kernels on the card and their plain version on the CPU."""
+    the output, the log-sum-exp, kv_lens and q_offset, and the true width's
+    sm_scale; the backward runs the backward kernels on the card and their
+    plain version on the CPU, both at the kernel width."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv, q_off, causal, sm_scale):
-        if q.device.type == "cuda":
-            out, lse = _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, True)
-        else:
-            out, lse = flash_attention_reference(
-                q, k, v, kv_lens=kv, causal=causal, q_offset=q_off,
-                sm_scale=sm_scale, with_lse=True,
-            )
+        out, lse = _forward(q, k, v, kv, q_off, causal, sm_scale, True)
         ctx.save_for_backward(q, k, v, out, lse, kv, q_off)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out
@@ -354,23 +486,21 @@ def flash_attention(
         q.requires_grad or k.requires_grad or v.requires_grad
     ):
         return _FlashAttention.apply(q, k, v, kv, q_off, causal, sm_scale)
-    if q.device.type == "cpu":
-        return flash_attention_reference(
-            q, k, v, kv_lens=kv, causal=causal, q_offset=q_off,
-            sm_scale=sm_scale,
-        )
-    return _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, False)[0]
+    return _forward(q, k, v, kv, q_off, causal, sm_scale, False)[0]
 
 
-# kernel launches since the last reset: by kernel; the forward's by (head
-# dim, whether it wrote the log-sum-exp); and every launch by (kind, batch,
-# heads, sq, skv, head_dim), kind "flash_fwd", "flash_fwd_lse" (the forward
-# that autograd records), "flash_bwd_dq" or "flash_bwd_dkv". chip_smoke.py
-# reads them to show that the main path went through the kernels, and at
-# which shapes (the towers, BERT, the LLM, the fine-patch tower).
+# kernel launches since the last reset: by kernel; the forward's by (kernel
+# head dim, whether it wrote the log-sum-exp); every launch by (kind, batch,
+# heads, sq, skv, kernel head dim), kind "flash_fwd", "flash_fwd_lse" (the
+# forward that autograd records), "flash_bwd" (bf16), "flash_bwd_dq" or
+# "flash_bwd_dkv" (f32); and the f32 launches by (kernel, kernel head dim).
+# chip_smoke.py reads them to show that the main path went through the
+# kernels, and at which shapes (the towers, BERT, the LLM, the fine-patch
+# tower, the synthetic CLI's padded widths).
 launches = dict.fromkeys(KERNELS, 0)
 fwd_launches = {(d, lse): 0 for d in SUPPORTED_HEAD_DIMS for lse in (False, True)}
 shape_launches: collections.Counter = collections.Counter()
+f32_launches: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
@@ -378,3 +508,4 @@ def reset_launch_counts() -> None:
         for key in counts:
             counts[key] = 0
     shape_launches.clear()
+    f32_launches.clear()
