@@ -9,7 +9,8 @@ In order:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every kernel of the port from `hsenet_torch/csrc/` with nvcc,
    one nvcc per source, all started at once;
-3. [kernel] holds the forward kernel against its plain PyTorch version on
+3. [kernel] holds the forward kernel (flash_fwd_wgmma: wgmma, TMA, a
+   producer warpgroup) against its plain PyTorch version on
    the card, in bf16, at the shapes the paths give it (towers, prefill,
    the LLM training shape with its log-sum-exp output, and the serving
    engine's admissions: 512 rows over a 1040-slot cache row, a KV-prefix
@@ -18,7 +19,13 @@ In order:
    times the kernel, the plain version and one PyTorch library call
    computing the same function (a yardstick only: the port never calls
    it); the time over the 2576-slot row must not exceed 1.5 times the
-   time over the 1040-slot row at the same kv_len;
+   time over the 1040-slot row at the same kv_len; beside each time the
+   old mma.sync kernel's (flash_fwd.cu's bf16 build, which no path
+   launches) and the time at the other query tile; then the same checks
+   off the paths for C2: f16 at head dims 64 and 128, head dim 256 in bf16
+   and f16 and the padded head dim 160, and ragged edge cases in bf16 and
+   f16 at head dims 64, 160 and 256; every path phase below checks that
+   each bf16 forward launch went through flash_fwd_wgmma;
 4. [kernel-bwd] holds the bf16 backward kernel (flash_bwd: dQ, dK and dV,
    wgmma/TMA) against its plain version at the LLM training shape (3 x 24
    heads x 800 tokens, d 128, causal, kv_lens 800/700/560) and the tower
@@ -29,7 +36,8 @@ In order:
    dQ moves between two runs (its f32 adds land in another order); and
    times it against the bound, the plain version, the backward of one SDPA
    call and the two mma.sync kernels it replaced (their bf16 build, which
-   no path launches);
+   no path launches); then f16 (flash_bwd) and head dim 256 in bf16 and f16
+   (the mma.sync pair, each timed), edge cases and planted faults alike;
 4a. [cli-serve] runs the serving CLI's documented examples on the card
    (`--synthetic --num-requests 6`; `--quant-int8 --llm-only --synthetic
    --speculative`): tiny f32 models with head dims 8 and 16, so every flash
@@ -124,8 +132,9 @@ In order:
    streams its forward (B2) and backward (B4), and the LLM's causal 1 x 24
    x 4096 x 128 at kv_len 4096 and 3000 (checked only); the plain versions
    run a chunk of batch rows and heads at a time, wrong variants beside each
-   limit; times against the bound, the plain version and one SDPA call, and
-   the time per valid pair at 16,385 tokens within 1.5 times that at 2,049;
+   limit; times against the bound, the plain version, one SDPA call and
+   (forward) the old mma.sync kernel and the other query tile, and the
+   time per valid pair at 16,385 tokens within 1.5 times that at 2,049;
 13. [clip-stage1] trains `CLIPModel(CLIPConfig())` (ViT-B 3D tower + BERT-
    base, bf16 over f32 masters, remat) at batch 24 through `Trainer` and
    `make_stage1_train_step` on a repeated `SyntheticCTDataset` clip batch:
@@ -351,6 +360,17 @@ SPEC_NGRAM = 2
 NEAR_TIE_SHARE = 0.05
 
 
+_LAP = [time.perf_counter()]
+
+
+def lap(label: str) -> None:
+    """Print the command time since the last lap: the script's time by
+    group of phases, against its time limit."""
+    now = time.perf_counter()
+    print(f"[time] {label}: {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -515,9 +535,54 @@ def compare(out, ref, tol=KERNEL_ROW_TOL):
     return err.max().item(), row_rel, ok and bool(out.float().isfinite().all())
 
 
+def fwd_route(tag, launches, f32_launches):
+    """The forward launches of one counted run by kernel, and the check that
+    every bf16 and f16 one went through flash_fwd_wgmma: on the paths the
+    mma.sync flash_fwd runs only the f32 route."""
+    f32 = sum(n for (kernel, _), n in f32_launches.items() if kernel == "flash_fwd")
+    by_kernel = {"flash_fwd_wgmma": launches["flash_fwd_wgmma"], "flash_fwd_f32": f32}
+    print(f"[{tag}] forward launches by kernel: {by_kernel}")
+    if launches["flash_fwd"] != f32:
+        raise AssertionError(f"{tag}: {launches['flash_fwd'] - f32} bf16 or f16 "
+                             "forward launches took the mma.sync flash_fwd")
+    return by_kernel
+
+
+def fwd_yardsticks(q, k, v, kv_t, off_t, causal, with_lse):
+    """Times beside flash_fwd_wgmma's at one shape (q at a kernel width):
+    the old mma.sync flash_fwd's (its bf16 build, which no path launches;
+    None where it does not run: f16, head_dim 256), and flash_fwd_wgmma's at
+    the query tile that `forward_query_tile` did not choose."""
+    import torch
+
+    from hsenet_torch.ops import flash_attention as tfa
+
+    b, h, s, d = q.shape
+    scale = d ** -0.5
+    tile = tfa.forward_query_tile(b, h, s, d, tfa._sm_count(q.device.index))
+    other = 192 - tile
+    old = None
+    if q.dtype == torch.bfloat16 and d <= 128:
+        old = time_ms(lambda: tfa._fwd_mma_kernel(q, k, v, kv_t, off_t, causal,
+                                                  scale, with_lse))
+    other_ms = time_ms(lambda: tfa._fwd_launch(
+        "flash_fwd_wgmma", q, k, v, kv_t, off_t, causal, scale, with_lse, (other,)))
+    return {"tile": tile, "old_ms": old, "other_tile": other,
+            "other_tile_ms": other_ms}
+
+
+def yardstick_text(r):
+    """The yardsticks of a flash_fwd_wgmma timing, as printed."""
+    old = ("" if r.get("old_ms") is None else
+           f"; old mma.sync flash_fwd {r['old_ms']:.4f} ms (new / old "
+           f"{r['ms'] / r['old_ms']:.3f})")
+    return (f"; new / SDPA {r['ms'] / r['library_ms']:.3f}{old}; query tile "
+            f"{r['tile']} (at {r['other_tile']}: {r['other_tile_ms']:.4f} ms)")
+
+
 def check_flash_kernel():
     """B1 against its plain version at the tower, prefill and training
-    shapes."""
+    shapes, then at f16 and head dims 160 and 256 (C2)."""
     import torch
     import torch.nn.functional as F
     from einops import rearrange
@@ -570,19 +635,31 @@ def check_flash_kernel():
         ("serve_long_full", (sq, gk, gv), (512,), (0,), True),
     ]
     # ragged edges off the main path: Sq and Skv not multiples of 64, an
-    # empty row (kv_len 0 -> zeros) and a causal offset; checked, not timed
-    eq, ek, ev = (randn(2, 4, n, 64) for n in (70, 100, 100))
-    for causal in (False, True):
-        kw = dict(kv_lens=torch.tensor([0, 77], dtype=torch.int32, device=dev),
-                  causal=causal, q_offset=torch.tensor([5, 9], dtype=torch.int32,
-                                                       device=dev))
-        out = flash_attention(eq, ek, ev, **kw)
-        max_abs, _, ok = compare(out, flash_attention_reference(eq, ek, ev, **kw))
-        if not ok or torch.count_nonzero(out[0]) != 0:
-            raise AssertionError(f"flash_fwd edge case (causal={causal}) failed")
-        print(f"[kernel] flash_fwd edge case causal={causal}: Sq 70, Skv 100, "
-              f"kv_lens (0, 77), q_offset (5, 9): max_abs_err {max_abs:.3e}, "
-              f"empty row all zeros")
+    # empty row (kv_len 0 -> zeros) and a causal offset, in bf16 and f16 at
+    # head dims 64 and 256 (and 160, padded to 256); checked, not timed
+    for dtype, d in ((torch.bfloat16, 64), (torch.float16, 64),
+                     (torch.bfloat16, 256), (torch.float16, 256),
+                     (torch.float16, 160)):
+        eq, ek, ev = (torch.randn(2, 4, n, d, generator=gen, device=dev,
+                                  dtype=dtype) for n in (70, 100, 100))
+        for causal in (False, True):
+            kw = dict(kv_lens=torch.tensor([0, 77], dtype=torch.int32, device=dev),
+                      causal=causal, q_offset=torch.tensor(
+                          [5, 9], dtype=torch.int32, device=dev))
+            out = flash_attention(eq, ek, ev, **kw)
+            max_abs, _, ok = compare(out, flash_attention_reference(eq, ek, ev, **kw))
+            if not ok or torch.count_nonzero(out[0]) != 0:
+                raise AssertionError(f"flash_fwd edge case ({dtype}, d {d}, "
+                                     f"causal={causal}) failed")
+            print(f"[kernel] flash_fwd edge case {str(dtype)[6:]} d {d} "
+                  f"causal={causal}: Sq 70, Skv 100, kv_lens (0, 77), q_offset "
+                  f"(5, 9): max_abs_err {max_abs:.3e}, empty row all zeros")
+    # no keys at all: every row is empty, and nothing is launched
+    zq = randn(1, 2, 5, 64)
+    zout = flash_attention(zq, zq[:, :, :0], zq[:, :, :0])
+    if zout.shape != zq.shape or torch.count_nonzero(zout) != 0:
+        raise AssertionError("flash_fwd over no keys did not give zeros")
+    print("[kernel] flash_fwd edge case Skv 0: all zeros")
 
     results = {}
     for name, (q, k, v), kv_lens, q_off, causal in cases:
@@ -675,10 +752,11 @@ def check_flash_kernel():
             "mbytes": nbytes / 1e6,
         }
         r = results[name]
-        print(f"[kernel] flash_fwd {name}: kernel {r['ms']:.4f} ms, plain "
+        r.update(fwd_yardsticks(q, k, v, kv_t, off_t, causal, name == "train"))
+        print(f"[kernel-time] flash_fwd {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library (SDPA) {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({bound_by}: {r['gflop']:.2f} "
-              f"GFLOP, {r['mbytes']:.2f} MB)")
+              f"GFLOP, {r['mbytes']:.2f} MB){yardstick_text(r)}")
     # the loop over K/V ends at kv_len and the diagonal, so a longer cache
     # row must not cost more: the same queries and kv_len over the
     # 2576-slot row against the 1040-slot row
@@ -692,6 +770,83 @@ def check_flash_kernel():
         if ratio > CAPACITY_TIME_RATIO:
             raise AssertionError("flash_fwd's time grows with the cache row's "
                                  "capacity: it does not stop at kv_len")
+    results.update(check_flash_c2_forward(gen))
+    return results
+
+
+def check_flash_c2_forward(gen):
+    """C2 off the paths (no configuration runs them): the forward with its
+    log-sum-exp (the autograd route's launch, through the head-dim padding)
+    at f16 and head dims 160 and 256, against the plain version, beside a
+    version without the last valid 64-key tile that must miss; timed
+    against the bound, the plain version and one SDPA call."""
+    import torch
+    import torch.nn.functional as F
+
+    from hsenet_torch.ops import flash_attention as tfa
+
+    dev = "cuda"
+    cases = [  # name, dtype, (batch, heads, sq, head dim), kv_lens, causal
+        ("tower_f16", torch.float16, (2, 12, 2049, 64), (2049, 1900), False),
+        ("train_f16", torch.float16, (3, 24, 800, 128), TRAIN_KV_LENS, True),
+        ("d256", torch.bfloat16, (2, 16, 2048, 256), (2048, 1500), True),
+        ("d256_f16", torch.float16, (2, 16, 1024, 256), (1024, 700), False),
+        ("d160", torch.bfloat16, (2, 16, 1024, 160), (1024, 900), False),
+    ]
+    results = {}
+    for name, dtype, (b, h, s, d), kv_lens, causal in cases:
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev, dtype=dtype)
+                   for _ in range(3))
+        kv_t = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+        off_t = torch.zeros(b, dtype=torch.int32, device=dev)
+        kw = dict(kv_lens=kv_t, causal=causal, q_offset=off_t)
+
+        def run(q=q, k=k, v=v, kv_t=kv_t, off_t=off_t, causal=causal, d=d):
+            return tfa._forward(q, k, v, kv_t, off_t, causal, d ** -0.5, True)
+
+        out, lse = run()
+        ref, ref_lse = tfa.flash_attention_reference(q, k, v, with_lse=True, **kw)
+        max_abs, row_rel, ok = compare(out, ref)
+        lse_err = (lse - ref_lse).abs().max().item()
+        col = torch.arange(s, device=dev)[None, None, None, :]
+        first = (kv_t[:, None, None, None] - 1) // 64 * 64
+        _, drop_rel, drop_ok = compare(
+            forward_dropping(q, k, v, kv_t, off_t, causal, col >= first), ref)
+        print(f"[kernel] flash_fwd {name}: {str(dtype)[6:]} q{tuple(q.shape)} "
+              f"causal={causal} kv_lens={kv_lens}: max_abs_err {max_abs:.3e}, "
+              f"max err / row's max |ref| {row_rel:.3e} (tol {KERNEL_ROW_TOL}), "
+              f"log-sum-exp max abs err {lse_err:.3e} (tol {LSE_ABS_TOL}); "
+              f"without the last valid 64-key tile {drop_rel:.3e}")
+        if not ok or not lse_err <= LSE_ABS_TOL:
+            raise AssertionError(f"flash_fwd {name} disagrees with its plain version")
+        if drop_ok:
+            raise AssertionError(f"the kernel tolerance passes a dropped key tile at {name}")
+        mask = tfa._valid(q, k, kv_t, off_t, causal)
+        bound, bound_by, flops, nbytes = kernel_bound(
+            "flash_fwd_lse", b, h, s, s, d, kv_lens, (0,) * b, causal)
+        r = results[name] = {
+            "max_abs_err": max_abs, "max_row_rel_err": row_rel,
+            "ms": time_ms(run),
+            "plain_ms": time_ms(lambda: tfa.flash_attention_reference(
+                q, k, v, with_lse=True, **kw), reps=2, warmup=1, runs=3),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask)),
+            "bound_ms": bound, "bound_by": bound_by,
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "dtype": str(dtype)[6:], "head_dim": d,
+        }
+        if d in tfa.SUPPORTED_HEAD_DIMS:
+            r.update(fwd_yardsticks(q, k, v, kv_t, off_t, causal, True))
+            more = yardstick_text(r)
+        else:
+            more = (f"; new / SDPA {r['ms'] / r['library_ms']:.3f} (the "
+                    f"padded route: zero columns to "
+                    f"{tfa.kernel_head_dim(d)} and the slice back included)")
+        print(f"[kernel-time] flash_fwd {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library (SDPA) {r['library_ms']:.4f} ms, "
+              f"bound {bound:.4f} ms ({bound_by}: {r['gflop']:.2f} GFLOP, "
+              f"{r['mbytes']:.2f} MB){more}")
+        del q, k, v, out, ref, mask
     return results
 
 
@@ -874,7 +1029,9 @@ def wrong_backwards(q, k, v, out, lse, do, kv_t, off_t, causal):
 def check_flash_bwd_kernels():
     """B3 (flash_bwd: dQ, dK and dV in one kernel) against its plain version
     at the training and tower shapes, with edge cases and wrong variants;
-    timed beside the two kernels it replaced."""
+    timed beside the two kernels it replaced. Then C2 off the paths: f16
+    (flash_bwd) and head dim 256 (the mma.sync pair flash_bwd_dq +
+    flash_bwd_dkv, in bf16 and f16), held the same way."""
     import torch
     import torch.nn.functional as F
     from einops import rearrange
@@ -884,32 +1041,33 @@ def check_flash_bwd_kernels():
     gen = torch.Generator(device="cuda").manual_seed(2)
     dev = "cuda"
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev,
-                           dtype=torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
 
     # edge cases off the main path: Sq, Skv not multiples of 64, a batch
-    # row with kv_len 0 (all its gradients exactly 0), a causal offset
-    for d in (64, 128):
+    # row with kv_len 0 (all its gradients exactly 0), a causal offset; in
+    # bf16 and f16 at each kernel width
+    for dtype, d in itertools.product((torch.bfloat16, torch.float16),
+                                      (64, 128, 256)):
         for causal in (False, True):
-            q, k, v = (randn(2, 3, n, d) for n in (70, 100, 100))
+            q, k, v = (randn(2, 3, n, d, dtype=dtype) for n in (70, 100, 100))
             kv_t = torch.tensor([0, 77], dtype=torch.int32, device=dev)
             off_t = torch.tensor([5, 9], dtype=torch.int32, device=dev)
             out, lse = tfa._forward_kernel(q, k, v, kv_t, off_t, causal,
                                            d ** -0.5, True)
-            do = randn(*out.shape)
+            do = randn(*out.shape, dtype=dtype)
             got = tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t,
                                                off_t, causal)
             want = tfa.flash_attention_backward_reference(
                 q, k, v, out, lse, do, kv_t, off_t, causal)
             rels = [row_rel(g, w)[1] for g, w in zip(got, want)]
             zeros = all(torch.count_nonzero(g[0]) == 0 for g in got)
-            print(f"[kernel-bwd] edge case d {d} causal={causal}: Sq 70, Skv "
+            print(f"[kernel-bwd] edge case {str(dtype)[6:]} d {d} causal={causal}: Sq 70, Skv "
                   f"100, kv_lens (0, 77), q_offset (5, 9): dQ/dK/dV err / row's "
                   f"max |ref| {rels[0]:.3e} {rels[1]:.3e} {rels[2]:.3e}, kv_len-0 "
                   f"row all zeros: {zeros}")
             if not (zeros and max(rels) <= KERNEL_BWD_TOL):
-                raise AssertionError(f"flash backward edge case d {d} "
+                raise AssertionError(f"flash backward edge case {dtype} d {d} "
                                      f"causal={causal} failed")
 
     tq, tk, tv = (rearrange(t, "b s (n d) -> b n s d", n=12)
@@ -917,6 +1075,14 @@ def check_flash_bwd_kernels():
     cases = [
         ("train", llm_training_qkv(randn), TRAIN_KV_LENS, (0, 0, 0), True),
         ("tower", (tq, tk, tv), (2049, 2049), (0, 0), False),
+        # C2, off the paths
+        ("train_f16", llm_training_qkv(
+            lambda *sh: randn(*sh, dtype=torch.float16)), TRAIN_KV_LENS,
+         (0, 0, 0), True),
+        ("d256", tuple(randn(2, 16, 1024, 256) for _ in range(3)), (1024, 700),
+         (0, 0), True),
+        ("d256_f16", tuple(randn(2, 16, 1024, 256, dtype=torch.float16)
+                           for _ in range(3)), (1024, 700), (0, 0), False),
     ]
     results = {}
     for name, (q, k, v), kv_lens, q_off, causal in cases:
@@ -924,7 +1090,7 @@ def check_flash_bwd_kernels():
         off_t = torch.tensor(q_off, dtype=torch.int32, device=dev)
         scale = q.shape[3] ** -0.5
         out, lse = tfa._forward_kernel(q, k, v, kv_t, off_t, causal, scale, True)
-        do = randn(*out.shape)
+        do = randn(*out.shape, dtype=q.dtype)
         got = tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t, off_t,
                                            causal)
         want = tfa.flash_attention_backward_reference(
@@ -934,8 +1100,9 @@ def check_flash_bwd_kernels():
                    >= kv_t[:, None, None, None])
         past_kv_zero = all(torch.count_nonzero(torch.where(past_kv, g, 0)) == 0
                            for g in got[1:])
-        print(f"[kernel-bwd] {name}: q{tuple(q.shape)} k{tuple(k.shape)} "
-              f"causal={causal} kv_lens={kv_lens}: err / row's max |ref| "
+        print(f"[kernel-bwd] {name}: {str(q.dtype)[6:]} q{tuple(q.shape)} "
+              f"k{tuple(k.shape)} causal={causal} kv_lens={kv_lens}: err / "
+              "row's max |ref| "
               + ", ".join(f"{g} {e[1]:.3e} (abs {e[0]:.3e})" for g, e in errs.items())
               + f" (tol {KERNEL_BWD_TOL}, floor {BWD_ROW_FLOOR} of the "
               f"output's max); dK, dV exactly 0 at keys past kv_len: {past_kv_zero}")
@@ -968,29 +1135,48 @@ def check_flash_bwd_kernels():
         lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
         library_ms = time_ms(lambda: torch.autograd.grad(
             lib_out, leaves, do, retain_graph=True))
-        bound, bound_by, flops, nbytes = kernel_bound(
-            "flash_bwd", q.shape[0], q.shape[1], q.shape[2], k.shape[2],
-            q.shape[3], kv_lens, q_off, causal)
-        r = results[name] = {
+        shape = (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                  kv_lens, q_off, causal)
+        common = {
             "max_abs_err": max(e[0] for e in errs.values()),
             "max_rel_err": max(e[1] for e in errs.values()),
-            "dq_rerun_max_abs_diff": rerun,
-            "ms": time_ms(lambda: tfa._bwd_kernel(*args)),
-            "old_pair_ms": time_ms(lambda: (tfa._bwd_dq_kernel(*args),
-                                            tfa._bwd_dkv_kernel(*args))),
-            "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            "bound_ms": bound,
-            "bound_by": bound_by,
-            "gflop": flops / 1e9,
-            "mbytes": nbytes / 1e6,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "dtype": str(q.dtype)[6:],
         }
-        print(f"[kernel-bwd] flash_bwd {name}: kernel {r['ms']:.4f} ms (the "
-              f"old dQ + dK/dV pair {r['old_pair_ms']:.4f} ms), plain {plain_ms:.4f} "
-              f"ms, library (SDPA backward) {library_ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({bound_by}: {r['gflop']:.2f} GFLOP, "
-              f"{r['mbytes']:.2f} MB); dQ of a second run differs by at most "
-              f"{rerun:.3e}")
+        if q.shape[3] <= 128:
+            bound, bound_by, flops, nbytes = kernel_bound("flash_bwd", *shape)
+            r = results[name] = {
+                **common,
+                "dq_rerun_max_abs_diff": rerun,
+                "ms": time_ms(lambda: tfa._bwd_kernel(*args)),
+                "old_pair_ms": time_ms(lambda: (tfa._bwd_dq_kernel(*args),
+                                                tfa._bwd_dkv_kernel(*args))),
+                "bound_ms": bound,
+                "bound_by": bound_by,
+                "gflop": flops / 1e9,
+                "mbytes": nbytes / 1e6,
+            }
+            print(f"[kernel-bwd] flash_bwd {name}: kernel {r['ms']:.4f} ms (the "
+                  f"old dQ + dK/dV pair {r['old_pair_ms']:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, library (SDPA backward) {library_ms:.4f} "
+                  f"ms, bound {bound:.4f} ms ({bound_by}: {r['gflop']:.2f} GFLOP, "
+                  f"{r['mbytes']:.2f} MB); dQ of a second run differs by at "
+                  f"most {rerun:.3e}")
+            continue
+        # head dim 256: the mma.sync pair, each kernel timed and bounded on
+        # its own (the plain and library times compute dQ, dK and dV)
+        for kernel, fn in (("flash_bwd_dq", tfa._bwd_dq_kernel),
+                           ("flash_bwd_dkv", tfa._bwd_dkv_kernel)):
+            bound, bound_by, flops, nbytes = kernel_bound(kernel, *shape)
+            r = results.setdefault(kernel + "_d256", {})[name] = {
+                **common, "ms": time_ms(lambda fn=fn: fn(*args)),
+                "bound_ms": bound, "bound_by": bound_by,
+                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            }
+            print(f"[kernel-bwd] {kernel} {name}: kernel {r['ms']:.4f} ms, "
+                  f"bound {bound:.4f} ms ({bound_by}: {r['gflop']:.2f} GFLOP, "
+                  f"{r['mbytes']:.2f} MB); dQ, dK and dV: plain {plain_ms:.4f} "
+                  f"ms, library (SDPA backward) {library_ms:.4f} ms")
     return results
 
 
@@ -1186,6 +1372,10 @@ def check_clip_kernels():
                 "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "pairs": pairs,
             }
             old = ""
+            if kname == "flash_fwd":
+                r.update(fwd_yardsticks(q, k, v, kv_t, off_t, causal,
+                                        kind == "flash_fwd_lse"))
+                old = yardstick_text(r)
             if kname == "flash_bwd":
                 # the two mma.sync kernels flash_bwd replaced, in bf16
                 r["old_pair_ms"] = time_ms(lambda: (tfa._bwd_dq_kernel(*args),
@@ -1310,6 +1500,7 @@ def run_train_f32(card: str):
             torch.cuda.synchronize()
             counts.update(f32=dict(tfa.f32_launches), all=dict(tfa.launches),
                           shapes=dict(tfa.shape_launches))
+            fwd_route("train-f32", tfa.launches, tfa.f32_launches)
 
     trainer = Trainer(make_vlm_train_step(model, tx),
                       TrainState.create(model, tx), lambda: [batch], train_cfg,
@@ -1650,6 +1841,7 @@ def run_main_path(card: str):
     torch.cuda.synchronize()
     generate_ms = (time.perf_counter() - t0) * 1e3
     launches = sum(tfa.launches.values())
+    fwd_route("main", tfa.launches, tfa.f32_launches)
     by_d = tfa.fwd_launches  # d 64: towers, 128: prefill; no log-sum-exp
     by_shape = {"tower": by_d[(cfg.vision.hidden_size // cfg.vision.num_heads, False)],
                 "prefill": by_d[(cfg.llm.head_dim, False)]}
@@ -1795,6 +1987,7 @@ def run_train_path(card: str):
             tfa.reset_launch_counts()
         if step == total:
             counts.update(kernels=dict(tfa.launches), fwd=dict(tfa.fwd_launches))
+            fwd_route("train", tfa.launches, tfa.f32_launches)
 
     trainer = Trainer(step_fn, state, lambda: [batch], train_cfg,
                       hooks=TrainerHooks(on_log=on_log))
@@ -2017,6 +2210,7 @@ def check_serve_counts(tag, cfg, eng, n_requests, results, expect):
     from hsenet_torch.ops import flash_attention as tfa
     from hsenet_torch.ops import quant_matvec as tqm
 
+    fwd_route(tag, tfa.launches, tfa.f32_launches)
     tokens = [t for toks in results.values() for t in toks]
     if len(results) != n_requests or not all(
             0 <= t < cfg.llm.vocab_size for t in tokens) or not all(results.values()):
@@ -2535,6 +2729,7 @@ def run_clip_stage1(card: str):
             tfa.reset_launch_counts()
         if step == total:
             counts.update(tfa.shape_launches)
+            fwd_route("clip-stage1", tfa.launches, tfa.f32_launches)
 
     def on_eval(step, state):
         evals.update(evaluate([batch]))
@@ -2619,6 +2814,7 @@ def run_clip_stage2(card: str, teacher):
 
     def on_log(step, row):  # each step's launches, teacher cache fill included
         steps[step] = dict(tfa.shape_launches)
+        fwd_route(f"clip-stage2 step {step}", tfa.launches, tfa.f32_launches)
         tfa.reset_launch_counts()
 
     hooks = TrainerHooks(on_log=on_log)
@@ -2800,6 +2996,7 @@ def run_clip_long(card: str):
             tfa.reset_launch_counts()
         if step == total:
             counts.update(tfa.shape_launches)
+            fwd_route("clip-long", tfa.launches, tfa.f32_launches)
 
     trainer = Trainer(step_fn, TrainState.create(model, tx), lambda: [batch],
                       train_cfg, hooks=TrainerHooks(on_log=on_log))
@@ -3053,6 +3250,7 @@ def run_encode_w8a8(card: str):
         packed, feats = w8a8_path(vol, sl)
         torch.cuda.synchronize()
         flash, flash_all = tfa.fwd_launches[(64, False)], sum(tfa.launches.values())
+        fwd_route("encode-w8a8", tfa.launches, tfa.f32_launches)
         cos = torch.cat([token_cosines(f, r) for f, r in zip(feats, ref_feats)])
         cos_packed = token_cosines(packed, ref_packed)
         # the limit's power: the first block of each tower with its
@@ -3152,10 +3350,13 @@ def run_encode_w8a8(card: str):
         "bound_ms": bound, "bound_by": bound_by,
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
     }
+    tower_b8.update(fwd_yardsticks(q, k, v, kv_t, torch.zeros_like(kv_t), False,
+                                   False))
     print(f"[kernel] flash_fwd encode_w8a8_tower q{tuple(q.shape)}: max err / "
           f"row's max |ref| {row_rel:.3e} (tol {KERNEL_ROW_TOL}); kernel "
           f"{tower_b8['ms']:.4f} ms, plain {tower_b8['plain_ms']:.4f} ms, library "
-          f"(SDPA) {tower_b8['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+          f"(SDPA) {tower_b8['library_ms']:.4f} ms, bound {bound:.4f} ms "
+          f"({bound_by}){yardstick_text(tower_b8)}")
     return numbers, {"encode_w8a8_tower": tower_b8}
 
 
@@ -3292,6 +3493,7 @@ def spec_against_greedy(tag, cfg, llm, ids, lens):
     spec_s = time.perf_counter() - t0
     b5 = tqm.launches["quant_matvec"]
     flash = sum(tfa.launches.values())
+    fwd_route("spec", tfa.launches, tfa.f32_launches)
     per_round = 7 * cfg.llm.num_layers
     mean_committed = int(emitted.sum()) / rounds
     got_l, want_l = got[0].tolist(), want[0].tolist()
@@ -3393,6 +3595,7 @@ def run_serve_spec(card: str, cfg, model, serve_numbers, serve_tokens,
                    "d128": cfg.llm.num_layers * len(requests)}
         got_b1 = {"d64": tfa.fwd_launches[(64, False)],
                   "d128": tfa.fwd_launches[(128, False)]}
+        fwd_route(f"serve-spec {label}", tfa.launches, tfa.f32_launches)
         if len(got) != len(requests) or got_b1 != want_b1:
             raise AssertionError(f"serve-spec {label}: {len(got)} requests "
                                  f"finished, flash launches {got_b1}, not {want_b1}")
@@ -3478,19 +3681,25 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
+    lap("start and build")
     per_shape = check_flash_kernel()
     bwd = check_flash_bwd_kernels()
+    bwd_d256 = {k: bwd.pop(k) for k in ("flash_bwd_dq_d256", "flash_bwd_dkv_d256")}
+    lap("[kernel], [kernel-bwd]")
     clip_kernels = check_clip_kernels()
+    lap("[kernel-time] at the CLIP shapes")
     # the f32 route: the CLIs' --synthetic paths on the card, then the f32
     # kernels at the shapes they launched and at QFormer's and the CLIP
     # tower's
     cli_numbers, cli_shapes = run_cli_serve(card)
     train_f32_numbers, train_f32_shapes = run_train_f32(card)
     f32_kernels, f32_index = check_f32_kernels({**cli_shapes, **train_f32_shapes})
+    lap("[cli-serve], [train-f32], [kernel-f32]")
     matvec = check_matvec_kernel()
     pv = check_pv_kernel()
     pv_launches = run_pv_probe()
     encode_numbers, encode_shapes = run_encode_w8a8(card)
+    lap("[kernel-matvec], [kernel-pv], [encode-w8a8]")
     gc.collect()
     torch.cuda.empty_cache()
     launches, counts, numbers = run_main_path(card)
@@ -3502,6 +3711,7 @@ def main() -> int:
     grad_numbers = check_train_grads()
     gc.collect()
     torch.cuda.empty_cache()
+    lap("[main], [train], [train-grads]")
     serve_cfg, serve_model = build_serving_model()
     serve_numbers, serve_tokens = run_serve_path(card, serve_cfg, serve_model)
     serve_numbers["logits"] = check_serve_logits(serve_cfg, serve_model)
@@ -3518,6 +3728,7 @@ def main() -> int:
     del serve_model
     gc.collect()
     torch.cuda.empty_cache()
+    lap("[serve] ... [spec]")
 
     # the CLIP pretraining stages: stage 1, stage 2 against the stage-1
     # model it just trained, one step's gradients against the plain path,
@@ -3531,6 +3742,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     long_counts, long_numbers = run_clip_long(card)
+    lap("[clip-stage1] ... [clip-long]")
 
     # launches on the main paths, by shape: one generate run, one training
     # step (its towers run at the tower shape) and the counted serving runs
@@ -3580,15 +3792,18 @@ def main() -> int:
             f32_counts[kernel][shape] = f32_counts[kernel].get(shape, 0) + n
 
     def entry(name, source, replaces, shapes, path_counts, note):
+        # a kernel that no path launches: its per-launch numbers, summed
+        # over the shapes it was timed at
+        weights = path_counts or dict.fromkeys(shapes, 1)
+
         def per_run(key):  # per-launch times x launches at each shape
-            timed = [(shapes[s][key], n) for s, n in path_counts.items()]
+            timed = [(shapes[s][key], n) for s, n in weights.items()]
             if any(t is None for t, _ in timed):  # no partial sums
                 return None
             return sum(t * n for t, n in timed)
 
         # the shape that holds most of the bound names what bounds it
-        heaviest = max(path_counts,
-                       key=lambda s: shapes[s]["bound_ms"] * path_counts[s])
+        heaviest = max(weights, key=lambda s: shapes[s]["bound_ms"] * weights[s])
         return {
             "name": name,
             "route": "cuda",
@@ -3617,18 +3832,34 @@ def main() -> int:
                 "width at each shape x its launches there; bound at the TF32 "
                 "peak; library is f32 SDPA")
     kernels = [
-        entry("flash_fwd", "hsenet_torch/csrc/flash_fwd.cu",
+        entry("flash_fwd", "hsenet_torch/csrc/flash_fwd_wgmma.cu",
               f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
               {**per_shape, **clip_kernels["flash_fwd"], **encode_shapes},
               fwd_counts, note + "; one W8A8 encode at its batch-8 tower shape "
               "and the speculative engine's admissions ([spec]'s one prefill "
-              "is left out)"),
+              "is left out); bf16 and f16, every path's launches counted under "
+              "flash_fwd_wgmma; old_ms under shapes is the mma.sync "
+              "csrc/flash_fwd.cu's bf16 build at the same shape (a yardstick "
+              "no path launches); the f16, head dim 160 and 256 shapes (C2) "
+              "are on no path"),
         entry("flash_bwd", "hsenet_torch/csrc/flash_bwd.cu",
               f"{jax_fa}:552 (_bwd_dq_kernel), {jax_fa}:611 (_bwd_dkv_kernel), "
               f"{jax_fa}:678 (_bwd_dq_kernel_stream), {jax_fa}:750 "
               "(_bwd_dkv_kernel_stream)",
               {**bwd, **clip_kernels["flash_bwd"]}, bwd_counts,
               note + "; bf16; plain and library times compute dQ, dK and dV"),
+        entry("flash_bwd_dq_d256", "hsenet_torch/csrc/flash_bwd_dq.cu",
+              f"{jax_fa}:552 (_bwd_dq_kernel), {jax_fa}:678 (_bwd_dq_kernel_stream)",
+              bwd_d256["flash_bwd_dq_d256"], {},
+              "bf16 and f16 at head dim 256 (C2), on no path: per-launch times "
+              "summed over the shapes; plain and library times compute dQ, dK "
+              "and dV"),
+        entry("flash_bwd_dkv_d256", "hsenet_torch/csrc/flash_bwd_dkv.cu",
+              f"{jax_fa}:611 (_bwd_dkv_kernel), {jax_fa}:750 (_bwd_dkv_kernel_stream)",
+              bwd_d256["flash_bwd_dkv_d256"], {},
+              "bf16 and f16 at head dim 256 (C2), on no path: per-launch times "
+              "summed over the shapes; plain and library times compute dQ, dK "
+              "and dV"),
         entry("flash_fwd_f32", "hsenet_torch/csrc/flash_fwd.cu",
               f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
               f32_kernels["flash_fwd"], f32_counts["flash_fwd"], f32_note),

@@ -1,5 +1,9 @@
-// Flash-attention backward for Hopper (sm_90a), bf16: dQ, dK and dV in
-// one kernel built on wgmma, TMA, mbarriers and a producer warp.
+// Flash-attention backward for Hopper (sm_90a), bf16 and f16 at head dim 64
+// and 128: dQ, dK and dV in one kernel built on wgmma, TMA, mbarriers and a
+// producer warp (the Hopper helpers are in hopper.cuh). Head dim 256 takes
+// flash_bwd_dq.cu and flash_bwd_dkv.cu: there a 64-key warpgroup's dK and
+// dV accumulators would be 2 x 64 x 256 f32, 256 registers a thread, and K,
+// V, the Q/dO ring and the f32 dQ staging more than 227 KB of shared memory.
 //
 // Replaces the TPU kernels `_bwd_dq_kernel`, `_bwd_dkv_kernel` and their
 // streaming twins `_bwd_dq_kernel_stream`, `_bwd_dkv_kernel_stream` of the
@@ -45,7 +49,7 @@
 //   * S^T = K Q^T and dP^T = V dO^T run by wgmma, so P^T and dS^T come out
 //     of the accumulators in the key rows of the tile; P = 2^(s log2e -
 //     lse) on the special-function unit; P^T and dS^T are rounded to bf16
-//     in registers (as the TPU rounds P and dS for its MXU) and are the
+//     (f16) in registers (as the TPU rounds P and dS for its MXU) and are the
 //     register A operands of dV += P^T dO and dK += dS^T Q, where dO and Q
 //     are MN-major B operands in the ring;
 //   * dS^T also goes to shared memory, and each warpgroup computes its 64
@@ -54,24 +58,20 @@
 //     accumulator with the TMA's reduce-add (cp.reduce.async.bulk.tensor),
 //     which sums a whole 64 x 32 box in L2; no barrier couples two
 //     warpgroups. A second kernel of this file converts the accumulator to
-//     bf16 in the caller's layout. The adds land in an order that changes
+//     bf16 (f16) in the caller's layout. The adds land in an order that changes
 //     from run to run, so dQ is not bit-reproducible;
 //   * five products per valid pair, not seven; one exponential per pair.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace hsenet_hopper;
 using hsenet_flash::kLog2e;
-using hsenet_flash::pack_bf16;
+using hsenet_flash::pack2;
 using hsenet_flash::Strides3;
 
-constexpr int kBlockM = 64;     // query rows per streamed tile
-constexpr int kRowBytes = 128;  // one swizzled row: 64 bf16
+constexpr int kBlockM = 64;  // query rows per streamed tile
 
 // WGS consumer warpgroups of 64 keys each, and a producer warpgroup of
 // which one warp loads. setmaxnreg moves registers between whole
@@ -114,142 +114,7 @@ struct Layout {
   static constexpr int bytes = bars + (2 * kStages + 1) * 8 + 1024;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one 64-column box of a 4-D (D, rows, heads, batch) tensor map
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row, int h,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(h), "r"(b),
-      "r"(bar)
-      : "memory");
-}
-
-// add a 32-column box of f32 from shared memory into a 4-D (D, rows, heads,
-// batch) tensor map in global memory (rows past the end are dropped)
-__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map,
-                                               uint32_t src, int col, int row,
-                                               int h, int b) {
-  asm volatile(
-      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile.bulk_group "
-      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(col), "r"(row), "r"(h), "r"(b)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// until the issued bulk operations have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled operand at shared address `addr`:
-// `sbo` bytes between 8-row groups, `lbo` between 64-element blocks of an
-// MN-major operand (unused by K-major ones and by one block)
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the fence, commit and wait
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-  }
-}
-
-// 2^x on the special-function unit (flushes denormals to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// D (64 x 64, f32) += A (64 x 16) B (16 x 64), A and B bf16 in shared
-// memory (descriptors); TA / TB: 1 for an MN-major operand
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-}
-
-// D (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64, bf16
-// in shared memory); TB: 1 for an MN-major B
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
-        "n"(TB));
-}
-
-template <int D, int WGS>
+template <typename T, int D, int WGS>
 __global__ void __launch_bounds__(Cfg<WGS>::kThreads, Cfg<WGS>::kCtasPerSm)
     flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -257,8 +122,8 @@ __global__ void __launch_bounds__(Cfg<WGS>::kThreads, Cfg<WGS>::kCtasPerSm)
                      const __grid_constant__ CUtensorMap tm_do,
                      const __grid_constant__ CUtensorMap tm_dq,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, const int* __restrict__ kv_lens,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, const int* __restrict__ kv_lens,
                      const int* __restrict__ q_offset, int sq, int skv,
                      Strides3 sdk, Strides3 sdv, int causal, float scale_log2,
                      float sm_scale) {
@@ -415,17 +280,17 @@ __global__ void __launch_bounds__(Cfg<WGS>::kThreads, Cfg<WGS>::kCtasPerSm)
                            (kk % 4) * 32;
         const uint32_t bq = (kk / 4) * kBlockM * kRowBytes + (kk % 4) * 32;
         if constexpr (D == 64) {
-          wgmma_rs_n64<0>(st, kf[kk], desc(q_s + bq, 16, 1024), kk > 0);
-          wgmma_rs_n64<0>(dpt, vf[kk], desc(do_s + bq, 16, 1024), kk > 0);
+          wgmma_rs_n64<0, T>(st, kf[kk], desc(q_s + bq, 16, 1024), kk > 0);
+          wgmma_rs_n64<0, T>(dpt, vf[kk], desc(do_s + bq, 16, 1024), kk > 0);
         } else {
-          wgmma_ss_n64<0, 0>(st, desc(base + L::k + a, 16, 1024),
+          wgmma_ss_n64<0, 0, T>(st, desc(base + L::k + a, 16, 1024),
                              desc(q_s + bq, 16, 1024), kk > 0);
-          wgmma_ss_n64<0, 0>(dpt, desc(base + L::v + a, 16, 1024),
+          wgmma_ss_n64<0, 0, T>(dpt, desc(base + L::v + a, 16, 1024),
                              desc(do_s + bq, 16, 1024), kk > 0);
         }
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       pin(st);
       pin(dpt);
 
@@ -450,19 +315,19 @@ __global__ void __launch_bounds__(Cfg<WGS>::kThreads, Cfg<WGS>::kCtasPerSm)
           dpt[4 * j + e] = p * (dpt[4 * j + e] - dl_s[i]) * sm_scale;
         }
       }
-      // bf16 A fragments of the 4 k-steps (16 query rows each)
+      // bf16 (f16) A fragments of the 4 k-steps (16 query rows each)
       uint32_t pa[4][4], dsa[4][4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
-          pa[kk][x] = pack_bf16(st[8 * kk + 2 * x], st[8 * kk + 2 * x + 1]);
-          dsa[kk][x] = pack_bf16(dpt[8 * kk + 2 * x], dpt[8 * kk + 2 * x + 1]);
+          pa[kk][x] = pack2<T>(st[8 * kk + 2 * x], st[8 * kk + 2 * x + 1]);
+          dsa[kk][x] = pack2<T>(dpt[8 * kk + 2 * x], dpt[8 * kk + 2 * x + 1]);
         }
       }
       // dS^T into shared memory: 64 key rows of 64 query columns (128
       // bytes), swizzled as TMA would store them. The last iteration's dQ
-      // product, which read it, has completed (wgmma_wait_all below)
+      // product, which read it, has completed (wgmma_wait<0> below)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const uint32_t a0 = ds_s + lr0 * kRowBytes + ((j ^ (lr0 & 7)) << 4) + 4 * t;
@@ -491,8 +356,8 @@ __global__ void __launch_bounds__(Cfg<WGS>::kThreads, Cfg<WGS>::kCtasPerSm)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const uint32_t off = cb * kBlockM * kRowBytes + kk * 16 * kRowBytes;
-          wgmma_rs_n64<1>(acc_dv[cb], pa[kk], desc(do_s + off, 1024, 1024), 1);
-          wgmma_rs_n64<1>(acc_dk[cb], dsa[kk], desc(q_s + off, 1024, 1024), 1);
+          wgmma_rs_n64<1, T>(acc_dv[cb], pa[kk], desc(do_s + off, 1024, 1024), 1);
+          wgmma_rs_n64<1, T>(acc_dk[cb], dsa[kk], desc(q_s + off, 1024, 1024), 1);
         }
       }
       wgmma_commit();
@@ -506,14 +371,14 @@ __global__ void __launch_bounds__(Cfg<WGS>::kThreads, Cfg<WGS>::kCtasPerSm)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          wgmma_ss_n64<1, 1>(
+          wgmma_ss_n64<1, 1, T>(
               dq, desc(ds_s + kk * 16 * kRowBytes, 1024, 1024),
               desc(k_own + cb * kBlockN * kRowBytes + kk * 16 * kRowBytes, 1024,
                    1024),
               kk > 0);
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         pin(dq);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -554,8 +419,8 @@ __global__ void __launch_bounds__(Cfg<WGS>::kThreads, Cfg<WGS>::kCtasPerSm)
     if (leader) bulk_wait();  // shared memory stays until the adds are done
 
     // dK and dV rows key0, key1 (zeros for keys past kv_len)
-    bf16* dk0 = dk + b * sdk.b + h * sdk.h + static_cast<long long>(key0) * sdk.s;
-    bf16* dv0 = dv + b * sdv.b + h * sdv.h + static_cast<long long>(key0) * sdv.s;
+    T* dk0 = dk + b * sdk.b + h * sdk.h + static_cast<long long>(key0) * sdk.s;
+    T* dv0 = dv + b * sdv.b + h * sdv.h + static_cast<long long>(key0) * sdv.s;
 #pragma unroll
     for (int cb = 0; cb < D / 64; ++cb) {
 #pragma unroll
@@ -563,26 +428,27 @@ __global__ void __launch_bounds__(Cfg<WGS>::kThreads, Cfg<WGS>::kCtasPerSm)
         const int c = cb * 64 + 8 * j + 2 * t;
         if (key0 < skv) {
           *reinterpret_cast<uint32_t*>(dk0 + c) =
-              pack_bf16(acc_dk[cb][4 * j], acc_dk[cb][4 * j + 1]);
+              pack2<T>(acc_dk[cb][4 * j], acc_dk[cb][4 * j + 1]);
           *reinterpret_cast<uint32_t*>(dv0 + c) =
-              pack_bf16(acc_dv[cb][4 * j], acc_dv[cb][4 * j + 1]);
+              pack2<T>(acc_dv[cb][4 * j], acc_dv[cb][4 * j + 1]);
         }
         if (key1 < skv) {
           *reinterpret_cast<uint32_t*>(dk0 + 8 * sdk.s + c) =
-              pack_bf16(acc_dk[cb][4 * j + 2], acc_dk[cb][4 * j + 3]);
+              pack2<T>(acc_dk[cb][4 * j + 2], acc_dk[cb][4 * j + 3]);
           *reinterpret_cast<uint32_t*>(dv0 + 8 * sdv.s + c) =
-              pack_bf16(acc_dv[cb][4 * j + 2], acc_dv[cb][4 * j + 3]);
+              pack2<T>(acc_dv[cb][4 * j + 2], acc_dv[cb][4 * j + 3]);
         }
       }
     }
   }
 }
 
-// dQ (bf16, the caller's strides) from the f32 (B, H, Sq, D) accumulator;
+// dQ (T, the caller's strides) from the f32 (B, H, Sq, D) accumulator;
 // each thread converts eight adjacent columns (two 16-byte reads, one
 // 16-byte write)
+template <typename T>
 __global__ void dq_convert_kernel(const float* __restrict__ acc,
-                                  bf16* __restrict__ dq, int heads, int sq,
+                                  T* __restrict__ dq, int heads, int sq,
                                   int d, Strides3 sdq, long long groups) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= groups) return;
@@ -596,57 +462,11 @@ __global__ void dq_convert_kernel(const float* __restrict__ acc,
   const float4 x = *reinterpret_cast<const float4*>(acc + e);
   const float4 y = *reinterpret_cast<const float4*>(acc + e + 4);
   *reinterpret_cast<uint4*>(dq + b * sdq.b + h * sdq.h + r * sdq.s + c) =
-      make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w), pack_bf16(y.x, y.y),
-                 pack_bf16(y.z, y.w));
+      make_uint4(pack2<T>(x.x, x.y), pack2<T>(x.z, x.w), pack2<T>(y.x, y.y),
+                 pack2<T>(y.z, y.w));
 }
 
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult found;
-    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found) ==
-                        cudaSuccess &&
-                    found == cudaDriverEntryPointSuccess;
-#else
-    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault) == cudaSuccess;
-#endif
-    if (ok) fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// a (D, rows, heads, batch) map of one (B, H, S, D) operand with element
-// strides `st`, in boxes of 128 bytes of a row x `box_rows` rows with the
-// 128-byte swizzle: 64 bf16 columns (rows past `rows` read as zeros) or 32
-// f32 columns (rows past `rows` are not written)
-bool make_map(CUtensorMap* map, const void* ptr, bool f32, int d, int rows,
-              int heads, int batch, const Strides3& st, int box_rows) {
-  const auto encode = encode_tiled();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
-                        static_cast<cuuint64_t>(heads),
-                        static_cast<cuuint64_t>(batch)};
-  const cuuint64_t size = f32 ? 4 : 2;
-  cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * size,
-                           static_cast<cuuint64_t>(st.h) * size,
-                           static_cast<cuuint64_t>(st.b) * size};
-  cuuint32_t box[4] = {static_cast<cuuint32_t>(kRowBytes / size),
-                       static_cast<cuuint32_t>(box_rows), 1, 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map,
-                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                4, const_cast<void*>(ptr),
-                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int D, int WGS>
+template <typename T, int D, int WGS>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* d_o, const float* lse, const float* delta,
                    float* dq_acc, void* dq, void* dk, void* dv,
@@ -657,71 +477,86 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
   const Strides3 acc{static_cast<long long>(heads) * sq * D,
                      static_cast<long long>(sq) * D, D};
-  if (!make_map(&tm_q, q, false, D, sq, heads, batch, st[0], kBlockM) ||
-      !make_map(&tm_k, k, false, D, skv, heads, batch, st[1],
-                Cfg<WGS>::kBlockN) ||
-      !make_map(&tm_v, v, false, D, skv, heads, batch, st[2],
-                Cfg<WGS>::kBlockN) ||
-      !make_map(&tm_do, d_o, false, D, sq, heads, batch, st[3], kBlockM) ||
-      !make_map(&tm_dq, dq_acc, true, D, sq, heads, batch, acc, kBlockM)) {
+  if (!make_map<T>(&tm_q, q, D, sq, heads, batch, st[0], kBlockM) ||
+      !make_map<T>(&tm_k, k, D, skv, heads, batch, st[1], Cfg<WGS>::kBlockN) ||
+      !make_map<T>(&tm_v, v, D, skv, heads, batch, st[2], Cfg<WGS>::kBlockN) ||
+      !make_map<T>(&tm_do, d_o, D, sq, heads, batch, st[3], kBlockM) ||
+      !make_map<float>(&tm_dq, dq_acc, D, sq, heads, batch, acc, kBlockM)) {
     return cudaErrorInvalidValue;
   }
   constexpr int bytes = Layout<D, WGS>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<D, WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_kernel<T, D, WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
   constexpr int kBlockN = Cfg<WGS>::kBlockN;
   const dim3 grid((skv + kBlockN - 1) / kBlockN, heads, batch);
-  flash_bwd_kernel<D, WGS><<<grid, Cfg<WGS>::kThreads, bytes, stream>>>(
-      tm_q, tm_k, tm_v, tm_do, tm_dq, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), kv_lens, q_offset, sq, skv, st[5], st[6], causal,
+  flash_bwd_kernel<T, D, WGS><<<grid, Cfg<WGS>::kThreads, bytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dq, lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), kv_lens, q_offset, sq, skv, st[5], st[6], causal,
       sm_scale * kLog2e, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long groups = static_cast<long long>(batch) * heads * sq * D / 8;
   const int threads = 256;
-  dq_convert_kernel<<<static_cast<unsigned>((groups + threads - 1) / threads),
-                      threads, 0, stream>>>(dq_acc, static_cast<bf16*>(dq),
-                                            heads, sq, D, st[4], groups);
+  dq_convert_kernel<T>
+      <<<static_cast<unsigned>((groups + threads - 1) / threads), threads, 0,
+         stream>>>(dq_acc, static_cast<T*>(dq), heads, sq, D, st[4], groups);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches on `stream` and returns a cudaError_t (0 on success). Pointers
-// are device pointers; `lse` and `delta` are contiguous (B, H, Sq) f32;
-// `dq_acc` a zeroed contiguous (B, H, Sq, D) f32 buffer the kernel adds
-// dQ into; strides are in elements; the caller checks dtypes (bf16),
-// shapes, alignment (16 bytes for every row) and head_dim (64 or 128).
-extern "C" int hsenet_flash_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* d_o,
-    const void* lse, const void* delta, void* dq_acc, void* dq, void* dk,
-    void* dv, const int* kv_lens, const int* q_offset, int batch, int heads,
-    int sq, int skv, int head_dim, long long q_b, long long q_h, long long q_s,
-    long long k_b, long long k_h, long long k_s, long long v_b, long long v_h,
-    long long v_s, long long do_b, long long do_h, long long do_s,
-    long long dq_b, long long dq_h, long long dq_s, long long dk_b,
-    long long dk_h, long long dk_s, long long dv_b, long long dv_h,
-    long long dv_s, int causal, float sm_scale, void* stream) {
-  const Strides3 st[7] = {{q_b, q_h, q_s},    {k_b, k_h, k_s},
-                          {v_b, v_h, v_s},    {do_b, do_h, do_s},
-                          {dq_b, dq_h, dq_s}, {dk_b, dk_h, dk_s},
-                          {dv_b, dv_h, dv_s}};
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* d_o,
+             const void* lse, const void* delta, void* dq_acc, void* dq,
+             void* dk, void* dv, const int* kv_lens, const int* q_offset,
+             int batch, int heads, int sq, int skv, int head_dim,
+             const Strides3* st, int causal, float sm_scale, void* stream) {
   const auto* lf = static_cast<const float*>(lse);
   const auto* df = static_cast<const float*>(delta);
   auto* acc = static_cast<float*>(dq_acc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return static_cast<int>(launch<64, kWgsOf<64>>(
+      return static_cast<int>(launch<T, 64, kWgsOf<64>>(
           q, k, v, d_o, lf, df, acc, dq, dk, dv, kv_lens, q_offset, batch,
           heads, sq, skv, st, causal, sm_scale, s));
     case 128:
-      return static_cast<int>(launch<128, kWgsOf<128>>(
+      return static_cast<int>(launch<T, 128, kWgsOf<128>>(
           q, k, v, d_o, lf, df, acc, dq, dk, dv, kv_lens, q_offset, batch,
           heads, sq, skv, st, causal, sm_scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+}  // namespace
+
+// Launches on `stream` and returns a cudaError_t (0 on success); `_bf16`
+// takes bf16 Q, K, V, dO, dQ, dK and dV, `_f16` f16 ones. Pointers are
+// device pointers; `lse` and `delta` are contiguous (B, H, Sq) f32; `dq_acc`
+// a zeroed contiguous (B, H, Sq, D) f32 buffer the kernel adds dQ into;
+// strides are in elements; the caller checks dtypes, shapes, alignment (16
+// bytes for every row) and head_dim (64 or 128).
+#define HSENET_FLASH_BWD_ENTRY(NAME, T)                                        \
+  extern "C" int NAME(                                                         \
+      const void* q, const void* k, const void* v, const void* d_o,            \
+      const void* lse, const void* delta, void* dq_acc, void* dq, void* dk,    \
+      void* dv, const int* kv_lens, const int* q_offset, int batch, int heads, \
+      int sq, int skv, int head_dim, long long q_b, long long q_h,             \
+      long long q_s, long long k_b, long long k_h, long long k_s,              \
+      long long v_b, long long v_h, long long v_s, long long do_b,             \
+      long long do_h, long long do_s, long long dq_b, long long dq_h,          \
+      long long dq_s, long long dk_b, long long dk_h, long long dk_s,          \
+      long long dv_b, long long dv_h, long long dv_s, int causal,              \
+      float sm_scale, void* stream) {                                          \
+    const Strides3 st[7] = {{q_b, q_h, q_s},    {k_b, k_h, k_s},               \
+                            {v_b, v_h, v_s},    {do_b, do_h, do_s},            \
+                            {dq_b, dq_h, dq_s}, {dk_b, dk_h, dk_s},            \
+                            {dv_b, dv_h, dv_s}};                               \
+    return dispatch<T>(q, k, v, d_o, lse, delta, dq_acc, dq, dk, dv, kv_lens,  \
+                       q_offset, batch, heads, sq, skv, head_dim, st, causal,  \
+                       sm_scale, stream);                                      \
+  }
+
+HSENET_FLASH_BWD_ENTRY(hsenet_flash_bwd_bf16, __nv_bfloat16)
+HSENET_FLASH_BWD_ENTRY(hsenet_flash_bwd_f16, __half)

@@ -1,7 +1,10 @@
 // Flash-attention backward, dK and dV, for Hopper (sm_90a): the f32 route
-// (f32 in and out, TF32 products, f32 accumulation). The bf16 route of the
-// port's backward is flash_bwd.cu; this file's bf16 instantiation stays as
-// the yardstick chip_smoke.py times the new kernel against.
+// (f32 in and out, TF32 products, f32 accumulation) at head dim 64 and 128,
+// and the bf16 and f16 route at head dim 256 (where flash_bwd.cu's tiling
+// does not fit: its dK and dV accumulators alone would take 256 registers a
+// thread). The bf16 and f16 route at 64 and 128 is flash_bwd.cu; this
+// file's bf16 instantiation there stays as the yardstick chip_smoke.py
+// times that kernel against.
 //
 // Replaces the TPU kernel `_bwd_dkv_kernel` of the JAX package
 // (ops/flash_attention.py, launched by `_flash_backward`). Per (batch b,
@@ -38,7 +41,11 @@
 //     to bf16 for those products, as on the TPU;
 //   * a key tile past kv_len writes zeros and reads nothing; under causal
 //     the query loop starts at the first tile with a row that sees the
-//     tile's first key. No atomics: each CTA owns its dK and dV rows.
+//     tile's first key. No atomics: each CTA owns its dK and dV rows;
+//   * at head dim 256 (bf16 and f16 only) a CTA accumulates 128 of dK's and
+//     dV's columns: the grid's x axis holds both halves of each key tile,
+//     and each CTA computes S^T and dP^T over the full width for its half
+//     (six products per valid pair, not four).
 
 #include "flash_common.cuh"
 
@@ -58,10 +65,10 @@ struct Strides {
   Strides3 q, k, v, d_o, dk, dv;
 };
 
-template <int D>
-__device__ __forceinline__ void zero_acc(float (&acc)[D / 8][4]) {
+template <int DO>
+__device__ __forceinline__ void zero_acc(float (&acc)[DO / 8][4]) {
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
+  for (int dn = 0; dn < DO / 8; ++dn) {
     acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   }
 }
@@ -80,6 +87,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int LD = D + kPadOf<T>;
   constexpr int kTile = kBlockM * LD;
+  constexpr int DO = kOutColsOf<D>;
+  constexpr int kSplit = D / DO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   T* k_s = smem;
@@ -91,7 +100,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int k_start = blockIdx.x * kBlockN;
+  const int k_start = blockIdx.x / kSplit * kBlockN;
+  const int c_out = blockIdx.x % kSplit * DO;  // this CTA's first column
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -113,9 +123,9 @@ __global__ void __launch_bounds__(kThreads)
       k_start < kv_len && m_first < sq ? (sq - m_first + kBlockM - 1) / kBlockM
                                        : 0;
 
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
-  zero_acc<D>(acc_dk);
-  zero_acc<D>(acc_dv);
+  float acc_dk[DO / 8][4], acc_dv[DO / 8][4];
+  zero_acc<DO>(acc_dk);
+  zero_acc<DO>(acc_dv);
 
   const T* q_base = q + b * st.q.b + h * st.q.h;
   const T* do_base = d_o + b * st.d_o.b + h * st.d_o.h;
@@ -195,10 +205,10 @@ __global__ void __launch_bounds__(kThreads)
         uint32_t pa[4], dsa[4];
         acc_as_a_tf32(pa, p[0], p[1], p[2], p[3]);
         acc_as_a_tf32(dsa, ds[0], ds[1], ds[2], ds[3]);
-        const T* orow = do_s + (qc * 8 + 2 * t) * LD + g;
-        const T* qrow = q_s + (qc * 8 + 2 * t) * LD + g;
+        const T* orow = do_s + (qc * 8 + 2 * t) * LD + c_out + g;
+        const T* qrow = q_s + (qc * 8 + 2 * t) * LD + c_out + g;
 #pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
+        for (int dn = 0; dn < DO / 8; ++dn) {
           mma_1688(acc_dv[dn], pa, tf32(orow[dn * 8]), tf32(orow[LD + dn * 8]));
           mma_1688(acc_dk[dn], dsa, tf32(qrow[dn * 8]), tf32(qrow[LD + dn * 8]));
         }
@@ -226,10 +236,10 @@ __global__ void __launch_bounds__(kThreads)
         ldmatrix_x4(va, v_s + a_off);
         ldmatrix_x4(qb, q_s + b_off);
         ldmatrix_x4(db, do_s + b_off);
-        mma_16816(s[0], ka, qb[0], qb[1]);
-        mma_16816(s[1], ka, qb[2], qb[3]);
-        mma_16816(dp[0], va, db[0], db[1]);
-        mma_16816(dp[1], va, db[2], db[3]);
+        mma_16816<T>(s[0], ka, qb[0], qb[1]);
+        mma_16816<T>(s[1], ka, qb[2], qb[3]);
+        mma_16816<T>(dp[0], va, db[0], db[1]);
+        mma_16816<T>(dp[1], va, db[2], db[3]);
       }
       // P^T and dS^T, rounded to bf16 as A fragments (keys x query rows)
       uint32_t pa[4], dsa[4];
@@ -245,32 +255,35 @@ __global__ void __launch_bounds__(kThreads)
           p[e] = ok ? exp2f(s[j][e] * scale_log2 - lse_s[i]) : 0.f;
           ds[e] = p[e] * (dp[j][e] - dl_s[i]) * sm_scale;
         }
-        pa[j * 2 + 0] = pack_bf16(p[0], p[1]);
-        pa[j * 2 + 1] = pack_bf16(p[2], p[3]);
-        dsa[j * 2 + 0] = pack_bf16(ds[0], ds[1]);
-        dsa[j * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        pa[j * 2 + 0] = pack2<T>(p[0], p[1]);
+        pa[j * 2 + 1] = pack2<T>(p[2], p[3]);
+        dsa[j * 2 + 0] = pack2<T>(ds[0], ds[1]);
+        dsa[j * 2 + 1] = pack2<T>(ds[2], ds[3]);
       }
       // dV += P^T dO and dK += dS^T Q: ldmatrix.trans of the chunk's 16
-      // rows of dO and Q gives the B operands of two 8-column tiles
+      // rows of dO and Q (this CTA's columns) gives the B operands of two
+      // 8-column tiles
 #pragma unroll
-      for (int dn = 0; dn < D / 8; dn += 2) {
-        const int off = (qc * 16 + (lmat & 1) * 8 + lrow) * LD + dn * 8 +
-                        (lmat >> 1) * 8;
+      for (int dn = 0; dn < DO / 8; dn += 2) {
+        const int off = (qc * 16 + (lmat & 1) * 8 + lrow) * LD + c_out +
+                        dn * 8 + (lmat >> 1) * 8;
         uint32_t ob[4], qb[4];
         ldmatrix_x4_trans(ob, do_s + off);
         ldmatrix_x4_trans(qb, q_s + off);
-        mma_16816(acc_dv[dn], pa, ob[0], ob[1]);
-        mma_16816(acc_dv[dn + 1], pa, ob[2], ob[3]);
-        mma_16816(acc_dk[dn], dsa, qb[0], qb[1]);
-        mma_16816(acc_dk[dn + 1], dsa, qb[2], qb[3]);
+        mma_16816<T>(acc_dv[dn], pa, ob[0], ob[1]);
+        mma_16816<T>(acc_dv[dn + 1], pa, ob[2], ob[3]);
+        mma_16816<T>(acc_dk[dn], dsa, qb[0], qb[1]);
+        mma_16816<T>(acc_dk[dn + 1], dsa, qb[2], qb[3]);
       }
     }
     }
     __syncthreads();  // every warp is done with this stage before refill
   }
 
-  store_rows<T, D>(dk + b * st.dk.b + h * st.dk.h, st.dk.s, acc_dk, c0, skv, t);
-  store_rows<T, D>(dv + b * st.dv.b + h * st.dv.h, st.dv.s, acc_dv, c0, skv, t);
+  store_rows<T, DO>(dk + b * st.dk.b + h * st.dk.h + c_out, st.dk.s, acc_dk,
+                    c0, skv, t);
+  store_rows<T, DO>(dv + b * st.dv.b + h * st.dv.h + c_out, st.dv.s, acc_dv,
+                    c0, skv, t);
 }
 
 template <typename T, int D>
@@ -285,7 +298,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((skv + kBlockN - 1) / kBlockN, heads, batch);
+  const dim3 grid((skv + kBlockN - 1) / kBlockN * (D / kOutColsOf<D>), heads,
+                  batch);
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(d_o), lse, delta,
@@ -312,6 +326,14 @@ int dispatch(const void* q, const void* k, const void* v, const void* d_o,
       return static_cast<int>(launch<T, 128>(q, k, v, d_o, lf, df, dk, dv,
                                              kv_lens, q_offset, batch, heads,
                                              sq, skv, st, causal, sm_scale, s));
+    case 256:
+      if constexpr (kIs16Bit<T>) {
+        return static_cast<int>(launch<T, 256>(q, k, v, d_o, lf, df, dk, dv,
+                                               kv_lens, q_offset, batch, heads,
+                                               sq, skv, st, causal, sm_scale,
+                                               s));
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -320,10 +342,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* d_o,
 }  // namespace
 
 // Launch on `stream` and return cudaGetLastError() (0 on success); `_f32`
-// takes f32 Q, K, V, dO, dK and dV, `_bf16` bf16 ones. Pointers are device
-// pointers; `lse` and `delta` are contiguous (B, H, Sq) f32; strides are in
-// elements; the caller checks dtypes, shapes, alignment (16 bytes for every
-// row) and head_dim (64 or 128).
+// takes f32 Q, K, V, dO, dK and dV, `_bf16` bf16 ones, `_f16` f16 ones.
+// Pointers are device pointers; `lse` and `delta` are contiguous (B, H, Sq)
+// f32; strides are in elements; the caller checks dtypes, shapes, alignment
+// (16 bytes for every row) and head_dim (64 or 128; 256 for bf16 and f16).
 #define HSENET_FLASH_BWD_DKV_ENTRY(NAME, T)                                    \
   extern "C" int NAME(                                                         \
       const void* q, const void* k, const void* v, const void* d_o,            \
@@ -344,4 +366,5 @@ int dispatch(const void* q, const void* k, const void* v, const void* d_o,
   }
 
 HSENET_FLASH_BWD_DKV_ENTRY(hsenet_flash_bwd_dkv_bf16, __nv_bfloat16)
+HSENET_FLASH_BWD_DKV_ENTRY(hsenet_flash_bwd_dkv_f16, __half)
 HSENET_FLASH_BWD_DKV_ENTRY(hsenet_flash_bwd_dkv_f32, float)

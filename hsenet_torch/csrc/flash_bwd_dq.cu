@@ -1,7 +1,9 @@
 // Flash-attention backward, dQ, for Hopper (sm_90a): the f32 route (f32 in
-// and out, TF32 products, f32 accumulation). The bf16 route of the port's
-// backward is flash_bwd.cu; this file's bf16 instantiation stays as the
-// yardstick chip_smoke.py times the new kernel against.
+// and out, TF32 products, f32 accumulation) at head dim 64 and 128, and the
+// bf16 and f16 route at head dim 256 (where flash_bwd.cu's tiling does not
+// fit: see below). The bf16 and f16 route of the port's backward at 64 and
+// 128 is flash_bwd.cu; this file's bf16 instantiation there stays as the
+// yardstick chip_smoke.py times that kernel against.
 //
 // Replaces the TPU kernel `_bwd_dq_kernel` of the JAX package
 // (ops/flash_attention.py, launched by `_flash_backward`). Per (batch b,
@@ -34,7 +36,13 @@
 //     ldmatrix.trans;
 //   * the loop over K/V stops at min(kv_len, last row + q_offset + 1) as
 //     in the forward, so tiles past kv_len or wholly above the diagonal
-//     are never read. No atomics: each CTA owns its dQ rows.
+//     are never read. No atomics: each CTA owns its dQ rows;
+//   * at head dim 256 (bf16 and f16 only) the A fragments of Q and dO take
+//     128 registers a thread, so a CTA accumulates only 128 of dQ's
+//     columns: the grid's x axis holds both halves of each query tile, and
+//     each CTA computes S and dP over the full width for its half. That
+//     costs S and dP twice (five products per valid pair, not three), a
+//     price for a width that no configuration of the package runs.
 
 #include "flash_common.cuh"
 
@@ -65,12 +73,15 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int LD = D + kPadOf<T>;
   constexpr int kTile = kBlockN * LD;
   constexpr int KS = kStepOf<T>;
+  constexpr int DO = kOutColsOf<D>;
+  constexpr int kSplit = D / DO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q_start = blockIdx.x * kBlockM;
+  const int q_start = blockIdx.x / kSplit * kBlockM;
+  const int c_out = blockIdx.x % kSplit * DO;  // this CTA's first dQ column
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -107,9 +118,9 @@ __global__ void __launch_bounds__(kThreads)
   const float dl0 = r0 < sq ? delta[row_base + r0] : 0.f;
   const float dl1 = r1 < sq ? delta[row_base + r1] : 0.f;
 
-  float acc[D / 8][4];
+  float acc[DO / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
+  for (int dn = 0; dn < DO / 8; ++dn) {
     acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   }
 
@@ -156,9 +167,9 @@ __global__ void __launch_bounds__(kThreads)
         }
         uint32_t dsf[4];
         acc_as_a_tf32(dsf, ds[0], ds[1], ds[2], ds[3]);
-        const T* kt = k_s + (kc * 8 + 2 * t) * LD + g;
+        const T* kt = k_s + (kc * 8 + 2 * t) * LD + c_out + g;
 #pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
+        for (int dn = 0; dn < DO / 8; ++dn) {
           mma_1688(acc[dn], dsf, tf32(kt[dn * 8]), tf32(kt[LD + dn * 8]));
         }
       }
@@ -177,10 +188,10 @@ __global__ void __launch_bounds__(kThreads)
           uint32_t kb[4], vb[4];
           ldmatrix_x4(kb, k_s + off);
           ldmatrix_x4(vb, v_s + off);
-          mma_16816(s[j], qf[kk], kb[0], kb[1]);
-          mma_16816(s[j], qf[kk + 1], kb[2], kb[3]);
-          mma_16816(dp[j], df[kk], vb[0], vb[1]);
-          mma_16816(dp[j], df[kk + 1], vb[2], vb[3]);
+          mma_16816<T>(s[j], qf[kk], kb[0], kb[1]);
+          mma_16816<T>(s[j], qf[kk + 1], kb[2], kb[3]);
+          mma_16816<T>(dp[j], df[kk], vb[0], vb[1]);
+          mma_16816<T>(dp[j], df[kk + 1], vb[2], vb[3]);
         }
       }
       // dS = P (dP - delta) sm_scale, rounded to bf16 as one A fragment
@@ -198,24 +209,26 @@ __global__ void __launch_bounds__(kThreads)
               ok ? exp2f(s[j][e] * scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
           ds[e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1)) * sm_scale;
         }
-        dsf[j * 2 + 0] = pack_bf16(ds[0], ds[1]);
-        dsf[j * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        dsf[j * 2 + 0] = pack2<T>(ds[0], ds[1]);
+        dsf[j * 2 + 1] = pack2<T>(ds[2], ds[3]);
       }
-      // dQ += dS K: ldmatrix.trans of the chunk's K rows gives B operands
+      // dQ += dS K: ldmatrix.trans of the chunk's K rows (this CTA's
+      // columns) gives B operands
 #pragma unroll
-      for (int dn = 0; dn < D / 8; dn += 2) {
+      for (int dn = 0; dn < DO / 8; dn += 2) {
         uint32_t kb[4];
         ldmatrix_x4_trans(kb, k_s + (kc * 16 + (lmat & 1) * 8 + lrow) * LD +
-                                  dn * 8 + (lmat >> 1) * 8);
-        mma_16816(acc[dn], dsf, kb[0], kb[1]);
-        mma_16816(acc[dn + 1], dsf, kb[2], kb[3]);
+                                  c_out + dn * 8 + (lmat >> 1) * 8);
+        mma_16816<T>(acc[dn], dsf, kb[0], kb[1]);
+        mma_16816<T>(acc[dn + 1], dsf, kb[2], kb[3]);
       }
     }
     }
     __syncthreads();  // every warp is done with this stage before refill
   }
 
-  store_rows<T, D>(dq + b * st.dq.b + h * st.dq.h, st.dq.s, acc, r0, sq, t);
+  store_rows<T, DO>(dq + b * st.dq.b + h * st.dq.h + c_out, st.dq.s, acc, r0,
+                    sq, t);
 }
 
 template <typename T, int D>
@@ -229,7 +242,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kBlockM - 1) / kBlockM, heads, batch);
+  const dim3 grid((sq + kBlockM - 1) / kBlockM * (D / kOutColsOf<D>), heads,
+                  batch);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(d_o), lse, delta,
@@ -256,6 +270,14 @@ int dispatch(const void* q, const void* k, const void* v, const void* d_o,
       return static_cast<int>(launch<T, 128>(q, k, v, d_o, lf, df, dq,
                                              kv_lens, q_offset, batch, heads,
                                              sq, skv, st, causal, sm_scale, s));
+    case 256:
+      if constexpr (kIs16Bit<T>) {
+        return static_cast<int>(launch<T, 256>(q, k, v, d_o, lf, df, dq,
+                                               kv_lens, q_offset, batch, heads,
+                                               sq, skv, st, causal, sm_scale,
+                                               s));
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -264,10 +286,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* d_o,
 }  // namespace
 
 // Launch on `stream` and return cudaGetLastError() (0 on success); `_f32`
-// takes f32 Q, K, V, dO and dQ, `_bf16` bf16 ones. Pointers are device
-// pointers; `lse` and `delta` are contiguous (B, H, Sq) f32; strides are in
-// elements; the caller checks dtypes, shapes, alignment (16 bytes for every
-// row) and head_dim (64 or 128).
+// takes f32 Q, K, V, dO and dQ, `_bf16` bf16 ones, `_f16` f16 ones. Pointers
+// are device pointers; `lse` and `delta` are contiguous (B, H, Sq) f32;
+// strides are in elements; the caller checks dtypes, shapes, alignment (16
+// bytes for every row) and head_dim (64 or 128; 256 for bf16 and f16).
 #define HSENET_FLASH_BWD_DQ_ENTRY(NAME, T)                                     \
   extern "C" int NAME(                                                         \
       const void* q, const void* k, const void* v, const void* d_o,            \
@@ -286,4 +308,5 @@ int dispatch(const void* q, const void* k, const void* v, const void* d_o,
   }
 
 HSENET_FLASH_BWD_DQ_ENTRY(hsenet_flash_bwd_dq_bf16, __nv_bfloat16)
+HSENET_FLASH_BWD_DQ_ENTRY(hsenet_flash_bwd_dq_f16, __half)
 HSENET_FLASH_BWD_DQ_ENTRY(hsenet_flash_bwd_dq_f32, float)

@@ -1,9 +1,10 @@
 // Shared pieces of the port's mma.sync flash-attention kernels for Hopper
 // (sm_90a): tile sizes, the mma.sync / ldmatrix / cp.async wrappers and the
-// stride block that every kernel takes, for bf16 operands (m16n8k16) and
-// f32 operands (TF32 m16n8k8). Included by flash_fwd.cu, flash_bwd_dq.cu and
-// flash_bwd_dkv.cu (and, for the stride block, pack_bf16 and kLog2e, by the
-// wgmma kernel flash_bwd.cu); each builds into its own library.
+// stride block that every kernel takes, for bf16 and f16 operands
+// (m16n8k16) and f32 operands (TF32 m16n8k8). Included by flash_fwd.cu,
+// flash_bwd_dq.cu and flash_bwd_dkv.cu (and, through hopper.cuh, by the
+// wgmma kernels flash_fwd_wgmma.cu and flash_bwd.cu); each builds into its
+// own library.
 //
 // Why TF32 for f32 operands: the tensor cores take f32 only as TF32, which
 // keeps 10 of f32's 23 mantissa bits (each operand rounded to within 2^-11
@@ -15,6 +16,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -27,13 +29,23 @@ constexpr int kBlockM = 64;  // query rows per tile (16 per warp)
 constexpr int kBlockN = 64;  // keys per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+// the 16-bit element types the tensor cores take beside TF32
+template <typename T>
+constexpr bool kIs16Bit = std::is_same<T, __nv_bfloat16>::value ||
+                          std::is_same<T, __half>::value;
 // padding per shared-memory row: one 16-byte chunk (8 bf16, 4 f32), so
 // fragment reads of 8 consecutive rows hit distinct banks
 template <typename T>
 constexpr int kPadOf = 16 / static_cast<int>(sizeof(T));
-// columns of one tensor-core k-step: 16 bf16 (m16n8k16), 8 TF32 (m16n8k8)
+// columns of one tensor-core k-step: 16 bf16 or f16 (m16n8k16), 8 TF32
+// (m16n8k8)
 template <typename T>
 constexpr int kStepOf = std::is_same<T, float>::value ? 8 : 16;
+// the output columns one CTA of the mma.sync backward kernels accumulates:
+// all of them up to head dim 128; at 256 half, the grid's x axis holding
+// both halves (a 64-row f32 tile of 256 columns is 128 registers a thread)
+template <int D>
+constexpr int kOutColsOf = D > 128 ? 128 : D;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // the log-sum-exp of a row with no valid column: exp(s - lse) is then 0
@@ -45,13 +57,23 @@ struct Strides3 {
   long long b, h, s;
 };
 
+// c += a b on the tensor cores, T (bf16 or f16) operands, f32 sums
+template <typename T>
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 // f32 -> TF32, rounded to nearest (ties away), in a 32-bit register
@@ -85,7 +107,7 @@ __device__ __forceinline__ void acc_as_a_tf32(uint32_t (&a)[4],
   a[3] = tf32(c3);
 }
 
-// four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// four 8x8 matrices of 16-bit elements from shared memory; lane i gives the address of
 // row i % 8 of matrix i / 8
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -125,13 +147,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// two floats -> one 32-bit register of bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// two floats -> one 32-bit register of two T (bf16 or f16), rounded to
+// nearest, `lo` in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
@@ -157,9 +187,10 @@ __device__ __forceinline__ void load_rows(T* dst, const T* base,
 
 // A fragments (16 rows x D, row-major) of rows r0 and r0 + 8, read straight
 // from global memory; rows at or past `rows` are zero
-template <int D>
+template <int D, typename T,
+          typename = typename std::enable_if<kIs16Bit<T>>::type>
 __device__ __forceinline__ void load_a_rows(uint32_t (&f)[D / 16][4],
-                                            const __nv_bfloat16* base,
+                                            const T* base,
                                             long long stride, int r0, int rows,
                                             int t) {
   const int r1 = r0 + 8;
@@ -191,7 +222,7 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&f)[D / 8][4],
 }
 
 // write a thread's part of a 16 x D f32 accumulator, scaled, to rows r0 and
-// r0 + 8 (as bf16 pairs or f32 pairs)
+// r0 + 8 (as pairs of T: bf16, f16 or f32)
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(T* base, long long stride,
                                            const float (&acc)[D / 8][4], int r0,
@@ -213,11 +244,11 @@ __device__ __forceinline__ void store_rows(T* base, long long stride,
     } else {
       if (r0 < rows) {
         *reinterpret_cast<uint32_t*>(base + r0 * stride + c) =
-            pack_bf16(acc[dn][0] * s0, acc[dn][1] * s0);
+            pack2<T>(acc[dn][0] * s0, acc[dn][1] * s0);
       }
       if (r1 < rows) {
         *reinterpret_cast<uint32_t*>(base + r1 * stride + c) =
-            pack_bf16(acc[dn][2] * s1, acc[dn][3] * s1);
+            pack2<T>(acc[dn][2] * s1, acc[dn][3] * s1);
       }
     }
   }

@@ -1,5 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 or f32 in and out (the
-// caller pads the head dim to 64 or 128), softmax in f32.
+// caller pads the head dim to 64 or 128), softmax in f32. The port's f32
+// route; bf16 and f16 run flash_fwd_wgmma.cu, and this file's bf16 build
+// stays as the yardstick chip_smoke.py times that kernel against.
 //
 // Replaces the TPU kernel `_flash_kernel` of the JAX package
 // (ops/flash_attention.py, launched by `_flash_forward`). Per (batch b,
@@ -152,8 +154,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int kk = 0; kk < D / 16; kk += 2) {
           uint32_t kb[4];
           ldmatrix_x4(kb, k_s + (j * 8 + lrow) * LD + kk * 16 + lmat * 8);
-          mma_16816(s[j], qf[kk], kb[0], kb[1]);
-          mma_16816(s[j], qf[kk + 1], kb[2], kb[3]);
+          mma_16816<T>(s[j], qf[kk], kb[0], kb[1]);
+          mma_16816<T>(s[j], qf[kk + 1], kb[2], kb[3]);
         }
       }
     }
@@ -215,8 +217,8 @@ __global__ void __launch_bounds__(kThreads)
       if constexpr (kF32) {
         acc_as_a_tf32(pf[j], p0, p1, p2, p3);
       } else {
-        pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
-        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+        pf[j / 2][(j % 2) * 2 + 0] = pack2<T>(p0, p1);
+        pf[j / 2][(j % 2) * 2 + 1] = pack2<T>(p2, p3);
       }
     }
 
@@ -241,8 +243,8 @@ __global__ void __launch_bounds__(kThreads)
         ldmatrix_x4_trans(
             vb, v_s + (kc * 16 + (lmat & 1) * 8 + lrow) * LD + dn * 8 +
                     (lmat >> 1) * 8);
-        mma_16816(acc[dn], pf[kc], vb[0], vb[1]);
-        mma_16816(acc[dn + 1], pf[kc], vb[2], vb[3]);
+        mma_16816<T>(acc[dn], pf[kc], vb[0], vb[1]);
+        mma_16816<T>(acc[dn + 1], pf[kc], vb[2], vb[3]);
       }
     }
     }

@@ -5,27 +5,32 @@ and their plain PyTorch versions.
 softmax(sm_scale * Q K^T) V per (batch, head), keeping the columns below
 `kv_lens[b]` and, under `causal`, those at or left of `row + q_offset[b]`,
 with the softmax in f32 and a row that has no valid column giving 0. On a
-CUDA tensor it launches `csrc/flash_fwd.cu`; on a CPU tensor it runs
-`flash_attention_reference`. It never falls from one to the other.
+CUDA tensor it launches `csrc/flash_fwd_wgmma.cu` (bf16 and f16: wgmma,
+TMA and a producer warpgroup, 64- or 128-row query tiles chosen by
+`forward_query_tile`) or `csrc/flash_fwd.cu` (f32: TF32 mma.sync); on a
+CPU tensor it runs `flash_attention_reference`. It never falls from one to
+the other.
 
-The kernels take bf16 or f32 operands (one dtype for q, k, v; f32 runs
-TF32 products, see `csrc/flash_common.cuh`) at head_dim 64 or 128. Every
-other width up to 128 goes through `with_head_dim_padded`, which gives q,
-k, v (and o, dO) zero columns up to 64 or 128 and slices the outputs back,
-with the softmax scale of the true width; the CPU route pads the same way,
-so the CPU tests hold the padded route to the JAX kernels. Above 128, and
-for f16, `check_operands` raises (ROADMAP C2; the JAX kernels pad to a
-multiple of 128 and take f16).
+The kernels take bf16, f16 or f32 operands (one dtype for q, k, v; f32
+runs TF32 products, see `csrc/flash_common.cuh`) at head_dim 64, 128 or,
+in bf16 and f16, 256. Every other width up to 256 goes through
+`with_head_dim_padded`, which gives q, k, v (and o, dO) zero columns up to
+the next of those widths and slices the outputs back, with the softmax
+scale of the true width; the CPU route pads the same way, so the CPU tests
+hold the padded route to the JAX kernels. Above 256, and in f32 above 128,
+`check_operands` raises (ROADMAP C2; the JAX kernels pad any width to a
+multiple of 128).
 
 When autograd needs its gradient (grad mode on and an input that requires
 grad), the call goes through `_FlashAttention`, the counterpart of the JAX
 package's `_flash_attention_core` and its custom VJP: the forward also
 writes each row's log-sum-exp, and the backward launches `csrc/flash_bwd.cu`
-in bf16 (one wgmma/TMA kernel for dQ, dK and dV, the port of
-`_bwd_dq_kernel` and `_bwd_dkv_kernel`; dQ is summed across key tiles by
-f32 reduce-adds, so it is not bit-reproducible run to run) or the two
-mma.sync kernels `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu` in f32,
-or on the CPU runs their plain version `flash_attention_backward_reference`.
+in bf16 and f16 up to head_dim 128 (one wgmma/TMA kernel for dQ, dK and
+dV, the port of `_bwd_dq_kernel` and `_bwd_dkv_kernel`; dQ is summed across
+key tiles by f32 reduce-adds, so it is not bit-reproducible run to run) or
+the two mma.sync kernels `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu`
+(in f32, and in bf16 and f16 at head_dim 256), or on the CPU runs their
+plain version `flash_attention_backward_reference`.
 Autograd through `flash_attention_reference` itself is the JAX package's
 recompute route (`use_pallas_bwd=False`); nothing on the port's paths takes
 it.
@@ -48,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -55,11 +61,18 @@ import torch
 
 from hsenet_torch.ops import _build
 
-SUPPORTED_HEAD_DIMS = (64, 128)  # the kernels' widths; others are padded
+SUPPORTED_HEAD_DIMS = (64, 128, 256)  # the kernels' widths; others are padded
 MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-# flash_bwd is the bf16 backward; flash_bwd_dq and flash_bwd_dkv the f32 one
-KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
+F32_MAX_HEAD_DIM = 128  # the f32 (TF32 mma.sync) route's widest
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# flash_fwd_wgmma is the bf16 and f16 forward, flash_fwd the f32 one (and
+# chip_smoke.py's bf16 yardstick); flash_bwd is the bf16 and f16 backward up
+# to head_dim 128, flash_bwd_dq and flash_bwd_dkv the f32 one and the bf16
+# and f16 one at 256
+KERNELS = ("flash_fwd", "flash_fwd_wgmma", "flash_bwd", "flash_bwd_dq",
+           "flash_bwd_dkv")
+# H100 SXM's streaming multiprocessors, when no card is there to ask
+DEFAULT_SMS = 132
 # the log-sum-exp of a row with no valid column (the JAX package's -NEG_INF)
 EMPTY_ROW_LSE = 1e30
 
@@ -161,14 +174,38 @@ def flash_attention_backward_reference(
 
 def kernel_head_dim(d: int) -> int:
     """The kernel width a head dim `d` is padded to: 64 up to 64, 128 up to
-    128. Above 128 it raises (the JAX kernels pad to a multiple of 128;
-    no configuration of either package goes above 128)."""
+    128, 256 up to 256. Above 256 it raises (ROADMAP C2: the JAX kernels pad
+    any width to a multiple of 128, but a 64-row f32 output tile at 512 is
+    256 registers a thread, and no configuration of either package goes
+    above 256)."""
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(
-            f"flash kernels take head_dim 1..{MAX_HEAD_DIM} (padded to 64 or "
-            f"128), got {d}"
+            f"flash kernels take head_dim 1..{MAX_HEAD_DIM} (padded to 64, 128 "
+            f"or 256), got {d} (ROADMAP C2)"
         )
     return next(w for w in SUPPORTED_HEAD_DIMS if d <= w)
+
+
+def forward_query_tile(batch: int, heads: int, sq: int, head_dim: int,
+                       sms: int = DEFAULT_SMS) -> int:
+    """Query rows per CTA of `flash_fwd_wgmma` at kernel width `head_dim`.
+
+    At 64 and 128 always 64: a 64-row CTA (one consumer warpgroup) leaves
+    room for a second on its SM, and two CTAs interleave one's softmax with
+    the other's products, where one 128-row CTA's two warpgroups wait on the
+    same tiles and run their softmax together (chip_smoke.py times both
+    tiles at every forward shape; PERF.md has the numbers). At 256 a CTA
+    takes the SM's shared memory either way: 128 rows (two warpgroups
+    sharing each K/V tile) when that grid gives every one of the card's
+    `sms` SMs a CTA, else 64, so that a small grid spreads over the card."""
+    if head_dim <= 128:
+        return 64
+    return 128 if batch * heads * -(-sq // 128) >= sms else 64
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def with_head_dim_padded(fn, *args, sm_scale: float, **kw):
@@ -199,21 +236,29 @@ def with_head_dim_padded(fn, *args, sm_scale: float, **kw):
 
 def check_operands(q, k, v) -> None:
     """What the CUDA route takes, checked before the head dim is padded: q,
-    k and v on one device, of one dtype, bfloat16 or float32 (float16 and
-    mixed dtypes raise), head_dim at most 128, GQA heads expanded."""
+    k and v on one device, of one dtype, bfloat16, float16 or float32
+    (other and mixed dtypes raise), head_dim at most 256 (at most 128 in
+    float32), GQA heads expanded."""
     batch, heads, _, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype not in KERNEL_DTYPES:
             raise ValueError(
-                f"flash kernels take bfloat16 or float32, {name} is {t.dtype}"
+                f"flash kernels take bfloat16, float16 or float32, {name} is "
+                f"{t.dtype}"
             )
         if t.dtype != q.dtype:
             raise ValueError(
                 f"{name} is {t.dtype}, q is {q.dtype}: one dtype for all"
             )
     kernel_head_dim(d)
+    if q.dtype == torch.float32 and d > F32_MAX_HEAD_DIM:
+        raise ValueError(
+            f"the float32 flash kernels take head_dim up to {F32_MAX_HEAD_DIM}, "
+            f"got {d} (ROADMAP C2: a TF32 tile of 256 columns does not fit "
+            "the mma.sync kernels' registers and shared memory)"
+        )
     if k.shape[:2] != (batch, heads) or v.shape != k.shape or k.shape[3] != d:
         raise ValueError(
             f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}:"
@@ -236,24 +281,26 @@ def _check_layout(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
 
 def _check_cuda_operands(q, k, v):
     """The kernels' operands after padding: `check_operands`, the kernel
-    widths 64 and 128, and the row layout."""
+    widths 64, 128 and 256, and the row layout."""
     check_operands(q, k, v)
     if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
-            f"the kernels run at head_dim 64 or 128, got {q.shape[-1]}: pad "
-            "through with_head_dim_padded"
+            f"the kernels run at head_dim 64, 128 or 256, got {q.shape[-1]}: "
+            "pad through with_head_dim_padded"
         )
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t, q)
 
 
-_ARGTYPES = {  # pointers, then ints (batch, heads, sq, skv, d), strides
+_ARGTYPES = {  # pointers, then ints (batch, heads, sq, skv, d, ...), strides
     "flash_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12,
+    # and the query tile
+    "flash_fwd_wgmma": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12,
     "flash_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 21,
     "flash_bwd_dq": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 15,
     "flash_bwd_dkv": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 18,
 }
-_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 
 
 def _kernel(name: str, dtype: torch.dtype):
@@ -265,13 +312,14 @@ def _kernel(name: str, dtype: torch.dtype):
 
 
 def _launch(name: str, pointers, dims, strided, causal, sm_scale, q,
-            kind: Optional[str] = None) -> None:
-    """Launch kernel `name` at q's dtype on the current stream and count the
-    launch: by kernel, by (`kind`, batch, heads, sq, skv, head_dim), and an
-    f32 launch also by (kernel, head_dim)."""
+            kind: Optional[str] = None, extra=()) -> None:
+    """Launch kernel `name` at q's dtype on the current stream (`extra`:
+    ints after the dims) and count the launch: by kernel, by (`kind`,
+    batch, heads, sq, skv, head_dim), and an f32 launch also by (kernel,
+    head_dim)."""
     strides = [s for t in strided for s in t.stride()[:3]]
     err = _kernel(name, q.dtype)(
-        *pointers, *dims, *strides, int(causal), float(sm_scale),
+        *pointers, *dims, *extra, *strides, int(causal), float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -289,24 +337,51 @@ def _bshd(batch, seq, heads, d, like) -> torch.Tensor:
     ).permute(0, 2, 1, 3)
 
 
-def _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse):
-    """Launch flash_fwd: (out, lse or None)."""
+def _fwd_launch(name, q, k, v, kv, q_off, causal, sm_scale, with_lse, extra=()):
+    """Launch forward kernel `name`: (out, lse or None)."""
     _check_cuda_operands(q, k, v)
     batch, heads, sq, d = q.shape
     out = _bshd(batch, sq, heads, d, q)
     lse = (torch.empty((batch, heads, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    if out.numel():
+    if out.numel() and not k.shape[2]:  # no keys: every row is empty
+        out.zero_()
+        if lse is not None:
+            lse.fill_(EMPTY_ROW_LSE)
+    elif out.numel():
         _launch(
-            "flash_fwd",
+            name,
             [t.data_ptr() for t in (q, k, v, out)]
             + [None if lse is None else lse.data_ptr(), kv.data_ptr(),
                q_off.data_ptr()],
             (batch, heads, sq, k.shape[2], d), (q, k, v, out), causal,
-            sm_scale, q, "flash_fwd_lse" if with_lse else "flash_fwd",
+            sm_scale, q, "flash_fwd_lse" if with_lse else "flash_fwd", extra,
         )
         fwd_launches[(d, with_lse)] += 1
     return out, lse
+
+
+def _fwd_wgmma_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+    """Launch flash_fwd_wgmma (bf16, f16) at the query tile the grid asks
+    for: (out, lse or None)."""
+    batch, heads, sq, d = q.shape
+    tile = forward_query_tile(batch, heads, sq, d, _sm_count(q.device.index))
+    return _fwd_launch("flash_fwd_wgmma", q, k, v, kv, q_off, causal, sm_scale,
+                       with_lse, (tile,))
+
+
+def _fwd_mma_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+    """Launch flash_fwd (mma.sync; bf16 or f32, head_dim 64 or 128): (out,
+    lse or None). The f32 route; its bf16 build, which no path launches, is
+    the yardstick that chip_smoke.py times flash_fwd_wgmma against."""
+    return _fwd_launch("flash_fwd", q, k, v, kv, q_off, causal, sm_scale,
+                       with_lse)
+
+
+def _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+    """The forward kernel of q's dtype: (out, lse or None)."""
+    fn = _fwd_mma_kernel if q.dtype == torch.float32 else _fwd_wgmma_kernel
+    return fn(q, k, v, kv, q_off, causal, sm_scale, with_lse)
 
 
 def _check_do(q, do):
@@ -319,8 +394,8 @@ def _check_do(q, do):
 
 
 def _bwd_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
-    """Launch flash_bwd (bf16): (dq, dk, dv). `lse` and `delta` are
-    contiguous (B, H, Sq) f32. The kernel adds dQ across key tiles into a
+    """Launch flash_bwd (bf16, f16; head_dim 64 or 128): (dq, dk, dv). `lse`
+    and `delta` are contiguous (B, H, Sq) f32. The kernel adds dQ across key tiles into a
     zeroed f32 (B, H, Sq, D) buffer allocated here, and a second kernel of
     the same source converts it into dq."""
     batch, heads, sq, d = q.shape
@@ -376,14 +451,15 @@ def _bwd_dkv_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
 
 
 def _backward_kernels(q, k, v, o, lse, do, kv, q_off, causal, sm_scale):
-    """(dq, dk, dv) by the kernels at the kernel width: flash_bwd in bf16,
-    flash_bwd_dq and flash_bwd_dkv in f32. delta = rowsum(dO * O) in f32,
-    as the JAX package computes it outside its kernels."""
+    """(dq, dk, dv) by the kernels at the kernel width: flash_bwd in bf16 and
+    f16 up to head_dim 128, flash_bwd_dq and flash_bwd_dkv in f32 and at
+    head_dim 256. delta = rowsum(dO * O) in f32, as the JAX package computes
+    it outside its kernels."""
     _check_cuda_operands(q, k, v)
     do = _check_do(q, do)
     delta = (do.float() * o.float()).sum(dim=-1).contiguous()
     args = (q, k, v, do, lse.contiguous(), delta, kv, q_off, causal, sm_scale)
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32 and q.shape[-1] <= 128:
         return _bwd_kernel(*args)
     return (_bwd_dq_kernel(*args), *_bwd_dkv_kernel(*args))
 
@@ -489,11 +565,13 @@ def flash_attention(
     return _forward(q, k, v, kv, q_off, causal, sm_scale, False)[0]
 
 
-# kernel launches since the last reset: by kernel; the forward's by (kernel
-# head dim, whether it wrote the log-sum-exp); every launch by (kind, batch,
+# kernel launches since the last reset: by kernel (a bf16 or f16 forward is
+# "flash_fwd_wgmma", an f32 one "flash_fwd"); the forward's by (kernel head
+# dim, whether it wrote the log-sum-exp); every launch by (kind, batch,
 # heads, sq, skv, kernel head dim), kind "flash_fwd", "flash_fwd_lse" (the
-# forward that autograd records), "flash_bwd" (bf16), "flash_bwd_dq" or
-# "flash_bwd_dkv" (f32); and the f32 launches by (kernel, kernel head dim).
+# forward that autograd records; either forward kernel), "flash_bwd" (bf16,
+# f16), "flash_bwd_dq" or "flash_bwd_dkv" (f32; bf16, f16 at 256); and the
+# f32 launches by (kernel, kernel head dim).
 # chip_smoke.py reads them to show that the main path went through the
 # kernels, and at which shapes (the towers, BERT, the LLM, the fine-patch
 # tower, the synthetic CLI's padded widths).

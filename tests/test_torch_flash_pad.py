@@ -1,11 +1,13 @@
 """The flash kernels' head-dim padding against the JAX package, on the CPU
 in f32.
 
-The port's kernels run at head_dim 64 and 128; `with_head_dim_padded`
-gives every other width up to 128 zero columns, calls the attention
-function it is handed (the kernel launchers on the card, the plain
-versions here) with the true width's softmax scale, and slices the
-outputs back. The JAX kernels pad such widths to 128 themselves
+The port's kernels run at head_dim 64, 128 and 256; `with_head_dim_padded`
+gives every other width zero columns up to the next of those, calls the
+attention function it is handed (the kernel launchers on the card, the
+plain versions here) with the true width's softmax scale, and slices the
+outputs back. This file holds the widths up to 128 (widths above 128 and
+f16 are `test_torch_flash_c2.py`'s). The JAX kernels pad such widths to
+128 themselves
 (`hsenet_tpu/ops/flash_attention.py`, `_flash_forward` and
 `_flash_backward`), run here in interpret mode. Widths 8 and 16 are the
 synthetic CLI's (towers, LLM), 96 is QFormer's. Tolerances as in
@@ -154,12 +156,14 @@ def test_operand_check_takes_bf16_and_f32_up_to_128(dtype, d):
     assert kernel_head_dim(d) == (64 if d <= 64 else 128)
 
 
-@pytest.mark.parametrize("what", ["float16", "mixed", "d160", "d256"])
+@pytest.mark.parametrize("what", ["float64", "mixed", "d257", "d320"])
 def test_operand_check_raises(what):
-    d = {"d160": 160, "d256": 256}.get(what, 64)
-    dtype = torch.float16 if what == "float16" else torch.float32
+    """A dtype the kernels do not take, mixed dtypes, and widths above 256
+    (ROADMAP C2: the kernels pad to 64, 128 or 256) raise."""
+    d = {"d257": 257, "d320": 320}.get(what, 64)
+    dtype = torch.float64 if what == "float64" else torch.bfloat16
     q, k, v = (torch.zeros((1, 2, 4, d), dtype=dtype) for _ in range(3))
     if what == "mixed":
-        k = k.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="128" if what.startswith("d") else "dtype|float"):
+        k = k.to(torch.float16)
+    with pytest.raises(ValueError, match="256" if what.startswith("d") else "dtype|float"):
         check_operands(q, k, v)
