@@ -37,7 +37,18 @@ In order:
    times it against the bound, the plain version, the backward of one SDPA
    call and the two mma.sync kernels it replaced (their bf16 build, which
    no path launches); then f16 (flash_bwd) and head dim 256 in bf16 and f16
-   (the mma.sync pair, each timed), edge cases and planted faults alike;
+   (the mma.sync pair, each timed in turns beside the wide route's kernel,
+   which is checked there too), edge cases and planted faults alike;
+4w. [kernel-wide] the wide route of the flash kernels (ROADMAP C2, closed:
+   bf16 and f16 above head dim 256, f32 above 128, padded to a multiple of
+   64; the `_wide` entries of flash_fwd.cu, flash_bwd_dq.cu and
+   flash_bwd_dkv.cu) at d 320 and 512 in bf16, f16 and f32, at 192 and
+   256 in f32, and at d 300 in bf16 and 200 in f32 (zero-padded to 320 and
+   256), on small grids: forward, log-sum-exp and dQ/dK/dV against
+   the plain versions, edge cases (Skv 0, a kv_len-0 row, causal offsets),
+   two planted faults that must miss (S over the first 256 columns, 128 in
+   f32 below 320; the last 64 valid keys dropped), every launch counted on
+   the wide kernels; times beside the bound, the plain version and SDPA;
 4a. [cli-serve] runs the serving CLI's documented examples on the card
    (`--synthetic --num-requests 6`; `--quant-int8 --llm-only --synthetic
    --speculative`): tiny f32 models with head dims 8 and 16, so every flash
@@ -57,13 +68,17 @@ In order:
    two wrong variants that must miss the limit, and times it at M = 8 with
    the codes read cold, beside its bound, the plain version and a library
    product on a bf16 copy of the weight;
-5a. [kernel-pv] holds the P.V probe kernel (B6) against its plain version
-   in its four modes at the JAX probe's shapes (G 192, M 1152, K 2176,
-   N 64): the integer modes bit-equal, bf16 within 1e-4 of each row's
+5a. [kernel-pv] holds the P.V probe kernel (B6: int8_pv_wgmma, TMA and
+   wgmma, and the mma.sync int8_pv it replaced, kept as its yardstick)
+   against its plain version in its four modes at the JAX probe's shapes
+   (G 192, M 1152, K 2176, N 64) and int8_pv_wgmma at M 1000 (off its row
+   tiles): the integer modes bit-equal, bf16 within 1e-4 of each row's
    largest value, beside versions with the last 32 of K dropped (and P
-   quantised at 128) that must miss; times it beside its bound, the plain
-   version and, for bf16, one torch.bmm; then drives the probe entry
-   (`python -m hsenet_torch.scripts.probe_int8_pv`) with launches counted;
+   quantised at 128) that must miss; times both kernels in turns beside
+   the bound, the plain version and, for bf16, one torch.bmm;
+   int8_pv_wgmma must not be slower than 1.05 times the yardstick in any
+   mode; then drives the probe entry (`python -m
+   hsenet_torch.scripts.probe_int8_pv`) with launches counted by kernel;
 5b. [encode-w8a8] the W8A8 serving encode of bench.py at full width,
    batch 8 (both towers with static activation scales calibrated on 2
    volumes and tanh GELU, two packers, random weights quantised on the
@@ -322,6 +337,26 @@ CLIP_LONG_TIMED_STEPS = 2
 PAIR_TIME_RATIO = 1.5
 
 
+# [kernel-wide]: the wide route of the flash kernels (ROADMAP C2, closed),
+# on no path, checked and timed at small grids: name, dtype, (batch, heads,
+# sq, skv, true head dim), kv_lens, q_offset, causal. Limits: KERNEL_BWD_TOL
+# of each row's largest value in bf16 and f16 (forward and gradients),
+# KERNEL_F32_TOL of each (batch, head) slice's in f32, the log-sum-exp at
+# LSE_ABS_TOL / LSE_F32_ABS_TOL
+WIDE_CASES = [
+    ("d320_bf16", "bfloat16", (2, 8, 512, 512, 320), (512, 333), (0, 0), True),
+    ("d512_bf16", "bfloat16", (2, 8, 384, 448, 512), (448, 300), (64, 100), True),
+    ("d320_f16", "float16", (2, 8, 512, 512, 320), (512, 400), (0, 0), False),
+    ("d512_f16", "float16", (2, 8, 384, 448, 512), (448, 300), (64, 100), True),
+    ("d320_f32", "float32", (2, 8, 384, 384, 320), (384, 250), (0, 0), False),
+    ("d512_f32", "float32", (2, 8, 256, 320, 512), (320, 200), (64, 30), True),
+    ("d192_f32", "float32", (2, 8, 512, 512, 192), (512, 300), (0, 0), True),
+    ("d256_f32", "float32", (2, 8, 512, 512, 256), (512, 450), (0, 0), False),
+    # widths off the multiples of 64, zero-padded to 320 and 256
+    ("d300_bf16", "bfloat16", (2, 8, 384, 448, 300), (448, 320), (64, 100), True),
+    ("d200_f32", "float32", (2, 8, 512, 512, 200), (512, 350), (0, 0), False),
+]
+
 # [kernel-pv]: B6 against its plain version at the probe's shapes. The
 # integer modes must be bit-equal (both sides sum integer codes exactly and
 # convert once); bf16 sums the same exact bf16 products in f32 in another
@@ -330,6 +365,12 @@ PAIR_TIME_RATIO = 1.5
 # quant_then_int8, P quantised with a scale of 128), which must miss.
 PV_BF16_ROW_TOL = 1e-4
 PV_DROPPED_K = 32
+# int8_pv_wgmma is also checked at this M, not a multiple of its row tiles
+# (192 and 128 rows). In every mode it may take at most PV_SLACK times the
+# time of its yardstick (int8_pv, the mma.sync kernel): 5%, far above the
+# turns' noise
+PV_OFF_TILE_M = 1000
+PV_SLACK = 1.05
 # [encode-w8a8]: the serving encode of bench.py at batch 8; the W8A8 towers
 # calibrated on 2 volumes. The per-token cosine of their features against
 # the float bf16/erf towers of the same weights must reach W8A8_COSINE_MIN
@@ -850,15 +891,18 @@ def check_flash_c2_forward(gen):
     return results
 
 
-def forward_dropping(q, k, v, kv_t, off_t, causal, drop):
-    """The plain forward with the (row, column) pairs of `drop` left out:
-    what a kernel that skipped those tiles would give."""
+def forward_dropping(q, k, v, kv_t, off_t, causal, drop, score_cols=None):
+    """The plain forward with the (row, column) pairs of `drop` left out
+    (and, with `score_cols`, the scores taken over only the first
+    `score_cols` columns of Q and K): what a kernel that skipped those tiles
+    (or those columns) would give."""
     import torch
 
     from hsenet_torch.ops import flash_attention as tfa
 
     keep = tfa._valid(q, k, kv_t, off_t, causal) & ~drop
-    s = (q.float() @ k.float().transpose(-1, -2)) * q.shape[3] ** -0.5
+    c = score_cols or q.shape[3]
+    s = (q[..., :c].float() @ k[..., :c].float().transpose(-1, -2)) * q.shape[3] ** -0.5
     p = torch.softmax(s.masked_fill(~keep, -math.inf), dim=-1).nan_to_num(0.0)
     return (p @ v.float()).to(q.dtype)
 
@@ -984,10 +1028,12 @@ def row_rel(out, ref):
     return err.max().item(), share.max().item()
 
 
-def backward_dropping(q, k, v, out, lse, do, kv_t, off_t, causal, drop):
+def backward_dropping(q, k, v, out, lse, do, kv_t, off_t, causal, drop,
+                      score_cols=None):
     """The plain backward with the (row, column) pairs of `drop` left out of
-    P (dQ, dK, dV in f32): what a kernel that skipped those tiles would
-    give."""
+    P (dQ, dK, dV in f32), and with `score_cols` the scores taken over only
+    the first `score_cols` columns: what a kernel that skipped those tiles
+    (or columns) would give."""
     import torch
 
     from hsenet_torch.ops import flash_attention as tfa
@@ -995,8 +1041,9 @@ def backward_dropping(q, k, v, out, lse, do, kv_t, off_t, causal, drop):
     scale = q.shape[3] ** -0.5
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     keep = tfa._valid(q, k, kv_t, off_t, causal) & ~drop
-    p = torch.where(keep, torch.exp(qf @ kf.transpose(-1, -2) * scale
-                                    - lse.float()[..., None]), 0.0)
+    c = score_cols or q.shape[3]
+    p = torch.where(keep, torch.exp(qf[..., :c] @ kf[..., :c].transpose(-1, -2)
+                                    * scale - lse.float()[..., None]), 0.0)
     delta = (dof * out.float()).sum(dim=-1, keepdim=True)
     ds = p * (dof @ vf.transpose(-1, -2) - delta) * scale
     return ds @ kf, ds.transpose(-1, -2) @ qf, p.transpose(-1, -2) @ dof
@@ -1164,19 +1211,217 @@ def check_flash_bwd_kernels():
                   f"most {rerun:.3e}")
             continue
         # head dim 256: the mma.sync pair, each kernel timed and bounded on
-        # its own (the plain and library times compute dQ, dK and dV)
+        # its own (the plain and library times compute dQ, dK and dV), in
+        # turns beside the wide route's kernels, which take 256 too: held to
+        # the same limit, they show what the pair's half split of the output
+        # columns is worth
+        wide = (tfa._bwd_dq_kernel(*args, name="flash_bwd_dq_wide"),
+                *tfa._bwd_dkv_kernel(*args, name="flash_bwd_dkv_wide"))
+        wide_errs = [row_rel(a, b)[1] for a, b in zip(wide, want)]
+        print(f"[kernel-bwd] {name} by the wide kernels: dQ/dK/dV err / row's "
+              "max |ref| " + " ".join(f"{e:.3e}" for e in wide_errs)
+              + f" (tol {KERNEL_BWD_TOL})")
+        if max(wide_errs) > KERNEL_BWD_TOL:
+            raise AssertionError(f"the wide backward disagrees at {name}")
+        del wide
         for kernel, fn in (("flash_bwd_dq", tfa._bwd_dq_kernel),
                            ("flash_bwd_dkv", tfa._bwd_dkv_kernel)):
             bound, bound_by, flops, nbytes = kernel_bound(kernel, *shape)
+            turns = {"pair": [], "wide": []}
+            for which in ("pair", "wide", "wide", "pair"):
+                kw = {} if which == "pair" else {"name": kernel + "_wide"}
+                turns[which].append(time_ms(lambda fn=fn, kw=kw: fn(*args, **kw)))
             r = results.setdefault(kernel + "_d256", {})[name] = {
-                **common, "ms": time_ms(lambda fn=fn: fn(*args)),
+                **common, "ms": statistics.mean(turns["pair"]),
+                "wide_ms": statistics.mean(turns["wide"]), "turns_ms": turns,
                 "bound_ms": bound, "bound_by": bound_by,
                 "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
             }
-            print(f"[kernel-bwd] {kernel} {name}: kernel {r['ms']:.4f} ms, "
+            print(f"[kernel-bwd] {kernel} {name}: kernel {r['ms']:.4f} ms "
+                  f"(the wide kernel {r['wide_ms']:.4f} ms; turns pair "
+                  f"{turns['pair'][0]:.4f} {turns['pair'][1]:.4f}, wide "
+                  f"{turns['wide'][0]:.4f} {turns['wide'][1]:.4f}), "
                   f"bound {bound:.4f} ms ({bound_by}: {r['gflop']:.2f} GFLOP, "
                   f"{r['mbytes']:.2f} MB); dQ, dK and dV: plain {plain_ms:.4f} "
                   f"ms, library (SDPA backward) {library_ms:.4f} ms")
+    return results
+
+
+def check_flash_wide():
+    """[kernel-wide]: the wide route (ROADMAP C2, closed: bf16 and f16 above
+    head dim 256, f32 above 128, padded to a multiple of 64) of the forward
+    (with its log-sum-exp) and of dQ and dK/dV, against the plain versions
+    at the true width, on small grids: edge cases (Skv 0, a kv_len-0 row,
+    causal offsets), then each WIDE_CASES shape beside two planted faults
+    that must miss (S over only the first 256 columns, 128 in f32 at 192
+    and 256; the last 64 valid keys dropped), its launches counted on the
+    wide kernels only; times at the padded width against the bound, the
+    plain version and one SDPA call (forward, and its backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hsenet_torch.ops import flash_attention as tfa
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
+
+    def wide_only(tag, want):
+        # every launch since the reset went to the wide kernels, as many as
+        # `want` says
+        got = {k: n for k, n in tfa.launches.items() if n}
+        if got != want:
+            raise AssertionError(f"{tag}: launches {got}, expected {want}: a "
+                                 "wide call did not reach the wide kernels")
+
+    def measures(dtype):
+        # (forward measure, backward measure, forward / backward limit,
+        # log-sum-exp limit) of a dtype: a share of each row's largest
+        # value in bf16 and f16, of each (batch, head) slice's in f32
+        if dtype == torch.float32:
+            return slice_rel, slice_rel, KERNEL_F32_TOL, LSE_F32_ABS_TOL
+        return (lambda o, r: compare(o, r)[:2], row_rel, KERNEL_BWD_TOL,
+                LSE_ABS_TOL)
+
+    # edge cases: Sq, Skv not multiples of 64, a batch row with kv_len 0,
+    # causal offsets; then no keys at all
+    for dtype, d in ((torch.bfloat16, 320), (torch.float16, 512),
+                     (torch.float32, 192)):
+        fwd_m, bwd_m, tol, _ = measures(dtype)
+        for causal in (False, True):
+            q, k, v = (randn(2, 3, n, d, dtype=dtype) for n in (70, 100, 100))
+            kv_t = torch.tensor([0, 77], dtype=torch.int32, device=dev)
+            off_t = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+            tfa.reset_launch_counts()
+            out, lse = tfa._forward(q, k, v, kv_t, off_t, causal, d ** -0.5, True)
+            do = randn(*out.shape, dtype=dtype)
+            got = tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t,
+                                               off_t, causal)
+            torch.cuda.synchronize()
+            wide_only(f"wide edge case {dtype} d {d}", {
+                "flash_fwd_wide": 1, "flash_bwd_dq_wide": 1, "flash_bwd_dkv_wide": 1})
+            ref = tfa.flash_attention_reference(q, k, v, kv_lens=kv_t,
+                                                causal=causal, q_offset=off_t)
+            want = tfa.flash_attention_backward_reference(
+                q, k, v, out, lse, do, kv_t, off_t, causal)
+            rels = [fwd_m(out, ref)[1]] + [bwd_m(g, w)[1] for g, w in zip(got, want)]
+            zeros = all(torch.count_nonzero(t[0]) == 0 for t in (out, *got))
+            print(f"[kernel-wide] edge case {str(dtype)[6:]} d {d} (kernel width "
+                  f"{tfa.kernel_head_dim(d, dtype)}) causal={causal}: Sq 70, Skv "
+                  f"100, kv_lens (0, 77), q_offset (5, 9): out/dQ/dK/dV err "
+                  + " ".join(f"{r:.3e}" for r in rels)
+                  + f" (tol {tol}), kv_len-0 row all zeros: {zeros}")
+            if not (zeros and max(rels) <= tol):
+                raise AssertionError(f"wide edge case {dtype} d {d} causal={causal} failed")
+        q = randn(1, 2, 5, d, dtype=dtype)
+        leaf = q.detach().requires_grad_()
+        zout = tfa.flash_attention(leaf, leaf[:, :, :0], leaf[:, :, :0])
+        zgrad = torch.autograd.grad(zout, leaf, torch.ones_like(zout))[0]
+        if torch.count_nonzero(zout) or torch.count_nonzero(zgrad):
+            raise AssertionError(f"wide route over no keys ({dtype} d {d}) is not zero")
+        print(f"[kernel-wide] edge case {str(dtype)[6:]} d {d} Skv 0: output and "
+              "dQ all zeros")
+
+    results = {"flash_fwd_wide": {}, "flash_bwd_dq_wide": {},
+               "flash_bwd_dkv_wide": {}}
+    for name, dtype_name, (b, h, sq, skv, d), kv_lens, q_off, causal in WIDE_CASES:
+        dtype = getattr(torch, dtype_name)
+        fwd_m, bwd_m, tol, lse_tol = measures(dtype)
+        share_of = "slice" if dtype == torch.float32 else "row"
+        q = randn(b, h, sq, d, dtype=dtype)
+        k, v = (randn(b, h, skv, d, dtype=dtype) for _ in range(2))
+        kv_t = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+        off_t = torch.tensor(q_off, dtype=torch.int32, device=dev)
+        scale, width = d ** -0.5, tfa.kernel_head_dim(d, dtype)
+        kw = dict(kv_lens=kv_t, causal=causal, q_offset=off_t)
+        tfa.reset_launch_counts()
+        out, lse = tfa._forward(q, k, v, kv_t, off_t, causal, scale, True)
+        do = randn(*out.shape, dtype=dtype)
+        got = tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t, off_t,
+                                           causal)
+        torch.cuda.synchronize()
+        wide_only(f"wide {name}", {"flash_fwd_wide": 1, "flash_bwd_dq_wide": 1,
+                                   "flash_bwd_dkv_wide": 1})
+        ref, ref_lse = tfa.flash_attention_reference(q, k, v, with_lse=True, **kw)
+        want = tfa.flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                      kv_t, off_t, causal)
+        fwd_abs, fwd_rel = fwd_m(out, ref)
+        lse_err = (lse - ref_lse).abs().max().item()
+        errs = [bwd_m(g, w) for g, w in zip(got, want)]
+        # the planted faults: S over the first 256 (f32: 128) columns only,
+        # and the last 64 valid keys of each batch row dropped
+        cut = 256 if d > 256 else 128
+        col = torch.arange(skv, device=dev)[None, None, None, :]
+        none = torch.zeros_like(col, dtype=torch.bool)
+        drop = col >= kv_t[:, None, None, None] - 64
+        wrong = {}
+        for wname, dr, cols in ((f"S over the first {cut} columns", none, cut),
+                                ("last 64 valid keys dropped", drop, None)):
+            w_out = forward_dropping(q, k, v, kv_t, off_t, causal, dr, cols)
+            w_grads = backward_dropping(q, k, v, out, lse, do, kv_t, off_t,
+                                        causal, dr, cols)
+            wrong[wname] = (fwd_m(w_out, ref)[1],
+                            max(bwd_m(g, w)[1] for g, w in zip(w_grads, want)))
+        print(f"[kernel-wide] {name}: {str(dtype)[6:]} q{tuple(q.shape)} "
+              f"k{tuple(k.shape)} (kernel width {width}) causal={causal} "
+              f"kv_lens={kv_lens} q_offset={q_off}: err / {share_of}'s max "
+              f"|ref|: out {fwd_rel:.3e}, dQ/dK/dV {errs[0][1]:.3e} "
+              f"{errs[1][1]:.3e} {errs[2][1]:.3e} (tol {tol}), log-sum-exp abs "
+              f"{lse_err:.3e} (tol {lse_tol}); wrong variants (out, gradients): "
+              + ", ".join(f"{w} {e[0]:.3e} {e[1]:.3e}" for w, e in wrong.items()))
+        if not (max(fwd_rel, *(e[1] for e in errs)) <= tol and lse_err <= lse_tol):
+            raise AssertionError(f"the wide route disagrees with its plain version at {name}")
+        for w, (e_fwd, e_bwd) in wrong.items():
+            if e_fwd <= tol or e_bwd <= tol:
+                raise AssertionError(f"the wide route's limits pass {w} at {name}")
+
+        # times at the padded width (the launchers on padded operands)
+        qp, kp, vp, op, dop = (F.pad(t, (0, width - d)) for t in (q, k, v, out, do))
+        delta = (dop.float() * op.float()).sum(dim=-1).contiguous()
+        args = (qp, kp, vp, dop, lse, delta, kv_t, off_t, causal, scale)
+        mask = tfa._valid(q, k, kv_t, off_t, causal)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask))
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                      retain_graph=True))
+        plain_fwd = time_ms(lambda: tfa.flash_attention_reference(
+            q, k, v, with_lse=True, **kw), reps=3)
+        plain_bwd = time_ms(lambda: tfa.flash_attention_backward_reference(
+            q, k, v, out, lse, do, kv_t, off_t, causal), reps=3)
+        elem, peak = ((4, PEAK_TF32_FLOPS) if dtype == torch.float32
+                      else (2, PEAK_BF16_FLOPS))
+        timed = {
+            "flash_fwd_wide": ("flash_fwd_lse", lambda: tfa._fwd_wide_kernel(
+                qp, kp, vp, kv_t, off_t, causal, scale, True), plain_fwd,
+                lib_fwd, fwd_abs),
+            "flash_bwd_dq_wide": ("flash_bwd_dq", lambda: tfa._bwd_dq_kernel(
+                *args, name="flash_bwd_dq_wide"), plain_bwd, lib_bwd, errs[0][0]),
+            "flash_bwd_dkv_wide": ("flash_bwd_dkv", lambda: tfa._bwd_dkv_kernel(
+                *args, name="flash_bwd_dkv_wide"), plain_bwd, lib_bwd,
+                max(errs[1][0], errs[2][0])),
+        }
+        for kname, (kind, fn, plain_ms, lib_ms, err) in timed.items():
+            bound, bound_by, flops, nbytes = kernel_bound(
+                kind, b, h, sq, skv, d, kv_lens, q_off, causal, elem=elem,
+                peak=peak)
+            r = results[kname][name] = {
+                "max_abs_err": err, "ms": time_ms(fn), "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
+                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                "dtype": str(dtype)[6:], "head_dim": d, "kernel_width": width,
+            }
+            print(f"[kernel-wide] {kname} {name}: kernel {r['ms']:.4f} ms at "
+                  f"width {width}, plain {plain_ms:.4f} ms, library (SDPA"
+                  f"{'' if kname == 'flash_fwd_wide' else ' backward, dQ, dK, dV'}) "
+                  f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
+                  f"{r['gflop']:.3f} GFLOP, {r['mbytes']:.2f} MB)")
+        del q, k, v, do, out, lse, got, want, args, leaves, lib_out, mask
+        gc.collect()
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1590,7 +1835,7 @@ def check_f32_kernels(path_shapes):
         do = torch.randn(b, h, sq, d, generator=gen, device=dev)
         kv_t = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
         off_t = torch.zeros(b, dtype=torch.int32, device=dev)
-        q_off, scale, width = (0,) * b, d ** -0.5, tfa.kernel_head_dim(d)
+        q_off, scale, width = (0,) * b, d ** -0.5, tfa.kernel_head_dim(d, torch.float32)
         kw = dict(kv_lens=kv_t, causal=causal, q_offset=off_t)
 
         out = tfa.flash_attention(q, k, v, **kw)
@@ -3076,10 +3321,14 @@ def pv_bound(mode, g, m, k, n):
 
 
 def check_pv_kernel():
-    """[kernel-pv]: B6 in its four modes at the probe's shapes against its
-    plain version, each beside wrong variants that must miss; its time
-    beside the bound, the plain version and, for bf16, one batched library
-    product (no single PyTorch call computes the integer modes)."""
+    """[kernel-pv]: B6 in its four modes at the probe's shapes, both kernels
+    (the probe's int8_pv_wgmma and the yardstick int8_pv) against the plain
+    version, beside wrong variants that must miss; int8_pv_wgmma again at
+    an M off its row tile; both timed in turns (yardstick, new, new,
+    yardstick) beside the bound, the plain version and, for bf16, one
+    batched library product (no single PyTorch call computes the integer
+    modes). int8_pv_wgmma, which the probe launches, must not be slower
+    than PV_SLACK times the yardstick."""
     import torch
 
     from hsenet_torch.ops import int8_pv as tpv
@@ -3088,18 +3337,21 @@ def check_pv_kernel():
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the bf16 plain version needs full-f32 products")
     g, m, k, n = probe.SHAPES
-    results = {}
+    kernels = {tpv.KERNEL: tpv.int8_pv_wgmma_kernel,
+               tpv.YARDSTICK: tpv.int8_pv_kernel}
+    results = {name: {} for name in kernels}
+
+    def holds(mode, out, ref):
+        """(max abs error, max error / row's max |ref|, within the limit)."""
+        row_max = ref.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+        err = torch.where(out.isfinite(), (out - ref).abs() / row_max,
+                          math.inf).max().item()
+        ok = err <= PV_BF16_ROW_TOL if mode == "bf16" else torch.equal(out, ref)
+        return (out - ref).abs().max().item(), err, ok
+
     for mode in tpv.MODES:
         p, v = probe.make_inputs(mode, probe.SHAPES, device="cuda")
-        out = tpv.int8_pv_kernel(p, v, mode)
-        torch.cuda.synchronize()
         ref = tpv.int8_pv_reference(p, v, mode)
-        row_max = ref.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
-
-        def share(o):
-            err = (o - ref).abs()
-            return torch.where(o.isfinite(), err / row_max, math.inf).max().item()
-
         kept = p[..., :-PV_DROPPED_K]
         wrong = {f"last {PV_DROPPED_K} of K dropped": tpv.int8_pv_reference(
             kept, None if v is None else v[:, :-PV_DROPPED_K], mode)}
@@ -3107,68 +3359,97 @@ def check_pv_kernel():
             wrong["P quantised with a scale of 128"] = tpv.int8_pv_reference(
                 torch.round(p * 128.0).clamp(-128, 127).to(torch.int8), v,
                 "int8_pre")
-        err = share(out)
-        missed = {what: share(o) for what, o in wrong.items()}
-        if mode == "bf16":
-            ok = err <= PV_BF16_ROW_TOL
-            passes = [w for w, e in missed.items() if e <= PV_BF16_ROW_TOL]
-            limit = f"max err / row's max |ref| {err:.3e} (tol {PV_BF16_ROW_TOL})"
-        else:
-            ok = torch.equal(out, ref)
-            passes = [w for w, o in wrong.items() if torch.equal(o, ref)]
-            limit = f"bit-equal: {ok}"
-        max_abs = (out - ref).abs().max().item()
+        missed = {w: holds(mode, o, ref) for w, o in wrong.items()}
+        passes = [w for w, (_, _, ok) in missed.items() if ok]
         print(f"[kernel-pv] {mode}: P{tuple(p.shape)} {p.dtype}, V"
-              f"{tuple(v.shape)} {v.dtype}: max_abs_err {max_abs:.3e} (max "
-              f"|ref| {ref.abs().max().item():.3e}), {limit}; wrong variants "
-              "(max err / row's max |ref|): "
-              + ", ".join(f"{w} {e:.3e}" for w, e in missed.items()))
-        if not ok:
-            raise AssertionError(f"int8_pv {mode} disagrees with its plain version")
+              f"{tuple(v.shape)} {v.dtype}, max |ref| {ref.abs().max().item():.3e}; "
+              "wrong variants (max err / row's max |ref|): "
+              + ", ".join(f"{w} {e:.3e}" for w, (_, e, _) in missed.items()))
         if passes:
             raise AssertionError(f"int8_pv {mode}: the check passes {passes}")
         del wrong, kept
+        errs = {}
+        for name, fn in kernels.items():
+            out = fn(p, v, mode)
+            torch.cuda.synchronize()
+            errs[name] = holds(mode, out, ref)
+            max_abs, err, ok = errs[name]
+            limit = (f"max err / row's max |ref| {err:.3e} (tol {PV_BF16_ROW_TOL})"
+                     if mode == "bf16" else f"bit-equal: {ok}")
+            print(f"[kernel-pv] {name} {mode}: max_abs_err {max_abs:.3e}, {limit}")
+            if not ok:
+                raise AssertionError(f"{name} {mode} disagrees with its plain version")
+            del out
+        # int8_pv_wgmma at an M that is not a multiple of its row tile
+        off = (8, PV_OFF_TILE_M, k, n)
+        pm, vm = probe.make_inputs(mode, off, device="cuda", seed=1)
+        refm = tpv.int8_pv_reference(pm, vm, mode)
+        m_abs, m_err, m_ok = holds(mode, tpv.int8_pv_wgmma_kernel(pm, vm, mode),
+                                   refm)
+        limit = (f"max err / row's max |ref| {m_err:.3e}" if mode == "bf16"
+                 else f"bit-equal: {m_ok}")
+        print(f"[kernel-pv] {tpv.KERNEL} {mode} at G 8, M {PV_OFF_TILE_M} (row "
+              f"tile {tpv.row_tile(mode)}): max_abs_err {m_abs:.3e}, {limit}")
+        if not m_ok:
+            raise AssertionError(f"{tpv.KERNEL} {mode} disagrees off its row tile")
+        del pm, vm, refm
+
         library = None
         if mode == "bf16":  # one batched product with f32 output
             library = time_ms(lambda: torch.bmm(p, v, out_dtype=torch.float32))
+        plain = time_ms(lambda: tpv.int8_pv_reference(p, v, mode), reps=2,
+                        warmup=1, runs=3)
         bound, bound_by, ops, nbytes = pv_bound(mode, g, m, k, n)
-        r = results[mode] = {
-            "max_abs_err": max_abs,
-            "max_row_rel_err": err,
-            "ms": time_ms(lambda: tpv.int8_pv_kernel(p, v, mode)),
-            "plain_ms": time_ms(lambda: tpv.int8_pv_reference(p, v, mode),
-                                reps=2, warmup=1, runs=3),
-            "library_ms": library,
-            "bound_ms": bound,
-            "bound_by": bound_by,
-            "gops": ops / 1e9,
-            "mbytes": nbytes / 1e6,
-        }
-        r["tflops"] = 2 * g * m * k * n / r["ms"] / 1e9
+        turns = {name: [] for name in kernels}
+        for name in (tpv.YARDSTICK, tpv.KERNEL, tpv.KERNEL, tpv.YARDSTICK):
+            turns[name].append(time_ms(lambda fn=kernels[name]: fn(p, v, mode)))
+        times = {name: statistics.mean(t) for name, t in turns.items()}
+        for name in kernels:
+            r = results[name][mode] = {
+                "max_abs_err": errs[name][0], "max_row_rel_err": errs[name][1],
+                "ms": times[name], "turns_ms": turns[name], "plain_ms": plain,
+                "library_ms": library, "bound_ms": bound, "bound_by": bound_by,
+                "gops": ops / 1e9, "mbytes": nbytes / 1e6,
+                "tflops": 2 * g * m * k * n / times[name] / 1e9,
+            }
+        results[tpv.KERNEL][f"{mode}_m{PV_OFF_TILE_M}"] = {
+            "max_abs_err": m_abs, "max_row_rel_err": m_err, "shape": list(off),
+            "ms": None, "plain_ms": None, "library_ms": None,
+            "bound_ms": pv_bound(mode, *off)[0], "bound_by": bound_by}
         lib = ("— (no single PyTorch call: torch has no batched int8 product)"
                if library is None
                else f"{library:.4f} ms (torch.bmm(..., out_dtype=float32))")
-        print(f"[kernel-pv] {mode}: kernel {r['ms']:.4f} ms ({r['tflops']:.0f} "
-              f"TF/s, {nbytes / r['ms'] / 1e6:.0f} GB/s), plain "
-              f"{r['plain_ms']:.4f} ms, library {lib}, bound {bound:.4f} ms "
-              f"({bound_by}: {nbytes / 1e9:.3f} GB, {ops / 1e9:.1f} G operations)")
-        del p, v, out, ref
+        new, old = times[tpv.KERNEL], times[tpv.YARDSTICK]
+        print(f"[kernel-pv] {mode}: {tpv.KERNEL} {new:.4f} ms ({nbytes / new / 1e6:.0f} "
+              f"GB/s, {bound / new:.1%} of the bound; turns "
+              f"{turns[tpv.KERNEL][0]:.4f}, {turns[tpv.KERNEL][1]:.4f}), "
+              f"{tpv.YARDSTICK} {old:.4f} ms (turns {turns[tpv.YARDSTICK][0]:.4f}, "
+              f"{turns[tpv.YARDSTICK][1]:.4f}; new / old {new / old:.3f}), plain "
+              f"{plain:.4f} ms, library {lib}, bound {bound:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.1f} G operations)")
+        if new > PV_SLACK * old:
+            raise AssertionError(f"int8_pv_wgmma {mode} ({new:.4f} ms) is slower "
+                                 f"than {PV_SLACK} x int8_pv ({old:.4f} ms)")
+        del p, v, ref
         torch.cuda.empty_cache()
     return results
 
 
 def run_pv_probe():
     """B6's path: the probe entry `hsenet_torch.scripts.probe_int8_pv` over
-    its four modes, launches counted by mode."""
+    its four modes, launches counted by kernel and mode; every mode must
+    have launched int8_pv_wgmma, and never the yardstick."""
     from hsenet_torch.ops import int8_pv as tpv
     from hsenet_torch.scripts import probe_int8_pv as probe
 
     tpv.reset_launch_counts()  # the probe's run, counted
     probe.probe(tpv.MODES, probe.SHAPES, device="cuda")
-    launches = dict(tpv.launches)
-    print(f"[kernel-pv] probe run: int8_pv launches by mode {launches}")
-    if not all(launches[mode] > 0 for mode in tpv.MODES):
-        raise AssertionError(f"the probe did not launch int8_pv in every mode: {launches}")
+    launches = {name: dict(c) for name, c in tpv.launches.items()}
+    print(f"[kernel-pv] probe run: launches by kernel and mode {launches}")
+    for mode in tpv.MODES:
+        if launches[tpv.KERNEL][mode] == 0 or launches[tpv.YARDSTICK][mode]:
+            raise AssertionError(f"the probe's {mode} run did not go through "
+                                 f"{tpv.KERNEL} alone: {launches}")
     return launches
 
 
@@ -3673,7 +3954,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # one nvcc per source, all at once
-    _build.load_all((*KERNELS, tqm.KERNEL, tpv.KERNEL))
+    _build.load_all((*KERNELS, tqm.KERNEL, tpv.KERNEL, tpv.YARDSTICK))
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(_build.BUILD_LOGS) or 'cached'}")
     for name, log in _build.BUILD_LOGS.items():
@@ -3685,7 +3966,8 @@ def main() -> int:
     per_shape = check_flash_kernel()
     bwd = check_flash_bwd_kernels()
     bwd_d256 = {k: bwd.pop(k) for k in ("flash_bwd_dq_d256", "flash_bwd_dkv_d256")}
-    lap("[kernel], [kernel-bwd]")
+    wide = check_flash_wide()
+    lap("[kernel], [kernel-bwd], [kernel-wide]")
     clip_kernels = check_clip_kernels()
     lap("[kernel-time] at the CLIP shapes")
     # the f32 route: the CLIs' --synthetic paths on the card, then the f32
@@ -3831,6 +4113,17 @@ def main() -> int:
                 "and one step of [train-f32]: per-launch times at the padded "
                 "width at each shape x its launches there; bound at the TF32 "
                 "peak; library is f32 SDPA")
+    wide_note = ("the wide route (ROADMAP C2: bf16 and f16 above head dim 256, "
+                 "f32 above 128, at the next multiple of 64), on no path: "
+                 "per-launch times at each [kernel-wide] shape summed; bound at "
+                 "the bf16 peak, or the TF32 peak in f32; library is SDPA")
+    pv_note = ("sums over the probe run (python -m hsenet_torch.scripts."
+               "probe_int8_pv, all four modes at G 192, M 1152, K 2176, N 64) "
+               "of this kernel's launches, per-launch times x launches, or "
+               "where it launched none (the yardstick), over all four modes "
+               "once; library_ms is null: no single PyTorch call "
+               "computes the integer modes, and the bf16 mode's torch.bmm time "
+               "stands under shapes")
     kernels = [
         entry("flash_fwd", "hsenet_torch/csrc/flash_fwd_wgmma.cu",
               f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
@@ -3860,6 +4153,17 @@ def main() -> int:
               "bf16 and f16 at head dim 256 (C2), on no path: per-launch times "
               "summed over the shapes; plain and library times compute dQ, dK "
               "and dV"),
+        entry("flash_fwd_wide", "hsenet_torch/csrc/flash_fwd.cu",
+              f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
+              wide["flash_fwd_wide"], {}, wide_note),
+        entry("flash_bwd_dq_wide", "hsenet_torch/csrc/flash_bwd_dq.cu",
+              f"{jax_fa}:552 (_bwd_dq_kernel), {jax_fa}:678 (_bwd_dq_kernel_stream)",
+              wide["flash_bwd_dq_wide"], {},
+              wide_note + "; plain and library times compute dQ, dK and dV"),
+        entry("flash_bwd_dkv_wide", "hsenet_torch/csrc/flash_bwd_dkv.cu",
+              f"{jax_fa}:611 (_bwd_dkv_kernel), {jax_fa}:750 (_bwd_dkv_kernel_stream)",
+              wide["flash_bwd_dkv_wide"], {},
+              wide_note + "; plain and library times compute dQ, dK and dV"),
         entry("flash_fwd_f32", "hsenet_torch/csrc/flash_fwd.cu",
               f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
               f32_kernels["flash_fwd"], f32_counts["flash_fwd"], f32_note),
@@ -3876,13 +4180,12 @@ def main() -> int:
               "sums over the decode steps of the closed and open serving loops "
               "at 8 slots: per-launch times at each (K, N), codes read cold, x its "
               "launches there; library is a matmul on a bf16 copy of the weight"),
-        entry("int8_pv", "hsenet_torch/csrc/int8_pv.cu",
-              "scripts/_probe_pallas_int8.py:10 (make_kernel)", pv, pv_launches,
-              "sums over the probe run (python -m hsenet_torch.scripts."
-              "probe_int8_pv, all four modes at G 192, M 1152, K 2176, N 64): "
-              "per-launch times of each mode x its launches; library_ms is "
-              "null: no single PyTorch call computes the integer modes, and "
-              "the bf16 mode's torch.bmm time stands under shapes"),
+        *(entry(name, f"hsenet_torch/csrc/{name}.cu",
+                "scripts/_probe_pallas_int8.py:10 (make_kernel)", pv[name],
+                {mode: n for mode, n in pv_launches[name].items() if n},
+                pv_note + ("" if name == tpv.KERNEL else "; the mma.sync "
+                           "yardstick of int8_pv_wgmma"))
+          for name in (tpv.KERNEL, tpv.YARDSTICK)),
     ]
     clip = {"stage1": stage1_numbers, "stage2": stage2_numbers,
             "grads": clip_grad_numbers, "long": long_numbers,

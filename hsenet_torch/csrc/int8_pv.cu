@@ -1,9 +1,13 @@
-// The P.V probe product for Hopper (sm_90a): out[g] = P[g] V[g] in f32.
+// The yardstick of the P.V probe product: out[g] = P[g] V[g] in f32, by
+// mma.sync (sm_90a). No path launches it: the probe runs int8_pv_wgmma.cu,
+// the kernel redesigned for Hopper, and chip_smoke.py times that kernel
+// against this one, in every mode on the same card.
 //
-// Replaces the TPU kernel `make_kernel(mode)` of the JAX package
-// (scripts/_probe_pallas_int8.py), the probe that decides how attention's
-// P.V product behaves in the W8A8 serving-encode mode. Per grid cell g it
-// computes a (M, K) x (K, N) product with f32 output, in one of four modes:
+// This was the first port of the TPU kernel `make_kernel(mode)` of the JAX
+// package (scripts/_probe_pallas_int8.py), the probe that decides how
+// attention's P.V product behaves in the W8A8 serving-encode mode. Per grid
+// cell g it computes a (M, K) x (K, N) product with f32 output, in one of
+// four modes:
 //   0 bf16            P, V bf16; bf16 products summed in f32;
 //   1 int8_pre        P, V int8; int32 sums, one conversion to f32;
 //   2 quant_then_int8 P f32, V int8; P becomes rint(p * 127) as int8 (round

@@ -12,14 +12,18 @@ CPU tensor it runs `flash_attention_reference`. It never falls from one to
 the other.
 
 The kernels take bf16, f16 or f32 operands (one dtype for q, k, v; f32
-runs TF32 products, see `csrc/flash_common.cuh`) at head_dim 64, 128 or,
-in bf16 and f16, 256. Every other width up to 256 goes through
-`with_head_dim_padded`, which gives q, k, v (and o, dO) zero columns up to
-the next of those widths and slices the outputs back, with the softmax
-scale of the true width; the CPU route pads the same way, so the CPU tests
-hold the padded route to the JAX kernels. Above 256, and in f32 above 128,
-`check_operands` raises (ROADMAP C2; the JAX kernels pad any width to a
-multiple of 128).
+runs TF32 products, see `csrc/flash_common.cuh`) at any head_dim. Their
+native widths are 64, 128 and, in bf16 and f16, 256; above those (bf16
+and f16 above 256, f32 above 128) the wide route runs: the `_wide` entries
+of `csrc/flash_fwd.cu`, `flash_bwd_dq.cu` and `flash_bwd_dkv.cu`, at any
+multiple of 64, one CTA per 64 output columns with S (and dP) summed over
+64-column chunks. `with_head_dim_padded` gives q, k, v (and o, dO) zero
+columns up to `kernel_head_dim` (the next native width, or above them the
+next multiple of 64) and slices the outputs back, with the softmax scale
+of the true width; the CPU route pads the same way, so the CPU tests hold
+the padded route to the JAX kernels (which pad any width to a multiple of
+128: zero columns change nothing, so the two agree). float64 and mixed
+dtypes raise: the JAX package runs with x64 off and has no float64 arrays.
 
 When autograd needs its gradient (grad mode on and an input that requires
 grad), the call goes through `_FlashAttention`, the counterpart of the JAX
@@ -29,8 +33,9 @@ in bf16 and f16 up to head_dim 128 (one wgmma/TMA kernel for dQ, dK and
 dV, the port of `_bwd_dq_kernel` and `_bwd_dkv_kernel`; dQ is summed across
 key tiles by f32 reduce-adds, so it is not bit-reproducible run to run) or
 the two mma.sync kernels `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu`
-(in f32, and in bf16 and f16 at head_dim 256), or on the CPU runs their
-plain version `flash_attention_backward_reference`.
+(in f32, in bf16 and f16 at head_dim 256, and their `_wide` entries above
+the native widths), or on the CPU runs their plain version
+`flash_attention_backward_reference`.
 Autograd through `flash_attention_reference` itself is the JAX package's
 recompute route (`use_pallas_bwd=False`); nothing on the port's paths takes
 it.
@@ -61,16 +66,20 @@ import torch
 
 from hsenet_torch.ops import _build
 
-SUPPORTED_HEAD_DIMS = (64, 128, 256)  # the kernels' widths; others are padded
-MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
-F32_MAX_HEAD_DIM = 128  # the f32 (TF32 mma.sync) route's widest
+SUPPORTED_HEAD_DIMS = (64, 128, 256)  # the native widths of bf16 and f16
+F32_HEAD_DIMS = (64, 128)  # the native widths of f32; above them, wide
+WIDE_STEP = 64  # the wide route's widths: multiples of 64
 KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 # flash_fwd_wgmma is the bf16 and f16 forward, flash_fwd the f32 one (and
 # chip_smoke.py's bf16 yardstick); flash_bwd is the bf16 and f16 backward up
 # to head_dim 128, flash_bwd_dq and flash_bwd_dkv the f32 one and the bf16
-# and f16 one at 256
+# and f16 one at 256. These are the sources; the wide route's kernels
+# (`WIDE`) are entries of the libraries of flash_fwd, flash_bwd_dq and
+# flash_bwd_dkv.
 KERNELS = ("flash_fwd", "flash_fwd_wgmma", "flash_bwd", "flash_bwd_dq",
            "flash_bwd_dkv")
+WIDE = {"flash_fwd_wide": "flash_fwd", "flash_bwd_dq_wide": "flash_bwd_dq",
+        "flash_bwd_dkv_wide": "flash_bwd_dkv"}
 # H100 SXM's streaming multiprocessors, when no card is there to ask
 DEFAULT_SMS = 132
 # the log-sum-exp of a row with no valid column (the JAX package's -NEG_INF)
@@ -172,18 +181,29 @@ def flash_attention_backward_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def kernel_head_dim(d: int) -> int:
-    """The kernel width a head dim `d` is padded to: 64 up to 64, 128 up to
-    128, 256 up to 256. Above 256 it raises (ROADMAP C2: the JAX kernels pad
-    any width to a multiple of 128, but a 64-row f32 output tile at 512 is
-    256 registers a thread, and no configuration of either package goes
-    above 256)."""
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"flash kernels take head_dim 1..{MAX_HEAD_DIM} (padded to 64, 128 "
-            f"or 256), got {d} (ROADMAP C2)"
-        )
-    return next(w for w in SUPPORTED_HEAD_DIMS if d <= w)
+def native_head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
+    """The widths the kernels of `dtype` run natively: 64, 128 and 256 in
+    bf16 and f16, 64 and 128 in f32."""
+    return F32_HEAD_DIMS if dtype == torch.float32 else SUPPORTED_HEAD_DIMS
+
+
+def kernel_head_dim(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The kernel width a head dim `d` of `dtype` is padded to: the next
+    native width (64, 128, and 256 in bf16 and f16), and above the native
+    ones the next multiple of 64, the wide route's width (the JAX kernels
+    pad to a multiple of 128; zero columns change nothing, so both give the
+    same result)."""
+    if d < 1:
+        raise ValueError(f"flash kernels take head_dim >= 1, got {d}")
+    native = native_head_dims(dtype)
+    if d > native[-1]:
+        return -(-d // WIDE_STEP) * WIDE_STEP
+    return next(w for w in native if d <= w)
+
+
+def is_wide(width: int, dtype: torch.dtype) -> bool:
+    """Whether a kernel width of `dtype` runs the wide route."""
+    return width > native_head_dims(dtype)[-1]
 
 
 def forward_query_tile(batch: int, heads: int, sq: int, head_dim: int,
@@ -216,9 +236,9 @@ def with_head_dim_padded(fn, *args, sm_scale: float, **kw):
     back to d. A zero column adds nothing to a score, so the softmax, the
     log-sum-exp and delta are those of the true width; `sm_scale` must be
     the true width's (1/sqrt(d), not 1/sqrt of the padded width), so the
-    caller passes it. At d = 64 or 128 nothing is copied."""
+    caller passes it. At a kernel width nothing is copied."""
     d = args[0].shape[-1]
-    width = kernel_head_dim(d)
+    width = kernel_head_dim(d, args[0].dtype)
     if width == d:
         return fn(*args, sm_scale=sm_scale, **kw)
     pad = [
@@ -237,8 +257,8 @@ def with_head_dim_padded(fn, *args, sm_scale: float, **kw):
 def check_operands(q, k, v) -> None:
     """What the CUDA route takes, checked before the head dim is padded: q,
     k and v on one device, of one dtype, bfloat16, float16 or float32
-    (other and mixed dtypes raise), head_dim at most 256 (at most 128 in
-    float32), GQA heads expanded."""
+    (float64, which the JAX package does not have with x64 off, other and
+    mixed dtypes raise), any head_dim of at least 1, GQA heads expanded."""
     batch, heads, _, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
@@ -252,13 +272,7 @@ def check_operands(q, k, v) -> None:
             raise ValueError(
                 f"{name} is {t.dtype}, q is {q.dtype}: one dtype for all"
             )
-    kernel_head_dim(d)
-    if q.dtype == torch.float32 and d > F32_MAX_HEAD_DIM:
-        raise ValueError(
-            f"the float32 flash kernels take head_dim up to {F32_MAX_HEAD_DIM}, "
-            f"got {d} (ROADMAP C2: a TF32 tile of 256 columns does not fit "
-            "the mma.sync kernels' registers and shared memory)"
-        )
+    kernel_head_dim(d, q.dtype)
     if k.shape[:2] != (batch, heads) or v.shape != k.shape or k.shape[3] != d:
         raise ValueError(
             f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}:"
@@ -280,13 +294,16 @@ def _check_layout(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
 
 
 def _check_cuda_operands(q, k, v):
-    """The kernels' operands after padding: `check_operands`, the kernel
-    widths 64, 128 and 256, and the row layout."""
+    """The kernels' operands after padding: `check_operands`, a kernel
+    width (a native one, or above them a multiple of 64), and the row
+    layout."""
     check_operands(q, k, v)
-    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
+    d = q.shape[-1]
+    if d != kernel_head_dim(d, q.dtype):
         raise ValueError(
-            f"the kernels run at head_dim 64, 128 or 256, got {q.shape[-1]}: "
-            "pad through with_head_dim_padded"
+            f"the {q.dtype} kernels run at head_dim "
+            f"{native_head_dims(q.dtype)} or above them a multiple of "
+            f"{WIDE_STEP}, got {d}: pad through with_head_dim_padded"
         )
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t, q)
@@ -300,11 +317,13 @@ _ARGTYPES = {  # pointers, then ints (batch, heads, sq, skv, d, ...), strides
     "flash_bwd_dq": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 15,
     "flash_bwd_dkv": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 18,
 }
+_ARGTYPES.update({wide: _ARGTYPES[lib] for wide, lib in WIDE.items()})
 _SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 
 
 def _kernel(name: str, dtype: torch.dtype):
-    fn = getattr(_build.load(name), f"hsenet_{name}_{_SUFFIX[dtype]}")
+    lib = _build.load(WIDE.get(name, name))
+    fn = getattr(lib, f"hsenet_{name}_{_SUFFIX[dtype]}")
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name] + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -357,7 +376,7 @@ def _fwd_launch(name, q, k, v, kv, q_off, causal, sm_scale, with_lse, extra=()):
             (batch, heads, sq, k.shape[2], d), (q, k, v, out), causal,
             sm_scale, q, "flash_fwd_lse" if with_lse else "flash_fwd", extra,
         )
-        fwd_launches[(d, with_lse)] += 1
+        fwd_launches[(d, with_lse)] = fwd_launches.get((d, with_lse), 0) + 1
     return out, lse
 
 
@@ -378,9 +397,21 @@ def _fwd_mma_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse):
                        with_lse)
 
 
+def _fwd_wide_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+    """Launch flash_fwd's wide route (bf16, f16, f32 at a multiple of 64
+    above the native widths): (out, lse or None)."""
+    return _fwd_launch("flash_fwd_wide", q, k, v, kv, q_off, causal, sm_scale,
+                       with_lse)
+
+
 def _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse):
-    """The forward kernel of q's dtype: (out, lse or None)."""
-    fn = _fwd_mma_kernel if q.dtype == torch.float32 else _fwd_wgmma_kernel
+    """The forward kernel of q's dtype and width: (out, lse or None)."""
+    if is_wide(q.shape[-1], q.dtype):
+        fn = _fwd_wide_kernel
+    elif q.dtype == torch.float32:
+        fn = _fwd_mma_kernel
+    else:
+        fn = _fwd_wgmma_kernel
     return fn(q, k, v, kv, q_off, causal, sm_scale, with_lse)
 
 
@@ -419,14 +450,15 @@ def _bwd_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
     return dq, dk, dv
 
 
-def _bwd_dq_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
-    """Launch flash_bwd_dq: dq. `lse` and `delta` are contiguous (B, H, Sq)
-    f32."""
+def _bwd_dq_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale,
+                   name="flash_bwd_dq"):
+    """Launch flash_bwd_dq (or its wide route, `name` flash_bwd_dq_wide): dq.
+    `lse` and `delta` are contiguous (B, H, Sq) f32."""
     batch, heads, sq, d = q.shape
     dq = _bshd(batch, sq, heads, d, q)
     if dq.numel():
         _launch(
-            "flash_bwd_dq",
+            name,
             [t.data_ptr() for t in (q, k, v, do, lse, delta, dq, kv, q_off)],
             (batch, heads, sq, k.shape[2], d), (q, k, v, do, dq), causal,
             sm_scale, q,
@@ -434,15 +466,17 @@ def _bwd_dq_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
     return dq
 
 
-def _bwd_dkv_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
-    """Launch flash_bwd_dkv: (dk, dv)."""
+def _bwd_dkv_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale,
+                    name="flash_bwd_dkv"):
+    """Launch flash_bwd_dkv (or its wide route, `name` flash_bwd_dkv_wide):
+    (dk, dv)."""
     batch, heads, sq, d = q.shape
     skv = k.shape[2]
     dk = _bshd(batch, skv, heads, d, k)
     dv = _bshd(batch, skv, heads, d, v)
     if dk.numel():
         _launch(
-            "flash_bwd_dkv",
+            name,
             [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv, kv, q_off)],
             (batch, heads, sq, skv, d), (q, k, v, do, dk, dv), causal,
             sm_scale, q,
@@ -453,12 +487,16 @@ def _bwd_dkv_kernel(q, k, v, do, lse, delta, kv, q_off, causal, sm_scale):
 def _backward_kernels(q, k, v, o, lse, do, kv, q_off, causal, sm_scale):
     """(dq, dk, dv) by the kernels at the kernel width: flash_bwd in bf16 and
     f16 up to head_dim 128, flash_bwd_dq and flash_bwd_dkv in f32 and at
-    head_dim 256. delta = rowsum(dO * O) in f32, as the JAX package computes
-    it outside its kernels."""
+    head_dim 256, their wide route above the native widths. delta =
+    rowsum(dO * O) in f32, as the JAX package computes it outside its
+    kernels."""
     _check_cuda_operands(q, k, v)
     do = _check_do(q, do)
     delta = (do.float() * o.float()).sum(dim=-1).contiguous()
     args = (q, k, v, do, lse.contiguous(), delta, kv, q_off, causal, sm_scale)
+    if is_wide(q.shape[-1], q.dtype):
+        return (_bwd_dq_kernel(*args, name="flash_bwd_dq_wide"),
+                *_bwd_dkv_kernel(*args, name="flash_bwd_dkv_wide"))
     if q.dtype != torch.float32 and q.shape[-1] <= 128:
         return _bwd_kernel(*args)
     return (_bwd_dq_kernel(*args), *_bwd_dkv_kernel(*args))
@@ -566,16 +604,18 @@ def flash_attention(
 
 
 # kernel launches since the last reset: by kernel (a bf16 or f16 forward is
-# "flash_fwd_wgmma", an f32 one "flash_fwd"); the forward's by (kernel head
-# dim, whether it wrote the log-sum-exp); every launch by (kind, batch,
-# heads, sq, skv, kernel head dim), kind "flash_fwd", "flash_fwd_lse" (the
-# forward that autograd records; either forward kernel), "flash_bwd" (bf16,
-# f16), "flash_bwd_dq" or "flash_bwd_dkv" (f32; bf16, f16 at 256); and the
-# f32 launches by (kernel, kernel head dim).
+# "flash_fwd_wgmma", an f32 one "flash_fwd", one above the native widths
+# "flash_fwd_wide"; the wide backward "flash_bwd_dq_wide" and
+# "flash_bwd_dkv_wide"); the forward's by (kernel head dim, whether it wrote
+# the log-sum-exp); every launch by (kind, batch, heads, sq, skv, kernel
+# head dim), kind "flash_fwd", "flash_fwd_lse" (the forward that autograd
+# records; any forward kernel), "flash_bwd" (bf16, f16), "flash_bwd_dq" or
+# "flash_bwd_dkv" (f32; bf16, f16 at 256), "flash_bwd_dq_wide" or
+# "flash_bwd_dkv_wide"; and the f32 launches by (kernel, kernel head dim).
 # chip_smoke.py reads them to show that the main path went through the
 # kernels, and at which shapes (the towers, BERT, the LLM, the fine-patch
 # tower, the synthetic CLI's padded widths).
-launches = dict.fromkeys(KERNELS, 0)
+launches = dict.fromkeys((*KERNELS, *WIDE), 0)
 fwd_launches = {(d, lse): 0 for d in SUPPORTED_HEAD_DIMS for lse in (False, True)}
 shape_launches: collections.Counter = collections.Counter()
 f32_launches: collections.Counter = collections.Counter()

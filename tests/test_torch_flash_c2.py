@@ -1,9 +1,10 @@
 """The flash kernels' float16 operands and head dims up to 256 (ROADMAP C2)
 against the JAX package, on the CPU.
 
-The port's CUDA route takes bf16, f16 and f32 at kernel widths 64, 128 and
-256 (f32 up to 128); `with_head_dim_padded` gives every other width up to
-256 zero columns. Here the plain versions run that route at the padded
+The port's CUDA route takes bf16, f16 and f32 at native kernel widths 64,
+128 and 256 (f32: 64 and 128) and above them at multiples of 64 (the wide
+route, `test_torch_flash_wide.py`); `with_head_dim_padded` gives every
+other width zero columns up to its kernel width. Here the plain versions run that route at the padded
 width, through `flash_attention` and its autograd Function, and the JAX
 kernels (`hsenet_tpu/ops/flash_attention.py`, which pad to a multiple of
 128 themselves) run in interpret mode on the same inputs, drawn from a seed
@@ -54,7 +55,8 @@ TOL = {"float32": (2e-5, 1e-4, 2e-5), "float16": (2e-3, 2e-3, 1e-3)}
 DTYPES = {"float32": (np.float32, torch.float32, jnp.float32),
           "float16": (np.float16, torch.float16, jnp.float16)}
 # f16 at the kernels' own widths, and the padded route at 160 and 192
-# (padded to 256) and at 256 itself, in f32 and f16
+# (padded to 256 in f16; to 192 and 256 in f32, the wide route) and at 256
+# itself, in f32 and f16
 CASES = [("float16", 64), ("float16", 128)] + [
     (dt, d) for d in (160, 192, 256) for dt in ("float32", "float16")]
 
@@ -144,7 +146,7 @@ def test_grads_match_jax(dtype, d, monkeypatch):
     out = flash_attention(*leaves, **_torch_kw(kw))
     got = torch.autograd.grad(out, leaves, torch.as_tensor(do))
     fwd_tol, grad_tol, _ = TOL[dtype]
-    assert widths == [kernel_head_dim(d)]
+    assert widths == [kernel_head_dim(d, DTYPES[dtype][1])]
     _close(out.detach().float().numpy(), np.asarray(want_out), fwd_tol)
     for g, w, n in zip(got, want, (SQ, SKV, SKV)):
         assert g.dtype == DTYPES[dtype][1] and g.shape == (B, H, n, d)
@@ -172,11 +174,13 @@ def test_operand_check_takes_16_bit_up_to_256(dtype, d):
 
 @pytest.mark.parametrize("d", [160, 256])
 def test_operand_check_f32_stops_at_128(d):
-    """The f32 (TF32 mma.sync) route takes head dims up to 128; the plain
-    version on the CPU pads the same widths and runs."""
+    """Above 128, the f32 (TF32 mma.sync) kernels' widest native width, f32
+    takes the wide route at the next multiple of 64 (ROADMAP C2, closed);
+    the plain version on the CPU pads to the same width and runs."""
     q, k, v = (torch.zeros((1, 2, 4, d)) for _ in range(3))
-    with pytest.raises(ValueError, match="C2"):
-        check_operands(q, k, v)
+    check_operands(q, k, v)
+    assert kernel_head_dim(d, torch.float32) == {160: 192, 256: 256}[d]
+    assert tfa.is_wide(kernel_head_dim(d, torch.float32), torch.float32)
     assert flash_attention(q, k, v).shape == q.shape
 
 

@@ -1,8 +1,9 @@
 """The flash kernels' head-dim padding against the JAX package, on the CPU
 in f32.
 
-The port's kernels run at head_dim 64, 128 and 256; `with_head_dim_padded`
-gives every other width zero columns up to the next of those, calls the
+The port's kernels run at head_dim 64, 128 and 256 (f32: 64 and 128) and
+above them at multiples of 64; `with_head_dim_padded` gives every other
+width zero columns up to the next of those, calls the
 attention function it is handed (the kernel launchers on the card, the
 plain versions here) with the true width's softmax scale, and slices the
 outputs back. This file holds the widths up to 128 (widths above 128 and
@@ -158,12 +159,17 @@ def test_operand_check_takes_bf16_and_f32_up_to_128(dtype, d):
 
 @pytest.mark.parametrize("what", ["float64", "mixed", "d257", "d320"])
 def test_operand_check_raises(what):
-    """A dtype the kernels do not take, mixed dtypes, and widths above 256
-    (ROADMAP C2: the kernels pad to 64, 128 or 256) raise."""
+    """A dtype the kernels do not take (float64: the JAX package has none
+    with x64 off) and mixed dtypes raise. Widths above 256 are taken since
+    ROADMAP C2 closed: the wide route pads 257 and 320 to 320."""
     d = {"d257": 257, "d320": 320}.get(what, 64)
     dtype = torch.float64 if what == "float64" else torch.bfloat16
     q, k, v = (torch.zeros((1, 2, 4, d), dtype=dtype) for _ in range(3))
     if what == "mixed":
         k = k.to(torch.float16)
-    with pytest.raises(ValueError, match="256" if what.startswith("d") else "dtype|float"):
+    if what.startswith("d"):
+        check_operands(q, k, v)
+        assert kernel_head_dim(d, dtype) == 320
+        return
+    with pytest.raises(ValueError, match="dtype|float"):
         check_operands(q, k, v)

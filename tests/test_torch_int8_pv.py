@@ -122,7 +122,47 @@ def test_kernel_request_refuses_the_cpu_and_bad_shapes():
         tpv.int8_pv_kernel(p, v, "bf16")
     with pytest.raises(ValueError, match="mode"):
         tpv.int8_pv(p, v, "fp8")
-    assert tpv.launches == {mode: 0 for mode in tpv.MODES}
+    assert tpv.launches == {name: {mode: 0 for mode in tpv.MODES}
+                            for name in (tpv.KERNEL, tpv.YARDSTICK)}
+
+
+def _operands(mode, m, k):
+    p_dtype, v_dtype = tpv.DTYPES[mode]
+    return (torch.zeros(2, m, k, dtype=p_dtype),
+            torch.zeros(2, k, tpv.HEAD_DIM, dtype=v_dtype))
+
+
+@pytest.mark.parametrize("mode", tpv.MODES)
+def test_wgmma_kernel_refuses_the_cpu(mode):
+    """int8_pv_wgmma launches on CUDA tensors only: the probe's shapes on
+    the CPU raise, and nothing is counted."""
+    p, v = _operands(mode, 64, 128)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpv.int8_pv_wgmma_kernel(p, v, mode)
+    assert sum(tpv.launches[tpv.KERNEL].values()) == 0
+
+
+@pytest.mark.parametrize("mode", tpv.MODES)
+def test_wgmma_kernel_refuses_k_off_its_tile(mode):
+    """K must be a multiple of 64 in every mode (P's rows start on 16-byte
+    boundaries for TMA; the tiles past K are zero-filled)."""
+    p, v = _operands(mode, 64, 96)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tpv.int8_pv_wgmma_kernel(p, v, mode)
+
+
+@pytest.mark.parametrize("mode", tpv.MODES)
+def test_wgmma_kernel_takes_m_off_its_row_tile(mode):
+    """M needs no padding: rows past M arrive as zeros and are not stored.
+    An M that is not a multiple of the CTA's rows passes every shape check
+    and is refused only for its device."""
+    m = 1000
+    assert m % tpv.row_tile(mode) != 0
+    assert tpv.row_tile(mode) == (128 if mode in ("quant_then_int8", "glue_only")
+                                  else 192)
+    p, v = _operands(mode, m, 128)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpv.int8_pv_wgmma_kernel(p, v, mode)
 
 
 def test_probe_entry_on_the_cpu(capsys):
