@@ -52,7 +52,10 @@ In order:
 4a. [cli-serve] runs the serving CLI's documented examples on the card
    (`--synthetic --num-requests 6`; `--quant-int8 --llm-only --synthetic
    --speculative`): tiny f32 models with head dims 8 and 16, so every flash
-   launch is f32 at the padded width 64; every request must finish;
+   launch is f32 at the padded width 64; every request must finish; B5's
+   launches counted by entry (none may reach the tensor-core entry; the
+   `--synthetic` models carry no int8 weights, as in the JAX CLI, so the
+   CUDA-core entry's f32 count is 0 too);
 4b. [train-f32] the VLM finetune step at the same `--synthetic`
    configuration in f32: 8 forward, 2 dQ and 2 dK/dV f32 launches a step;
 4c. [kernel-f32] holds the f32 route of the forward (with and without the
@@ -63,11 +66,20 @@ In order:
    the softmax scale of the padded width and without the last 64 valid keys
    that must miss; times against the bound at the TF32 peak, the plain
    version and f32 SDPA;
-5. [kernel-matvec] holds the int8 matvec kernel against its plain version
-   at Phi-4-mini's four projection shapes, M = 8 and M = 1, in bf16, beside
-   two wrong variants that must miss the limit, and times it at M = 8 with
-   the codes read cold, beside its bound, the plain version and a library
-   product on a bf16 copy of the weight;
+5. [kernel-matvec] holds B5's tensor-core entry (hsenet_quant_matvec_mma:
+   mma.sync bf16 products of codes converted in registers, cp.async rings,
+   K slices over a CTA's warps) against its plain version in bf16 at
+   Phi-4-mini's four projection shapes, a ragged shape (K 3088 x N 1000)
+   and the `--synthetic` shapes (K 64 x N 32, K 128 x N 64), each at M 1, 2,
+   3, 5 and 8, beside two wrong variants that must miss the limit, two
+   launches bit-equal; the CUDA-core entry (hsenet_quant_matvec_fma, the f32
+   route and the yardstick) likewise in f32 at the synthetic shapes; the
+   dispatcher's route by dtype; then at the four path shapes, M = 8 and M
+   = 1, with the codes read cold, times both entries in turns beside the
+   bound, the plain version, a bf16 matmul on a converted copy and
+   `torch._weight_int8pack_mm` where the card's PyTorch has a CUDA kernel
+   for it (both library calls yardsticks only), and the tensor-core entry
+   once at the LM head's 3072 x 200064 table (off the path);
 5a. [kernel-pv] holds the P.V probe kernel (B6: int8_pv_wgmma, TMA and
    wgmma, and the mma.sync int8_pv it replaced, kept as its yardstick)
    against its plain version in its four modes at the JAX probe's shapes
@@ -117,7 +129,8 @@ In order:
    scans closed loop, then 8 more through `run_open_loop`. It checks that
    every request finishes with tokens in the vocabulary, the hit and miss
    counts, flash_fwd launches = 24 per encode miss + 32 per admission and
-   quant_matvec launches = 224 per decode step; prints tokens/s, slot
+   quant_matvec launches = 224 per decode step, all on B5's tensor-core
+   entry (none on the CUDA-core entry); prints tokens/s, slot
    utilization, TTFT and TPOT, peak memory and `hbm_stats()`; holds one
    decode step's logits through the matvec kernel against the same step
    through its plain version, and a prefix hit's first-token logits
@@ -262,6 +275,17 @@ MATVEC_PER_LAYER = {"qo_3072x3072": 2, "kv_3072x1024": 2,
 # reads them from device memory, as a decode step does (its 32 layers hold
 # 3.2 GB of codes), not from the 50 MB L2
 MATVEC_COLD_BYTES = 128e6
+# [kernel-matvec] checks every shape at these M, and beside the path's
+# four shapes a ragged one (K = 193 x 16, N off the 64-channel blocks) and
+# the `--synthetic` models' (hidden 64: K 64 and 128), where the CUDA-core
+# entry is checked in f32 too
+MATVEC_CHECK_ROWS = (1, 2, 3, 5, 8)
+MATVEC_CHECK_SHAPES = {"ragged_3088x1000": (3088, 1000),
+                       "synthetic_64x32": (64, 32), "synthetic_128x64": (128, 64)}
+MATVEC_SYNTHETIC = ("synthetic_64x32", "synthetic_128x64")
+# the LM head's tied int8 table (K x vocab), timed once at M = 8: 614 MB of
+# codes, the kernel's streaming rate without a launch's fixed cost
+MATVEC_LM_HEAD = (3072, 200064)
 
 EOS_TOKEN_ID = 200020  # Phi-4-mini <|end|>
 IM_PATCH_TOKEN_ID = 200010  # placeholder id under the spliced image block
@@ -397,7 +421,10 @@ SPEC_NGRAM = 2
 # layers put a logit ~1.6e-2 of that RMS apart (the decode-logits reading
 # of check_serve_logits), so a flip needs a gap under about twice that; a
 # draft accepted past its first mismatch ([spec]'s wrong variant) must
-# miss the limit
+# miss the limit. [spec] reads the gap on f32 logits of the prefill's last
+# hidden state: the model's bf16 logits near a top logit of ~5 move in
+# steps of 0.028 of the RMS, too coarse for this limit (a parting read
+# 0.0564 in bf16 and 0.0431 in f32 on the same hidden state, PERF.md)
 NEAR_TIE_SHARE = 0.05
 
 
@@ -908,17 +935,23 @@ def forward_dropping(q, k, v, kv_t, off_t, causal, drop, score_cols=None):
 
 
 def check_matvec_kernel():
-    """B5 against its plain version at Phi-4-mini's four (K, N), M = 8 and
-    M = 1, in bf16, with two wrong variants; and its time at M = 8 beside
-    its bound, the plain version and a library product on a bf16 copy of
-    the weight."""
+    """B5: the tensor-core entry against its plain version in bf16 at
+    Phi-4-mini's four (K, N), a ragged shape and the `--synthetic` shapes,
+    every M in MATVEC_CHECK_ROWS, two launches bit-equal, two wrong
+    variants beside each limit; the CUDA-core entry likewise in f32 at the
+    synthetic shapes; the dispatcher's routes by dtype. Then, at the four
+    path shapes, M = 8 and M = 1, with the codes read cold: both entries
+    in turns, the bound, the plain version, a bf16 matmul on a converted
+    copy and `torch._weight_int8pack_mm` where the card's PyTorch has a
+    CUDA kernel for it (both library calls yardsticks only); and the
+    tensor-core entry once at the LM head's table. Returns the numbers by
+    shape of each entry."""
     import torch
 
     from hsenet_torch.ops import quant_matvec as tqm
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     dev = "cuda"
-    results = {}
 
     def row_share(out, ref):
         err = (out.float() - ref.float()).abs()
@@ -926,44 +959,84 @@ def check_matvec_kernel():
         share = torch.where(out.float().isfinite(), err / scale, math.inf)
         return err.max().item(), share.max().item()
 
-    for name, (k, n) in MATVEC_SHAPES.items():
-        copies = int(MATVEC_COLD_BYTES // (k * n)) + 1
+    def codes(k, n):
         w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                           dtype=torch.int8)
-        scale = (0.5 + torch.rand(n, generator=gen, device=dev)) / (127 * k ** 0.5)
-        for m in (8, 1):
-            x = torch.randn(m, k, generator=gen, device=dev, dtype=torch.bfloat16)
-            out = tqm.quant_matvec_kernel(x, w, scale)
-            torch.cuda.synchronize()
-            ref = tqm.quant_matvec_int8_reference(x, w, scale)
-            max_abs, share = row_share(out, ref)
-            wrong = {
-                "scales shifted by one channel":
-                    tqm.quant_matvec_int8_reference(x, w, scale.roll(1)),
-                "last 16 codes of K dropped":
-                    tqm.quant_matvec_int8_reference(x[:, :-16], w[:, :-16], scale),
-            }
-            wrong = {what: row_share(o, ref)[1] for what, o in wrong.items()}
-            print(f"[kernel-matvec] {name} M={m}: x{tuple(x.shape)} w_q"
-                  f"{tuple(w.shape)} int8: max_abs_err {max_abs:.3e} (max |ref| "
-                  f"{ref.float().abs().max().item():.3e}), max err / row's max "
-                  f"|ref| {share:.3e} (tol {MATVEC_ROW_TOL}); wrong variants: "
-                  + ", ".join(f"{what} {v:.3e}" for what, v in wrong.items()))
-            if not share <= MATVEC_ROW_TOL:
-                raise AssertionError(f"quant_matvec {name} M={m} disagrees "
-                                     "with its plain version")
-            for what, v in wrong.items():
-                if v <= MATVEC_ROW_TOL:
-                    raise AssertionError(f"the matvec tolerance passes {what}")
-            if m == 8:
-                kept = (x, max_abs, share)
-        # a dispatcher call with leading dimensions, as the decode step makes
-        x, max_abs, share = kept
-        via = tqm.quant_matvec_int8(x.reshape(8, 1, k), w, scale)
-        if via.shape != (8, 1, n) or not torch.equal(
-                via.reshape(8, n), tqm.quant_matvec_kernel(x, w, scale)):
-            raise AssertionError("quant_matvec_int8 does not reach the kernel")
+        return w, (0.5 + torch.rand(n, generator=gen, device=dev)) / (127 * k ** 0.5)
 
+    def hold(tag, kernel, x, w, scale):
+        out = kernel(x, w, scale)
+        again = kernel(x, w, scale)
+        torch.cuda.synchronize()
+        ref = tqm.quant_matvec_int8_reference(x, w, scale)
+        max_abs, share = row_share(out, ref)
+        wrong = {
+            "scales shifted by one channel":
+                tqm.quant_matvec_int8_reference(x, w, scale.roll(1)),
+            "last 16 codes of K dropped":
+                tqm.quant_matvec_int8_reference(x[:, :-16], w[:, :-16], scale),
+        }
+        wrong = {what: row_share(o, ref)[1] for what, o in wrong.items()}
+        same = torch.equal(out, again)
+        print(f"[kernel-matvec] {tag}: x{tuple(x.shape)} w_q{tuple(w.shape)} "
+              f"int8: max_abs_err {max_abs:.3e}, max err / row's max |ref| "
+              f"{share:.3e} (tol {MATVEC_ROW_TOL}); two launches bit-equal: "
+              f"{same}; wrong variants: "
+              + ", ".join(f"{what} {v:.3e}" for what, v in wrong.items()))
+        if not share <= MATVEC_ROW_TOL:
+            raise AssertionError(f"quant_matvec {tag} disagrees with its plain version")
+        if not same:
+            raise AssertionError(f"quant_matvec {tag}: two launches differ")
+        for what, v in wrong.items():
+            if v <= MATVEC_ROW_TOL:
+                raise AssertionError(f"the matvec tolerance passes {what} ({tag})")
+
+    for name, (k, n) in {**MATVEC_SHAPES, **MATVEC_CHECK_SHAPES}.items():
+        w, scale = codes(k, n)
+        for m in MATVEC_CHECK_ROWS:
+            x = torch.randn(m, k, generator=gen, device=dev, dtype=torch.bfloat16)
+            hold(f"{name} M={m} bf16, plan {tuple(tqm.mma_plan(m, k, n))}",
+                 tqm.quant_matvec_mma_kernel, x, w, scale)
+            if name in MATVEC_SYNTHETIC:
+                hold(f"{name} M={m} f32, CUDA-core entry",
+                     tqm.quant_matvec_fma_kernel, x.float(), w, scale)
+        # the dispatcher with leading dimensions, as the decode step calls
+        # it: bf16 on the tensor-core entry, f32 on the CUDA-core entry
+        x = torch.randn(8, k, generator=gen, device=dev, dtype=torch.bfloat16)
+        for dtype, kernel, want in (
+                (torch.bfloat16, tqm.quant_matvec_mma_kernel, (1, 0)),
+                (torch.float32, tqm.quant_matvec_fma_kernel, (0, 1))):
+            tqm.reset_launch_counts()
+            via = tqm.quant_matvec_int8(x.to(dtype).reshape(8, 1, k), w, scale)
+            got = (tqm.launches[tqm.KERNEL], tqm.fma_launches[tqm.FMA])
+            if via.shape != (8, 1, n) or got != want or not torch.equal(
+                    via.reshape(8, n), kernel(x.to(dtype), w, scale)):
+                raise AssertionError(f"quant_matvec_int8 in {dtype} does not "
+                                     f"reach {kernel.__name__}")
+    tqm.reset_launch_counts()
+
+    # a launch's fixed time: both entries at the smallest synthetic shape
+    # (codes and x in L2), beside one PyTorch launch that does next to
+    # nothing
+    w, scale = codes(*MATVEC_CHECK_SHAPES["synthetic_64x32"])
+    x = torch.randn(8, w.shape[1], generator=gen, device=dev, dtype=torch.bfloat16)
+    tiny = torch.zeros(8, device=dev)
+    floor = {"tensor-core entry": time_ms(
+                 lambda: tqm.quant_matvec_mma_kernel(x, w, scale)),
+             "CUDA-core entry": time_ms(
+                 lambda: tqm.quant_matvec_fma_kernel(x, w, scale)),
+             "zero_ of 8 floats": time_ms(tiny.zero_)}
+    print(f"[kernel-matvec] a launch's floor, M=8 K 64 x N 32 and a tiny "
+          f"PyTorch op, device ms: "
+          + ", ".join(f"{what} {v:.4f}" for what, v in floor.items()))
+
+    library = torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int8pack_mm", "CUDA")
+    print(f"[kernel-matvec] torch._weight_int8pack_mm has a CUDA kernel: {library}")
+    results, yardstick = {}, {}
+    for name, (k, n) in MATVEC_SHAPES.items():
+        copies = int(MATVEC_COLD_BYTES // (k * n)) + 1
+        w, scale = codes(k, n)
         ws = [w] + [w.clone() for _ in range(copies - 1)]
         wbs = [t.to(torch.bfloat16) for t in ws]
         scale_b = scale.to(torch.bfloat16)
@@ -972,32 +1045,70 @@ def check_matvec_kernel():
         def cold(fn, pool):
             return lambda: fn(pool[next(turn) % copies])
 
-        nbytes = k * n + 2 * 8 * k + 2 * 8 * n + 4 * n
-        flops = 2 * 8 * k * n
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        r = results[name] = {
-            "max_abs_err": max_abs,
-            "max_row_rel_err": share,
-            "ms": time_ms(cold(lambda t: tqm.quant_matvec_kernel(x, t, scale), ws)),
-            "plain_ms": time_ms(cold(
-                lambda t: tqm.quant_matvec_int8_reference(x, t, scale), ws), reps=5),
-            "library_ms": time_ms(cold(
-                lambda t: torch.matmul(x, t.t()) * scale_b, wbs)),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "gflop": flops / 1e9,
-            "mbytes": nbytes / 1e6,
-            "rows": 8,
-        }
-        print(f"[kernel-matvec] {name} M=8, codes read cold ({copies} copies "
-              f"in turn): kernel {r['ms']:.4f} ms "
-              f"({nbytes / r['ms'] / 1e6:.0f} GB/s), plain {r['plain_ms']:.4f} "
-              f"ms, library (matmul on a bf16 copy) {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
-              f"{r['mbytes']:.2f} MB, {r['gflop']:.2f} GFLOP)")
+        for m in (8, 1):
+            x = torch.randn(m, k, generator=gen, device=dev, dtype=torch.bfloat16)
+            ref = tqm.quant_matvec_int8_reference(x, w, scale)
+            new_err = row_share(tqm.quant_matvec_mma_kernel(x, w, scale), ref)[0]
+            old_err = row_share(tqm.quant_matvec_fma_kernel(x, w, scale), ref)[0]
+            new = cold(lambda t: tqm.quant_matvec_mma_kernel(x, t, scale), ws)
+            old = cold(lambda t: tqm.quant_matvec_fma_kernel(x, t, scale), ws)
+            turns = [time_ms(f) for f in (new, old, old, new)]
+            nbytes = k * n + 2 * m * k + 2 * m * n + 4 * n
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = 2 * m * k * n / PEAK_BF16_FLOPS * 1e3
+            shared = {
+                "plain_ms": time_ms(cold(
+                    lambda t: tqm.quant_matvec_int8_reference(x, t, scale), ws), reps=5),
+                "library_ms": time_ms(cold(
+                    lambda t: torch.matmul(x, t.t()) * scale_b, wbs)),
+                "int8pack_ms": time_ms(cold(
+                    lambda t: torch._weight_int8pack_mm(x, t, scale_b), ws))
+                if library else None,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "mbytes": nbytes / 1e6, "gflop": 2 * m * k * n / 1e9, "rows": m,
+            }
+            key = name if m == 8 else f"{name}_m1"
+            r = results[key] = {"max_abs_err": new_err, "ms": (turns[0] + turns[3]) / 2,
+                                "old_ms": (turns[1] + turns[2]) / 2, **shared}
+            yardstick[key] = {"max_abs_err": old_err, "ms": r["old_ms"], **shared}
+            lib8 = ("not registered" if r["int8pack_ms"] is None
+                    else f"{r['int8pack_ms']:.4f} ms")
+            print(f"[kernel-matvec] {name} M={m}, codes read cold ({copies} "
+                  f"copies in turn), in turns new/old/old/new: tensor cores "
+                  f"{r['ms']:.4f} ms ({nbytes / r['ms'] / 1e6:.0f} GB/s, "
+                  f"{r['bound_ms'] / r['ms']:.1%} of the bound), CUDA cores "
+                  f"{r['old_ms']:.4f} ms ({nbytes / r['old_ms'] / 1e6:.0f} GB/s, "
+                  f"{r['bound_ms'] / r['old_ms']:.1%}); turns "
+                  + " / ".join(f"{t:.4f}" for t in turns)
+                  + f"; plain {r['plain_ms']:.4f} ms, bf16 matmul on a "
+                  f"converted copy {r['library_ms']:.4f} ms, _weight_int8pack_mm "
+                  f"{lib8}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                  f"{r['mbytes']:.2f} MB, {r['gflop']:.3f} GFLOP)")
         del ws, wbs
-    return results
+
+    # the LM head's table (no path routes it through B5): the streaming
+    # rate without a launch's fixed cost
+    k, n = MATVEC_LM_HEAD
+    w, scale = codes(k, n)
+    x = torch.randn(8, k, generator=gen, device=dev, dtype=torch.bfloat16)
+    max_abs, share = row_share(tqm.quant_matvec_mma_kernel(x, w, scale),
+                               tqm.quant_matvec_int8_reference(x, w, scale))
+    nbytes = k * n + 2 * 8 * k + 2 * 8 * n + 4 * n
+    r = results[f"lm_head_{k}x{n}"] = {
+        "max_abs_err": max_abs, "ms": time_ms(
+            lambda: tqm.quant_matvec_mma_kernel(x, w, scale), reps=5),
+        "old_ms": None, "plain_ms": None, "library_ms": None, "int8pack_ms": None,
+        "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "mbytes": nbytes / 1e6, "gflop": 2 * 8 * k * n / 1e9, "rows": 8}
+    print(f"[kernel-matvec] LM head {k} x {n} at M=8 (off the path), plan "
+          f"{tuple(tqm.mma_plan(8, k, n))}: {r['ms']:.4f} ms "
+          f"({nbytes / r['ms'] / 1e6:.0f} GB/s, {r['bound_ms'] / r['ms']:.1%} of "
+          f"the bound {r['bound_ms']:.4f} ms); max err / row's max |ref| {share:.3e}")
+    if not share <= MATVEC_ROW_TOL:
+        raise AssertionError("quant_matvec disagrees at the LM head's shape")
+    del w
+    return results, yardstick
 
 
 def llm_training_qkv(randn):
@@ -1672,6 +1783,7 @@ def run_cli_serve(card: str):
 
     from hsenet_torch.cli.serve import main as serve_main
     from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.ops import quant_matvec as tqm
 
     runs = {
         "synthetic": (["--synthetic", "--num-requests", "6"], 6),
@@ -1681,6 +1793,7 @@ def run_cli_serve(card: str):
     numbers, shapes = {}, {}
     for name, (argv, n_requests) in runs.items():
         tfa.reset_launch_counts()
+        tqm.reset_launch_counts()
         t0 = time.perf_counter()
         summary = serve_main(argv)
         torch.cuda.synchronize()
@@ -1690,7 +1803,13 @@ def run_cli_serve(card: str):
         print(f"[cli-serve] {name}: hsenet_torch.cli.serve {' '.join(argv)} on "
               f"{card}: {summary['requests']} of {n_requests} requests, "
               f"{summary['tokens']} tokens, {wall:.1f} s; flash launches "
-              f"{all_fwd}, f32 by (kernel, padded head dim) {f32}")
+              f"{all_fwd}, f32 by (kernel, padded head dim) {f32}; "
+              f"matvec launches: CUDA-core entry {tqm.fma_launches[tqm.FMA]}, "
+              f"tensor-core entry {tqm.launches[tqm.KERNEL]} (f32 models: "
+              "never the tensor-core entry)")
+        if tqm.launches[tqm.KERNEL]:
+            raise AssertionError(f"cli serve {name}: an f32 model launched the "
+                                 "tensor-core matvec entry")
         if summary["requests"] != n_requests or summary["tokens"] < n_requests:
             raise AssertionError(f"cli serve {name}: not every request finished")
         if not all_fwd or tfa.f32_launches[("flash_fwd", 64)] != all_fwd:
@@ -1699,7 +1818,8 @@ def run_cli_serve(card: str):
         for key, n in tfa.shape_launches.items():
             shapes[key] = shapes.get(key, 0) + n
         numbers[name] = {**summary, "wall_s_measured": wall,
-                         "f32_launches": f32}
+                         "f32_launches": f32,
+                         "matvec_fma_launches": tqm.fma_launches[tqm.FMA]}
     return numbers, shapes
 
 
@@ -2473,8 +2593,10 @@ def check_serve_counts(tag, cfg, eng, n_requests, results, expect):
           f"{eng.steps_run} decode steps in {eng.steps_run // eng.chunk} "
           f"chunks; {got} (expected {expect}); flash_fwd launches {got_b1} "
           f"(expected {want_b1}: 24 per encode miss, 32 per admission); "
-          f"quant_matvec launches {tqm.launches['quant_matvec']} (expected "
-          f"{want_b5} = {per_step} x {eng.steps_run} steps)")
+          f"quant_matvec launches {tqm.launches['quant_matvec']} on the "
+          f"tensor-core entry (expected {want_b5} = {per_step} x "
+          f"{eng.steps_run} steps), {tqm.fma_launches[tqm.FMA]} on the "
+          "CUDA-core entry (expected 0)")
     if any(got[k] != v for k, v in expect.items()):
         raise AssertionError(f"{tag}: hit/miss counts {got}, expected {expect}")
     if got_b1 != want_b1 or sum(tfa.launches.values()) != sum(want_b1.values()):
@@ -2482,6 +2604,9 @@ def check_serve_counts(tag, cfg, eng, n_requests, results, expect):
     if tqm.launches["quant_matvec"] != want_b5 or want_b5 == 0:
         raise AssertionError(f"{tag}: quant_matvec launched "
                              f"{tqm.launches['quant_matvec']} times, not {want_b5}")
+    if tqm.fma_launches[tqm.FMA]:
+        raise AssertionError(f"{tag}: a bf16 decode step took the CUDA-core "
+                             "matvec entry")
     return {"tokens": len(tokens), "decode_steps": eng.steps_run,
             "flash_fwd_launches": got_b1,
             "quant_matvec_launches": tqm.launches["quant_matvec"], **got}
@@ -3677,11 +3802,24 @@ def check_near_ties(tag, diverged):
                              f"a near-tie: {far}")
 
 
-def greedy_divergences(cfg, llm, ids, got, want):
+def f32_head_logits(llm, hidden):
+    """The LM head of `llm` on `hidden` with its product and scale in f32
+    (the model's own head rounds the logits to bf16)."""
+    import torch.nn.functional as F
+
+    if llm.config.tie_word_embeddings and llm.config.quant_int8_embed:
+        return (F.linear(hidden.float(), llm.embed.embedding_q.float())
+                * llm.embed.scale.float())
+    head = llm.embed if llm.config.tie_word_embeddings else llm.lm_head
+    return F.linear(hidden.float(), head.weight.float())
+
+
+def greedy_divergences(cfg, llm, ids, got, want, head=f32_head_logits):
     """Where the token list `got` first leaves greedy's `want` for the
     batch-1 prompt `ids`: (position or None, [(0, position, *margins)]),
     the margins from a prefill of the prompt and the greedy tokens before
-    that position."""
+    that position, on `head`'s logits of its last hidden state (f32 by
+    default)."""
     import torch
 
     from hsenet_torch.models.phi3 import KVCache
@@ -3693,10 +3831,12 @@ def greedy_divergences(cfg, llm, ids, got, want):
         prefix = torch.cat([ids, torch.tensor([want[:div]], dtype=ids.dtype,
                                               device=ids.device)], dim=1)
         cache = KVCache.create(cfg.llm, 1, prefix.shape[1], device="cuda")
-        logits, _ = llm(prefix, cache=cache, last_token_only=True,
-                        kv_lens=torch.tensor([prefix.shape[1]], device="cuda"))
+        hidden, _ = llm.decoder(
+            llm.embed_tokens(prefix), cache=cache,
+            kv_lens=torch.tensor([prefix.shape[1]], device="cuda"))
+        logits = head(llm, hidden[0, -1])
     chosen = got[div] if div < len(got) else None
-    return div, [(0, div, *next_token_margin(logits[0, 0], chosen))]
+    return div, [(0, div, *next_token_margin(logits, chosen))]
 
 
 class AcceptOnePastMismatch:
@@ -3796,7 +3936,8 @@ def spec_against_greedy(tag, cfg, llm, ids, lens):
           f"positions = {SPEC_DRAFT_LEN + 1} rows), flash_fwd {flash} (expected "
           f"{cfg.llm.num_layers}: the prefill)")
     print(f"[spec] {tag}: first tokens: speculative {got_l[:10]}, greedy {want_l[:10]}")
-    if b5 != per_round * rounds or flash != cfg.llm.num_layers:
+    if (b5 != per_round * rounds or flash != cfg.llm.num_layers
+            or tqm.fma_launches[tqm.FMA]):
         raise AssertionError("the verify rounds did not go through the kernels")
     if int(emitted.sum()) != SPEC_NEW_TOKENS and EOS_TOKEN_ID not in got_l:
         raise AssertionError("speculative decoding emitted the wrong count")
@@ -3834,6 +3975,48 @@ def run_spec(card: str, cfg, model):
     numbers["constant_weights"], _ = spec_against_greedy(
         "constant weights (full acceptance)", cfg, llm, ids, lens)
     return numbers
+
+
+def spec_parting_witness(cfg, model):
+    """[spec]'s prompt through greedy and prompt-lookup decoding with the
+    decode's matvec on each route in turn (B5's tensor-core entry, its
+    CUDA-core entry, the plain version): where the two first part, and the
+    chosen token's gap below greedy's top on the model's bf16 logits and on
+    f32 logits of the same hidden state. A parting on every route is the
+    verify forward's own rounding, not B5's. Run by hand (README); no phase
+    calls it."""
+    import torch
+
+    from hsenet_torch.eval.generate import make_greedy_generate_llm_only
+    from hsenet_torch.eval.speculative import make_pld_generate_llm_only
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    llm = model.llm
+    gen = torch.Generator(device="cuda").manual_seed(9)  # run_spec's prompt
+    phrase = torch.randint(3, 100000, (SPEC_PHRASE,), generator=gen, device="cuda")
+    ids = phrase.repeat(PROMPT_LEN // SPEC_PHRASE)[None, :]
+    lens = torch.tensor([PROMPT_LEN], dtype=torch.int32, device="cuda")
+    kw = dict(eos_token_id=EOS_TOKEN_ID, cache_dtype=torch.bfloat16,
+              max_new_tokens=SPEC_NEW_TOKENS)
+    sound = tqm.quant_matvec_kernel
+    for route, matvec in (("tensor-core entry", tqm.quant_matvec_mma_kernel),
+                          ("CUDA-core entry", tqm.quant_matvec_fma_kernel),
+                          ("plain version", tqm.quant_matvec_int8_reference)):
+        tqm.quant_matvec_kernel = matvec
+        try:
+            want = make_greedy_generate_llm_only(llm, **kw)(ids, lens)[0].tolist()
+            got = make_pld_generate_llm_only(
+                llm, draft_len=SPEC_DRAFT_LEN, ngram=SPEC_NGRAM, **kw)(ids, lens)
+            got = got[0].tolist()
+            div, f32 = greedy_divergences(cfg, llm, ids, got, want)
+            _, b16 = greedy_divergences(
+                cfg, llm, ids, got, want,
+                head=lambda m, h: m.compute_logits(h).float())
+        finally:
+            tqm.quant_matvec_kernel = sound
+        gaps = ("" if div is None else
+                f": gap / RMS {b16[0][4]:.4f} on bf16 logits, {f32[0][4]:.4f} on f32")
+        print(f"[spec-witness] {route}: first parting at token {div}{gaps}")
 
 
 def run_serve_spec(card: str, cfg, model, serve_numbers, serve_tokens,
@@ -3880,7 +4063,7 @@ def run_serve_spec(card: str, cfg, model, serve_numbers, serve_tokens,
         if len(got) != len(requests) or got_b1 != want_b1:
             raise AssertionError(f"serve-spec {label}: {len(got)} requests "
                                  f"finished, flash launches {got_b1}, not {want_b1}")
-        if tqm.launches["quant_matvec"] != 0:
+        if tqm.launches["quant_matvec"] or tqm.fma_launches[tqm.FMA]:
             raise AssertionError("a verify round of 8 slots took the matvec kernel")
         diverged = []
         for r, (g_toks, w_toks) in enumerate(zip(got, want)):
@@ -3977,7 +4160,7 @@ def main() -> int:
     train_f32_numbers, train_f32_shapes = run_train_f32(card)
     f32_kernels, f32_index = check_f32_kernels({**cli_shapes, **train_f32_shapes})
     lap("[cli-serve], [train-f32], [kernel-f32]")
-    matvec = check_matvec_kernel()
+    matvec, matvec_old = check_matvec_kernel()
     pv = check_pv_kernel()
     pv_launches = run_pv_probe()
     encode_numbers, encode_shapes = run_encode_w8a8(card)
@@ -4177,9 +4360,20 @@ def main() -> int:
               f32_note + "; plain and library times compute dQ, dK and dV"),
         entry("quant_matvec", "hsenet_torch/csrc/quant_matvec.cu",
               "hsenet_tpu/ops/quant_matvec.py:42", matvec, matvec_counts,
+              "the tensor-core entry hsenet_quant_matvec_mma (every bf16 call); "
               "sums over the decode steps of the closed and open serving loops "
               "at 8 slots: per-launch times at each (K, N), codes read cold, x its "
-              "launches there; library is a matmul on a bf16 copy of the weight"),
+              "launches there; library is a matmul on a bf16 copy of the weight; "
+              "old_ms under shapes is the CUDA-core entry timed in turns with "
+              "it; int8pack_ms is torch._weight_int8pack_mm (null where the "
+              "card's PyTorch has no CUDA kernel for it); the _m1 shapes (M = 1) "
+              "and the LM head's table are on no counted path"),
+        entry("quant_matvec_fma", "hsenet_torch/csrc/quant_matvec.cu",
+              "hsenet_tpu/ops/quant_matvec.py:42", matvec_old, {},
+              "the CUDA-core entry hsenet_quant_matvec_fma in bf16, the "
+              "yardstick of the tensor-core entry (no path launches it; its f32 "
+              "build is the f32 route): per-launch times at each (K, N) and M "
+              "summed; library is a matmul on a bf16 copy of the weight"),
         *(entry(name, f"hsenet_torch/csrc/{name}.cu",
                 "scripts/_probe_pallas_int8.py:10 (make_kernel)", pv[name],
                 {mode: n for mode, n in pv_launches[name].items() if n},
