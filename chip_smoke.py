@@ -53,9 +53,10 @@ In order:
    (`--synthetic --num-requests 6`; `--quant-int8 --llm-only --synthetic
    --speculative`): tiny f32 models with head dims 8 and 16, so every flash
    launch is f32 at the padded width 64; every request must finish; B5's
-   launches counted by entry (none may reach the tensor-core entry; the
-   `--synthetic` models carry no int8 weights, as in the JAX CLI, so the
-   CUDA-core entry's f32 count is 0 too);
+   launches counted by entry (none may reach the tensor-core entry: the
+   models compute in f32; the second one's int8 projections take the
+   CUDA-core entry where a call has at most 8 rows, where the JAX CLI keeps
+   that decoder float);
 4b. [train-f32] the VLM finetune step at the same `--synthetic`
    configuration in f32: 8 forward, 2 dQ and 2 dK/dV f32 launches a step;
 4c. [kernel-f32] holds the f32 route of the forward (with and without the
@@ -79,7 +80,8 @@ In order:
    bound, the plain version, a bf16 matmul on a converted copy and
    `torch._weight_int8pack_mm` where the card's PyTorch has a CUDA kernel
    for it (both library calls yardsticks only), and the tensor-core entry
-   once at the LM head's 3072 x 200064 table (off the path);
+   at the LM head's 3072 x 200064 table (off the path) beside its plain
+   version and the same two library calls;
 5a. [kernel-pv] holds the P.V probe kernel (B6: int8_pv_wgmma, TMA and
    wgmma, and the mma.sync int8_pv it replaced, kept as its yardstick)
    against its plain version in its four modes at the JAX probe's shapes
@@ -120,6 +122,33 @@ In order:
    step through the plain sdpa path, as relative L2 per group of leaves,
    and shows that steps with a planted fault in the attention backward
    (delta left out; no gradient through attention) miss the limit;
+8a. [cli-evaluate] runs the evaluation CLI (`hsenet_torch.cli.evaluate.main`)
+   at the full width of `build_vlm_config` (`VLMConfig()` with LoRA r16 on
+   Phi-4-mini) in bf16, random weights from seed 0, one model passed to
+   every run through `model=`, on manifests the script writes to a
+   temporary directory (4 caption entries, and 2 volumes x 2 location
+   questions; volumes (1, 32, 256, 256), slice features (32, 768), from a
+   numpy seed): `--task mrg --batch-size 2 --max-new-tokens 32 --csv`
+   through greedy generation, `--engine` and `--spec-decode`, then `--task
+   vqa --engine --engine-vol-cache 2`. Each route's ids must equal the
+   greedy route's or part only at a near-tie (NEAR_TIE_SHARE on f32
+   logits); the CSV's running means must equal the returned means; B1 must
+   run at the tower (d 64) and LLM prefill (d 128) widths in every run, and
+   the VQA towers once per volume. Prints wall time and reports/min of each
+   route and a profile of the greedy one on one batch of 2 reports and 4
+   new tokens (the profiler's processing of the whole route's events took
+   minutes); [kernel-eval] then holds
+   flash_fwd_wgmma against its plain version at every shape those runs
+   launched (beside a dropped key tile that must miss) and times it;
+8b. [ckpt] `save_vlm_deltas` of that model (its LoRA, packer and token-table
+   leaves moved first) and `load_vlm_deltas` into a fresh model of the same
+   seed: greedy tokens must differ before the load and equal the
+   original's after; bytes and seconds printed. Then `convert_checkpoint
+   --kind phi3 --quant-int8` of HF Phi-3 tensors at the serving CLI's
+   `--synthetic` widths, served by `serve --quant-int8 --llm-only
+   --synthetic --checkpoint`: every request finishes, the tokens differ
+   from the random weights', and B5's CUDA-core entry (f32) runs on every
+   decode step, checked and timed at that model's four shapes;
 9. [serve] drives the serving engine at the full width the serving CLI
    builds for `--quant-int8` (`VLMConfig()` with int8 projections and
    embedding in Phi-4-mini, no LoRA, towers and packers in bf16; random
@@ -426,6 +455,38 @@ SPEC_NGRAM = 2
 # steps of 0.028 of the RMS, too coarse for this limit (a parting read
 # 0.0564 in bf16 and 0.0431 in f32 on the same hidden state, PERF.md)
 NEAR_TIE_SHARE = 0.05
+# [cli-evaluate]: the evaluate CLI on a manifest written by the script: 4
+# validation reports (caption) and 2 volumes x 2 questions (location VQA),
+# volumes (1, 32, 256, 256) and slice features (32, 768) from a numpy seed;
+# MRG at batch 2 and 32 new tokens through each generate route
+EVAL_REPORTS = (
+    "The lungs are clear. No pleural effusion or pneumothorax. Heart size is "
+    "normal.",
+    "A 6 mm nodule in the right upper lobe. No consolidation. Mild "
+    "emphysema in both lungs.",
+    "Small left pleural effusion with adjacent atelectasis. No pericardial "
+    "effusion.",
+    "Mediastinal lymphadenopathy. Thickening of the bronchial walls. No mass.",
+)
+EVAL_VQA = ((0, "nodule", "right lung"), (0, "pleural effusion", "pleura"),
+            (1, "atelectasis", "left lung"), (1, "lymphadenopathy", "mediastinum"))
+EVAL_BATCH = 2
+EVAL_MAX_NEW = 32
+EVAL_PROFILE_NEW = 4
+# [ckpt]: greedy tokens of the full-width VLM before and after its deltas
+# went through save_vlm_deltas / load_vlm_deltas; then an HF Phi-3 state at
+# the serving CLI's --synthetic widths, converted with --quant-int8 and
+# served with --checkpoint
+CKPT_NEW_TOKENS = 16
+CKPT_PHI3 = dict(vocab_size=512, hidden_size=64, intermediate_size=128,
+                 num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+                 tie_word_embeddings=True)
+CKPT_SERVE = ["--quant-int8", "--llm-only", "--synthetic", "--num-requests", "6"]
+# the int8 projections' (K, N) in one decode step of that model's 2 layers:
+# q,o (64, 64), k,v (64, 32), gate,up (64, 128), down (128, 64), each at
+# the engine's 8 slots
+CKPT_MATVEC = {"ckpt_64x64": ((64, 64), 4), "ckpt_64x32": ((64, 32), 4),
+               "ckpt_64x128": ((64, 128), 4), "ckpt_128x64": ((128, 64), 2)}
 
 
 _LAP = [time.perf_counter()]
@@ -944,8 +1005,9 @@ def check_matvec_kernel():
     in turns, the bound, the plain version, a bf16 matmul on a converted
     copy and `torch._weight_int8pack_mm` where the card's PyTorch has a
     CUDA kernel for it (both library calls yardsticks only); and the
-    tensor-core entry once at the LM head's table. Returns the numbers by
-    shape of each entry."""
+    tensor-core entry at the LM head's table beside its plain version and
+    the same two library calls. Returns the numbers by shape of each
+    entry."""
     import torch
 
     from hsenet_torch.ops import quant_matvec as tqm
@@ -1088,26 +1150,39 @@ def check_matvec_kernel():
         del ws, wbs
 
     # the LM head's table (no path routes it through B5): the streaming
-    # rate without a launch's fixed cost
+    # rate without a launch's fixed cost, beside the plain version, a bf16
+    # matmul on a converted copy and torch._weight_int8pack_mm (the table's
+    # 614 MB are read cold by every call: they exceed the L2 many times)
     k, n = MATVEC_LM_HEAD
     w, scale = codes(k, n)
     x = torch.randn(8, k, generator=gen, device=dev, dtype=torch.bfloat16)
     max_abs, share = row_share(tqm.quant_matvec_mma_kernel(x, w, scale),
                                tqm.quant_matvec_int8_reference(x, w, scale))
     nbytes = k * n + 2 * 8 * k + 2 * 8 * n + 4 * n
+    wb, scale_b = w.to(torch.bfloat16), scale.to(torch.bfloat16)
     r = results[f"lm_head_{k}x{n}"] = {
         "max_abs_err": max_abs, "ms": time_ms(
             lambda: tqm.quant_matvec_mma_kernel(x, w, scale), reps=5),
-        "old_ms": None, "plain_ms": None, "library_ms": None, "int8pack_ms": None,
+        "old_ms": None,
+        "plain_ms": time_ms(
+            lambda: tqm.quant_matvec_int8_reference(x, w, scale), reps=3),
+        "library_ms": time_ms(lambda: torch.matmul(x, wb.t()) * scale_b, reps=5),
+        "int8pack_ms": time_ms(
+            lambda: torch._weight_int8pack_mm(x, w, scale_b), reps=5)
+        if library else None,
         "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "mbytes": nbytes / 1e6, "gflop": 2 * 8 * k * n / 1e9, "rows": 8}
+    lib8 = ("not registered" if r["int8pack_ms"] is None
+            else f"{r['int8pack_ms']:.4f} ms")
     print(f"[kernel-matvec] LM head {k} x {n} at M=8 (off the path), plan "
           f"{tuple(tqm.mma_plan(8, k, n))}: {r['ms']:.4f} ms "
           f"({nbytes / r['ms'] / 1e6:.0f} GB/s, {r['bound_ms'] / r['ms']:.1%} of "
-          f"the bound {r['bound_ms']:.4f} ms); max err / row's max |ref| {share:.3e}")
+          f"the bound {r['bound_ms']:.4f} ms); plain {r['plain_ms']:.4f} ms, bf16 "
+          f"matmul on a converted copy {r['library_ms']:.4f} ms, "
+          f"_weight_int8pack_mm {lib8}; max err / row's max |ref| {share:.3e}")
     if not share <= MATVEC_ROW_TOL:
         raise AssertionError("quant_matvec disagrees at the LM head's shape")
-    del w
+    del w, wb
     return results, yardstick
 
 
@@ -4109,6 +4184,497 @@ def run_serve_spec(card: str, cfg, model, serve_numbers, serve_tokens,
     return numbers
 
 
+def write_eval_data(root, cfg):
+    """[cli-evaluate]'s manifests under `root`: EVAL_REPORTS as the
+    validation split of a caption manifest (one volume each) and EVAL_VQA
+    as a location-VQA manifest over the first two volumes. Returns the
+    manifests' paths by task."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    for i in range(len(EVAL_REPORTS)):
+        np.save(os.path.join(root, f"vol{i}.npy"),
+                rng.random((1, *cfg.vision.image_size), dtype=np.float32))
+        np.save(os.path.join(root, f"feat{i}.npy"), rng.standard_normal(
+            (cfg.vision.num_slices, cfg.vision.slice_feature_dim)).astype(np.float32))
+    entries = {
+        "mrg": [{"image": f"vol{i}.npy", "biomedclip_features": f"feat{i}.npy",
+                 "text": text} for i, text in enumerate(EVAL_REPORTS)],
+        "vqa": [{"image": f"vol{v}.npy", "biomedclip_features": f"feat{v}.npy",
+                 "abnormality": abnormality, "anatomy": anatomy}
+                for v, abnormality, anatomy in EVAL_VQA],
+    }
+    paths = {}
+    for task, data in entries.items():
+        paths[task] = os.path.join(root, f"{task}.json")
+        with open(paths[task], "w") as f:
+            json.dump({"validation": data}, f)
+    return paths
+
+
+class recording_generate:
+    """Within the block, every batch the evaluation harnesses generate for
+    is recorded with its output ids: `calls` holds (batch, ids) pairs."""
+
+    def __enter__(self):
+        from hsenet_torch.eval import mrg, vqa
+
+        self.modules, self.inner, self.calls = (mrg, vqa), mrg.generate_batch, []
+
+        def spy(generate_fn, batch, device):
+            out = self.inner(generate_fn, batch, device)
+            self.calls.append((batch, out))
+            return out
+
+        for m in self.modules:
+            m.generate_batch = spy
+        return self.calls
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.generate_batch = self.inner
+
+
+def evaluate_route(tag, argv, model):
+    """One `hsenet_torch.cli.evaluate.main(argv, model=model)` run on the
+    card, launches counted: its metrics (which its JSON print must equal),
+    the recorded batches and ids, the wall time, the B1 launches at the
+    tower (d 64) and LLM (d 128) widths and by shape."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hsenet_torch.cli.evaluate import main as evaluate_main
+    from hsenet_torch.ops import flash_attention as tfa
+
+    reset_counts()
+    out = io.StringIO()
+    with recording_generate() as calls, contextlib.redirect_stdout(out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = evaluate_main(argv, model=model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if json.loads(out.getvalue()) != json.loads(json.dumps(metrics, default=str)):
+        raise AssertionError(f"cli-evaluate {tag}: the JSON print is not the result")
+    fwd_route(f"cli-evaluate {tag}", tfa.launches, tfa.f32_launches)
+    tower = tfa.fwd_launches.get((64, False), 0)
+    llm = tfa.fwd_launches.get((128, False), 0)
+    shapes = {key: n for key, n in tfa.shape_launches.items()}
+    n = metrics["num_samples"]
+    print(f"[cli-evaluate] {tag}: hsenet_torch.cli.evaluate {' '.join(argv)}: "
+          f"{n} samples in {wall:.2f} s ({60 * n / wall:.1f} reports/min); B1 "
+          f"launches: towers (d 64) {tower}, LLM prefill (d 128) {llm}; "
+          f"by shape {dict(sorted((str(k[1:]), v) for k, v in shapes.items()))}")
+    if not tower or not llm:
+        raise AssertionError(f"cli-evaluate {tag}: B1 did not run at the tower "
+                             "and prefill widths")
+    return {"metrics": metrics, "calls": calls, "wall_s": wall,
+            "tower_launches": tower, "llm_launches": llm, "shapes": shapes}
+
+
+def eval_divergences(model, got_calls, want_calls):
+    """Where a route's ids first leave the greedy route's, row by row:
+    (row, position, top-2 margin, chosen token's gap, its share of the RMS)
+    on f32 logits of the prefill of the prompt, image and the greedy tokens
+    before that position."""
+    import torch
+
+    from hsenet_torch.models.mllm import splice_image_embeds
+    from hsenet_torch.models.phi3 import KVCache
+
+    out, row = [], 0
+    for (batch, got), (_, want) in zip(got_calls, want_calls):
+        for r in range(len(got)):
+            g, w = got[r].tolist(), want[r].tolist()
+            div = first_divergence(g, w)
+            if div is not None:
+                n = int(batch["attention_mask"][r].sum())
+                ids = torch.tensor([list(batch["input_ids"][r, :n]) + w[:div]],
+                                   device="cuda")
+                vol = torch.as_tensor(batch["image"][r:r + 1], device="cuda")
+                sl = torch.as_tensor(batch["image_2d"][r:r + 1], device="cuda")
+                with torch.inference_mode():
+                    embeds = splice_image_embeds(model.llm.embed_tokens(ids),
+                                                 model.encode_images(vol, sl))
+                    cache = KVCache.create(model.config.llm, 1, ids.shape[1],
+                                           device="cuda")
+                    hidden, _ = model.llm.decoder(
+                        embeds, cache=cache,
+                        kv_lens=torch.tensor([ids.shape[1]], device="cuda"))
+                    logits = f32_head_logits(model.llm, hidden[0, -1])
+                out.append((row, div, *next_token_margin(logits, g[div])))
+            row += 1
+    return out
+
+
+def run_cli_evaluate(card: str):
+    """[cli-evaluate]: `hsenet_torch.cli.evaluate` at `VLMConfig()` in bf16
+    (LoRA r16 on Phi-4-mini, as `build_vlm_config` makes it; random
+    weights from seed 0, built once and passed to every run through
+    `model=`) on a manifest the script writes: MRG at batch 2 through
+    greedy generation, the serving engine and prompt-lookup decoding
+    (with a CSV each), then VQA through the engine with a volume cache of
+    2. Every route's ids must equal the greedy route's or part only at a
+    near-tie; the CSV's running means must equal the returned means; B1
+    must run at the tower and prefill widths in every run. Returns the
+    model, the numbers and the launches by shape over the runs."""
+    import argparse
+    import csv
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from hsenet_torch.cli.common import build_vlm_config, random_model
+    from hsenet_torch.cli.evaluate import main as evaluate_main
+    from hsenet_torch.eval.mrg import CSV_FIELDS
+    from hsenet_torch.models.mllm import HSENetVLM
+
+    cfg = build_vlm_config(argparse.Namespace(synthetic=False))
+    t0 = time.perf_counter()
+    model = random_model(HSENetVLM, cfg, dtype=torch.bfloat16, device="cuda",
+                         seed=0)
+    torch.cuda.synchronize()
+    print(f"[cli-evaluate] build_vlm_config's VLM (LoRA r{cfg.llm.lora.rank}) in "
+          f"bf16, random weights (seed 0), built once in "
+          f"{time.perf_counter() - t0:.1f} s")
+    root = tempfile.mkdtemp(prefix="hsenet_eval_")
+    try:
+        paths = write_eval_data(root, cfg)
+        mrg = ["--task", "mrg", "--manifest", paths["mrg"], "--data-root", root,
+               "--batch-size", str(EVAL_BATCH), "--max-new-tokens", str(EVAL_MAX_NEW)]
+        runs = {}
+        for name, flags in (("greedy", []), ("engine", ["--engine"]),
+                            ("spec-decode", ["--spec-decode"])):
+            csv_path = os.path.join(root, f"{name}.csv")
+            runs[name] = evaluate_route(f"mrg {name}", mrg + ["--csv", csv_path, *flags],
+                                        model)
+            with open(csv_path, newline="") as f:
+                rows = list(csv.DictReader(f))
+            means = runs[name]["metrics"]
+            last = {k: rows[-1][f"mean_{k}"] for k in CSV_FIELDS[4:]}
+            want = {k: f"{means[k]:.6f}" for k in CSV_FIELDS[4:]}
+            print(f"[cli-evaluate] mrg {name}: {len(rows)} CSV rows; running means "
+                  f"in the last row equal the returned means: {last == want}")
+            if len(rows) != len(EVAL_REPORTS) or last != want:
+                raise AssertionError(f"cli-evaluate mrg {name}: the CSV's running "
+                                     "means are not the returned means")
+        vqa = ["--task", "vqa", "--manifest", paths["vqa"], "--data-root", root,
+               "--batch-size", str(EVAL_BATCH), "--engine", "--engine-vol-cache", "2"]
+        runs["vqa-engine"] = evaluate_route("vqa engine", vqa, model)
+        volumes = len({v for v, _, _ in EVAL_VQA})
+        towers = runs["vqa-engine"]["tower_launches"]
+        if towers != 2 * cfg.vision.num_layers * volumes:
+            raise AssertionError(f"cli-evaluate vqa: {towers} tower launches, not "
+                                 f"one encode per volume ({volumes})")
+
+        greedy = runs["greedy"]["calls"]
+        for name in ("engine", "spec-decode"):
+            diverged = eval_divergences(model, runs[name]["calls"], greedy)
+            runs[name]["divergences"] = diverged
+            print(f"[cli-evaluate] mrg {name}: ids equal the greedy route's in "
+                  f"{len(EVAL_REPORTS) - len(diverged)} of {len(EVAL_REPORTS)} rows")
+            check_near_ties(f"cli-evaluate {name}", diverged)
+
+        # where the greedy route's device time goes, on one batch of
+        # EVAL_BATCH reports and EVAL_PROFILE_NEW new tokens (the profiler's
+        # own processing grows with the events: the whole route's ~400k took
+        # it minutes): the unprofiled median wall of that run, then one
+        # profiled run
+        short = mrg + ["--max-samples", str(EVAL_BATCH),
+                       "--max-new-tokens", str(EVAL_PROFILE_NEW)]
+        wall = median_wall_ms(lambda: evaluate_route("mrg greedy, one batch",
+                                                     short, model), runs=3)
+        profile = profile_phase(
+            f"cli-evaluate mrg greedy, one batch of {EVAL_BATCH}, "
+            f"{EVAL_PROFILE_NEW} new tokens",
+            lambda: evaluate_route("mrg greedy, one batch (profiled)", short,
+                                   model), wall)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    shapes = {}
+    for run in runs.values():
+        for key, n in run["shapes"].items():
+            shapes[key] = shapes.get(key, 0) + n
+    first = greedy[0][0]["attention_mask"].sum(-1).tolist()
+    numbers = {name: {"metrics": {k: v for k, v in r["metrics"].items()
+                                  if k not in ("classification_report", "per_anatomy")},
+                      "wall_s": r["wall_s"],
+                      "reports_per_min": 60 * r["metrics"]["num_samples"] / r["wall_s"],
+                      "tower_launches": r["tower_launches"],
+                      "llm_launches": r["llm_launches"],
+                      "divergences": r.get("divergences", [])}
+               for name, r in runs.items()}
+    numbers["profile_greedy"] = profile
+    numbers["prompt_lens"] = [int(n) for n in first]
+    print(f"[cli-evaluate] on {card}: "
+          + "; ".join(f"{name} {r['wall_s']:.2f} s, {r['reports_per_min']:.1f} "
+                      "reports/min" for name, r in numbers.items()
+                      if isinstance(r, dict) and "wall_s" in r))
+    return model, numbers, shapes
+
+
+def check_eval_kernels(path_shapes, prompt_lens):
+    """[kernel-eval]: flash_fwd_wgmma at every bf16 shape [cli-evaluate]
+    launched (key (kind, batch, heads, sq, skv, head_dim)) against its
+    plain version, beside the same attention without the last valid 64-key
+    tile (must miss the limit), and timed beside the bound, the plain
+    version and one SDPA call: towers non-causal over all their tokens, LLM
+    prefills causal at the first MRG batch's valid lengths. Returns the
+    results by name and the launch key -> name."""
+    import torch
+    import torch.nn.functional as F
+
+    from hsenet_torch.ops import flash_attention as tfa
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(13)
+    results, index = {}, {}
+    for key in sorted(path_shapes):
+        kind, b, h, sq, skv, d = key
+        tower = d == 64
+        name = f"eval_{'tower' if tower else 'llm'}_{b}x{h}x{sq}x{skv}"
+        index[key] = name
+        kv_lens = (skv,) * b if tower else tuple(prompt_lens[:b]) + (
+            prompt_lens[0],) * max(0, b - len(prompt_lens))
+        causal = not tower
+        q = torch.randn(b, h, sq, d, generator=gen, device=dev, dtype=torch.bfloat16)
+        k, v = (torch.randn(b, h, skv, d, generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        kv_t = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+        off_t = torch.zeros(b, dtype=torch.int32, device=dev)
+        kw = dict(kv_lens=kv_t, causal=causal, q_offset=off_t)
+        out = tfa.flash_attention(q, k, v, **kw)
+        ref = tfa.flash_attention_reference(q, k, v, **kw)
+        max_abs, row_rel, ok = compare(out, ref)
+        col = torch.arange(skv, device=dev)[None, None, None, :]
+        first = (kv_t[:, None, None, None] - 1) // 64 * 64
+        _, drop_rel, drop_ok = compare(
+            forward_dropping(q, k, v, kv_t, off_t, causal, col >= first), ref)
+        print(f"[kernel-eval] flash_fwd {name}: q{tuple(q.shape)} k{tuple(k.shape)} "
+              f"causal={causal} kv_lens={kv_lens[0] if tower else kv_lens}: max "
+              f"err / row's max |ref| {row_rel:.3e} (tol {KERNEL_ROW_TOL}); "
+              f"without the last valid 64-key tile {drop_rel:.3e}")
+        if not ok:
+            raise AssertionError(f"flash_fwd disagrees with its plain version at {name}")
+        if drop_ok:
+            raise AssertionError(f"the kernel tolerance passes a dropped key tile "
+                                 f"at {name}")
+        mask = tfa._valid(q, k, kv_t, off_t, causal)
+        bound, bound_by, flops, nbytes = kernel_bound(
+            kind, b, h, sq, skv, d, kv_lens, (0,) * b, causal)
+        r = results[name] = {
+            "max_abs_err": max_abs, "max_row_rel_err": row_rel,
+            "ms": time_ms(lambda: tfa._forward_kernel(q, k, v, kv_t, off_t, causal,
+                                                      d ** -0.5, False)),
+            "plain_ms": time_ms(lambda: tfa.flash_attention_reference(q, k, v, **kw),
+                                reps=5),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask)),
+            "bound_ms": bound, "bound_by": bound_by,
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+        }
+        print(f"[kernel-eval] flash_fwd {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library (SDPA) {r['library_ms']:.4f} ms, "
+              f"bound {bound:.4f} ms ({bound_by}: {r['gflop']:.2f} GFLOP, "
+              f"{r['mbytes']:.2f} MB), {path_shapes[key]} launches in [cli-evaluate]")
+    return results, index
+
+
+def run_ckpt(card: str, model):
+    """[ckpt]: `save_vlm_deltas` of [cli-evaluate]'s full-width LoRA model
+    (its LoRA, packer and token-table leaves moved first, as a finetune
+    moves them) and `load_vlm_deltas` into a freshly drawn model of the same
+    seed: its greedy tokens must differ before and equal the original's
+    after. Then `convert_checkpoint --kind phi3 --quant-int8` of an HF Phi-3
+    state at the serving CLI's --synthetic widths, served by `serve
+    --quant-int8 --llm-only --synthetic --checkpoint`: every request must
+    finish, the tokens must differ from the random weights', and B5 must
+    run (its CUDA-core entry: the model computes in f32). Returns the
+    numbers, B5's f32 timings at that model's shapes and its launches
+    there."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from hsenet_torch.cli.common import random_model
+    from hsenet_torch.cli.convert_checkpoint import main as convert_main
+    from hsenet_torch.cli.serve import main as serve_main
+    from hsenet_torch.configs import Phi3Config
+    from hsenet_torch.eval.generate import make_greedy_generate
+    from hsenet_torch.models.mllm import HSENetVLM
+    from hsenet_torch.ops import quant_matvec as tqm
+    from hsenet_torch.utils.checkpoint import (
+        _VLM_DELTA_RX,
+        filter_tree,
+        load_vlm_deltas,
+        save_vlm_deltas,
+    )
+
+    dev = "cuda"
+    cfg = model.config
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():  # a finetune's deltas
+        deltas = filter_tree(dict(model.named_parameters()), _VLM_DELTA_RX)
+        for p in deltas.values():
+            p.add_(torch.randn(p.shape, generator=gen, device=dev, dtype=p.dtype),
+                   alpha=0.01)
+    b = len(KV_LENS)
+    ids = torch.randint(3, 100000, (b, PROMPT_LEN), generator=gen, device=dev)
+    ids[:, 0] = 1
+    ids[:, 1:1 + cfg.num_image_tokens] = IM_PATCH_TOKEN_ID
+    kv_lens = torch.tensor(KV_LENS, dtype=torch.int32, device=dev)
+    volume = torch.rand((b, 1, *cfg.vision.image_size), generator=gen, device=dev)
+    slices = torch.randn((b, cfg.vision.num_slices, cfg.vision.slice_feature_dim),
+                         generator=gen, device=dev)
+
+    def tokens(m):
+        return make_greedy_generate(m, max_new_tokens=CKPT_NEW_TOKENS,
+                                    eos_token_id=EOS_TOKEN_ID)(ids, kv_lens, volume,
+                                                               slices)
+
+    root = tempfile.mkdtemp(prefix="hsenet_ckpt_")
+    try:
+        want = tokens(model)
+        path = os.path.join(root, "deltas.pt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_vlm_deltas(path, model.state_dict())
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        fresh = random_model(HSENetVLM, cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        before = tokens(fresh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.load_state_dict(load_vlm_deltas(path, fresh.state_dict()), strict=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        after = tokens(fresh)
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[ckpt] save_vlm_deltas: {len(deltas)} leaves, {nbytes / 1e6:.1f} MB "
+              f"in {save_s:.2f} s; load_vlm_deltas into a fresh model of the "
+              f"same seed {load_s:.2f} s; greedy tokens ({CKPT_NEW_TOKENS} new, "
+              f"batch {b}) equal the original's: before the load "
+              f"{torch.equal(before, want)}, after {torch.equal(after, want)}")
+        if not torch.equal(after, want) or torch.equal(before, want):
+            raise AssertionError("load_vlm_deltas did not restore the deltas")
+
+        # HF Phi-3 tensors at the --synthetic widths -> int8 params -> serve
+        pc = Phi3Config(**CKPT_PHI3)
+        g = torch.Generator().manual_seed(8)
+        h = pc.hidden_size
+
+        def rnd(*shape, std):
+            return torch.randn(shape, generator=g) * std
+
+        hf = {"model.embed_tokens.weight": rnd(pc.vocab_size, h, std=0.02),
+              "model.norm.weight": 1 + rnd(h, std=0.1)}
+        for i in range(pc.num_layers):
+            hp = f"model.layers.{i}"
+            hf.update({
+                f"{hp}.self_attn.qkv_proj.weight": rnd(pc.q_dim + 2 * pc.kv_dim, h,
+                                                       std=h ** -0.5),
+                f"{hp}.self_attn.o_proj.weight": rnd(h, pc.q_dim, std=pc.q_dim ** -0.5),
+                f"{hp}.mlp.gate_up_proj.weight": rnd(2 * pc.intermediate_size, h,
+                                                     std=h ** -0.5),
+                f"{hp}.mlp.down_proj.weight": rnd(h, pc.intermediate_size,
+                                                  std=pc.intermediate_size ** -0.5),
+                f"{hp}.input_layernorm.weight": 1 + rnd(h, std=0.1),
+                f"{hp}.post_attention_layernorm.weight": 1 + rnd(h, std=0.1),
+            })
+        src, out = os.path.join(root, "phi3_hf.bin"), os.path.join(root, "phi3_int8.pt")
+        torch.save(hf, src)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = convert_main(["--kind", "phi3", "--input", src, "--output", out,
+                                  "--config-json", json.dumps(CKPT_PHI3),
+                                  "--quant-int8"])
+        convert_s = time.perf_counter() - t0
+        int8 = sum(t.dtype == torch.int8 for t in state.values())
+        served = {}
+        for ckpt in (["--checkpoint", out], []):
+            reset_counts()
+            resp = os.path.join(root, f"resp{len(ckpt)}.jsonl")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                summary = serve_main([*CKPT_SERVE, "--output", resp, *ckpt])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(resp) as f:
+                toks = {r["id"]: r["tokens"] for r in map(json.loads, f)}
+            served[bool(ckpt)] = (summary, toks, wall, tqm.fma_launches[tqm.FMA],
+                                  tqm.launches[tqm.KERNEL])
+        summary, toks, wall, fma, tensor_core = served[True]
+        n_req = int(CKPT_SERVE[CKPT_SERVE.index("--num-requests") + 1])
+        per_step = sum(n for _, n in CKPT_MATVEC.values())
+        print(f"[ckpt] convert_checkpoint --kind phi3 --quant-int8 at the "
+              f"--synthetic widths: {len(hf)} HF tensors -> {len(state)} leaves "
+              f"({int8} int8) in {convert_s:.2f} s; serve {' '.join(CKPT_SERVE)} "
+              f"--checkpoint on {card}: {summary['requests']} of {n_req} requests, "
+              f"{summary['tokens']} tokens in {wall:.2f} s; tokens differ from the "
+              f"random weights': {toks != served[False][1]}; B5 launches: CUDA-core "
+              f"entry {fma} (f32; {per_step} a decode step), tensor-core entry "
+              f"{tensor_core}")
+        if summary["requests"] != n_req or toks == served[False][1]:
+            raise AssertionError("serve --checkpoint did not serve the converted model")
+        if not fma or tensor_core or fma % per_step:
+            raise AssertionError("serve --checkpoint: B5 did not run its f32 entry "
+                                 "on the decode steps")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # B5's CUDA-core entry at that model's shapes, 8 rows (the engine's
+    # slots), f32: checked against the plain version and timed
+    mg = torch.Generator(device=dev).manual_seed(9)
+    results, counts = {}, {}
+    for name, ((k, n), per_layer_step) in CKPT_MATVEC.items():
+        w = torch.randint(-127, 128, (n, k), generator=mg, device=dev, dtype=torch.int8)
+        scale = (0.5 + torch.rand(n, generator=mg, device=dev)) / (127 * k ** 0.5)
+        x = torch.randn(8, k, generator=mg, device=dev)
+        ref = tqm.quant_matvec_int8_reference(x, w, scale)
+        err = (tqm.quant_matvec_fma_kernel(x, w, scale) - ref).abs()
+        share = (err / ref.abs().amax(dim=-1, keepdim=True)).max().item()
+        if not share <= MATVEC_ROW_TOL:
+            raise AssertionError(f"quant_matvec_fma disagrees at {name}")
+        wf = w.float()
+        nb = k * n + 4 * 8 * k + 4 * 8 * n + 4 * n
+        t_bytes, t_ops = nb / PEAK_BYTES_PER_S * 1e3, 2 * 8 * k * n / PEAK_F32_FLOPS * 1e3
+        r = results[name] = {
+            "max_abs_err": err.max().item(),
+            "ms": time_ms(lambda: tqm.quant_matvec_fma_kernel(x, w, scale)),
+            "plain_ms": time_ms(lambda: tqm.quant_matvec_int8_reference(x, w, scale)),
+            "library_ms": time_ms(lambda: torch.matmul(x, wf.t()) * scale),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "mbytes": nb / 1e6, "gflop": 2 * 8 * k * n / 1e9, "rows": 8,
+        }
+        counts[name] = fma // per_step * per_layer_step
+        print(f"[ckpt] quant_matvec_fma {name} M=8 f32: max err / row's max |ref| "
+              f"{share:.3e} (tol {MATVEC_ROW_TOL}); kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, f32 matmul on a converted copy "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.2e} ms "
+              f"({r['bound_by']}); {counts[name]} launches in the served run")
+    numbers = {"deltas": {"leaves": len(deltas), "mbytes": nbytes / 1e6,
+                          "save_s": save_s, "load_s": load_s,
+                          "tokens_equal_after_load": True},
+               "phi3_int8": {"convert_s": convert_s, "leaves": len(state),
+                             "int8_leaves": int8, "serve": summary,
+                             "serve_wall_s": wall, "matvec_fma_launches": fma}}
+    return numbers, results, counts
+
+
 def main() -> int:
     try:
         import torch
@@ -4177,6 +4743,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("[main], [train], [train-grads]")
+    # the evaluation CLI on a manifest at full width (one model for its
+    # four runs), B1 at the shapes it launched, then the checkpoint and
+    # converter paths on that model
+    eval_model, eval_numbers, eval_shapes = run_cli_evaluate(card)
+    eval_kernels, eval_index = check_eval_kernels(eval_shapes,
+                                                  eval_numbers["prompt_lens"])
+    ckpt_numbers, fma_shapes, fma_counts = run_ckpt(card, eval_model)
+    del eval_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("[cli-evaluate], [kernel-eval], [ckpt]")
     serve_cfg, serve_model = build_serving_model()
     serve_numbers, serve_tokens = run_serve_path(card, serve_cfg, serve_model)
     serve_numbers["logits"] = check_serve_logits(serve_cfg, serve_model)
@@ -4226,6 +4803,8 @@ def main() -> int:
         "serve_prefill": 32 * sum(r["prefix_misses"] for r in admitted),
         "serve_prefix_hit": 32 * sum(r["prefix_hits"] for r in admitted),
         "serve_long": long_run["flash_fwd_launches"]["d128"],
+        # the four counted [cli-evaluate] runs, by the shape each launched
+        **{eval_index[key]: n for key, n in eval_shapes.items()},
     }
     # the matvec's launches at 8 rows: the decode steps of the closed and
     # open loops (the long-budget engine runs 2 slots)
@@ -4287,7 +4866,9 @@ def main() -> int:
         }
 
     note = ("sums over one generate run, one finetune step, the counted "
-            "serving runs (closed loop, open loop, long-budget engine) and one "
+            "serving runs (closed loop, open loop, long-budget engine), the four "
+            "counted [cli-evaluate] runs (MRG greedy, engine, spec-decode; VQA "
+            "engine; the eval_ shapes) and one "
             "step each of [clip-stage1], [clip-stage2] (teacher recomputed, "
             "and a teacher-cache hit) and [clip-long]: per-launch times at "
             "each shape x its launches there")
@@ -4310,7 +4891,8 @@ def main() -> int:
     kernels = [
         entry("flash_fwd", "hsenet_torch/csrc/flash_fwd_wgmma.cu",
               f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
-              {**per_shape, **clip_kernels["flash_fwd"], **encode_shapes},
+              {**per_shape, **clip_kernels["flash_fwd"], **encode_shapes,
+               **eval_kernels},
               fwd_counts, note + "; one W8A8 encode at its batch-8 tower shape "
               "and the speculative engine's admissions ([spec]'s one prefill "
               "is left out); bf16 and f16, every path's launches counted under "
@@ -4369,11 +4951,15 @@ def main() -> int:
               "card's PyTorch has no CUDA kernel for it); the _m1 shapes (M = 1) "
               "and the LM head's table are on no counted path"),
         entry("quant_matvec_fma", "hsenet_torch/csrc/quant_matvec.cu",
-              "hsenet_tpu/ops/quant_matvec.py:42", matvec_old, {},
-              "the CUDA-core entry hsenet_quant_matvec_fma in bf16, the "
-              "yardstick of the tensor-core entry (no path launches it; its f32 "
-              "build is the f32 route): per-launch times at each (K, N) and M "
-              "summed; library is a matmul on a bf16 copy of the weight"),
+              "hsenet_tpu/ops/quant_matvec.py:42", {**matvec_old, **fma_shapes},
+              fma_counts,
+              "the CUDA-core entry hsenet_quant_matvec_fma: its f32 build is "
+              "the f32 route, launched by [ckpt]'s served run (serve --quant-int8 "
+              "--llm-only --synthetic --checkpoint, 8 slots; per-launch times at "
+              "each ckpt_ (K, N) x its launches there; library is an f32 matmul "
+              "on a converted copy); its bf16 build at the other shapes is the "
+              "yardstick of the tensor-core entry (no path launches it; library "
+              "a matmul on a bf16 copy)"),
         *(entry(name, f"hsenet_torch/csrc/{name}.cu",
                 "scripts/_probe_pallas_int8.py:10 (make_kernel)", pv[name],
                 {mode: n for mode, n in pv_launches[name].items() if n},
@@ -4394,6 +4980,7 @@ def main() -> int:
                       "train": train_numbers, "train_grads": grad_numbers,
                       "serve": serve_numbers, "clip": clip,
                       "encode_w8a8": encode_numbers, "spec": spec_numbers,
+                      "cli_evaluate": eval_numbers, "ckpt": ckpt_numbers,
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,5 +1,6 @@
-"""What the port's entry points share: the VLM configurations of a run and
-models with random weights for runs that need no checkpoint."""
+"""What the port's entry points share: the VLM configurations of a run,
+models with random weights for runs that need no checkpoint, and the
+restore of a `--checkpoint` into such a model."""
 
 from __future__ import annotations
 
@@ -73,3 +74,13 @@ def random_model(build, config, *, dtype, device, seed: int):
         model = build(config, dtype=dtype, device=device)
         model.load_state_dict(state, strict=True)
     return model.eval()
+
+
+def restore_checkpoint(model, path: str):
+    """Load the `utils.checkpoint.save_params` file at `path` into `model`
+    (strictly: its keys and shapes must be the model's), in place; float
+    leaves take the model's dtypes."""
+    from hsenet_torch.utils.checkpoint import restore_params
+
+    model.load_state_dict(restore_params(path, model.state_dict()), strict=True)
+    return model

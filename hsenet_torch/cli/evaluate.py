@@ -1,0 +1,256 @@
+"""Evaluation entry point: MRG, VQA and CLIP retrieval (the port of the JAX
+package's cli/evaluate.py).
+
+Counterparts of the reference Bench scripts (`eval_HSENet_CT_Rate_MRG.py`,
+`eval_HSENet_BIMCV_R_MRG.py`, `eval_HSENet_Rad_Geome_VQA.py`) and the
+retrieval utilities (`image_text_retrieval_stage{1,2}.py`), behind one CLI
+with the JAX CLI's arguments:
+
+    # smoke runs, no data needed (tiny models), on the card
+    python -m hsenet_torch.cli.evaluate --task mrg --synthetic
+    python -m hsenet_torch.cli.evaluate --task vqa --synthetic --engine
+    python -m hsenet_torch.cli.evaluate --task retrieval --synthetic
+    # the same on a host without a card: `main` takes `device="cpu"`
+    python -c "from hsenet_torch.cli.evaluate import main; \
+        main(['--task', 'mrg', '--synthetic'], device='cpu')"
+
+    # a converted checkpoint (cli/convert_checkpoint.py) scored on a manifest
+    python -m hsenet_torch.cli.evaluate --task mrg --manifest m.json \
+        --data-root /data --checkpoint vlm.pt --csv mrg.csv
+
+Without --checkpoint the weights are random, drawn from seed 0 (the JAX
+CLI draws its own from PRNGKey(0)). --do-sample waits for the sampling
+slice of the port (ROADMAP §A6), --task seg|rec for the segmentation slice
+(§A8), --dp / --tp above 1 for the parallel slice (§A9); each raises
+`NotImplementedError`. --task retrieval needs --synthetic: the JAX CLI
+builds no model configuration without it (ROADMAP §C).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+
+def _tiny_clip_cfg():
+    from hsenet_torch.configs import BertConfig, CLIPConfig, ViT3DConfig
+
+    return CLIPConfig(
+        vision=ViT3DConfig(
+            image_size=(8, 32, 32), patch_size=(2, 8, 8), hidden_size=32,
+            mlp_dim=64, num_layers=2, num_heads=4,
+        ),
+        text=BertConfig(
+            vocab_size=512, hidden_size=32, num_layers=2, num_heads=4,
+            intermediate_size=64, max_position_embeddings=64,
+        ),
+        projection_dim=32,
+    )
+
+
+def main(argv=None, *, device="cuda", model=None):
+    """Score the task `argv` describes and print the metrics as JSON (the
+    JAX CLI's print). Runs on the CUDA card unless the caller passes
+    `device="cpu"`, where every kernel is replaced by its plain version.
+
+    `model`, where given, is evaluated in place of the configuration's
+    model with random weights: a `HSENetVLM` for mrg/vqa, a `CLIPModel`
+    for retrieval, on `device` (--checkpoint, if set, loads into it)."""
+    p = argparse.ArgumentParser()
+    p.add_argument(
+        "--task", choices=["mrg", "vqa", "retrieval", "seg", "rec"],
+        required=True,
+    )
+    p.add_argument("--reference-compatible", action="store_true",
+                   help="rec: score with the reference's bounding-extent "
+                        "IoU (waits for the segmentation slice)")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--data-root", default="")
+    p.add_argument("--manifest", default="")
+    p.add_argument("--split", default="validation")
+    p.add_argument("--batch-size", type=int, default=14)  # reference MRG bs
+    p.add_argument("--max-new-tokens", type=int, default=0,
+                   help="0 = task default (mrg 512 / vqa 74)")
+    p.add_argument("--checkpoint", default="",
+                   help="params file (utils.checkpoint.save_params)")
+    p.add_argument("--clip-checkpoint", default="",
+                   help="seg: stage-1 CLIP params for prompt embeddings")
+    p.add_argument("--tokenizer", default="")
+    p.add_argument("--csv", default="", help="per-sample CSV output (mrg)")
+    p.add_argument("--max-samples", type=int, default=0)
+    p.add_argument("--do-sample", action="store_true",
+                   help="sample instead of greedy (waits for the sampling "
+                        "slice)")
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--top-p", type=float, default=None)
+    p.add_argument("--gen-seed", type=int, default=0,
+                   help="base seed for --do-sample")
+    p.add_argument("--spec-decode", action="store_true",
+                   help="prompt-lookup speculative decoding (lossless "
+                        "greedy, fewer forwards; eval/speculative.py)")
+    p.add_argument("--draft-len", type=int, default=7,
+                   help="spec-decode draft window (tokens verified/round)")
+    p.add_argument("--engine", action="store_true",
+                   help="generate through the continuous-batching "
+                        "ServingEngine (composes with --spec-decode for "
+                        "in-engine speculation; greedy-only)")
+    p.add_argument("--engine-slots", type=int, default=8)
+    p.add_argument("--engine-vol-cache", type=int, default=0,
+                   help="with --engine: LRU size for per-volume image-"
+                        "feature caching (repeated volumes skip the towers)")
+    p.add_argument("--engine-kv-prefix-cache", type=int, default=0,
+                   help="with --engine: LRU size for per-volume KV-prefix "
+                        "caching (repeat questions skip the towers AND "
+                        "the BOS+image-block share of the LLM prefill)")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="int8 KV cache (per-token/head absmax scales)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel replicas (waits for the parallel slice)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel LLM shards (waits for the parallel "
+                        "slice)")
+    args = p.parse_args(argv)
+    for flag, what in (
+        (args.task in ("seg", "rec"),
+         f"--task {args.task} waits for the segmentation slice of the port "
+         "(ROADMAP §A8)"),
+        (args.do_sample, "--do-sample waits for the sampling slice of the "
+                         "port (ROADMAP §A6)"),
+        (args.dp > 1 or args.tp > 1,
+         "--dp / --tp above 1 wait for the parallel slice of the port "
+         "(ROADMAP §A9)"),
+        (args.task == "retrieval" and not args.synthetic,
+         "--task retrieval needs --synthetic: the JAX CLI builds no model "
+         "configuration without it (ROADMAP §C)"),
+    ):
+        if flag:
+            raise NotImplementedError(what)
+
+    from hsenet_torch import resolve_device
+    from hsenet_torch.cli.common import (
+        build_vlm_config,
+        random_model,
+        restore_checkpoint,
+    )
+    from hsenet_torch.data.datasets import (
+        SPECIAL_TOKENS,
+        DataArgs,
+        DataLoader,
+        SimpleTokenizer,
+        SyntheticCTDataset,
+    )
+
+    device = resolve_device(device)
+    max_samples = args.max_samples or None
+
+    if args.task == "retrieval":
+        from hsenet_torch.eval.retrieval import clip_retrieval_eval
+        from hsenet_torch.models.clip import CLIPModel
+
+        cfg = _tiny_clip_cfg()
+        tokenizer = SimpleTokenizer(vocab_size=cfg.text.vocab_size)
+        ds = SyntheticCTDataset(
+            n=16, shape=(1, *cfg.vision.image_size), tokenizer=tokenizer,
+            mode="clip", args=DataArgs(max_text_len=16),
+        )
+        if model is None:
+            from hsenet_torch.models import init_random_
+
+            model = CLIPModel(cfg, dtype=torch.float32, device=device)
+            init_random_(model, torch.Generator(device=device).manual_seed(0))
+        if args.checkpoint:
+            restore_checkpoint(model, args.checkpoint)
+        metrics = clip_retrieval_eval(
+            model, DataLoader(ds, batch_size=8, shuffle=False), ks=(1, 5, 10),
+        )
+        print(json.dumps(metrics, indent=2))
+        return metrics
+
+    from hsenet_torch.models.mllm import HSENetVLM
+
+    max_new = args.max_new_tokens or (512 if args.task == "mrg" else 74)
+    cfg = build_vlm_config(argparse.Namespace(synthetic=args.synthetic))
+    tokenizer = SimpleTokenizer(vocab_size=cfg.llm.vocab_size)
+    tokenizer.add_special_tokens({"additional_special_tokens": SPECIAL_TOKENS})
+    data_args = DataArgs(
+        data_root=args.data_root,
+        max_length=96 if args.synthetic else 800,
+        proj_out_num=cfg.num_image_tokens,
+    )
+    if args.synthetic:
+        max_new = min(max_new, 8)
+        ds = SyntheticCTDataset(
+            n=4, shape=(1, *cfg.vision.image_size), tokenizer=tokenizer,
+            mode="caption", args=data_args,
+            num_slices=cfg.vision.num_slices,
+            slice_dim=cfg.vision.slice_feature_dim,
+        )
+    elif args.task == "mrg":
+        from hsenet_torch.data.datasets import CaptionDataset
+
+        ds = CaptionDataset(data_args, tokenizer, args.manifest, args.split)
+    else:
+        from hsenet_torch.data.datasets import VQALocationDataset
+
+        ds = VQALocationDataset(data_args, tokenizer, args.manifest, args.split)
+    loader = DataLoader(
+        ds, batch_size=min(args.batch_size, len(ds)), shuffle=False,
+        drop_remainder=False,
+    )
+    dtype = torch.float32 if args.synthetic else torch.bfloat16
+    if model is None:
+        model = random_model(HSENetVLM, cfg, dtype=dtype, device=device, seed=0)
+    if args.checkpoint:
+        restore_checkpoint(model, args.checkpoint)
+
+    cache_dtype = torch.int8 if args.kv_int8 else dtype
+    gen_kwargs = dict(
+        max_new_tokens=max_new, eos_token_id=tokenizer.eos_token_id,
+        pad_token_id=tokenizer.pad_token_id, cache_dtype=cache_dtype,
+    )
+    if args.engine:
+        from hsenet_torch.serving import ServingEngine, engine_generate_fn
+
+        eng = ServingEngine(
+            model,
+            eos_token_id=tokenizer.eos_token_id,
+            pad_token_id=tokenizer.pad_token_id,
+            num_slots=args.engine_slots,
+            prompt_cap=data_args.max_length,
+            max_new_tokens=max_new,
+            cache_dtype=cache_dtype,
+            multimodal=True,
+            speculative=args.spec_decode, draft_len=args.draft_len,
+            volume_cache_size=args.engine_vol_cache,
+            kv_prefix_cache_size=args.engine_kv_prefix_cache,
+            device=device,
+        )
+        gen = engine_generate_fn(eng)
+    elif args.spec_decode:
+        from hsenet_torch.eval.speculative import make_pld_generate
+
+        gen = make_pld_generate(model, draft_len=args.draft_len, **gen_kwargs)
+    else:
+        from hsenet_torch.eval.generate import make_greedy_generate
+
+        gen = make_greedy_generate(model, **gen_kwargs)
+    if args.task == "mrg":
+        from hsenet_torch.eval.mrg import evaluate_mrg
+
+        metrics = evaluate_mrg(
+            gen, loader, tokenizer, csv_path=args.csv or None,
+            max_samples=max_samples, device=device,
+        )
+    else:
+        from hsenet_torch.eval.vqa import evaluate_vqa
+
+        metrics = evaluate_vqa(gen, loader, tokenizer, max_samples=max_samples,
+                               device=device)
+    print(json.dumps(metrics, indent=2, default=str))
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

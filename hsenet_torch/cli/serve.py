@@ -19,10 +19,19 @@ bare LLM (the port of the JAX package's cli/serve.py), built on
     python -m hsenet_torch.cli.serve --quant-int8 --llm-only --synthetic \
         --speculative --draft-len 7 --ngram 2
 
+    # a converted checkpoint (python -m hsenet_torch.cli.convert_checkpoint
+    # --kind phi3 --quant-int8 ...) served by the bare decoder
+    python -m hsenet_torch.cli.serve --quant-int8 --llm-only \
+        --checkpoint phi3_int8.pt --requests req.jsonl
+
 `volume` / `slice_features` are .npy paths; omit them with --llm-only to
-serve the bare decoder. Weights are random, drawn from --seed: --checkpoint
-waits for the checkpoint slice of the port, --tp > 1 for the parallel
-slice, --do-sample for the sampling slice; each raises
+serve the bare decoder. --quant-int8 holds the LLM's projections and
+embedding as int8 codes, the tiny `--llm-only --synthetic` decoder's too
+(where the JAX CLI keeps it float, ROADMAP §C), whose f32 calls run the
+matvec's f32 route. Weights are random, drawn from --seed, unless
+--checkpoint names a `utils.checkpoint.save_params` file of the model's
+keys and shapes. --tp > 1 waits for the parallel slice (ROADMAP §A9),
+--do-sample for the sampling slice (§A6); each raises
 `NotImplementedError`.
 """
 
@@ -45,9 +54,12 @@ def main(argv=None, *, device="cuda"):
                    help="tiny VLM + random requests (smoke test)")
     p.add_argument("--llm-only", action="store_true",
                    help="serve the bare decoder (no vision side)")
-    p.add_argument("--checkpoint", default="", help="params path")
+    p.add_argument("--checkpoint", default="",
+                   help="params file (utils.checkpoint.save_params) of the "
+                        "model the other flags build")
     p.add_argument("--quant-int8", action="store_true",
-                   help="int8 projections + embedding")
+                   help="int8 projections + embedding (the --llm-only "
+                        "--synthetic decoder's too)")
     p.add_argument("--requests", default="",
                    help="JSONL requests: {id, prompt_ids, max_new, "
                         "volume?, slice_features?}; volume (.npy path) is "
@@ -99,19 +111,19 @@ def main(argv=None, *, device="cuda"):
     if args.kv_prefix_cache and args.llm_only:
         p.error("--kv-prefix-cache caches the image-block KV; it requires "
                 "the multimodal engine (drop --llm-only)")
-    for flag, what in (
-        (args.checkpoint, "--checkpoint waits for the checkpoint slice"),
-        (args.tp > 1, "--tp > 1 waits for the parallel slice"),
-        (args.do_sample, "--do-sample waits for the sampling slice"),
+    for flag, what, item in (
+        (args.tp > 1, "--tp > 1 waits for the parallel slice", "§A9"),
+        (args.do_sample, "--do-sample waits for the sampling slice", "§A6"),
     ):
         if flag:
-            raise NotImplementedError(f"{what} of the port")
+            raise NotImplementedError(f"{what} of the port (ROADMAP {item})")
 
     from hsenet_torch import resolve_device
     from hsenet_torch.cli.common import (
         build_vlm_config,
         int8_serving_config,
         random_model,
+        restore_checkpoint,
     )
     from hsenet_torch.serving import ServingEngine
 
@@ -123,16 +135,16 @@ def main(argv=None, *, device="cuda"):
         from hsenet_torch.configs import Phi3Config
         from hsenet_torch.models.phi3 import Phi3ForCausalLM
 
+        quant = dict(quant_int8=args.quant_int8,
+                     quant_int8_embed=args.quant_int8)
         if args.synthetic:
             cfg = Phi3Config(
                 vocab_size=512, hidden_size=64, intermediate_size=128,
                 num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
-                tie_word_embeddings=True,
+                tie_word_embeddings=True, **quant,
             )
         else:
-            cfg = Phi3Config(
-                quant_int8=args.quant_int8, quant_int8_embed=args.quant_int8
-            )
+            cfg = Phi3Config(**quant)
         model = random_model(Phi3ForCausalLM, cfg, dtype=dtype, device=device,
                              seed=args.seed)
         vocab = cfg.vocab_size
@@ -148,6 +160,8 @@ def main(argv=None, *, device="cuda"):
         n_img = cfg.num_image_tokens
         vocab = cfg.llm.vocab_size
         multimodal = True
+    if args.checkpoint:
+        restore_checkpoint(model, args.checkpoint)
 
     eng = ServingEngine(
         model,

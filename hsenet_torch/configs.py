@@ -8,7 +8,7 @@ Fields of the JAX copy that the port has no use for yet are left out:
 `Phi3Config.remat_policy` (the port's `remat` recomputes each Phi block in
 full, the JAX package's default "full" policy) and, in `TrainConfig`,
 those of the CLI and of later slices (`batch_size`, `dtype`, `remat`,
-`checkpoint_every`, `zero1`, `device_prefetch`, the device-trace window).
+`zero1`, `device_prefetch`, the device-trace window).
 """
 
 from __future__ import annotations
@@ -245,3 +245,4 @@ class TrainConfig:
     seed: int = 42
     log_every: int = 50
     eval_every: int = 500
+    checkpoint_every: int = 1000

@@ -1,23 +1,31 @@
-"""The part of the JAX package's data/datasets.py that the VLM finetune's
-and the CLIP stages' batches need: the tokenization rule, the word-level
-tokenizer of tests and synthetic runs, batching and the host loader, and
-the synthetic CT dataset in caption, clip and clip2 modes. The host side is
-plain numpy, as in the JAX package; the trainer moves each batch to the
-device. The CT-RATE datasets come with the port's CLIP CLIs.
+"""The part of the JAX package's data/datasets.py that the VLM finetune's,
+the CLIP stages' and the evaluation harnesses' batches need: the
+tokenization rules, the word-level tokenizer of tests and synthetic runs,
+batching and the host loader, the synthetic CT dataset in caption, clip and
+clip2 modes, and the manifest-driven MRG (`CaptionDataset`) and location-VQA
+(`VQALocationDataset`) sets that evaluation reads. The host side is plain
+numpy, as in the JAX package; the trainer and the harnesses move each batch
+to the device. The CT-RATE CLIP datasets come with the port's CLIP CLIs.
 
 Reproduced semantics: question = [BOS] + "<im_patch>" * proj_out_num +
 prompt; question + " " + answer tokenized right-padded, EOS patched at the
-valid length, labels -100 over the question span and the padding.
+valid length, labels -100 over the question span and the padding; report
+text stripped of quotes and parentheses; validation cut to the first
+`val_limit` entries of the manifest.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import random
 import re
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from hsenet_torch.data.prompts import Caption_templates, VQA_location_templates
 
 IGNORE_INDEX = -100
 IM_PATCH_TOKEN = "<im_patch>"
@@ -118,6 +126,41 @@ class SimpleTokenizer:
         }
 
 
+def clean_report_text(text: str) -> str:
+    """Strip quotes and parentheses (multi_dataset.py:252-255)."""
+    for ch in ('"', "'", "(", ")"):
+        text = text.replace(ch, "")
+    return text
+
+
+def truncate_text_sentence_sampling(
+    tokenizer, text: str, max_tokens: int, rng: random.Random
+) -> str:
+    """Random sentence-sampling truncation (multi_dataset.py:76-102):
+    keep the first sentence, then add randomly chosen sentences while the
+    token budget allows."""
+
+    def count(t):
+        return len(tokenizer.encode(t, add_special_tokens=True))
+
+    if count(text) <= max_tokens:
+        return text
+    sentences = text.split(".")
+    selected: List[str] = []
+    current = 0
+    if sentences:
+        selected.append(sentences.pop(0))
+    while current <= max_tokens and sentences:
+        s = rng.choice(sentences)
+        n = count(s)
+        if current + n <= max_tokens and s not in selected:
+            selected.append(s)
+            current += n
+        else:
+            sentences.remove(s)
+    return ".".join(selected)
+
+
 def tokenize_qa_sample(
     tokenizer,
     question: str,
@@ -194,6 +237,113 @@ class _RetryDataset:
                 print(f"Error in __getitem__ at index {idx}: {e}")
                 idx = rng.randint(0, len(self) - 1)
         raise RuntimeError("dataset retry limit exceeded")
+
+
+def _load_manifest(path: str, split: str, val_limit: int) -> List[dict]:
+    with open(path) as f:
+        data = json.load(f)[split]
+    if split == "validation":
+        data = data[:val_limit]
+    return data
+
+
+def _load_text(entry_text: str, data_root: str) -> str:
+    """Manifest 'text' may be an inline string or a path to a .txt file."""
+    p = os.path.join(data_root, entry_text)
+    if entry_text.endswith(".txt") and os.path.exists(p):
+        with open(p) as f:
+            return f.read()
+    return entry_text
+
+
+class CaptionDataset(_RetryDataset):
+    """MRG samples (CapDataset_CT_Rate, multi_dataset.py:406-520): a
+    manifest split of {image, biomedclip_features, text} entries, paths
+    under `args.data_root`; the prompt is drawn from `templates`."""
+
+    def __init__(
+        self,
+        args: DataArgs,
+        tokenizer,
+        manifest: str,
+        split="train",
+        templates: Optional[Sequence[str]] = None,
+    ):
+        self.args = args
+        self.tokenizer = tokenizer
+        self.split = split
+        self.data_list = _load_manifest(manifest, split, args.val_limit)
+        self.templates = list(templates or Caption_templates)
+        self.image_tokens = IM_PATCH_TOKEN * args.proj_out_num
+        self._rng = random.Random(0)
+
+    def get(self, idx):
+        entry = self.data_list[idx]
+        image = np.load(os.path.join(self.args.data_root, entry["image"]))
+        image_2d = np.load(
+            os.path.join(self.args.data_root, entry["biomedclip_features"])
+        )
+        answer = clean_report_text(_load_text(entry["text"], self.args.data_root))
+        prompt = self._rng.choice(self.templates)
+        question = self.image_tokens + prompt
+        tok = tokenize_qa_sample(
+            self.tokenizer, question, answer, self.args.max_length
+        )
+        return {
+            "image": image.astype(np.float32),
+            "image_2d": image_2d.astype(np.float32),
+            "input_ids": tok["input_ids"],
+            "attention_mask": tok["attention_mask"],
+            "labels": tok["labels"],
+            "question": question,
+            "answer": answer,
+        }
+
+
+class VQALocationDataset(_RetryDataset):
+    """RadGenome location VQA (VQADataset_CT_Rate, multi_dataset.py:524-645):
+    prompt template with {abnormality} substitution; answer = anatomy name."""
+
+    def __init__(
+        self,
+        args: DataArgs,
+        tokenizer,
+        manifest: str,
+        split="train",
+        templates: Optional[Sequence[str]] = None,
+    ):
+        self.args = args
+        self.tokenizer = tokenizer
+        self.split = split
+        self.data_list = _load_manifest(manifest, split, args.val_limit)
+        self.templates = list(templates or VQA_location_templates)
+        self.image_tokens = IM_PATCH_TOKEN * args.proj_out_num
+        self._rng = random.Random(0)
+
+    def get(self, idx):
+        entry = self.data_list[idx]
+        image = np.load(os.path.join(self.args.data_root, entry["image"]))
+        image_2d = np.load(
+            os.path.join(self.args.data_root, entry["biomedclip_features"])
+        )
+        template = self._rng.choice(self.templates)
+        question_text = template.format(abnormality=entry["abnormality"])
+        answer = entry["anatomy"]
+        question = self.image_tokens + question_text
+        tok = tokenize_qa_sample(
+            self.tokenizer, question, answer, self.args.max_length
+        )
+        return {
+            "image": image.astype(np.float32),
+            "image_2d": image_2d.astype(np.float32),
+            "input_ids": tok["input_ids"],
+            "attention_mask": tok["attention_mask"],
+            "labels": tok["labels"],
+            "question": question,
+            "answer": answer,
+            "anatomy": answer,
+            "abnormality": entry["abnormality"],
+        }
 
 
 _TENSOR_KEYS = {

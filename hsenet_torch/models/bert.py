@@ -7,8 +7,8 @@ attention runs through the flash kernels and no (S, S) mask is built.
 
 The JAX package runs the layers as an `nn.scan` over stacked weights; here
 they are an `nn.ModuleList` (`hsenet_torch.bridge` unstacks
-`language_encoder/layers`). The converter from HF weights
-(`convert_hf_bert`) comes with the port's converters.
+`language_encoder/layers`). `convert_hf_bert` carries HF `BertModel`
+weights over.
 """
 
 from __future__ import annotations
@@ -113,3 +113,32 @@ class BertEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, kv_lens)
         return x
+
+
+def convert_hf_bert(state_dict, config: BertConfig):
+    """HF torch `BertModel.state_dict()` -> the state dict of the port's
+    `BertEncoder` (f32 host tensors; HF's (out, in) Linear layout is the
+    port's)."""
+    from hsenet_torch.utils.convert import as_f32
+
+    out = {}
+
+    def copy(src, dst, bias=True):
+        out[f"{dst}.weight"] = as_f32(state_dict[f"{src}.weight"])
+        if bias:
+            out[f"{dst}.bias"] = as_f32(state_dict[f"{src}.bias"])
+
+    for src, dst in (("word_embeddings", "word"), ("position_embeddings", "position"),
+                     ("token_type_embeddings", "token_type")):
+        copy(f"embeddings.{src}", f"embeddings.{dst}", bias=False)
+    copy("embeddings.LayerNorm", "embeddings.norm")
+    for i in range(config.num_layers):
+        src, dst = f"encoder.layer.{i}", f"layers.{i}"
+        for a, b in (("attention.self.query", "q"), ("attention.self.key", "k"),
+                     ("attention.self.value", "v"),
+                     ("attention.output.dense", "attn_out"),
+                     ("attention.output.LayerNorm", "attn_norm"),
+                     ("intermediate.dense", "ffn_in"), ("output.dense", "ffn_out"),
+                     ("output.LayerNorm", "ffn_norm")):
+            copy(f"{src}.{a}", f"{dst}.{b}")
+    return out

@@ -28,6 +28,8 @@ written and the cache is read back dequantised into the compute dtype.
 Unlike the JAX package, whose arrays are immutable, the port writes new
 keys and values into the cache in place and returns the same cache; this
 keeps one copy of the cache in device memory.
+
+`convert_hf_phi3` carries HF `Phi3ForCausalLM` weights over.
 """
 
 from __future__ import annotations
@@ -412,3 +414,37 @@ class Phi3ForCausalLM(nn.Module):
             inputs_embeds, kv_lens=kv_lens, cache=cache, positions=positions,
             deterministic=deterministic, last_token_only=last_token_only,
         )
+
+
+def convert_hf_phi3(state_dict, config: Phi3Config):
+    """HF torch `Phi3ForCausalLM.state_dict()` -> the state dict of the
+    port's `Phi3ForCausalLM` (f32 host tensors). HF's fused `qkv_proj` and
+    `gate_up_proj` are split by rows into the q/k/v and gate/up
+    projections; the LM head is taken only for untied configs."""
+    from hsenet_torch.utils.convert import as_f32
+
+    def t(name):
+        return as_f32(state_dict[name])
+
+    q, kv, inter = config.q_dim, config.kv_dim, config.intermediate_size
+    out = {"embed.weight": t("model.embed_tokens.weight")}
+    for i in range(config.num_layers):
+        src, dst = f"model.layers.{i}", f"decoder.layers.{i}"
+        qkv = t(f"{src}.self_attn.qkv_proj.weight")  # (q + 2 kv, hidden)
+        gate_up = t(f"{src}.mlp.gate_up_proj.weight")  # (2 inter, hidden)
+        out.update({
+            f"{dst}.input_norm.weight": t(f"{src}.input_layernorm.weight"),
+            f"{dst}.q_proj.weight": qkv[:q].clone(),
+            f"{dst}.k_proj.weight": qkv[q:q + kv].clone(),
+            f"{dst}.v_proj.weight": qkv[q + kv:].clone(),
+            f"{dst}.o_proj.weight": t(f"{src}.self_attn.o_proj.weight"),
+            f"{dst}.post_attn_norm.weight": t(
+                f"{src}.post_attention_layernorm.weight"),
+            f"{dst}.gate_proj.weight": gate_up[:inter].clone(),
+            f"{dst}.up_proj.weight": gate_up[inter:].clone(),
+            f"{dst}.down_proj.weight": t(f"{src}.mlp.down_proj.weight"),
+        })
+    out["decoder.norm.weight"] = t("model.norm.weight")
+    if not config.tie_word_embeddings and "lm_head.weight" in state_dict:
+        out["lm_head.weight"] = t("lm_head.weight")
+    return out

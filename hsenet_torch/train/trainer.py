@@ -1,11 +1,14 @@
 """Training loop (the port of the JAX package's train/trainer.py): host
-loader -> device batches -> train step, with step timing, a NaN guard and
-the history of logged metrics.
+loader -> device batches -> train step, with step timing, a NaN guard, the
+history of logged metrics, a periodic eval hook, and checkpoints with a
+keep-limit and milestone saves (`utils.checkpoint.CheckpointManager`).
 
 The step's randomness is a pure function of (seed, step): step i passes the
 train step `fold_seed(cfg.seed, i)`, from which it seeds its own dropout
-generator. On-device augmentation and checkpointing (with resuming) come
-with their slices of the port.
+generator. With the data position fast-forwarded on resume, a run restored
+from a checkpoint at step k consumes exactly the batches and randomness an
+unbroken run would have. On-device augmentation comes with its slice of
+the port (ROADMAP §A5).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from hsenet_torch.train.vlm import fold_seed
 class TrainerHooks:
     on_log: Optional[Callable[[int, Dict[str, float]], None]] = None
     on_eval: Optional[Callable[[int, TrainState], Dict[str, float]]] = None
+    milestone_steps: tuple = ()
 
 
 class Trainer:
@@ -39,18 +43,16 @@ class Trainer:
         hooks: Optional[TrainerHooks] = None,
         augment=None,
     ):
-        if checkpoint_manager is not None:
-            raise NotImplementedError(
-                "checkpointing comes with a later slice of the port"
-            )
         if augment is not None:
             raise NotImplementedError(
-                "on-device augmentation comes with a later slice of the port"
+                "on-device augmentation comes with a later slice of the port "
+                "(ROADMAP §A5)"
             )
         self.train_step = train_step
         self.state = state
         self.loader_factory = loader_factory
         self.cfg = cfg
+        self.ckpt = checkpoint_manager
         self.hooks = hooks or TrainerHooks()
         self.history: List[Dict[str, float]] = []
         self.device = next(iter(state.params.values())).device
@@ -65,13 +67,28 @@ class Trainer:
     def fit(self, total_steps: Optional[int] = None) -> TrainState:
         total = total_steps or self.cfg.total_steps
         step = self.state.step
-        epoch = 0
+        epoch: Optional[int] = None
+        pending_skip = 0
         t_last = time.perf_counter()
         while step < total:
             loader = self.loader_factory()
+            if epoch is None:
+                epoch = 0
+                if step:  # resumed: recover (epoch, intra-epoch offset)
+                    try:
+                        steps_per_epoch = len(loader)
+                    except TypeError:
+                        steps_per_epoch = 0
+                    if steps_per_epoch:
+                        epoch = step // steps_per_epoch
+                        pending_skip = step % steps_per_epoch
             if hasattr(loader, "epoch"):
                 loader.epoch = epoch
-            for batch in loader:
+            batches = iter(loader)
+            for _ in range(pending_skip):  # the batches the run had consumed
+                next(batches, None)
+            pending_skip = 0
+            for batch in batches:
                 if step >= total:
                     break
                 self.state, metrics = self.train_step(
@@ -104,5 +121,13 @@ class Trainer:
                     eval_metrics = self.hooks.on_eval(step, self.state)
                     if eval_metrics:
                         print(f"eval @ {step}: {eval_metrics}", flush=True)
+
+                if self.ckpt is not None and (
+                    step % self.cfg.checkpoint_every == 0
+                    or step in self.hooks.milestone_steps
+                ):
+                    self.ckpt.save(step, self.state)
             epoch += 1
+        if self.ckpt is not None:
+            self.ckpt.wait()  # join an in-flight async save before returning
         return self.state

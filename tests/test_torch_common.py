@@ -102,7 +102,11 @@ def test_importing_the_port_loads_no_jax():
         "hsenet_torch.train.stage1, hsenet_torch.train.stage2, "
         "hsenet_torch.eval.retrieval, hsenet_torch.eval.speculative, "
         "hsenet_torch.ops.int8_pv, hsenet_torch.scripts.probe_int8_pv, "
-        "hsenet_torch.utils.convert; "
+        "hsenet_torch.utils.convert, hsenet_torch.utils.checkpoint, "
+        "hsenet_torch.cli.evaluate, hsenet_torch.cli.convert_checkpoint, "
+        "hsenet_torch.eval.mrg, hsenet_torch.eval.vqa, hsenet_torch.eval.metrics, "
+        "hsenet_torch.eval.ratescore, hsenet_torch.data.prompts, "
+        "hsenet_torch.data.term_dictionary; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'flax', 'hsenet_tpu'))]; print(bad); sys.exit(1 if bad else 0)"
     )

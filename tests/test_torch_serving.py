@@ -423,9 +423,9 @@ def test_cli_rejects_caches_with_llm_only(flag, capsys):
 
 @pytest.mark.parametrize(
     "flags,slice_name",
-    [(["--checkpoint", "ckpt"], "checkpoint"), (["--tp", "2"], "parallel"),
+    [(["--tp", "2"], "parallel"),
      (["--speculative", "--do-sample"], "sampling"), (["--do-sample"], "sampling")],
-    ids=["checkpoint", "tp", "speculative", "do-sample"],
+    ids=["tp", "speculative", "do-sample"],
 )
 def test_cli_options_of_later_slices_raise(flags, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
