@@ -205,6 +205,28 @@ In order:
 16. [clip-long] the stage-1 step at `--patch-size 2 8 8` (16,385 tower
    tokens), batch 2: launches at that shape, finite losses, a non-zero
    gradient in every tower block, step time, peak memory and a profile;
+16a. [cli-train] the three training CLIs through their `main` at the CLIs'
+   full-width defaults in bf16 with remat on, on manifests written to a
+   temporary directory (8 volumes (1, 32, 256, 256) and slice features
+   (32, 768) from a numpy seed, shared by the entries; inline reports):
+   `train_clip_stage1` at batch 24 for 4 steps (a checkpoint and the
+   retrieval eval at 4), `train_clip_stage2` on its `clip_params` (4
+   steps, then 2 with `--cached-teacher`, whose losses must equal the
+   recomputed run's first two within CACHED_TEACHER_RTOL), `train_vlm
+   --task mrg` at batch 2 x 800 on both `tower_params` exports (4 steps,
+   the profile window over step 3), the same command with `--resume auto
+   --total-steps 6` (it must log steps 5 and 6), and `train_vlm --task vqa
+   --int8-base` at batch 5 x 330 for 3 steps. It checks the flash launches
+   of every step by shape (B1 with and without the log-sum-exp at d 64
+   and d 128, B3), every bf16 forward on flash_fwd_wgmma, no B5 launch,
+   finite and falling losses, the exports, the VLM's tower_stage1 equal
+   to stage 1's export (in bf16) bit for bit after training, the int8
+   codes unchanged and the adapters moved, each run's TensorBoard file
+   read back here (CRC-32C, one scalar per metric per logged step, the
+   logged values) and each trace naming the flash kernels; it prints each
+   run's wall, step ms, samples/s, peak memory and the idle share over
+   the profiled step; [kernel-train-cli] then holds and times B1 and B3
+   at the shapes those runs launched that no phase above timed;
 17. prints one JSON line of kernel numbers, then as its last line
    {"ok": true, "device": {...}}.
 
@@ -219,6 +241,7 @@ import gc
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -487,6 +510,19 @@ CKPT_SERVE = ["--quant-int8", "--llm-only", "--synthetic", "--num-requests", "6"
 # the engine's 8 slots
 CKPT_MATVEC = {"ckpt_64x64": ((64, 64), 4), "ckpt_64x32": ((64, 32), 4),
                "ckpt_64x128": ((64, 128), 4), "ckpt_128x64": ((128, 64), 2)}
+
+
+# [cli-train]: the three training CLIs through their `main` on manifests
+TRAIN_CLI_VOLUMES = 8  # distinct volumes; the CLIP entries share them, 3 each
+TRAIN_CLI_BATCH = {"clip": 24, "mrg": 2, "vqa": 5}
+TRAIN_CLI_STEPS = 4
+TRAIN_CLI_PROFILE = ["--profile-start", "2", "--profile-stop", "3"]
+# the cached-teacher run's losses against the recomputed run's first two:
+# the cache serves the teacher's bf16 features as f32, so the teacher's
+# logits round once less (~1e-3 of the loss); a wrong batch or a stale
+# feature moves the loss by its whole size
+CACHED_TEACHER_RTOL = 1e-2
+CRC32C_CHECK = 0xE3069283  # CRC-32C of b"123456789"
 
 
 _LAP = [time.perf_counter()]
@@ -1670,11 +1706,32 @@ def check_clip_kernels():
     """B1 and B3 at the CLIP paths' shapes (the towers at batch 24, BERT at
     24 x 12 x 128 with per-row kv_lens), B2 and B4's shapes (the fine-patch
     tower, 2 x 12 x 16,385 x 64, and the LLM's causal 1 x 24 x 4096 x 128 at
-    kv_len 4096 and 3000) against the plain versions, a chunk of batch rows
-    and heads at a time, beside wrong variants (on the first chunk); each
-    timed against its bound, the plain version and one SDPA call (its
-    backward for dQ, dK/dV). The time per valid (query, key) pair at 16,385
-    tokens must stay within PAIR_TIME_RATIO of the time at 2,049."""
+    kv_len 4096 and 3000), through `check_flash_cases`. The time per valid
+    (query, key) pair at 16,385 tokens must stay within PAIR_TIME_RATIO of
+    the time at 2,049."""
+    results = check_flash_cases(clip_kernel_cases(), seed=9)
+    # B2 and B4 at 16,385 tokens walk 8 times the keys of the tower's 2,049;
+    # their time per valid pair must not grow with it
+    for kname, suffix in (("flash_fwd", "_lse"), ("flash_bwd", "")):
+        short, long = (results[kname][n + suffix] for n in ("clip_tower", "clip_long"))
+        ratio = (long["ms"] / long["pairs"]) / (short["ms"] / short["pairs"])
+        print(f"[kernel-time] {kname} per valid pair at 16,385 tokens over "
+              f"2,049: {ratio:.3f} (limit {PAIR_TIME_RATIO})")
+        if ratio > PAIR_TIME_RATIO:
+            raise AssertionError(f"{kname}'s time per pair grows with the length")
+        results[kname]["clip_long" + suffix]["pair_time_ratio"] = ratio
+    return results
+
+
+def check_flash_cases(cases, seed: int):
+    """B1 (with the log-sum-exp and without, as each case's path launches
+    it) and, where the path runs the backward (a forward with the
+    log-sum-exp), B3 at each case's shape against the plain versions, a
+    chunk of batch rows and heads at a time, beside wrong variants (on the
+    first chunk); each timed against its bound, the plain version and one
+    SDPA call (its backward for dQ, dK/dV). A case is (name, (batch, heads,
+    tokens, head_dim), kv_lens, causal, (batch rows, heads) a plain call
+    takes at once, the forward's kinds on the path)."""
     import torch
     import torch.nn.functional as F
     from einops import rearrange
@@ -1682,10 +1739,10 @@ def check_clip_kernels():
     from hsenet_torch.ops import flash_attention as tfa
 
     dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(9)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     results = {"flash_fwd": {}, "flash_bwd": {}}
-    for name, (b, h, s, d), kv_lens, causal, (rows, heads), fwd_kinds in (
-            clip_kernel_cases()):
+    for name, (b, h, s, d), kv_lens, causal, (rows, heads), fwd_kinds in cases:
+        with_bwd = "flash_fwd_lse" in fwd_kinds
         # q, k, v: head-split views of one packed projection, as the towers
         # hand them over
         qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev,
@@ -1737,34 +1794,35 @@ def check_clip_kernels():
                 q[i, hs], k[i, hs], v[i, hs], out[i, hs], lse[i, hs], do[i, hs],
                 kv_t[i], off_t[i], causal), b, h, rows, heads)
 
-        got = tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t, off_t, causal)
-        rerun = (tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t, off_t,
-                                              causal)[0].float()
-                 - got[0].float()).abs().max().item()
-        want = plain_bwd()
-        errs = {g: row_rel(a, w) for g, a, w in zip(("dq", "dk", "dv"), got, want)}
-        past_kv = (torch.arange(s, device=dev)[None, None, :, None]
-                   >= kv_t[:, None, None, None])
-        past_kv_zero = all(torch.count_nonzero(torch.where(past_kv, g, 0)) == 0
-                           for g in got[1:])
-        wrong = {}
-        for wname, wgrads in wrong_backwards(
-                q[i, hs], k[i, hs], v[i, hs], out[i, hs], lse[i, hs], do[i, hs],
-                kv_t[i], off_t[i], causal).items():
-            wrong[wname] = max(row_rel(a, w[i, hs])[1] for a, w in zip(wgrads, want))
-            del wgrads
-        print(f"[kernel-bwd] {name}: {shape}: err / row's max |ref| "
-              + ", ".join(f"{g} {e[1]:.3e} (abs {e[0]:.3e})" for g, e in errs.items())
-              + f" (tol {KERNEL_BWD_TOL}); dK, dV exactly 0 past kv_len: "
-              f"{past_kv_zero}; dQ of a second run differs by at most "
-              f"{rerun:.3e}; wrong variants: "
-              + ", ".join(f"{w} {e:.3e}" for w, e in wrong.items()))
-        if not past_kv_zero or max(e[1] for e in errs.values()) > KERNEL_BWD_TOL:
-            raise AssertionError(f"flash backward {name} disagrees with its plain version")
-        for wname, e in wrong.items():
-            if e <= KERNEL_BWD_TOL:
-                raise AssertionError(f"the backward tolerance passes {wname} at {name}")
-        del got, want
+        if with_bwd:
+            got = tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t, off_t, causal)
+            rerun = (tfa.flash_attention_backward(q, k, v, out, lse, do, kv_t, off_t,
+                                                  causal)[0].float()
+                     - got[0].float()).abs().max().item()
+            want = plain_bwd()
+            errs = {g: row_rel(a, w) for g, a, w in zip(("dq", "dk", "dv"), got, want)}
+            past_kv = (torch.arange(s, device=dev)[None, None, :, None]
+                       >= kv_t[:, None, None, None])
+            past_kv_zero = all(torch.count_nonzero(torch.where(past_kv, g, 0)) == 0
+                               for g in got[1:])
+            wrong = {}
+            for wname, wgrads in wrong_backwards(
+                    q[i, hs], k[i, hs], v[i, hs], out[i, hs], lse[i, hs], do[i, hs],
+                    kv_t[i], off_t[i], causal).items():
+                wrong[wname] = max(row_rel(a, w[i, hs])[1] for a, w in zip(wgrads, want))
+                del wgrads
+            print(f"[kernel-bwd] {name}: {shape}: err / row's max |ref| "
+                  + ", ".join(f"{g} {e[1]:.3e} (abs {e[0]:.3e})" for g, e in errs.items())
+                  + f" (tol {KERNEL_BWD_TOL}); dK, dV exactly 0 past kv_len: "
+                  f"{past_kv_zero}; dQ of a second run differs by at most "
+                  f"{rerun:.3e}; wrong variants: "
+                  + ", ".join(f"{w} {e:.3e}" for w, e in wrong.items()))
+            if not past_kv_zero or max(e[1] for e in errs.values()) > KERNEL_BWD_TOL:
+                raise AssertionError(f"flash backward {name} disagrees with its plain version")
+            for wname, e in wrong.items():
+                if e <= KERNEL_BWD_TOL:
+                    raise AssertionError(f"the backward tolerance passes {wname} at {name}")
+            del got, want
 
         # times: the kernels, the plain versions (chunk by chunk), one SDPA
         # call and its backward (no mask where every key is valid, so that
@@ -1776,7 +1834,8 @@ def check_clip_kernels():
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
             *leaves, attn_mask=mask))
         lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
-                                                      retain_graph=True))
+                                                      retain_graph=True)) \
+            if with_bwd else None
         del lib_out
         pairs = h * attention_pairs(s, s, kv_lens, q_off, causal)[0]
         timed = {}
@@ -1790,10 +1849,11 @@ def check_clip_kernels():
                 lib_fwd, max_abs)
         delta = (do.float() * out.float()).sum(dim=-1).contiguous()
         args = (q, k, v, do, lse, delta, kv_t, off_t, causal, scale)
-        plain_b = time_ms(plain_bwd, reps=1, warmup=1, runs=3)
-        timed[("flash_bwd", name, "flash_bwd")] = (
-            lambda: tfa._bwd_kernel(*args), plain_b, lib_bwd,
-            max(e[0] for e in errs.values()))
+        if with_bwd:
+            plain_b = time_ms(plain_bwd, reps=1, warmup=1, runs=3)
+            timed[("flash_bwd", name, "flash_bwd")] = (
+                lambda: tfa._bwd_kernel(*args), plain_b, lib_bwd,
+                max(e[0] for e in errs.values()))
         for (kname, key, kind), (fn, plain_ms, lib_ms, err) in timed.items():
             bound, bound_by, flops, nbytes = kernel_bound(
                 kind, b, h, s, s, d, kv_lens, q_off, causal)
@@ -1822,17 +1882,6 @@ def check_clip_kernels():
         del q, k, v, qkv, out, lse, do, leaves, delta, args, timed
         gc.collect()
         torch.cuda.empty_cache()
-
-    # B2 and B4 at 16,385 tokens walk 8 times the keys of the tower's 2,049;
-    # their time per valid pair must not grow with it
-    for kname, suffix in (("flash_fwd", "_lse"), ("flash_bwd", "")):
-        short, long = (results[kname][n + suffix] for n in ("clip_tower", "clip_long"))
-        ratio = (long["ms"] / long["pairs"]) / (short["ms"] / short["pairs"])
-        print(f"[kernel-time] {kname} per valid pair at 16,385 tokens over "
-              f"2,049: {ratio:.3f} (limit {PAIR_TIME_RATIO})")
-        if ratio > PAIR_TIME_RATIO:
-            raise AssertionError(f"{kname}'s time per pair grows with the length")
-        results[kname]["clip_long" + suffix]["pair_time_ratio"] = ratio
     return results
 
 
@@ -3500,6 +3549,574 @@ def run_clip_long(card: str):
                  "samples_per_s": CLIP_LONG_BATCH / (med / 1e3)}
 
 
+def write_train_cli_data(root):
+    """[cli-train]'s data under `root`: TRAIN_CLI_VOLUMES volumes (1, 32,
+    256, 256) f32 (noise mixed half and half with a pattern of their own in
+    every patch, so that a random tower tells them apart) and slice features
+    (32, 768), from a numpy seed; reports of seeded words, 16 of their own
+    per volume, in sentences of 8 (the CLIP reports 20-104 words, under the
+    128 tokens past which the sentence sampling would draw another text at
+    each read: the teacher cache then hits from the second step on); a CLIP
+    manifest of 24 entries (3 a volume) in both splits, an MRG manifest (2 train and 2 validation
+    entries of ~450-word reports) and a location-VQA manifest (5 and 5).
+    Returns the manifests' paths by name."""
+    import os
+
+    import numpy as np
+
+    v = clip_config().vision
+    rng = np.random.default_rng(31)
+    reps = [size // p for size, p in zip(v.image_size, v.patch_size)]
+    for i in range(TRAIN_CLI_VOLUMES):
+        pattern = rng.random((1, *v.patch_size), np.float32)
+        vol = 0.5 * rng.random((1, *v.image_size), np.float32) + 0.5 * np.tile(
+            pattern, [1, *reps])
+        np.save(os.path.join(root, f"vol{i}.npy"), vol)
+        np.save(os.path.join(root, f"feat{i}.npy"), rng.standard_normal(
+            (v.num_slices, v.slice_feature_dim)).astype(np.float32))
+
+    def report(i, n_words):
+        words = [f"w{16 * i + w}" for w in rng.integers(0, 16, n_words)]
+        return ". ".join(" ".join(words[j:j + 8])
+                         for j in range(0, n_words, 8)) + "."
+
+    clip_reports = [report(i, 20 + 12 * i) for i in range(TRAIN_CLI_VOLUMES)]
+
+    def entry(i, **kw):
+        return {"image": f"vol{i}.npy", "biomedclip_features": f"feat{i}.npy", **kw}
+
+    clip = [entry(j % TRAIN_CLI_VOLUMES, text=clip_reports[j % TRAIN_CLI_VOLUMES])
+            for j in range(TRAIN_CLI_BATCH["clip"])]
+    mrg = [entry(i, text=report(i, 440 + 8 * i)) for i in range(4)]
+    places = [("nodule", "right lung"), ("pleural effusion", "pleura"),
+              ("emphysema", "left lung"), ("cardiomegaly", "heart"),
+              ("hiatal hernia", "esophagus"), ("atelectasis", "lung base"),
+              ("calcification", "aorta"), ("cyst", "kidney")]
+    vqa = [entry(i, abnormality=a, anatomy=b) for i, (a, b) in enumerate(places)]
+    paths = {}
+    for name, train, val in (("clip", clip, clip), ("mrg", mrg[:2], mrg[2:]),
+                             ("vqa", vqa[:5], vqa[3:])):
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump({"train": train, "validation": val}, f)
+    return paths
+
+
+def _crc32c(data: bytes) -> int:
+    crc = 0xFFFFFFFF
+    for byte in data:
+        crc ^= byte
+        for _ in range(8):
+            crc = (crc >> 1) ^ (0x82F63B78 if crc & 1 else 0)
+    return crc ^ 0xFFFFFFFF
+
+
+def _masked_crc(data: bytes) -> int:
+    crc = _crc32c(data)
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _proto_fields(buf: bytes):
+    """(field number, wire type, value) of a protobuf message: varints as
+    ints, 64- and 32-bit fields as their bytes, length-delimited as bytes."""
+    pos = 0
+
+    def varint():
+        nonlocal pos
+        out = shift = 0
+        while True:
+            byte = buf[pos]
+            pos += 1
+            out |= (byte & 0x7F) << shift
+            shift += 7
+            if not byte & 0x80:
+                return out
+
+    while pos < len(buf):
+        key = varint()
+        number, wire = key >> 3, key & 7
+        if wire == 0:
+            yield number, wire, varint()
+        elif wire in (1, 5):
+            size = 8 if wire == 1 else 4
+            yield number, wire, buf[pos:pos + size]
+            pos += size
+        elif wire == 2:
+            size = varint()
+            yield number, wire, buf[pos:pos + size]
+            pos += size
+        else:
+            raise ValueError(f"protobuf wire type {wire}")
+
+
+def read_tensorboard_events(path):
+    """The events of a TensorBoard event file, read here from its bytes:
+    each TFRecord's length and data checked against their masked CRC-32C,
+    each `Event` decoded to (step, file_version, {tag: simple_value})."""
+    import struct
+
+    if _crc32c(b"123456789") != CRC32C_CHECK:
+        raise AssertionError("the record reader's CRC-32C is wrong")
+    with open(path, "rb") as f:
+        data = f.read()
+    events, pos = [], 0
+    while pos < len(data):
+        head = data[pos:pos + 8]
+        (length,) = struct.unpack("<Q", head)
+        (head_crc,) = struct.unpack("<I", data[pos + 8:pos + 12])
+        body = data[pos + 12:pos + 12 + length]
+        (body_crc,) = struct.unpack("<I", data[pos + 12 + length:pos + 16 + length])
+        if head_crc != _masked_crc(head) or body_crc != _masked_crc(body):
+            raise AssertionError(f"{path}: a record at byte {pos} fails its CRC")
+        pos += 16 + length
+        step, version, scalars = 0, "", {}
+        for number, _, value in _proto_fields(body):
+            if number == 2:
+                step = value
+            elif number == 3:
+                version = value.decode()
+            elif number == 5:
+                for _, _, item in _proto_fields(value):
+                    fields = {n: v for n, _, v in _proto_fields(item)}
+                    scalars[fields[1].decode()] = struct.unpack("<f", fields[2])[0]
+        events.append((step, version, scalars))
+    return events
+
+
+def check_tensorboard_file(tag, path, logged):
+    """The run's event file read back: a first record "brain.Event:2", then
+    one event per logged step holding one scalar per metric, each the f32 of
+    the value the trainer logged."""
+    import numpy as np
+
+    events = read_tensorboard_events(path)
+    want = [(step, "", {k: float(np.float32(v)) for k, v in metrics.items()})
+            for step, metrics in logged]
+    ok = events[0] == (0, "brain.Event:2", {}) and events[1:] == want
+    print(f"[cli-train] {tag}: TensorBoard file {Path(path).name}: {len(events)} "
+          f"records, CRCs valid, {len(want)} logged steps x "
+          f"{len(logged[0][1]) if logged else 0} scalars equal to the logged "
+          f"values: {ok}")
+    if not ok:
+        raise AssertionError(f"[cli-train] {tag}: the TensorBoard file does not "
+                             f"hold the logged metrics: {events[:3]} ...")
+
+
+def trace_numbers(tag, trace_dir):
+    """The profile window's trace: the flash kernels it names, the device's
+    kernel time and its idle share over the window (one step and its
+    logging)."""
+    import os
+
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"[cli-train] {tag}: traces {files} in {trace_dir}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    flash = sorted({m for e in kernels
+                    for m in re.findall(r"flash_[a-z0-9_]*kernel", e["name"])})
+    span = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events)) / 1e3
+    busy = sum(e["dur"] for e in kernels) / 1e3
+    idle = max(0.0, 1 - busy / span) if span else None
+    print(f"[cli-train] {tag}: trace {files[0]}: window {span:.2f} ms, device "
+          f"kernels {busy:.2f} ms ({len(kernels)}), idle share "
+          f"{idle:.1%}; flash kernels named: {flash}")
+    if not any("flash_fwd" in k for k in flash) or not any("flash_bwd" in k
+                                                          for k in flash):
+        raise AssertionError(f"[cli-train] {tag}: the trace names no flash "
+                             "forward and backward kernels")
+    return {"trace": files[0], "window_ms": span, "device_ms": busy,
+            "idle_share": idle, "flash_kernels": flash}
+
+
+def run_train_cli(tag, main, argv, snapshot=()):
+    """One training CLI `main(argv)` on the card, counted: every launch count
+    set to 0 just before and read just after; the flash launches by shape
+    between two logged steps (each step's), and after the last (the final
+    eval); the logged metrics and the event file's path; each train step's
+    time between two device synchronisations; the host batches' valid
+    lengths; with `snapshot`, copies of the model's leaves whose names end
+    with one of those suffixes as training starts. Returns (state, record)."""
+    import torch
+
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.ops import quant_matvec as tqm
+    from hsenet_torch.train import trainer as ttrainer
+
+    rec = {"steps": {}, "logged": [], "step_ms": [], "lens": [], "before": {},
+           "route": {"launches": {}, "f32": {}}}
+
+    def take_counts():
+        for key, counts in (("launches", tfa.launches), ("f32", tfa.f32_launches)):
+            for k, n in counts.items():
+                rec["route"][key][k] = rec["route"][key].get(k, 0) + n
+        shapes = dict(tfa.shape_launches)
+        tfa.reset_launch_counts()
+        return shapes
+
+    class CountingLogger(ttrainer.TensorBoardLogger):
+        def __init__(self, logdir):
+            super().__init__(logdir)
+            rec["tb"] = self.path
+
+        def __call__(self, step, metrics):
+            rec["steps"][step] = take_counts()
+            rec["logged"].append((step, dict(metrics)))
+            super().__call__(step, metrics)
+
+    fit, place = ttrainer.Trainer.fit, ttrainer.Trainer._place
+
+    def spy_fit(self, total_steps=None):
+        model = self.state.model
+        rec["before"] = {k: v.detach().to("cpu", copy=True)
+                         for k, v in model.state_dict().items()
+                         if snapshot and k.endswith(tuple(snapshot))}
+        inner = self.train_step
+
+        def timed_step(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t) * 1e3)
+            return out
+
+        self.train_step = timed_step
+        return fit(self, total_steps)
+
+    def spy_place(self, batch):
+        rec["lens"].append(tuple(int(n) for n in batch["attention_mask"].sum(-1)))
+        return place(self, batch)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    patches = ((ttrainer, "TensorBoardLogger", CountingLogger),
+               (ttrainer.Trainer, "fit", spy_fit),
+               (ttrainer.Trainer, "_place", spy_place))
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    try:
+        t0 = time.perf_counter()
+        state = main(argv)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+    rec["after"] = take_counts()
+    rec["matvec_launches"] = tqm.launches[tqm.KERNEL] + tqm.fma_launches[tqm.FMA]
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    fwd_route(f"cli-train {tag}", rec["route"]["launches"], rec["route"]["f32"])
+    losses = [m["loss"] for _, m in rec["logged"]]
+    print(f"[cli-train] {tag}: {' '.join(argv)}")
+    print(f"[cli-train] {tag}: steps {[s for s, _ in rec['logged']]}, losses "
+          f"{[round(x, 4) for x in losses]}; B5 launches {rec['matvec_launches']}")
+    return state, rec
+
+
+def launches_by_kernel(counts):
+    """Flash launches of one step by kernel and head dim: B1 with and without
+    the log-sum-exp, B3."""
+    out = {}
+    for (kind, *_, d), n in counts.items():
+        key = f"{'B3' if kind == 'flash_bwd' else 'B1'}" + (
+            " LSE" if kind == "flash_fwd_lse" else "") + f" d{d}"
+        out[key] = out.get(key, 0) + n
+    return dict(sorted(out.items()))
+
+
+def check_train_cli_run(tag, rec, per_step, after, batch, falls=True):
+    """A run's launches (each step `per_step(step)`, after the last step
+    `after`), finite losses that fall over the run, no B5 launch; prints
+    the run's wall, step ms (median of the steps after the first),
+    samples/s and peak memory. Returns the run's numbers."""
+    steps = {s: c for s, c in rec["steps"].items()}
+    bad = {s: c for s, c in steps.items() if c != per_step(s)}
+    losses = [m["loss"] for _, m in rec["logged"]]
+    med = statistics.median(rec["step_ms"][1:] or rec["step_ms"])
+    by_kernel = {s: launches_by_kernel(c) for s, c in steps.items()}
+    print(f"[cli-train] {tag}: flash launches per step by kernel "
+          f"{by_kernel}; after the last step {launches_by_kernel(rec['after'])}")
+    print(f"[cli-train] {tag}: wall {rec['wall_s']:.1f} s, step "
+          f"{med:.1f} ms (median of steps 2-{len(rec['step_ms'])}: "
+          f"{[round(x, 1) for x in rec['step_ms']]}), {batch / (med / 1e3):.1f} "
+          f"samples/s, peak memory {rec['peak_gb']:.2f} GB")
+    if bad:
+        raise AssertionError(f"[cli-train] {tag}: flash launches {bad}, not "
+                             f"{ {s: per_step(s) for s in bad} }")
+    if rec["after"] != after:
+        raise AssertionError(f"[cli-train] {tag}: launches after the last step "
+                             f"{rec['after']}, not {after}")
+    if rec["matvec_launches"]:
+        raise AssertionError(f"[cli-train] {tag}: B5 ran {rec['matvec_launches']} "
+                             "times in training")
+    if not all(map(math.isfinite, losses)) or (falls and not losses[-1] < losses[0]):
+        raise AssertionError(f"[cli-train] {tag}: the loss did not fall: {losses}")
+    return {"wall_s": rec["wall_s"], "step_ms_median": med,
+            "step_ms": rec["step_ms"], "samples_per_s": batch / (med / 1e3),
+            "peak_memory_gb": rec["peak_gb"], "losses": losses,
+            "launches_per_step": {s: {" ".join(map(str, k)): n
+                                      for k, n in c.items()}
+                                  for s, c in steps.items()},
+            "launches_after": {" ".join(map(str, k)): n
+                               for k, n in rec["after"].items()}}
+
+
+def vlm_launches(cfg, batch, seq, lse_fwd=True):
+    """One VLM finetune step's flash launches by shape: both frozen towers'
+    forwards (no log-sum-exp), the LLM's forward with it twice per layer
+    under remat and its backward; `lse_fwd=False`: the eval's forwards."""
+    v, llm = cfg.vision, cfg.llm
+    tower = (batch, v.num_heads, v.seq_len, v.seq_len, v.hidden_size // v.num_heads)
+    dec = (batch, llm.num_heads, seq, seq, llm.head_dim)
+    if not lse_fwd:
+        return {("flash_fwd", *tower): 2 * v.num_layers,
+                ("flash_fwd", *dec): llm.num_layers}
+    return {("flash_fwd", *tower): 2 * v.num_layers,
+            ("flash_fwd_lse", *dec): 2 * llm.num_layers,
+            ("flash_bwd", *dec): llm.num_layers}
+
+
+def clip_eval_launches(cfg, batch):
+    """The retrieval eval's forwards over one validation batch: both
+    encoders, no log-sum-exp."""
+    launches = clip_launches(cfg, batch, teacher=True)
+    return {k: n for k, n in launches.items() if k[0] == "flash_fwd"}
+
+
+def run_cli_train(card: str):
+    """[cli-train]: `train_clip_stage1`, `train_clip_stage2` (recomputed,
+    then cached teacher), `train_vlm --task mrg` (then resumed with
+    --resume auto) and `train_vlm --task vqa --int8-base`, through their
+    `main` at the CLIs' full-width defaults in bf16 with remat on, on the
+    manifests `write_train_cli_data` writes to a temporary directory.
+    Returns the phase's numbers and the flash launches by shape over the
+    counted runs (the cached run's and the resumed run's included)."""
+    import argparse
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from hsenet_torch.cli import train_clip_stage1, train_clip_stage2, train_vlm
+    from hsenet_torch.cli.common import build_vlm_config
+
+    root = tempfile.mkdtemp(prefix="hsenet_train_cli_")
+    free_gb = shutil.disk_usage(root).free / 1e9
+    print(f"[cli-train] on {card}; {free_gb:.1f} GB free under the temporary "
+          "directory")
+    numbers, shapes, recs = {}, {}, {}
+    try:
+        paths = write_train_cli_data(root)
+        out = {k: os.path.join(root, k) for k in ("s1", "s2", "s2c", "mrg", "vqa")}
+        # one checkpoint a run, at its last step (the resumed run starts
+        # there): a save of the VLM's trainable state (the token table and
+        # its moments) is 8 GB, and a call to the card's machine may write
+        # 45 GiB to its disk in all
+        steps = ["--total-steps", str(TRAIN_CLI_STEPS), "--log-every", "1",
+                 "--eval-every", str(TRAIN_CLI_STEPS), "--checkpoint-every",
+                 str(TRAIN_CLI_STEPS), "--remat", "--data-root", root]
+        clip = ["--manifest", paths["clip"], "--batch-size", str(TRAIN_CLI_BATCH["clip"])]
+        cfg1, cfg2 = clip_config(), clip_config(slice_guided=True)
+        clip_step = clip_launches(cfg1, TRAIN_CLI_BATCH["clip"])
+
+        # 1. stage 1
+        s1, recs["stage1"] = run_train_cli(
+            "stage 1", train_clip_stage1.main,
+            clip + steps + ["--output-dir", out["s1"], "--profile",
+                            os.path.join(root, "prof_s1"), *TRAIN_CLI_PROFILE])
+        numbers["stage1"] = check_train_cli_run(
+            "stage 1", recs["stage1"], lambda s: clip_step,
+            clip_eval_launches(cfg1, TRAIN_CLI_BATCH["clip"]), TRAIN_CLI_BATCH["clip"])
+        numbers["stage1"]["profile"] = trace_numbers("stage 1", os.path.join(root, "prof_s1"))
+        del s1
+
+        # 2. stage 2 against stage 1's export, then 2 steps with the cache
+        teacher = ["--stage1-checkpoint", os.path.join(out["s1"], "clip_params")]
+        s2, recs["stage2"] = run_train_cli(
+            "stage 2", train_clip_stage2.main,
+            clip + steps + teacher + ["--output-dir", out["s2"], "--profile",
+                                      os.path.join(root, "prof_s2"), *TRAIN_CLI_PROFILE])
+        with_teacher = clip_launches(cfg2, TRAIN_CLI_BATCH["clip"], teacher=True)
+        numbers["stage2"] = check_train_cli_run(
+            "stage 2", recs["stage2"], lambda s: with_teacher,
+            clip_eval_launches(cfg2, TRAIN_CLI_BATCH["clip"]), TRAIN_CLI_BATCH["clip"])
+        numbers["stage2"]["profile"] = trace_numbers("stage 2", os.path.join(root, "prof_s2"))
+        del s2
+        s2c, recs["stage2_cached"] = run_train_cli(
+            "stage 2 cached", train_clip_stage2.main,
+            clip + ["--total-steps", "2"] + steps[2:] + teacher
+            + ["--cached-teacher", "--output-dir", out["s2c"]])
+        student = clip_launches(cfg2, TRAIN_CLI_BATCH["clip"])
+        numbers["stage2_cached"] = check_train_cli_run(
+            "stage 2 cached", recs["stage2_cached"],
+            lambda s: with_teacher if s == 1 else student, {},
+            TRAIN_CLI_BATCH["clip"], falls=False)
+        del s2c
+        want = numbers["stage2"]["losses"][:2]
+        got = numbers["stage2_cached"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"[cli-train] stage 2 cached: losses {got} against the recomputed "
+              f"run's first two {want}: max relative difference {rel:.3e} (limit "
+              f"{CACHED_TEACHER_RTOL})")
+        if not rel <= CACHED_TEACHER_RTOL:
+            raise AssertionError("[cli-train] the cached teacher's losses are not "
+                                 "the recomputed teacher's")
+        numbers["stage2_cached"]["rel_to_recomputed"] = rel
+
+        # 3. the VLM on both towers' exports; 4. resumed
+        cfg = build_vlm_config(argparse.Namespace(synthetic=False))
+        towers = ["--clip-stage1-checkpoint", os.path.join(out["s1"], "tower_params"),
+                  "--clip-stage2-checkpoint", os.path.join(out["s2"], "tower_params")]
+        mrg = (["--task", "mrg", "--manifest", paths["mrg"], "--batch-size",
+                str(TRAIN_CLI_BATCH["mrg"]), "--async-save"] + steps + towers
+               + ["--output-dir", out["mrg"]])
+        vlm, recs["mrg"] = run_train_cli(
+            "vlm mrg", train_vlm.main,
+            mrg + ["--profile", os.path.join(root, "prof_mrg"), *TRAIN_CLI_PROFILE])
+        mrg_step = vlm_launches(cfg, TRAIN_CLI_BATCH["mrg"], 800)
+        numbers["mrg"] = check_train_cli_run(
+            "vlm mrg", recs["mrg"], lambda s: mrg_step,
+            vlm_launches(cfg, TRAIN_CLI_BATCH["mrg"], 800, lse_fwd=False),
+            TRAIN_CLI_BATCH["mrg"])
+        numbers["mrg"]["profile"] = trace_numbers("vlm mrg", os.path.join(root, "prof_mrg"))
+        # the frozen tower_stage1 holds stage 1's export, rounded to the
+        # bf16 in which the VLM keeps its frozen leaves
+        export = torch.load(os.path.join(out["s1"], "tower_params"),
+                            map_location="cuda", weights_only=True)
+        vlm_state = vlm.model.state_dict()
+        prefix = train_vlm.TOWER_PREFIX["stage1"]
+        same = all(torch.equal(vlm_state[prefix + k], v.to(vlm_state[prefix + k].dtype))
+                   for k, v in export.items())
+        print(f"[cli-train] vlm mrg: the trained VLM's tower_stage1 ({len(export)} "
+              f"leaves) equals stage 1's export in bf16 bit for bit: {same}")
+        if not same:
+            raise AssertionError("[cli-train] the VLM's frozen tower moved or "
+                                 "was not grafted")
+        del vlm, vlm_state, export
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        at = mrg.index("--total-steps") + 1
+        resumed = mrg[:at] + ["6"] + mrg[at + 1:] + ["--resume", "auto"]
+        vlm, recs["mrg_resumed"] = run_train_cli("vlm mrg resumed", train_vlm.main,
+                                                 resumed)
+        numbers["mrg_resumed"] = check_train_cli_run(
+            "vlm mrg resumed", recs["mrg_resumed"], lambda s: mrg_step, {},
+            TRAIN_CLI_BATCH["mrg"], falls=False)
+        logged = [s for s, _ in recs["mrg_resumed"]["logged"]]
+        first = numbers["mrg"]["losses"][0]
+        print(f"[cli-train] vlm mrg resumed: steps {logged} (the first run ended "
+              f"at {TRAIN_CLI_STEPS}), losses {numbers['mrg_resumed']['losses']} "
+              f"below the first run's first {first:.4f}")
+        if logged != [5, 6] or vlm.step != 6 or not max(
+                numbers["mrg_resumed"]["losses"]) < first:
+            raise AssertionError("[cli-train] --resume auto did not continue the run")
+        del vlm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. VQA with an int8 base
+        vqa = (["--task", "vqa", "--manifest", paths["vqa"], "--batch-size",
+                str(TRAIN_CLI_BATCH["vqa"]), "--int8-base", "--async-save",
+                "--total-steps", "3"]
+               + steps[2:] + towers + ["--output-dir", out["vqa"], "--profile",
+                                       os.path.join(root, "prof_vqa"), *TRAIN_CLI_PROFILE])
+        vlm, recs["vqa"] = run_train_cli("vlm vqa int8", train_vlm.main, vqa,
+                                         snapshot=("weight_q", "lora_a", "lora_b"))
+        vqa_seq = 330
+        numbers["vqa_int8"] = check_train_cli_run(
+            "vlm vqa int8", recs["vqa"],
+            lambda s: vlm_launches(cfg, TRAIN_CLI_BATCH["vqa"], vqa_seq), {},
+            TRAIN_CLI_BATCH["vqa"])
+        numbers["vqa_int8"]["profile"] = trace_numbers("vlm vqa int8",
+                                                       os.path.join(root, "prof_vqa"))
+        before = recs["vqa"]["before"]
+        end = {k: v.cpu() for k, v in vlm.model.state_dict().items() if k in before}
+        codes = [k for k in before if k.endswith("weight_q")]
+        codes_same = bool(codes) and all(torch.equal(end[k], before[k]) for k in codes)
+        adapters = [k for k in before if ".lora_" in k]
+        moved = sum(not torch.equal(end[k], before[k]) for k in adapters)
+        print(f"[cli-train] vlm vqa int8: {len(codes)} int8 code tensors unchanged "
+              f"after training: {codes_same}; {moved} of {len(adapters)} LoRA "
+              f"tensors moved (lora_b starts at 0: every B moves, A moves once B "
+              f"is nonzero); peak memory {recs['vqa']['peak_gb']:.2f} GB with "
+              f"--int8-base (batch 5 x 330) against {recs['mrg']['peak_gb']:.2f} "
+              "GB without (batch 2 x 800)")
+        if not codes_same or moved < len(adapters) // 2:
+            raise AssertionError("[cli-train] --int8-base moved the codes or "
+                                 "trained no adapter")
+        numbers["vqa_int8"]["codes_unchanged"] = codes_same
+        numbers["vqa_int8"]["adapters_moved"] = [moved, len(adapters)]
+        del vlm, end, before
+        recs["vqa"]["before"] = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        for name, rec in recs.items():
+            check_tensorboard_file(name, rec["tb"], rec["logged"])
+        for name, run in (("stage1", out["s1"]), ("stage2", out["s2"])):
+            for export in ("clip_params", "tower_params"):
+                if not os.path.isfile(os.path.join(run, export)):
+                    raise AssertionError(f"[cli-train] {name}: no {export}")
+        for name in ("mrg", "vqa"):
+            if not os.path.isfile(os.path.join(out[name], "vlm_deltas")):
+                raise AssertionError(f"[cli-train] {name}: no vlm_deltas")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    for rec in recs.values():
+        for counts in (*rec["steps"].values(), rec["after"]):
+            for key, n in counts.items():
+                shapes[key] = shapes.get(key, 0) + n
+    lens = {len(rec["lens"][0]): rec["lens"][0] for name, rec in recs.items()
+            if name in ("mrg", "vqa")}
+    numbers["llm_kv_lens"] = {str(b): list(v) for b, v in lens.items()}
+    numbers["card"] = card
+    return numbers, shapes, lens
+
+
+def train_cli_kernel_cases(path_shapes, known, lens):
+    """The flash cases of the [cli-train] shapes that no earlier phase
+    timed: the VLM towers (non-causal over 2049 tokens) and the LLM at the
+    runs' batch sizes (causal, the first training batch's valid lengths),
+    with the kinds each shape launched (a shape whose backward ran ran its
+    forward with the log-sum-exp)."""
+    by_shape = {}
+    for kind, *shape in path_shapes:
+        if (kind, *shape) not in known:
+            by_shape.setdefault(tuple(shape), set()).add(kind)
+    cases = []
+    for (b, h, s, _, d), kinds in sorted(by_shape.items()):
+        tower = d == 64
+        name = f"train_cli_{'tower' if tower else 'llm'}_{b}x{h}x{s}"
+        kv = (s,) * b if tower else lens[b]
+        fwd = tuple(k for k in ("flash_fwd", "flash_fwd_lse")
+                    if k in kinds or (k == "flash_fwd_lse" and "flash_bwd" in kinds))
+        cases.append((name, (b, h, s, d), kv, not tower, (b, h), fwd))
+    return cases
+
+
+def check_train_cli_kernels(path_shapes, known, lens):
+    """[kernel-train-cli]: B1 and B3 at the [cli-train] shapes no earlier
+    phase held and timed (`check_flash_cases`). Returns the results and the
+    launch key -> (kernel, shape name)."""
+    cases = train_cli_kernel_cases(path_shapes, known, lens)
+    results = check_flash_cases(cases, seed=17)
+    index = {}
+    for name, (b, h, s, d), _, _, _, fwd_kinds in cases:
+        for kind in fwd_kinds:
+            index[(kind, b, h, s, s, d)] = (
+                "flash_fwd", name + ("_lse" if kind == "flash_fwd_lse" else ""))
+        index[("flash_bwd", b, h, s, s, d)] = ("flash_bwd", name)
+    return results, index
+
+
 def pv_bound(mode, g, m, k, n):
     """(bound_ms, bound_by, operations, bytes) of one B6 launch: P read once
     in its mode's dtype, V once (not in glue_only), the f32 output written
@@ -4784,7 +5401,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     long_counts, long_numbers = run_clip_long(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("[clip-stage1] ... [clip-long]")
+
+    # the three training CLIs through their `main` on manifests, then B1 and
+    # B3 at the shapes they launched that no phase above held
+    train_cli_numbers, train_cli_shapes, train_cli_lens = run_cli_train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    known = {**clip_shape_index(),
+             **{key: ("flash_fwd", name) for key, name in eval_index.items()}}
+    train_cli_kernels, train_cli_index = check_train_cli_kernels(
+        train_cli_shapes, known, train_cli_lens)
+    lap("[cli-train], [kernel-train-cli]")
 
     # launches on the main paths, by shape: one generate run, one training
     # step (its towers run at the tower shape) and the counted serving runs
@@ -4827,6 +5457,14 @@ def main() -> int:
             clip_counts[kernel][shape] = clip_counts[kernel].get(shape, 0) + n
     fwd_counts.update(clip_counts["flash_fwd"])
     bwd_counts.update(clip_counts["flash_bwd"])
+    # the [cli-train] runs' launches, by the shape each launched
+    train_cli_counts = {"flash_fwd": {}, "flash_bwd": {}}
+    for key, n in train_cli_shapes.items():
+        kernel, shape = known.get(key) or train_cli_index[key]
+        counts = fwd_counts if kernel == "flash_fwd" else bwd_counts
+        counts[shape] = counts.get(shape, 0) + n
+        train_cli_counts[kernel][shape] = train_cli_counts[kernel].get(shape, 0) + n
+    train_cli_numbers["launches_by_shape"] = train_cli_counts
     # the f32 launches by shape: the two [cli-serve] runs and one step of
     # [train-f32]
     f32_counts = {k: {} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -4870,8 +5508,11 @@ def main() -> int:
             "counted [cli-evaluate] runs (MRG greedy, engine, spec-decode; VQA "
             "engine; the eval_ shapes) and one "
             "step each of [clip-stage1], [clip-stage2] (teacher recomputed, "
-            "and a teacher-cache hit) and [clip-long]: per-launch times at "
-            "each shape x its launches there")
+            "and a teacher-cache hit) and [clip-long], and the six [cli-train] "
+            "runs whole (train_clip_stage1, train_clip_stage2 recomputed and "
+            "cached, train_vlm mrg and resumed, vqa --int8-base; the "
+            "train_cli_ shapes): per-launch times at each shape x its "
+            "launches there")
     jax_fa = "hsenet_tpu/ops/flash_attention.py"
     f32_note = ("f32 route (TF32 products), sums over the two [cli-serve] runs "
                 "and one step of [train-f32]: per-launch times at the padded "
@@ -4892,7 +5533,7 @@ def main() -> int:
         entry("flash_fwd", "hsenet_torch/csrc/flash_fwd_wgmma.cu",
               f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
               {**per_shape, **clip_kernels["flash_fwd"], **encode_shapes,
-               **eval_kernels},
+               **eval_kernels, **train_cli_kernels["flash_fwd"]},
               fwd_counts, note + "; one W8A8 encode at its batch-8 tower shape "
               "and the speculative engine's admissions ([spec]'s one prefill "
               "is left out); bf16 and f16, every path's launches counted under "
@@ -4904,7 +5545,8 @@ def main() -> int:
               f"{jax_fa}:552 (_bwd_dq_kernel), {jax_fa}:611 (_bwd_dkv_kernel), "
               f"{jax_fa}:678 (_bwd_dq_kernel_stream), {jax_fa}:750 "
               "(_bwd_dkv_kernel_stream)",
-              {**bwd, **clip_kernels["flash_bwd"]}, bwd_counts,
+              {**bwd, **clip_kernels["flash_bwd"], **train_cli_kernels["flash_bwd"]},
+              bwd_counts,
               note + "; bf16; plain and library times compute dQ, dK and dV"),
         entry("flash_bwd_dq_d256", "hsenet_torch/csrc/flash_bwd_dq.cu",
               f"{jax_fa}:552 (_bwd_dq_kernel), {jax_fa}:678 (_bwd_dq_kernel_stream)",
@@ -4981,7 +5623,7 @@ def main() -> int:
                       "serve": serve_numbers, "clip": clip,
                       "encode_w8a8": encode_numbers, "spec": spec_numbers,
                       "cli_evaluate": eval_numbers, "ckpt": ckpt_numbers,
-                      "card": card}))
+                      "cli_train": train_cli_numbers, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,20 @@
-"""What the port's entry points share: the VLM configurations of a run,
-models with random weights for runs that need no checkpoint, and the
-restore of a `--checkpoint` into such a model."""
+"""What the port's entry points share: the training CLIs' arguments and
+their run configuration (`add_train_args`, `train_config_from_args`,
+`dtype_from_args`, `dump_config`, `resolve_resume_dir`,
+`restore_or_fresh`, `load_tokenizer`, `refuse_parallel_flags`), the VLM
+configurations of a run, models with random weights for runs that need no
+checkpoint, and the restore of a `--checkpoint` into such a model.
+
+The JAX package's `maybe_zero1` and `mesh_from_args` come with the parallel
+slice of the port (ROADMAP §A9); until then `--zero1`, `--dp` above 1 and
+`--tp` above 1 raise (`refuse_parallel_flags`)."""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+import os
 
 import torch
 
@@ -12,11 +22,157 @@ from hsenet_torch.configs import (
     LoRAConfig,
     PackerConfig,
     Phi3Config,
+    TrainConfig,
     ViT3DConfig,
     VLMConfig,
 )
 from hsenet_torch.models import init_random_
 from hsenet_torch.models.lora import quantize_embed_int8, quantize_kernels_int8
+
+
+def add_train_args(p: argparse.ArgumentParser) -> None:
+    """The flags every training CLI takes, with the JAX CLIs' defaults."""
+    p.add_argument("--data-root", default="")
+    p.add_argument("--manifest", default="", help="dataset manifest JSON")
+    p.add_argument("--synthetic", action="store_true",
+                   help="run on in-memory synthetic data (smoke test)")
+    p.add_argument("--output-dir", default="./output")
+    p.add_argument("--total-steps", type=int, default=1000)
+    p.add_argument("--batch-size", type=int, default=24)
+    p.add_argument("--learning-rate", type=float, default=1e-4)
+    p.add_argument("--warmup-ratio", type=float, default=0.03)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--dp", type=int, default=-1,
+                   help="data-parallel replicas; -1 = every device, which is "
+                        "one card here (above 1 waits for the parallel slice)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel shards (above 1 waits for the "
+                        "parallel slice)")
+    p.add_argument("--async-save", action="store_true",
+                   help="checkpoint saves return once the state is copied "
+                        "to the host; the write runs on a background thread "
+                        "(utils/checkpoint.py)")
+    p.add_argument("--zero1", action="store_true",
+                   help="shard optimizer state over the dp axis (ZeRO-1; "
+                        "waits for the parallel slice)")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--remat", action="store_true", default=None,
+                   help="rematerialize transformer blocks (default: on for "
+                        "production-size configs, off for --synthetic)")
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--eval-every", type=int, default=500,
+                   help="run the entry point's held-out eval every N "
+                        "steps (retrieval accuracy for the CLIP "
+                        "stages, token accuracy for the VLM — the "
+                        "reference evaluates every 4%% of steps); 0 "
+                        "disables")
+    p.add_argument("--checkpoint-every", type=int, default=1000)
+    p.add_argument("--resume", default="",
+                   help="checkpoint dir to resume; 'auto' resumes from "
+                        "this run's own --output-dir if it already holds "
+                        "a checkpoint (preemption restart: relaunch the "
+                        "same command), else starts fresh")
+    p.add_argument("--profile", default="",
+                   help="write a torch.profiler trace (CPU and CUDA) of "
+                        "steps [--profile-start, --profile-stop) to this dir "
+                        "(Chrome/Perfetto-viewable)")
+    p.add_argument("--profile-start", type=int, default=2)
+    p.add_argument("--profile-stop", type=int, default=4)
+
+
+def refuse_parallel_flags(args) -> None:
+    """Raise for the flags of the parallel slice (ROADMAP §A9): the port
+    trains on one card until then."""
+    for flag, what in (
+        (args.zero1, "--zero1"),
+        (args.dp > 1, f"--dp {args.dp}"),
+        (args.tp > 1, f"--tp {args.tp}"),
+        (getattr(args, "pp", 1) > 1, f"--pp {getattr(args, 'pp', 1)}"),
+        (getattr(args, "sp", 1) > 1, f"--sp {getattr(args, 'sp', 1)}"),
+        (getattr(args, "fsdp", False), "--fsdp"),
+    ):
+        if flag:
+            raise NotImplementedError(
+                f"{what} waits for the parallel slice of the port (ROADMAP §A9)")
+
+
+def train_config_from_args(args) -> TrainConfig:
+    return TrainConfig(
+        learning_rate=args.learning_rate,
+        warmup_ratio=args.warmup_ratio,
+        total_steps=args.total_steps,
+        batch_size=args.batch_size,
+        dtype=args.dtype,
+        seed=args.seed,
+        log_every=args.log_every,
+        eval_every=getattr(args, "eval_every", 500),
+        checkpoint_every=args.checkpoint_every,
+        profile_dir=getattr(args, "profile", ""),
+        profile_start=getattr(args, "profile_start", 2),
+        profile_stop=getattr(args, "profile_stop", 4),
+    )
+
+
+def dtype_from_args(args) -> torch.dtype:
+    return torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+
+
+def dump_config(path: str, *cfgs) -> None:
+    """`<path>/run_config.json`: each config dataclass's fields under its
+    class name, as the JAX CLIs write it."""
+    os.makedirs(path, exist_ok=True)
+    blob = {type(cfg).__name__: dataclasses.asdict(cfg) for cfg in cfgs}
+    with open(f"{path}/run_config.json", "w") as f:
+        json.dump(blob, f, indent=2, default=str)
+
+
+def resolve_resume_dir(args, ckpt=None) -> str:
+    """--resume, with the preemption-restart idiom 'auto': the run's own
+    --output-dir when it already holds a checkpoint, else '' (a fresh
+    start). Relaunching the same command after a preemption continues from
+    the last completed save; with the trainer's (seed, step) dropout streams
+    and its fast-forward of the loader, the restarted run reproduces an
+    unbroken one. `ckpt`: the CLI's CheckpointManager on --output-dir. One
+    process decides alone; the agreement across processes comes with the
+    parallel slice (ROADMAP §A9)."""
+    if args.resume != "auto":
+        return args.resume
+    if ckpt is None:
+        from hsenet_torch.utils.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(args.output_dir)
+    return args.output_dir if ckpt.latest_step() is not None else ""
+
+
+def restore_or_fresh(state, args, ckpt):
+    """The train state restored from --resume (see `resolve_resume_dir`),
+    else `state`. `ckpt`: the CLI's CheckpointManager on --output-dir."""
+    from hsenet_torch.utils.checkpoint import CheckpointManager
+
+    resume_dir = resolve_resume_dir(args, ckpt)
+    if not resume_dir:
+        return state
+    mgr = ckpt if resume_dir == args.output_dir else CheckpointManager(resume_dir)
+    return mgr.restore(state)
+
+
+def load_tokenizer(args, vocab_size: int, special_tokens=()):
+    """The CLI's tokenizer: HF's `AutoTokenizer` from --tokenizer
+    (`transformers` is imported only then), else the word-level
+    `SimpleTokenizer` of `vocab_size`; `special_tokens` are added."""
+    if args.tokenizer:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(args.tokenizer)
+    else:
+        from hsenet_torch.data.datasets import SimpleTokenizer
+
+        tokenizer = SimpleTokenizer(vocab_size=vocab_size)
+    if special_tokens:
+        tokenizer.add_special_tokens(
+            {"additional_special_tokens": list(special_tokens)})
+    return tokenizer
 
 
 def build_vlm_config(args) -> VLMConfig:
@@ -56,15 +212,20 @@ def random_model(build, config, *, dtype, device, seed: int):
     """`build(config, dtype=, device=)` with weights drawn from `seed` on
     `device`, in eval mode. A config with `quant_int8` / `quant_int8_embed`
     (on it or on its `llm`) gets the float weights of the same seed,
-    quantised on the device by the port's converters."""
+    quantised on the device by the port's converters; any other config (a
+    `CLIPConfig`) is built as it is."""
     llm = getattr(config, "llm", config)
-    float_llm = dataclasses.replace(llm, quant_int8=False,
-                                    quant_int8_embed=False)
-    float_cfg = (float_llm if llm is config
-                 else dataclasses.replace(config, llm=float_llm))
+    quantised = (getattr(llm, "quant_int8", False)
+                 or getattr(llm, "quant_int8_embed", False))
+    float_cfg = config
+    if quantised:
+        float_llm = dataclasses.replace(llm, quant_int8=False,
+                                        quant_int8_embed=False)
+        float_cfg = (float_llm if llm is config
+                     else dataclasses.replace(config, llm=float_llm))
     model = build(float_cfg, dtype=dtype, device=device)
     init_random_(model, torch.Generator(device=device).manual_seed(seed))
-    if llm.quant_int8 or llm.quant_int8_embed:
+    if quantised:
         state = model.state_dict()
         del model
         if llm.quant_int8:

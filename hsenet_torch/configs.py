@@ -231,18 +231,32 @@ class VLMConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer, schedule and loop settings of a training run."""
+    """Optimizer, schedule and loop settings of a training run, with the JAX
+    package's fields (a run's `run_config.json` has the same keys).
+    `batch_size`, `dtype` and `remat` record what the CLI built; `zero1`
+    waits for the parallel slice (ROADMAP §A9) and `device_prefetch` for the
+    prefetcher (§A5): the loop places each batch as it comes."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 0.0
     warmup_ratio: float = 0.03
     schedule: str = "cosine"  # cosine | constant
     total_steps: int = 10000
+    batch_size: int = 24
     max_grad_norm: float = 1.0
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
+    dtype: str = "bfloat16"
+    remat: bool = False
     seed: int = 42
     log_every: int = 50
     eval_every: int = 500
     checkpoint_every: int = 1000
+    zero1: bool = False
+    device_prefetch: int = 2
+    # torch.profiler trace of steps [profile_start, profile_stop) written to
+    # profile_dir (Chrome/Perfetto-viewable); "" = off
+    profile_dir: str = ""
+    profile_start: int = 2
+    profile_stop: int = 4

@@ -1,11 +1,15 @@
-"""The part of the JAX package's data/datasets.py that the VLM finetune's,
-the CLIP stages' and the evaluation harnesses' batches need: the
-tokenization rules, the word-level tokenizer of tests and synthetic runs,
-batching and the host loader, the synthetic CT dataset in caption, clip and
-clip2 modes, and the manifest-driven MRG (`CaptionDataset`) and location-VQA
-(`VQALocationDataset`) sets that evaluation reads. The host side is plain
-numpy, as in the JAX package; the trainer and the harnesses move each batch
-to the device. The CT-RATE CLIP datasets come with the port's CLIP CLIs.
+"""The part of the JAX package's data/datasets.py that the training CLIs'
+and the evaluation harnesses' batches need: the tokenization rules, the
+word-level tokenizer of tests and synthetic runs, batching and the host
+loader, the synthetic CT dataset in caption, clip and clip2 modes, the
+CT-RATE CLIP pairs (`CTRateCLIPDataset`, `ITRDataset`,
+`CTRateCLIPStage2Dataset`), the manifest-driven MRG (`CaptionDataset`),
+location-VQA (`VQALocationDataset`) and closed-VQA (`ClosedVQADataset`,
+`YesNoVQADataset`) sets, the M3D sets (`M3DCapDataset`, `M3DVQADataset`,
+`M3DVQAYNDataset`) and the task mix (`MixDataset`, `build_task_mix`). The
+host side is plain numpy, as in the JAX package; the trainer and the
+harnesses move each batch to the device. The grounding sets (seg, rec,
+reg) come with the segmentation slice (ROADMAP §A8).
 
 Reproduced semantics: question = [BOS] + "<im_patch>" * proj_out_num +
 prompt; question + " " + answer tokenized right-padded, EOS patched at the
@@ -16,6 +20,7 @@ text stripped of quotes and parentheses; validation cut to the first
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import random
@@ -256,6 +261,71 @@ def _load_text(entry_text: str, data_root: str) -> str:
     return entry_text
 
 
+class CTRateCLIPDataset(_RetryDataset):
+    """Stage-1 pairs: {image, input_ids, attention_mask, text}
+    (CT_RateDataset, multi_dataset.py:167-277). Sentence sampling draws
+    from one `random.Random(0)` per instance, so a sample depends on the
+    order of the `get` calls before it (the loader's order)."""
+
+    clean_text = True  # strip quotes/parens (multi_dataset.py:252-255)
+
+    def __init__(self, args: DataArgs, tokenizer, manifest: str, split="train"):
+        self.args = args
+        self.tokenizer = tokenizer
+        self.split = split
+        self.data_list = _load_manifest(manifest, split, args.val_limit)
+        self._rng = random.Random(0)
+
+    def get(self, idx):
+        entry = self.data_list[idx]
+        image = np.load(os.path.join(self.args.data_root, entry["image"]))
+        text = _load_text(entry["text"], self.args.data_root)
+        if self.clean_text:
+            text = clean_report_text(text)
+        text = truncate_text_sentence_sampling(
+            self.tokenizer, text, self.args.max_text_len, self._rng
+        )
+        tok = self.tokenizer(
+            text,
+            max_length=self.args.max_text_len,
+            truncation=True,
+            padding="max_length",
+        )
+        return {
+            "image": image.astype(np.float32),
+            "input_ids": tok["input_ids"][0],
+            "attention_mask": tok["attention_mask"][0],
+            "text": text,
+        }
+
+
+class ITRDataset(CTRateCLIPDataset):
+    """Image-text retrieval pairs over raw report .txt files (reference
+    ITRDataset, multi_dataset.py:34-140): the CLIP dataset's pairs and
+    truncation WITHOUT the quote/paren cleanup."""
+
+    clean_text = False
+
+    def get(self, idx):
+        ret = super().get(idx)
+        ret["question_type"] = "Image_text_retrieval"
+        return ret
+
+
+class CTRateCLIPStage2Dataset(CTRateCLIPDataset):
+    """Stage-2 pairs add image_2d = (32, 768) BiomedCLIP features
+    (CT_RateDataset_stage2, multi_dataset.py:280-394)."""
+
+    def get(self, idx):
+        ret = super().get(idx)
+        entry = self.data_list[idx]
+        feats = np.load(
+            os.path.join(self.args.data_root, entry["biomedclip_features"])
+        )
+        ret["image_2d"] = feats.astype(np.float32)
+        return ret
+
+
 class CaptionDataset(_RetryDataset):
     """MRG samples (CapDataset_CT_Rate, multi_dataset.py:406-520): a
     manifest split of {image, biomedclip_features, text} entries, paths
@@ -344,6 +414,240 @@ class VQALocationDataset(_RetryDataset):
             "anatomy": answer,
             "abnormality": entry["abnormality"],
         }
+
+
+class ClosedVQADataset(_RetryDataset):
+    """Closed-ended VQA with lettered choices (reference `VQADataset`
+    closed branch, multi_dataset.py:762-888: question + "Choices: A. ...")."""
+
+    def __init__(self, args: DataArgs, tokenizer, manifest: str, split="train"):
+        self.args = args
+        self.tokenizer = tokenizer
+        self.data_list = _load_manifest(manifest, split, args.val_limit)
+        self.image_tokens = IM_PATCH_TOKEN * args.proj_out_num
+
+    def get(self, idx):
+        entry = self.data_list[idx]
+        image = np.load(os.path.join(self.args.data_root, entry["image"]))
+        choices = entry["choices"]  # list of strings
+        letters = "ABCDEFGH"
+        choice_str = " ".join(
+            f"{letters[i]}. {c}." for i, c in enumerate(choices)
+        )
+        question = self.image_tokens + entry["question"] + " Choices: " + choice_str
+        answer_idx = int(entry["answer_idx"])
+        answer = f"{letters[answer_idx]}. {choices[answer_idx]}."
+        tok = tokenize_qa_sample(
+            self.tokenizer, question, answer, self.args.max_length
+        )
+        ret = {
+            "image": image.astype(np.float32),
+            "input_ids": tok["input_ids"],
+            "attention_mask": tok["attention_mask"],
+            "labels": tok["labels"],
+            "question": question,
+            "answer": answer,
+        }
+        if "biomedclip_features" in entry:
+            ret["image_2d"] = np.load(
+                os.path.join(self.args.data_root, entry["biomedclip_features"])
+            ).astype(np.float32)
+        return ret
+
+
+class YesNoVQADataset(ClosedVQADataset):
+    """Closed yes/no VQA (reference `VQAYNDataset`, multi_dataset.py:891-999):
+    a two-choice closed VQA; entries carry answer_idx over ["yes", "no"]
+    (written back into `data_list` on first read) or explicit choices."""
+
+    def get(self, idx):
+        entry = self.data_list[idx]
+        if "choices" not in entry:
+            entry = dict(entry, choices=["yes", "no"])
+            self.data_list[idx] = entry
+        return super().get(idx)
+
+
+class M3DCapDataset(_RetryDataset):
+    """M3D-Cap caption finetune (reference CapDataset,
+    multi_dataset.py:648-760): JSON with per-split entry lists; each entry's
+    `text` is a path to a raw report .txt (no cleaning or sentence
+    sampling), `image` a normalized npy; the prompt is drawn per sample
+    from `random.Random(seed * 1_000_003 + idx)`."""
+
+    def __init__(self, args: DataArgs, tokenizer, cap_data_path: str,
+                 split="train", templates=None, seed=0):
+        self.args = args
+        self.tokenizer = tokenizer
+        with open(cap_data_path) as f:
+            self.data_list = json.load(f)[split]
+        self.templates = list(templates or Caption_templates)
+        self.image_tokens = IM_PATCH_TOKEN * args.proj_out_num
+        self.seed = seed
+
+    def get(self, idx):
+        entry = self.data_list[idx]
+        rng = random.Random(self.seed * 1_000_003 + idx)
+        image = np.load(os.path.join(self.args.data_root, entry["image"]))
+        with open(os.path.join(self.args.data_root, entry["text"])) as f:
+            answer = f.read()
+        question = self.image_tokens + rng.choice(self.templates)
+        tok = tokenize_qa_sample(
+            self.tokenizer, question, answer, self.args.max_length
+        )
+        return {
+            "image": image.astype(np.float32),
+            "input_ids": tok["input_ids"],
+            "attention_mask": tok["attention_mask"],
+            "labels": tok["labels"],
+            "question": question,
+            "answer": answer,
+            "question_type": "Caption",
+        }
+
+
+def _read_csv_rows(path: str, limit: Optional[int] = None) -> List[dict]:
+    rows = []
+    with open(path, newline="") as f:
+        for i, row in enumerate(csv.DictReader(f)):
+            if limit is not None and i >= limit:
+                break
+            rows.append(row)
+    return rows
+
+
+class M3DVQADataset(_RetryDataset):
+    """M3D-VQA CSV variant (reference VQADataset, multi_dataset.py:762-888).
+
+    CSV columns: `Image Path`, `Question`, `Choice A`..`Choice D`,
+    `Answer Choice`, `Answer`, `Question Type`. Closed-ended builds the
+    "Choices: A. .. B. .. C. .. D. .." string and answers
+    "<letter>. <answer>"; open-ended answers the raw text. Validation reads
+    the first `val_rows` rows (reference nrows=2048)."""
+
+    question_type_key = "Question Type"
+
+    def __init__(self, args: DataArgs, tokenizer, csv_path: str,
+                 close_ended: bool = True, split="train", val_rows=2048,
+                 seed=0):
+        self.args = args
+        self.tokenizer = tokenizer
+        limit = val_rows if split == "validation" else None
+        self.data_list = _read_csv_rows(csv_path, limit)
+        self.close_ended = close_ended
+        self.image_tokens = IM_PATCH_TOKEN * args.proj_out_num
+        self.seed = seed
+
+    def _qa(self, row):
+        if self.close_ended:
+            choices = "Choices: A. {} B. {} C. {} D. {}".format(
+                row["Choice A"], row["Choice B"], row["Choice C"],
+                row["Choice D"],
+            )
+            return (row["Question"] + " " + choices,
+                    "{}. {}".format(row["Answer Choice"], row["Answer"]))
+        return row["Question"], str(row["Answer"])
+
+    def get(self, idx):
+        row = self.data_list[idx]
+        image = np.load(os.path.join(self.args.data_root, row["Image Path"]))
+        question, answer = self._qa(row)
+        question = self.image_tokens + " " + question
+        tok = tokenize_qa_sample(
+            self.tokenizer, question, answer, self.args.max_length
+        )
+        return {
+            "image": image.astype(np.float32),
+            "input_ids": tok["input_ids"],
+            "attention_mask": tok["attention_mask"],
+            "labels": tok["labels"],
+            "question": question,
+            "answer": answer,
+            "answer_choice": row.get("Answer Choice", ""),
+            "question_type": row.get(self.question_type_key, ""),
+        }
+
+
+class M3DVQAYNDataset(M3DVQADataset):
+    """M3D-VQA yes/no CSV variant (reference VQAYNDataset,
+    multi_dataset.py:891-999): raw question, raw yes/no answer."""
+
+    def __init__(self, args: DataArgs, tokenizer, csv_path: str,
+                 split="train", val_rows=2048, seed=0):
+        super().__init__(args, tokenizer, csv_path, close_ended=False,
+                         split=split, val_rows=val_rows, seed=seed)
+
+    def _qa(self, row):
+        return row["Question"], str(row["Answer"])
+
+
+class MixDataset:
+    """Task mixer (reference UniDatasets / TextDatasets_CT_Rate,
+    multi_dataset.py:1692-1809): concatenation of datasets, optionally with
+    zero-filled `seg` masks so seg and non-seg tasks collate together
+    (train_VLM.py:266-312 collator branch)."""
+
+    def __init__(self, datasets: List, pad_seg_shape=None):
+        self.datasets = datasets
+        self.offsets = np.cumsum([0] + [len(d) for d in datasets])
+        self.pad_seg_shape = pad_seg_shape
+
+    def __len__(self):
+        return int(self.offsets[-1])
+
+    def __getitem__(self, idx):
+        d = int(np.searchsorted(self.offsets, idx, side="right") - 1)
+        sample = self.datasets[d][idx - int(self.offsets[d])]
+        if self.pad_seg_shape is not None and "seg" not in sample:
+            sample["seg"] = np.zeros(self.pad_seg_shape, np.float32)
+        return sample
+
+
+def _grounding_task(name: str):
+    def build():
+        raise NotImplementedError(
+            f"the '{name}' task's dataset comes with the segmentation slice of "
+            "the port (ROADMAP §A8)")
+
+    return build
+
+
+def build_task_mix(
+    use_training_data: str,
+    args: DataArgs,
+    tokenizer,
+    manifest: str,
+    split: str = "train",
+    pad_seg_shape=None,
+):
+    """Task-mix factory mirroring the reference's `use_training_data`
+    selector (TextDatasets_CT_Rate / UniDatasets, multi_dataset.py:1692-1809):
+    'caption' | 'openvqa' | 'closedvqa' | 'yn' | 'closedvqa_and_caption' |
+    'caption_and_openvqa' | 'seg' | 'rec' | 'reg', '+'-combinable. The
+    seg, rec and reg sets raise when built (ROADMAP §A8); an unknown task
+    raises ValueError."""
+    builders = {
+        "caption": lambda: CaptionDataset(args, tokenizer, manifest, split),
+        "openvqa": lambda: VQALocationDataset(args, tokenizer, manifest, split),
+        "closedvqa": lambda: ClosedVQADataset(args, tokenizer, manifest, split),
+        "yn": lambda: YesNoVQADataset(args, tokenizer, manifest, split),
+        "seg": _grounding_task("seg"),
+        "rec": _grounding_task("rec"),
+        "reg": _grounding_task("reg"),
+    }
+    aliases = {
+        "closedvqa_and_caption": "closedvqa+caption",
+        "caption_and_openvqa": "caption+openvqa",
+    }
+    spec = aliases.get(use_training_data, use_training_data)
+    parts = [p.strip() for p in spec.split("+") if p.strip()]
+    unknown = [p for p in parts if p not in builders]
+    if unknown:
+        raise ValueError(f"unknown task '{unknown[0]}' (options: {sorted(builders)})")
+    datasets = [builders[p]() for p in parts]
+    if len(datasets) == 1 and pad_seg_shape is None:
+        return datasets[0]
+    return MixDataset(datasets, pad_seg_shape=pad_seg_shape)
 
 
 _TENSOR_KEYS = {

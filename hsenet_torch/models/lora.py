@@ -1,7 +1,7 @@
 """LoRA dense layer, the int8 forms and their converters (the port of the
 JAX package's models/lora.py: `LoRADense`, `QuantEmbed`, `DenseW8A8`,
-`calibrate_w8a8_act_scales`, `merge_lora`, `quantize_kernels_int8`,
-`quantize_embed_int8`).
+`calibrate_w8a8_act_scales`, `lora_trainable_mask`, `merge_lora`,
+`quantize_kernels_int8`, `quantize_embed_int8`).
 
 `LoRADense`: the base weight keeps the name `weight` (the Linear layout,
 (out, in)) and the adapters are `lora_a` (in, r) and `lora_b` (r, out), in
@@ -287,6 +287,15 @@ def quantize_embed_int8(state: Dict[str, torch.Tensor],
         else:
             out[name] = value
     return out
+
+
+def lora_trainable_mask(state: Dict[str, torch.Tensor],
+                        extra_trainable: Sequence[str] = ()) -> Dict[str, bool]:
+    """Name -> trainable over a state dict's dotted names: True for the
+    lora_a / lora_b leaves and for any name that contains one of the
+    `extra_trainable` substrings (e.g. 'projector')."""
+    return {name: "lora_a" in name or "lora_b" in name
+            or any(t in name for t in extra_trainable) for name in state}
 
 
 def merge_lora(state: Dict[str, torch.Tensor],

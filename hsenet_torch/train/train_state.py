@@ -143,13 +143,15 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 @dataclass
 class TrainState:
     """Step count, the model's trainable leaves by name (parameters of the
-    model, updated in place) and the optimizer state."""
+    model, updated in place), the optimizer state, and the model itself
+    (its frozen leaves and buffers, e.g. int8 codes, are not in `params`)."""
 
     step: int
     params: Dict[str, nn.Parameter]
     opt_state: AdamWState
+    model: Optional[nn.Module] = None
 
     @classmethod
     def create(cls, model: nn.Module, tx: AdamW) -> "TrainState":
         params = tx.trainable(model)
-        return cls(step=0, params=params, opt_state=tx.init(params))
+        return cls(step=0, params=params, opt_state=tx.init(params), model=model)

@@ -1,7 +1,10 @@
 """Training loop (the port of the JAX package's train/trainer.py): host
 loader -> device batches -> train step, with step timing, a NaN guard, the
-history of logged metrics, a periodic eval hook, and checkpoints with a
-keep-limit and milestone saves (`utils.checkpoint.CheckpointManager`).
+history of logged metrics, a periodic eval hook, checkpoints with a
+keep-limit and milestone saves (`utils.checkpoint.CheckpointManager`), a
+profiled window of steps (`TrainConfig.profile_dir`: a torch.profiler trace
+of steps [profile_start, profile_stop), Chrome/Perfetto JSON) and the
+TensorBoard logger of the CLIs (`TensorBoardLogger`).
 
 The step's randomness is a pure function of (seed, step): step i passes the
 train step `fold_seed(cfg.seed, i)`, from which it seeds its own dropout
@@ -13,6 +16,9 @@ the port (ROADMAP §A5).
 
 from __future__ import annotations
 
+import os
+import socket
+import struct
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional
@@ -30,6 +36,105 @@ class TrainerHooks:
     on_log: Optional[Callable[[int, Dict[str, float]], None]] = None
     on_eval: Optional[Callable[[int, TrainState], Dict[str, float]]] = None
     milestone_steps: tuple = ()
+
+
+def _crc32c_table():
+    table = []
+    for n in range(256):
+        for _ in range(8):
+            n = (n >> 1) ^ 0x82F63B78 if n & 1 else n >> 1
+        table.append(n)
+    return table
+
+
+_CRC32C = _crc32c_table()
+
+
+def masked_crc32c(data: bytes) -> int:
+    """The TFRecord framing's checksum: CRC-32C (Castagnoli), rotated right
+    by 15 bits plus 0xa282ead8."""
+    crc = 0xFFFFFFFF
+    for byte in data:
+        crc = _CRC32C[(crc ^ byte) & 0xFF] ^ (crc >> 8)
+    crc ^= 0xFFFFFFFF
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        byte, n = n & 0x7F, n >> 7
+        out.append(byte | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _field(number: int, payload: bytes) -> bytes:
+    """A length-delimited protobuf field."""
+    return _varint(number << 3 | 2) + _varint(len(payload)) + payload
+
+
+def _event(wall_time: float, step: int = 0, file_version: str = "",
+           scalars: Optional[Dict[str, float]] = None) -> bytes:
+    """A tensorflow `Event` message: wall_time (1, double), step (2, int64),
+    file_version (3) or summary (5) of `Summary.Value`s (tag 1,
+    simple_value 2, float)."""
+    msg = b"\x09" + struct.pack("<d", wall_time)
+    if step:
+        msg += b"\x10" + _varint(step)
+    if file_version:
+        msg += _field(3, file_version.encode())
+    if scalars:
+        msg += _field(5, b"".join(
+            _field(1, _field(1, tag.encode()) + b"\x15" + struct.pack("<f", value))
+            for tag, value in scalars.items()))
+    return msg
+
+
+def tfrecord(data: bytes) -> bytes:
+    """One TFRecord: the u64 length, its masked CRC, the data, its masked
+    CRC."""
+    length = struct.pack("<Q", len(data))
+    return (length + struct.pack("<I", masked_crc32c(length)) + data
+            + struct.pack("<I", masked_crc32c(data)))
+
+
+class TensorBoardLogger:
+    """The CLIs' `TrainerHooks(on_log=...)`: each logged metric as a scalar
+    at its step in a TensorBoard event file under `logdir`, then the
+    `step N: k=v` line the trainer prints without a logger (the reference
+    reports to TensorBoard through HF Trainer, train_CLIP_stage1.py:113).
+
+    The JAX package writes through `tf.summary`; the port writes the file
+    itself (TFRecord framing around hand-encoded `Event` messages, first a
+    `file_version` "brain.Event:2" record), so logging needs neither
+    TensorFlow nor the `tensorboard` package."""
+
+    def __init__(self, logdir: str):
+        os.makedirs(logdir, exist_ok=True)
+        stem = os.path.join(logdir, f"events.out.tfevents.{int(time.time())}."
+                                    f"{socket.gethostname()}.{os.getpid()}")
+        for n in range(1000):  # a relaunch in the same second gets its own file
+            try:
+                self._file = open(f"{stem}.{n}", "xb")
+                break
+            except FileExistsError:
+                continue
+        self.path = self._file.name
+        self._write(_event(time.time(), file_version="brain.Event:2"))
+
+    def _write(self, event: bytes) -> None:
+        self._file.write(tfrecord(event))
+        self._file.flush()
+
+    def __call__(self, step: int, metrics: Dict[str, float]) -> None:
+        self._write(_event(time.time(), step,
+                           scalars={k: float(v) for k, v in metrics.items()}))
+        msg = ", ".join(f"{k}={v:.4f}" for k, v in metrics.items())
+        print(f"step {step}: {msg}", flush=True)
+
+    def close(self) -> None:
+        self._file.close()
 
 
 class Trainer:
@@ -56,6 +161,29 @@ class Trainer:
         self.hooks = hooks or TrainerHooks()
         self.history: List[Dict[str, float]] = []
         self.device = next(iter(state.params.values())).device
+        self._profiler = None
+
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+        self._profile_from = self.state.step
+
+    def _stop_profile(self) -> None:
+        """Close the window once the device has finished its steps, and
+        write the trace to profile_dir."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        self._profiler.export_chrome_trace(os.path.join(
+            self.cfg.profile_dir, f"steps_{self._profile_from}-{self.state.step}."
+                                  f"{socket.gethostname()}.{os.getpid()}.pt.trace.json"))
+        self._profiler = None
 
     def _place(self, batch: dict) -> Dict[str, torch.Tensor]:
         """Host batch -> device tensors (array fields only)."""
@@ -91,6 +219,11 @@ class Trainer:
             for batch in batches:
                 if step >= total:
                     break
+                if self.cfg.profile_dir:  # a steady-state window of steps
+                    if step == self.cfg.profile_start:
+                        self._start_profile()
+                    elif step == self.cfg.profile_stop and self._profiler is not None:
+                        self._stop_profile()
                 self.state, metrics = self.train_step(
                     self.state, self._place(batch), fold_seed(self.cfg.seed, step)
                 )
@@ -128,6 +261,8 @@ class Trainer:
                 ):
                     self.ckpt.save(step, self.state)
             epoch += 1
+        if self._profiler is not None:  # the window reaches past total_steps
+            self._stop_profile()
         if self.ckpt is not None:
             self.ckpt.wait()  # join an in-flight async save before returning
         return self.state

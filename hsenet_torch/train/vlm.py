@@ -11,6 +11,7 @@ bf16 at every use, which gives the same values.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -146,8 +147,8 @@ def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1,
             grads, metrics = grads_of(params, batch, generator(), state.step)
         metrics["grad_norm"] = global_norm(grads)
         opt_state = tx.step(params, grads, state.opt_state, metrics["grad_norm"])
-        return TrainState(step=state.step + 1, params=state.params,
-                          opt_state=opt_state), metrics
+        return dataclasses.replace(state, step=state.step + 1,
+                                   opt_state=opt_state), metrics
 
     return train_step
 

@@ -176,7 +176,8 @@ class CheckpointManager:
                                     f"template {dst.dtype}")
                 dst.copy_(_check_like(name, src, dst))
         return TrainState(step=int(payload["step"]), params=params,
-                          opt_state=AdamWState(int(saved["count"]), opt.mu, opt.nu))
+                          opt_state=AdamWState(int(saved["count"]), opt.mu, opt.nu),
+                          model=state_template.model)
 
 
 def save_params(path: str, state: Mapping[str, torch.Tensor], *,

@@ -106,7 +106,8 @@ def test_importing_the_port_loads_no_jax():
         "hsenet_torch.cli.evaluate, hsenet_torch.cli.convert_checkpoint, "
         "hsenet_torch.eval.mrg, hsenet_torch.eval.vqa, hsenet_torch.eval.metrics, "
         "hsenet_torch.eval.ratescore, hsenet_torch.data.prompts, "
-        "hsenet_torch.data.term_dictionary; "
+        "hsenet_torch.data.term_dictionary, hsenet_torch.cli.train_clip_stage1, "
+        "hsenet_torch.cli.train_clip_stage2, hsenet_torch.cli.train_vlm; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'flax', 'hsenet_tpu'))]; print(bad); sys.exit(1 if bad else 0)"
     )
