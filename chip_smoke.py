@@ -26,6 +26,31 @@ In order:
    and f16 and the padded head dim 160, and ragged edge cases in bf16 and
    f16 at head dims 64, 160 and 256; every path phase below checks that
    each bf16 forward launch went through flash_fwd_wgmma;
+3a. [kernel] at the BiomedCLIP 2D trunk's shapes (ViT2D: 197 tokens, 12
+   heads of 64, non-causal, no log-sum-exp, every launch with a ragged
+   last tile): 32 x 12 and 64 x 12, checked beside 64 dropped keys and
+   timed like the shapes above;
+3b. [ct-data] writes NIfTI volumes at chest-CT size from a numpy seed (a
+   gzipped int16 (300, 512, 512) at (0.7, 0.7, 1.0) mm with intercept
+   -1024, a plain (24, 512, 512) at 5 mm whose intercept comes from a
+   metadata CSV) and runs `preprocess_ct.main` on the card, by default with
+   --slices (the 24-deep volume takes the slice path's z-upsample) and with
+   --faithful --slices, decoding with the native reader where it builds
+   (else says so and reads in Python); holds every output against the same
+   functions on the CPU (1e-5; the faithful slices 1e-4 where their uint8
+   codes agree, codes one apart at a rounding edge in at most 1e-4 of
+   them) and the faithful volumes against the numpy
+   `reference_preprocess` (2e-5 beyond 1e-4 of the value); prints the decode's MB/s and, at
+   (300, 512, 512), the wall, vol/s, device busy time and idle share of
+   `preprocess_volume`, `preprocess_volume_faithful`, `extract_slices` and
+   `preprocess_batch` at batch 8;
+3c. [vit2d] converts a seeded open_clip BiomedCLIP trunk (ViT-B/16, drawn
+   on the card) with `convert_checkpoint --kind biomedclip` and runs
+   `preprocess_ct --vit2d-checkpoint` on those volumes: (32, 768) features
+   per volume, 12 B1 launches per volume at 32 x 12 x 197 x 64, all on
+   flash_fwd_wgmma; the features against a direct `ViT2D` call on the
+   slices and against the plain attention path (relative L2 5e-2); the
+   trunk's time per volume and a profile;
 4. [kernel-bwd] holds the bf16 backward kernel (flash_bwd: dQ, dK and dV,
    wgmma/TMA) against its plain version at the LLM training shape (3 x 24
    heads x 800 tokens, d 128, causal, kv_lens 800/700/560) and the tower
@@ -205,8 +230,15 @@ In order:
 16. [clip-long] the stage-1 step at `--patch-size 2 8 8` (16,385 tower
    tokens), batch 2: launches at that shape, finite losses, a non-zero
    gradient in every tower block, step time, peak memory and a profile;
-16a. [cli-train] the three training CLIs through their `main` at the CLIs'
-   full-width defaults in bf16 with remat on, on manifests written to a
+16a. [clip-augment] the stage-1 `Trainer` at batch 24 with
+   `augment=AugmentConfig()` over an epoch of three batches, 4 steps, its
+   step ms beside [clip-stage1]'s; the state at step 2 resumed by a new
+   Trainer: steps 3-4 train on the same augmented volumes bit for bit,
+   step 3's loss is bit-equal and step 4's within 1e-3 (the last update went
+   through dQ's reduce-adds, which are not bit-reproducible);
+16b. [cli-train] the three training CLIs through their `main` at the CLIs'
+   full-width defaults in bf16 with remat on (every Trainer prefetching two
+   batches onto the card on a side stream), on manifests written to a
    temporary directory (8 volumes (1, 32, 256, 256) and slice features
    (32, 768) from a numpy seed, shared by the entries; inline reports):
    `train_clip_stage1` at batch 24 for 4 steps (a checkpoint and the
@@ -215,8 +247,11 @@ In order:
    recomputed run's first two within CACHED_TEACHER_RTOL), `train_vlm
    --task mrg` at batch 2 x 800 on both `tower_params` exports (4 steps,
    the profile window over step 3), the same command with `--resume auto
-   --total-steps 6` (it must log steps 5 and 6), and `train_vlm --task vqa
-   --int8-base` at batch 5 x 330 for 3 steps. It checks the flash launches
+   --total-steps 6` (it must log steps 5 and 6), `train_vlm --task vqa
+   --int8-base` at batch 5 x 330 for 3 steps and `train_vlm --task mrg
+   --online-slice-features` for 3 steps on the MRG manifest without slice
+   features (the frozen BiomedCLIP trunk: 12 B1 launches a step at 64 x 12
+   x 197 x 64, no B3 there, its weights unchanged). It checks the flash launches
    of every step by shape (B1 with and without the log-sum-exp at d 64
    and d 128, B3), every bf16 forward on flash_fwd_wgmma, no B5 launch,
    finite and falling losses, the exports, the VLM's tower_stage1 equal
@@ -517,11 +552,36 @@ TRAIN_CLI_VOLUMES = 8  # distinct volumes; the CLIP entries share them, 3 each
 TRAIN_CLI_BATCH = {"clip": 24, "mrg": 2, "vqa": 5}
 TRAIN_CLI_STEPS = 4
 TRAIN_CLI_PROFILE = ["--profile-start", "2", "--profile-stop", "3"]
+TRAIN_CLI_ONLINE_STEPS = 3  # train_vlm --online-slice-features
 # the cached-teacher run's losses against the recomputed run's first two:
 # the cache serves the teacher's bf16 features as f32, so the teacher's
 # logits round once less (~1e-3 of the loss); a wrong batch or a stale
 # feature moves the loss by its whole size
 CACHED_TEACHER_RTOL = 1e-2
+
+# [ct-data]: chest-CT NIfTI volumes written from a numpy seed: name ->
+# (stored (z, y, x) shape, (x, y, z) spacing in mm, the header's intercept,
+# the metadata CSV's intercept); both compose to HU = stored - 1024
+CT_VOLUMES = {
+    "chest_a.nii.gz": ((300, 512, 512), (0.7, 0.7, 1.0), -1024.0, 0.0),
+    "chest_b.nii": ((24, 512, 512), (0.7, 0.7, 5.0), 0.0, -1024.0),
+}
+CT_BATCH = 8  # preprocess_batch's batch in the timing
+CT_ATOL = 1e-5  # the card against the CPU: volumes and linear slices
+CT_CUBIC_ATOL = 1e-4  # the faithful (cubic) slices, where their codes agree
+CT_EDGE_SHARE = 1e-4  # the share of faithful slice codes one apart
+CT_REFERENCE_ATOL = 2e-5  # the faithful volume against reference_preprocess,
+CT_REFERENCE_RTOL = 1e-4  # beyond this share of the reference's value
+# [vit2d]: the BiomedCLIP trunk's features against the plain attention path
+VIT2D_REL_L2 = 5e-2
+VIT2D_SLICES = 32  # slices a volume, each a batch row of the trunk's B1
+# [clip-augment]: the augmented stage-1 run and its resume
+AUG_BATCHES = 3  # an epoch, so the resume at step 2 lands mid-epoch
+AUG_STEPS = 4
+AUG_RESUME_AT = 2
+# the step after the resumed one trains on weights whose last update went
+# through dQ's f32 reduce-adds, which land in another order each run
+AUG_LATER_STEP_RTOL = 1e-3
 CRC32C_CHECK = 0xE3069283  # CRC-32C of b"123456789"
 
 
@@ -3558,7 +3618,8 @@ def write_train_cli_data(root):
     128 tokens past which the sentence sampling would draw another text at
     each read: the teacher cache then hits from the second step on); a CLIP
     manifest of 24 entries (3 a volume) in both splits, an MRG manifest (2 train and 2 validation
-    entries of ~450-word reports) and a location-VQA manifest (5 and 5).
+    entries of ~450-word reports), the same without slice features and a
+    location-VQA manifest (5 and 5).
     Returns the manifests' paths by name."""
     import os
 
@@ -3593,9 +3654,13 @@ def write_train_cli_data(root):
               ("hiatal hernia", "esophagus"), ("atelectasis", "lung base"),
               ("calcification", "aorta"), ("cyst", "kidney")]
     vqa = [entry(i, abnormality=a, anatomy=b) for i, (a, b) in enumerate(places)]
+    # the MRG entries without their slice features, for the VLM that
+    # computes them in-graph
+    online = [{k: v for k, v in e.items() if k != "biomedclip_features"} for e in mrg]
     paths = {}
     for name, train, val in (("clip", clip, clip), ("mrg", mrg[:2], mrg[2:]),
-                             ("vqa", vqa[:5], vqa[3:])):
+                             ("vqa", vqa[:5], vqa[3:]),
+                             ("mrg_online", online[:2], online[2:])):
         paths[name] = os.path.join(root, f"{name}.json")
         with open(paths[name], "w") as f:
             json.dump({"train": train, "validation": val}, f)
@@ -3737,10 +3802,12 @@ def run_train_cli(tag, main, argv, snapshot=()):
     between two logged steps (each step's), and after the last (the final
     eval); the logged metrics and the event file's path; each train step's
     time between two device synchronisations; the host batches' valid
-    lengths; with `snapshot`, copies of the model's leaves whose names end
-    with one of those suffixes as training starts. Returns (state, record)."""
+    lengths (read as each is placed, by the prefetcher or inline); with
+    `snapshot`, copies of the model's leaves whose names hold one of those
+    strings as training starts. Returns (state, record)."""
     import torch
 
+    from hsenet_torch.data import prefetch as tprefetch
     from hsenet_torch.ops import flash_attention as tfa
     from hsenet_torch.ops import quant_matvec as tqm
     from hsenet_torch.train import trainer as ttrainer
@@ -3766,13 +3833,13 @@ def run_train_cli(tag, main, argv, snapshot=()):
             rec["logged"].append((step, dict(metrics)))
             super().__call__(step, metrics)
 
-    fit, place = ttrainer.Trainer.fit, ttrainer.Trainer._place
+    fit, host_arrays = ttrainer.Trainer.fit, tprefetch.host_arrays
 
     def spy_fit(self, total_steps=None):
         model = self.state.model
         rec["before"] = {k: v.detach().to("cpu", copy=True)
                          for k, v in model.state_dict().items()
-                         if snapshot and k.endswith(tuple(snapshot))}
+                         if any(part in k for part in snapshot)}
         inner = self.train_step
 
         def timed_step(*args):
@@ -3786,16 +3853,16 @@ def run_train_cli(tag, main, argv, snapshot=()):
         self.train_step = timed_step
         return fit(self, total_steps)
 
-    def spy_place(self, batch):
+    def spy_host_arrays(batch):  # each host batch, prefetched or placed inline
         rec["lens"].append(tuple(int(n) for n in batch["attention_mask"].sum(-1)))
-        return place(self, batch)
+        return host_arrays(batch)
 
     reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     patches = ((ttrainer, "TensorBoardLogger", CountingLogger),
                (ttrainer.Trainer, "fit", spy_fit),
-               (ttrainer.Trainer, "_place", spy_place))
+               (tprefetch, "host_arrays", spy_host_arrays))
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, value in patches:
         setattr(obj, name, value)
@@ -3891,7 +3958,8 @@ def clip_eval_launches(cfg, batch):
 def run_cli_train(card: str):
     """[cli-train]: `train_clip_stage1`, `train_clip_stage2` (recomputed,
     then cached teacher), `train_vlm --task mrg` (then resumed with
-    --resume auto) and `train_vlm --task vqa --int8-base`, through their
+    --resume auto), `train_vlm --task vqa --int8-base` and `train_vlm --task
+    mrg --online-slice-features` (a manifest without slice features), through their
     `main` at the CLIs' full-width defaults in bf16 with remat on, on the
     manifests `write_train_cli_data` writes to a temporary directory.
     Returns the phase's numbers and the flash launches by shape over the
@@ -3913,7 +3981,8 @@ def run_cli_train(card: str):
     numbers, shapes, recs = {}, {}, {}
     try:
         paths = write_train_cli_data(root)
-        out = {k: os.path.join(root, k) for k in ("s1", "s2", "s2c", "mrg", "vqa")}
+        out = {k: os.path.join(root, k)
+               for k in ("s1", "s2", "s2c", "mrg", "vqa", "online")}
         # one checkpoint a run, at its last step (the resumed run starts
         # there): a save of the VLM's trainable state (the token table and
         # its moments) is 8 GB, and a call to the card's machine may write
@@ -4058,13 +4127,40 @@ def run_cli_train(card: str):
         gc.collect()
         torch.cuda.empty_cache()
 
+        # 6. in-graph slice features (the frozen BiomedCLIP trunk) on the MRG
+        # manifest without them
+        online = (["--task", "mrg", "--manifest", paths["mrg_online"], "--batch-size",
+                   str(TRAIN_CLI_BATCH["mrg"]), "--online-slice-features",
+                   "--total-steps", str(TRAIN_CLI_ONLINE_STEPS)]
+                  + steps[2:] + towers + ["--output-dir", out["online"]])
+        vlm, recs["online"] = run_train_cli("vlm mrg online", train_vlm.main, online,
+                                            snapshot=("slice_encoder.",))
+        trunk = trunk_launches(build_vlm_config(argparse.Namespace(
+            synthetic=False, online_slice_features=True)), TRAIN_CLI_BATCH["mrg"])
+        numbers["mrg_online"] = check_train_cli_run(
+            "vlm mrg online", recs["online"], lambda s: {**mrg_step, **trunk}, {},
+            TRAIN_CLI_BATCH["mrg"])
+        before = recs["online"]["before"]
+        end = vlm.model.state_dict()
+        kept = bool(before) and all(torch.equal(end[k].cpu(), v) for k, v in before.items())
+        print(f"[cli-train] vlm mrg online: B1 launches a step from the trunk "
+              f"{trunk}, none with a log-sum-exp and no B3 at that shape; the "
+              f"trunk's {len(before)} leaves unchanged bit for bit: {kept}")
+        if not kept:
+            raise AssertionError("[cli-train] the frozen 2D trunk moved")
+        numbers["mrg_online"]["trunk_unchanged"] = kept
+        del vlm, end, before
+        recs["online"]["before"] = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+
         for name, rec in recs.items():
             check_tensorboard_file(name, rec["tb"], rec["logged"])
         for name, run in (("stage1", out["s1"]), ("stage2", out["s2"])):
             for export in ("clip_params", "tower_params"):
                 if not os.path.isfile(os.path.join(run, export)):
                     raise AssertionError(f"[cli-train] {name}: no {export}")
-        for name in ("mrg", "vqa"):
+        for name in ("mrg", "vqa", "online"):
             if not os.path.isfile(os.path.join(out[name], "vlm_deltas")):
                 raise AssertionError(f"[cli-train] {name}: no vlm_deltas")
     finally:
@@ -5292,6 +5388,475 @@ def run_ckpt(card: str, model):
     return numbers, results, counts
 
 
+def ct_phantom(shape, seed: int):
+    """Stored int16 values (HU + 1024) of a smooth chest phantom of `shape`
+    (z, y, x): an elliptic body of soft tissue in air, two lungs, a spine,
+    slow variations along z and seeded nodules. Smooth, so that gzip at
+    level 1 writes it in seconds."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d, h, w = shape
+    y = np.linspace(-1, 1, h, dtype=np.float32)[:, None]
+    x = np.linspace(-1, 1, w, dtype=np.float32)[None, :]
+    body = (x / 0.8) ** 2 + (y / 0.55) ** 2 < 1.0
+    lungs = body & (((np.abs(x) - 0.38) / 0.28) ** 2 + ((y + 0.05) / 0.38) ** 2 < 1.0)
+    spine = (x / 0.08) ** 2 + ((y - 0.42) / 0.08) ** 2 < 1.0
+    base = np.where(body, 40.0 + 30.0 * np.sin(3 * x) * np.cos(2 * y), -1024.0)
+    base = np.where(lungs, -850.0 + 40.0 * np.cos(5 * x) * np.sin(4 * y), base)
+    base = np.where(spine, 700.0, base).astype(np.float32)
+    z = np.cos(np.linspace(0, 3 * np.pi, d, dtype=np.float32))[:, None, None]
+    vol = base[None] + np.where(body & ~spine, 15.0, 0.0).astype(np.float32)[None] * z
+    for _ in range(6):  # nodules inside the lungs
+        cz, cy, cx = rng.uniform(0.2, 0.8) * d, rng.uniform(0.35, 0.55) * h, \
+            rng.choice([0.25, 0.75]) * w
+        r = rng.uniform(0.02, 0.05) * w
+        zs, ys, xs = (slice(max(0, int(c - r)), min(n, int(c + r) + 1))
+                      for c, n in zip((cz, cy, cx), shape))
+        gz, gy, gx = np.ogrid[zs, ys, xs]
+        ball = (gz - cz) ** 2 + (gy - cy) ** 2 + (gx - cx) ** 2 < r * r
+        vol[zs, ys, xs] = np.where(ball, 60.0, vol[zs, ys, xs])
+    return np.round(vol + 1024.0).astype(np.int16)
+
+
+def write_ct_data(root):
+    """CT_VOLUMES as NIfTI files under `root`/nii (the .gz at gzip level 1)
+    and a CT-RATE metadata CSV. Returns (nii dir, csv path, {name: stored
+    (z, y, x) int16 array})."""
+    import csv
+    import os
+
+    from hsenet_torch.data.nifti import write_nifti
+
+    nii = os.path.join(root, "nii")
+    os.makedirs(nii)
+    stored = {}
+    for i, (name, (shape, spacing, header_inter, _)) in enumerate(CT_VOLUMES.items()):
+        stored[name] = ct_phantom(shape, seed=40 + i)
+        write_nifti(os.path.join(nii, name), stored[name].transpose(2, 1, 0),
+                    spacing=spacing, scl_inter=header_inter, compresslevel=1)
+    meta = os.path.join(root, "metadata.csv")
+    with open(meta, "w", newline="") as f:
+        rows = csv.writer(f)
+        rows.writerow(["VolumeName", "RescaleSlope", "RescaleIntercept"])
+        for name, (*_, csv_inter) in CT_VOLUMES.items():
+            rows.writerow([name, "1.0", str(csv_inter)])
+    return nii, meta, stored
+
+
+def _max_err(got, want):
+    import torch
+
+    return (torch.as_tensor(got).float() - torch.as_tensor(want).float()).abs().max().item()
+
+
+def slice_codes(slices):
+    """The uint8 codes behind CLIP-normalised faithful slices (n, S, S, 3):
+    round((x * std + mean) * 255) of the first channel."""
+    import numpy as np
+
+    from hsenet_torch.data.preprocess import _CLIP_MEAN, _CLIP_STD
+
+    gray = slices[..., 0] * np.float32(_CLIP_STD[0]) + np.float32(_CLIP_MEAN[0])
+    return np.round(gray * 255).astype(np.int16)
+
+
+def _held(tag, err, tol):
+    print(f"[ct-data] {tag}: max abs err {err:.3e} (tol {tol})")
+    if not err <= tol:
+        raise AssertionError(f"[ct-data] {tag} disagrees: {err} > {tol}")
+    return err
+
+
+def run_ct_data(card: str, root):
+    """[ct-data]: NIfTI volumes at chest-CT size (`write_ct_data`) through
+    `preprocess_ct.main` on the card, by default with --slices and then
+    --faithful --slices, decoding with the native reader where it builds.
+    Every output is held against the same functions on the CPU, the
+    faithful volumes against the numpy `reference_preprocess`; then the
+    decode's MB/s and, per function at (300, 512, 512), vol/s, device busy
+    time and idle share. Returns (numbers, nii dir, metadata path, stored
+    arrays)."""
+    import functools
+    import os
+
+    import numpy as np
+    import torch
+
+    from hsenet_torch import native
+    from hsenet_torch.cli import preprocess_ct
+    from hsenet_torch.data import nifti
+    from hsenet_torch.data import preprocess as tpre
+
+    numbers = {"card": card}
+    t0 = time.perf_counter()
+    nii, meta, stored = write_ct_data(root)
+    sizes = {name: os.path.getsize(os.path.join(nii, name)) for name in stored}
+    numbers["write_s"] = time.perf_counter() - t0
+    print(f"[ct-data] wrote {', '.join(f'{n} {a.shape} int16 ({sizes[n] / 1e6:.1f} MB on disk)' for n, a in stored.items())} "
+          f"in {numbers['write_s']:.1f} s")
+    if native.available():
+        reader, route = functools.partial(nifti.read_nifti, native="require"), "native"
+    else:
+        reader, route = functools.partial(nifti.read_nifti, native="never"), "python"
+        print(f"[ct-data] the native decoder did not build on this machine "
+              f"({(native.load_error or '').strip().splitlines()[0]}); decoding with "
+              "the Python reader")
+    numbers["decoder"] = route
+    numbers["decode_mb_per_s"] = {}
+    for name, want in stored.items():
+        t = time.perf_counter()
+        vol = reader(os.path.join(nii, name))
+        dt = time.perf_counter() - t
+        if not np.array_equal(vol.zyx_data, want.astype(vol.zyx_data.dtype)):
+            raise AssertionError(f"[ct-data] the {route} reader misread {name}")
+        mb = want.size * 4 / 1e6  # the decoded f32 volume
+        numbers["decode_mb_per_s"][name] = mb / dt
+        print(f"[ct-data] {route} decode of {name}: {dt * 1e3:.1f} ms, "
+              f"{mb / dt:.1f} MB/s of f32 out ({sizes[name] / 1e6 / dt:.1f} MB/s of file)")
+
+    runs = {}
+    saved = preprocess_ct.read_nifti
+    preprocess_ct.read_nifti = reader
+    try:
+        for tag, flags in (("default", ["--slices"]), ("faithful", ["--faithful", "--slices"])):
+            out = os.path.join(root, tag)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            manifest = preprocess_ct.main(["--input-dir", nii, "--output-dir", out,
+                                           "--metadata", meta, *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            n = len(manifest["train"])
+            runs[tag] = (out, manifest)
+            numbers[f"cli_{tag}"] = {"wall_s": wall, "vol_per_s": n / wall}
+            print(f"[ct-data] preprocess_ct {' '.join(flags)} on {card}: {n} volumes in "
+                  f"{wall:.2f} s ({n / wall:.2f} vol/s, decode and writes included)")
+            if n != len(stored):
+                raise AssertionError(f"[ct-data] the manifest has {n} volumes")
+    finally:
+        preprocess_ct.read_nifti = saved
+
+    # every output against the same functions on the CPU
+    cfg = preprocess_ct.PreprocessConfig()
+    errs = {}
+    for name, st in stored.items():
+        stem = name.replace(".nii.gz", "").replace(".nii", "")
+        _, (sx, sy, sz), header_inter, csv_inter = CT_VOLUMES[name]
+        inter = header_inter + csv_inter
+        spacing_zyx = (sz, sy, sx)
+        raw = torch.as_tensor(st.astype(np.float32))
+        grid = tpre.spacing_resample_shape(raw.shape, spacing_zyx, cfg)
+        out_d, out_f = runs["default"][0], runs["faithful"][0]
+
+        def npy(out, suffix):
+            return np.load(os.path.join(out, f"{stem}_{suffix}.npy"))
+
+        e = errs[name] = {}
+        e["volume"] = _held(f"{name} volume, card against CPU", _max_err(
+            npy(out_d, "3D_features"), tpre.preprocess_volume(raw, 1.0, inter, cfg)), CT_ATOL)
+        e["slices"] = _held(f"{name} slices, card against CPU", _max_err(
+            npy(out_d, "slices"), tpre.extract_slices(raw, 1.0, inter, cfg)), CT_ATOL)
+        faithful = npy(out_f, "3D_features")
+        e["faithful_volume"] = _held(f"{name} faithful volume, card against CPU", _max_err(
+            faithful, tpre.preprocess_volume_faithful(raw, 1.0, inter, grid, cfg)), CT_ATOL)
+        # the f32 chain against the float64 one: |err| <= atol + rtol |ref|,
+        # the JAX package's own limit for this comparison
+        ref = torch.as_tensor(tpre.reference_preprocess(st, 1.0, inter, spacing_zyx, cfg))
+        err = (torch.as_tensor(faithful) - ref).abs()
+        print(f"[ct-data] {name} faithful volume against numpy reference_preprocess: "
+              f"max abs err {err.max().item():.3e}")
+        e["faithful_reference"] = _held(
+            f"{name} faithful volume against numpy reference_preprocess, beyond "
+            f"{CT_REFERENCE_RTOL} of |ref|", (err - CT_REFERENCE_RTOL * ref.abs()).max().item(),
+            CT_REFERENCE_ATOL)
+        # faithful slices: the uint8 codes behind them (floor(x * 255) before
+        # the resize, round(x * 255) after it) may land one apart on the
+        # card and the CPU where a value sits on a rounding edge
+        got = npy(out_f, "slices")
+        want = tpre.extract_slices(raw, 1.0, inter, cfg, grid, faithful=True).numpy()
+        codes, cpu_codes = slice_codes(got), slice_codes(want)
+        moved = codes != cpu_codes
+        floor_moved = int((tpre.extract_slices_uint8(raw.cuda(), 1.0, inter, cfg, grid).cpu()
+                           != tpre.extract_slices_uint8(raw, 1.0, inter, cfg, grid)).sum())
+        e["faithful_slices"] = _held(
+            f"{name} faithful slices, card against CPU, where their codes are equal",
+            float(np.abs(got - want)[~moved].max()), CT_CUBIC_ATOL)
+        share = moved.sum() / moved.size
+        print(f"[ct-data] {name} faithful slice codes one apart at a rounding edge: "
+              f"{int(moved.sum())} of {moved.size} ({share:.2e}, limit {CT_EDGE_SHARE}); "
+              f"floor codes before the resize one apart: {floor_moved}")
+        if np.abs(codes.astype(int) - cpu_codes).max() > 1 or share > CT_EDGE_SHARE:
+            raise AssertionError(f"[ct-data] {name}'s faithful slice codes disagree")
+        e["faithful_codes_moved"] = int(moved.sum())
+    numbers["errors"] = errs
+
+    # the card's time per function on the chest volume
+    name = next(iter(stored))
+    _, (sx, sy, sz), header_inter, csv_inter = CT_VOLUMES[name]
+    inter = header_inter + csv_inter
+    raw = torch.as_tensor(stored[name].astype(np.float32), device="cuda")
+    grid = tpre.spacing_resample_shape(raw.shape, (sz, sy, sx), cfg)
+    batch = raw[None].expand(CT_BATCH, *raw.shape).contiguous()
+    ones = torch.ones(CT_BATCH, device="cuda")
+    single = tpre.preprocess_volume(raw, 1.0, inter, cfg)
+    _held(f"preprocess_batch at batch {CT_BATCH} against preprocess_volume",
+          _max_err(tpre.preprocess_batch(batch, ones, ones * inter, cfg)[0], single), CT_ATOL)
+    fns = {
+        "preprocess_volume": (1, lambda: tpre.preprocess_volume(raw, 1.0, inter, cfg)),
+        "preprocess_volume_faithful": (1, lambda: tpre.preprocess_volume_faithful(
+            raw, 1.0, inter, grid, cfg)),
+        "extract_slices": (1, lambda: tpre.extract_slices(raw, 1.0, inter, cfg)),
+        f"preprocess_batch_{CT_BATCH}": (CT_BATCH, lambda: tpre.preprocess_batch(
+            batch, ones, ones * inter, cfg)),
+    }
+    numbers["functions"] = {}
+    for label, (n, fn) in fns.items():
+        wall = median_wall_ms(fn)
+        prof = profile_phase(f"ct-data {label}", fn, wall)
+        numbers["functions"][label] = {"wall_ms": wall, "vol_per_s": n / (wall / 1e3),
+                                       "device_ms": prof["device_ms"],
+                                       "idle_share": prof["idle_share"]}
+        print(f"[ct-data] {label} on {tuple(raw.shape)} x {n} on {card}: wall "
+              f"{wall:.2f} ms, {n / (wall / 1e3):.1f} vol/s")
+    del raw, batch
+    return numbers, nii, meta, stored
+
+
+def vit2d_kernel_cases():
+    """B1 at the 2D trunk's shape: 197 tokens (196 patches and CLS) over 12
+    heads of 64, non-causal, no log-sum-exp; 32 slices of one volume
+    ([vit2d]) and 64 of a batch of two (train_vlm
+    --online-slice-features)."""
+    return [(f"vit2d_{b}", (b, 12, 197, 64), (197,) * b, False, (b, 12), ("flash_fwd",))
+            for b in (VIT2D_SLICES, 2 * VIT2D_SLICES)]
+
+
+def vit2d_shape_index():
+    return {("flash_fwd", b, h, s, s, d): ("flash_fwd", name)
+            for name, (b, h, s, d), *_ in vit2d_kernel_cases()}
+
+
+def check_vit2d_kernels():
+    """[kernel] at the ViT2D shapes: B1 against its plain version (2e-2 of
+    each row's largest value, beside 64 dropped keys that must miss), timed
+    beside its bound, the plain version and one SDPA call."""
+    return check_flash_cases(vit2d_kernel_cases(), seed=23)["flash_fwd"]
+
+
+def biomedclip_trunk(path):
+    """An open_clip-named BiomedCLIP ViT-B/16 trunk (timm's names under
+    `visual.trunk.`), its weights drawn on the card from a seed (std 0.02,
+    LayerNorm weights about 1), saved with torch.save at `path`."""
+    import torch
+
+    from hsenet_torch.configs import ViT2DConfig
+
+    cfg = ViT2DConfig()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    h, m, p = cfg.hidden_size, cfg.mlp_dim, cfg.patch_size
+
+    def draw(*shape, mean=0.0):
+        return (mean + 0.02 * torch.randn(*shape, generator=gen, device="cuda")).cpu()
+
+    sd = {"patch_embed.proj.weight": draw(h, cfg.in_channels, p, p),
+          "patch_embed.proj.bias": draw(h), "cls_token": draw(1, 1, h),
+          "pos_embed": draw(1, cfg.num_patches + 1, h),
+          "norm.weight": draw(h, mean=1.0), "norm.bias": draw(h)}
+    for i in range(cfg.num_layers):
+        b = f"blocks.{i}"
+        for ln in ("norm1", "norm2"):
+            sd[f"{b}.{ln}.weight"], sd[f"{b}.{ln}.bias"] = draw(h, mean=1.0), draw(h)
+        for name, (o, n) in (("attn.qkv", (3 * h, h)), ("attn.proj", (h, h)),
+                             ("mlp.fc1", (m, h)), ("mlp.fc2", (h, m))):
+            sd[f"{b}.{name}.weight"], sd[f"{b}.{name}.bias"] = draw(o, n), draw(o)
+    torch.save({f"visual.trunk.{k}": v for k, v in sd.items()}, path)
+
+
+def trunk_launches(cfg, volumes: int):
+    """The B1 launches of the VLM `cfg`'s 2D slice trunk over `volumes`
+    volumes: one forward per block, no log-sum-exp, at (volumes x slices,
+    heads, 197, 197, 64) for ViT2DConfig()."""
+    from hsenet_torch.configs import ViT2DConfig
+
+    t = cfg.vit2d or ViT2DConfig()
+    tokens = t.num_patches + 1
+    return {("flash_fwd", volumes * cfg.vision.num_slices, t.num_heads, tokens, tokens,
+             t.hidden_size // t.num_heads): t.num_layers}
+
+
+def run_vit2d(card: str, root, nii, meta, stored):
+    """[vit2d]: `convert_checkpoint --kind biomedclip` of a seeded
+    open_clip trunk, then `preprocess_ct --vit2d-checkpoint` on [ct-data]'s
+    volumes with every launch counted: (32, 768) features per volume, 12 B1
+    launches per volume at 32 x 12 x 197 x 64, all on flash_fwd_wgmma; the
+    features against a direct `ViT2D` call on the slices and against the
+    plain attention path; the trunk's time per volume and a profile."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from hsenet_torch.cli import convert_checkpoint, preprocess_ct
+    from hsenet_torch.data import preprocess as tpre
+    from hsenet_torch.ops import attention
+    from hsenet_torch.ops import flash_attention as tfa
+
+    numbers = {"card": card}
+    trunk, params = os.path.join(root, "open_clip.bin"), os.path.join(root, "vit2d.pt")
+    t = time.perf_counter()
+    biomedclip_trunk(trunk)
+    convert_checkpoint.main(["--kind", "biomedclip", "--input", trunk, "--output", params])
+    numbers["convert_s"] = time.perf_counter() - t
+    out = os.path.join(root, "features")
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    manifest = preprocess_ct.main(["--input-dir", nii, "--output-dir", out,
+                                   "--metadata", meta, "--vit2d-checkpoint", params])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(tfa.shape_launches)
+    numbers["route"] = fwd_route("vit2d", tfa.launches, tfa.f32_launches)
+    n = len(manifest["train"])
+    tc = preprocess_ct.ViT2DConfig()
+    tokens, slices = tc.num_patches + 1, preprocess_ct.PreprocessConfig().num_slices
+    want = {("flash_fwd", slices, tc.num_heads, tokens, tokens, tc.hidden_size // tc.num_heads):
+            tc.num_layers * n}
+    print(f"[vit2d] convert_checkpoint --kind biomedclip in {numbers['convert_s']:.1f} s; "
+          f"preprocess_ct --vit2d-checkpoint: {n} volumes in {wall:.2f} s on {card}; "
+          f"flash launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"[vit2d] flash launches {launches}, not {want}")
+    numbers.update(cli_wall_s=wall, launches=sum(launches.values()))
+
+    model = preprocess_ct.load_vit2d(params, "cuda")
+    cfg = preprocess_ct.PreprocessConfig()
+    numbers["features"] = {}
+    for entry, name in zip(manifest["train"], stored):
+        _, _, header_inter, csv_inter = CT_VOLUMES[name]
+        raw = torch.as_tensor(stored[name].astype(np.float32), device="cuda")
+        sl = tpre.extract_slices(raw, 1.0, header_inter + csv_inter, cfg)
+        got = torch.as_tensor(np.load(os.path.join(out, entry["biomedclip_features"])))
+        with torch.inference_mode():
+            direct = model(sl).float().cpu()
+            attention.set_flash_mode("never")
+            try:
+                plain = model(sl).float().cpu()
+            finally:
+                attention.set_flash_mode("auto")
+        same, rel = _max_err(got, direct), rel_l2(direct, plain)
+        print(f"[vit2d] {name}: features {tuple(got.shape)} {got.dtype}, finite "
+              f"{bool(got.isfinite().all())}; against a direct ViT2D call on its "
+              f"slices max abs diff {same:.3e}; against the plain attention path rel "
+              f"L2 {rel:.3e} (limit {VIT2D_REL_L2})")
+        if got.shape != (slices, tc.hidden_size) or not got.isfinite().all() or same > 1e-6:
+            raise AssertionError(f"[vit2d] the CLI's features of {name} are wrong")
+        if not rel <= VIT2D_REL_L2:
+            raise AssertionError(f"[vit2d] the trunk through B1 disagrees with the plain path")
+        numbers["features"][name] = {"direct_max_abs_diff": same, "plain_rel_l2": rel}
+
+    def trunk_call():
+        with torch.inference_mode():
+            model(sl)
+
+    wall_ms = median_wall_ms(trunk_call)
+    numbers["per_volume"] = {"wall_ms": wall_ms, "slices_per_s": slices / (wall_ms / 1e3),
+                             "profile": profile_phase("vit2d per volume", trunk_call, wall_ms)}
+    print(f"[vit2d] the trunk on one volume's {slices} slices on {card}: "
+          f"{wall_ms:.2f} ms, {slices / (wall_ms / 1e3):.0f} slices/s")
+    return numbers
+
+
+def run_clip_augment(card: str, plain_step_ms: float):
+    """[clip-augment]: the stage-1 `Trainer` at batch 24 with
+    `augment=AugmentConfig()` (the port's prefetcher on, as by default) over
+    an epoch of AUG_BATCHES batches: AUG_STEPS steps, their step ms beside
+    [clip-stage1]'s unaugmented step; then the state at step AUG_RESUME_AT
+    (kept in memory) resumed by a new Trainer to AUG_STEPS. The resumed
+    steps must train on the unbroken run's augmented volumes bit for bit
+    and log its first loss bit for bit; the loss after it within
+    AUG_LATER_STEP_RTOL (dQ's reduce-adds are not bit-reproducible)."""
+    import dataclasses
+
+    import torch
+
+    from hsenet_torch.configs import AugmentConfig, TrainConfig
+    from hsenet_torch.data.augment import augment_batch
+    from hsenet_torch.train.stage1 import make_stage1_train_step
+    from hsenet_torch.train.train_state import TrainState, make_optimizer
+    from hsenet_torch.train.trainer import Trainer, TrainerHooks
+
+    cfg = clip_config()
+    model = build_clip_model(cfg, seed=0)
+    batches = [clip_batch(cfg, CLIP_BATCH, "clip", seed=31 + i) for i in range(AUG_BATCHES)]
+    train_cfg = TrainConfig(learning_rate=1e-4, total_steps=CLIP_RUN_STEPS, log_every=1,
+                            eval_every=0, seed=0)
+    tx = make_optimizer(train_cfg)
+    step_fn = make_stage1_train_step(model, tx)
+    images, snap = {"whole": {}, "resumed": {}}, {}
+
+    def recording(run):
+        def step(state, batch, rng):
+            if state.step >= AUG_RESUME_AT:
+                images[run][state.step + 1] = batch["image"].clone()
+            return step_fn(state, batch, rng)
+        return step
+
+    def on_log(step, row):
+        if step == AUG_RESUME_AT:
+            st = trainer.state
+            snap["params"] = {k: v.detach().clone() for k, v in st.params.items()}
+            snap["opt"] = dataclasses.replace(
+                st.opt_state, mu=[m.clone() for m in st.opt_state.mu],
+                nu=[m.clone() for m in st.opt_state.nu])
+
+    trainer = Trainer(recording("whole"), TrainState.create(model, tx), lambda: batches,
+                      train_cfg, hooks=TrainerHooks(on_log=on_log), augment=AugmentConfig())
+    state = trainer.fit(AUG_STEPS)
+    whole = trainer.history
+    step_ms = [1e3 / r["steps_per_sec"] for r in whole[1:]]
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(snap["params"][k])
+    resumed = Trainer(recording("resumed"),
+                      dataclasses.replace(state, step=AUG_RESUME_AT, opt_state=snap["opt"]),
+                      lambda: batches, train_cfg, augment=AugmentConfig())
+    resumed.fit(AUG_STEPS)
+    later = resumed.history
+    same_images = all(torch.equal(images["whole"][s], images["resumed"][s])
+                      for s in range(AUG_RESUME_AT + 1, AUG_STEPS + 1))
+    changed = not torch.equal(images["whole"][AUG_RESUME_AT + 1],
+                              torch.as_tensor(batches[AUG_RESUME_AT % AUG_BATCHES]["image"],
+                                              device="cuda"))
+    want = [r["loss"] for r in whole[AUG_RESUME_AT:]]
+    got = [r["loss"] for r in later]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got[1:], want[1:])]
+    gen = torch.Generator().manual_seed(0)
+    aug_ms = median_wall_ms(lambda: augment_batch(images["whole"][AUG_STEPS], gen))
+    med = statistics.median(step_ms)
+    print(f"[clip-augment] on {card}: step {med:.1f} ms with augmentation (median of "
+          f"steps 2-{AUG_STEPS}: {[round(x, 1) for x in step_ms]}) against "
+          f"{plain_step_ms:.1f} ms without ([clip-stage1]); augment_batch alone "
+          f"{aug_ms:.2f} ms a batch of {CLIP_BATCH}")
+    print(f"[clip-augment] losses {[round(r['loss'], 6) for r in whole]}; resumed at "
+          f"step {AUG_RESUME_AT}: steps {[r['step'] for r in later]}, losses {got} "
+          f"against {want}; augmented volumes bit-equal {same_images}, augmented "
+          f"(differ from the batch) {changed}; later steps' relative loss difference "
+          f"{rel} (limit {AUG_LATER_STEP_RTOL})")
+    if [r["step"] for r in later] != list(range(AUG_RESUME_AT + 1, AUG_STEPS + 1)):
+        raise AssertionError("[clip-augment] the resumed run logged other steps")
+    if not (same_images and changed and got[0] == want[0]
+            and all(r <= AUG_LATER_STEP_RTOL for r in rel)):
+        raise AssertionError("[clip-augment] the augmented resume is not the unbroken run")
+    if not all(map(math.isfinite, [r["loss"] for r in whole])):
+        raise AssertionError("[clip-augment] non-finite losses")
+    return {"card": card, "step_ms_median": med, "step_ms": step_ms,
+            "plain_step_ms": plain_step_ms, "augment_ms": aug_ms,
+            "losses": [r["loss"] for r in whole], "resumed_losses": got,
+            "later_rel": rel, "batch": CLIP_BATCH}
+
+
 def main() -> int:
     try:
         import torch
@@ -5307,6 +5872,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    import shutil
+    import tempfile
 
     card = card_line()
     print(f"[card] {card}")
@@ -5336,6 +5903,22 @@ def main() -> int:
     lap("[kernel], [kernel-bwd], [kernel-wide]")
     clip_kernels = check_clip_kernels()
     lap("[kernel-time] at the CLIP shapes")
+    vit2d_kernels = check_vit2d_kernels()
+    lap("[kernel] at the ViT2D shapes")
+    # the CT data path: NIfTI volumes at chest-CT size through preprocess_ct,
+    # then the BiomedCLIP trunk's slice features from them
+    ct_root = tempfile.mkdtemp(prefix="hsenet_ct_")
+    try:
+        ct_numbers, nii, meta, stored = run_ct_data(card, ct_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        vit2d_numbers = run_vit2d(card, ct_root, nii, meta, stored)
+    finally:
+        shutil.rmtree(ct_root, ignore_errors=True)
+    del stored
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("[ct-data], [vit2d]")
     # the f32 route: the CLIs' --synthetic paths on the card, then the f32
     # kernels at the shapes they launched and at QFormer's and the CLIP
     # tower's
@@ -5403,14 +5986,17 @@ def main() -> int:
     long_counts, long_numbers = run_clip_long(card)
     gc.collect()
     torch.cuda.empty_cache()
-    lap("[clip-stage1] ... [clip-long]")
+    augment_numbers = run_clip_augment(card, stage1_numbers["step_ms_median"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("[clip-stage1] ... [clip-long], [clip-augment]")
 
     # the three training CLIs through their `main` on manifests, then B1 and
     # B3 at the shapes they launched that no phase above held
     train_cli_numbers, train_cli_shapes, train_cli_lens = run_cli_train(card)
     gc.collect()
     torch.cuda.empty_cache()
-    known = {**clip_shape_index(),
+    known = {**clip_shape_index(), **vit2d_shape_index(),
              **{key: ("flash_fwd", name) for key, name in eval_index.items()}}
     train_cli_kernels, train_cli_index = check_train_cli_kernels(
         train_cli_shapes, known, train_cli_lens)
@@ -5435,6 +6021,8 @@ def main() -> int:
         "serve_long": long_run["flash_fwd_launches"]["d128"],
         # the four counted [cli-evaluate] runs, by the shape each launched
         **{eval_index[key]: n for key, n in eval_shapes.items()},
+        # [vit2d]'s preprocess_ct --vit2d-checkpoint run
+        "vit2d_32": vit2d_numbers["launches"],
     }
     # the matvec's launches at 8 rows: the decode steps of the closed and
     # open loops (the long-budget engine runs 2 slots)
@@ -5511,8 +6099,10 @@ def main() -> int:
             "and a teacher-cache hit) and [clip-long], and the six [cli-train] "
             "runs whole (train_clip_stage1, train_clip_stage2 recomputed and "
             "cached, train_vlm mrg and resumed, vqa --int8-base; the "
-            "train_cli_ shapes): per-launch times at each shape x its "
-            "launches there")
+            "train_cli_ shapes) and the seventh, train_vlm "
+            "--online-slice-features (its trunk at vit2d_64), and [vit2d]'s "
+            "preprocess_ct --vit2d-checkpoint run (vit2d_32): per-launch times "
+            "at each shape x its launches there")
     jax_fa = "hsenet_tpu/ops/flash_attention.py"
     f32_note = ("f32 route (TF32 products), sums over the two [cli-serve] runs "
                 "and one step of [train-f32]: per-launch times at the padded "
@@ -5533,7 +6123,7 @@ def main() -> int:
         entry("flash_fwd", "hsenet_torch/csrc/flash_fwd_wgmma.cu",
               f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
               {**per_shape, **clip_kernels["flash_fwd"], **encode_shapes,
-               **eval_kernels, **train_cli_kernels["flash_fwd"]},
+               **eval_kernels, **train_cli_kernels["flash_fwd"], **vit2d_kernels},
               fwd_counts, note + "; one W8A8 encode at its batch-8 tower shape "
               "and the speculative engine's admissions ([spec]'s one prefill "
               "is left out); bf16 and f16, every path's launches counted under "
@@ -5623,7 +6213,9 @@ def main() -> int:
                       "serve": serve_numbers, "clip": clip,
                       "encode_w8a8": encode_numbers, "spec": spec_numbers,
                       "cli_evaluate": eval_numbers, "ckpt": ckpt_numbers,
-                      "cli_train": train_cli_numbers, "card": card}))
+                      "cli_train": train_cli_numbers, "ct_data": ct_numbers,
+                      "vit2d": vit2d_numbers, "clip_augment": augment_numbers,
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

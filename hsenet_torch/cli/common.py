@@ -179,9 +179,12 @@ def build_vlm_config(args) -> VLMConfig:
     """The VLM configuration of a run, as the JAX package's
     `cli/train_vlm.py::build_vlm_config` makes it: a tiny VLM for
     `args.synthetic`, else `VLMConfig()` with LoRA (rank 16, alpha 32) on
-    the Phi-4-mini LLM."""
+    the Phi-4-mini LLM; `args.online_slice_features` (where the namespace
+    has it) turns on the in-graph 2D slice trunk."""
+    online = getattr(args, "online_slice_features", False)
     if args.synthetic:
         return VLMConfig(
+            online_slice_features=online,
             vision=ViT3DConfig(
                 image_size=(8, 32, 32), patch_size=(2, 8, 8), hidden_size=32,
                 mlp_dim=64, num_layers=2, num_heads=4, num_slices=4,
@@ -198,7 +201,8 @@ def build_vlm_config(args) -> VLMConfig:
                 lora=LoRAConfig(rank=4, alpha=8, dropout_rate=0.05),
             ),
         )
-    return VLMConfig(llm=dataclasses.replace(Phi3Config(), lora=LoRAConfig()))
+    return VLMConfig(llm=dataclasses.replace(Phi3Config(), lora=LoRAConfig()),
+                     online_slice_features=online)
 
 
 def int8_serving_config(cfg: VLMConfig) -> VLMConfig:

@@ -9,8 +9,11 @@ Supported artifacts (see hsenet_torch/utils/convert.py for the mappings):
   * --kind phi3    : HF Phi3ForCausalLM -> `Phi3ForCausalLM` state
   * --kind vlm-deltas : LaMedTrainer projector .bin -> the packers' state
     (`mm_projector.*`, `mm_projector2.*`)
-  * --kind llama / biomedclip wait for the model-variants slice of the
-    port (ROADMAP §A7) and raise `NotImplementedError`.
+  * --kind biomedclip : open_clip BiomedCLIP's ViT-B/16 trunk (timm names;
+    a `visual.trunk.` prefix is taken off) -> `ViT2D` state, which
+    `preprocess_ct --vit2d-checkpoint` reads
+  * --kind llama waits for the model-variants slice of the port (ROADMAP
+    §A7) and raises `NotImplementedError`.
 
 The output is one `utils.checkpoint.save_params` file; `serve` and
 `evaluate` read it with `--checkpoint`. An existing output is refused.
@@ -89,10 +92,10 @@ def main(argv=None, *, device="cuda"):
         "defaults are Phi-4-mini's shapes",
     )
     args = p.parse_args(argv)
-    if args.kind in ("llama", "biomedclip"):
+    if args.kind == "llama":
         raise NotImplementedError(
-            f"--kind {args.kind} waits for the model-variants slice of the "
-            "port (ROADMAP §A7)")
+            "--kind llama waits for the model-variants slice of the port "
+            "(ROADMAP §A7)")
     if args.quant_w8a8 and args.kind not in ("clip-stage1", "clip-stage2"):
         p.error("--quant-w8a8 only applies to --kind clip-stage1/clip-stage2")
     if args.quant_int8 and args.kind != "phi3":
@@ -123,6 +126,13 @@ def main(argv=None, *, device="cuda"):
 
         overrides = json.loads(args.config_json) if args.config_json else {}
         state = convert_hf_phi3(sd, Phi3Config(**overrides))
+    elif args.kind == "biomedclip":
+        from hsenet_torch.utils.convert import convert_biomedclip_vit2d
+
+        # a whole open_clip model: its trunk; else a bare trunk state dict
+        trunk = {k[len("visual.trunk."):]: v for k, v in sd.items()
+                 if k.startswith("visual.trunk.")} or sd
+        state = convert_biomedclip_vit2d(trunk, args.num_layers)
     else:  # vlm-deltas
         from hsenet_torch.utils.convert import convert_reference_packer
 

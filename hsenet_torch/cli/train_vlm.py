@@ -21,10 +21,12 @@ the two CLIP stages' `tower_params` exports (`vision_tower.tower_stage1.`
 and `vision_tower.tower_stage2.`) and --resume-mllm's deltas. --int8-base
 then stores the LLM's projections as int8 codes and trains the adapters,
 packers and token table over them. The run ends with
-`save_vlm_deltas(<out>/vlm_deltas)`. --task seg waits for the segmentation
-slice (ROADMAP §A8), --online-slice-features for the model variants (§A7),
---pp, --sp, --fsdp, --zero1 and --dp / --tp above 1 for the parallel slice
-(§A9); each raises `NotImplementedError`.
+`save_vlm_deltas(<out>/vlm_deltas)`. --online-slice-features computes the
+2E3 tower's slice features in-graph from the volume with the frozen
+BiomedCLIP trunk (`models.vit.OnlineSliceFeatures`), so the manifest needs
+no `biomedclip_features`. --task seg waits for the segmentation slice
+(ROADMAP §A8), --pp, --sp, --fsdp, --zero1 and --dp / --tp above 1 for the
+parallel slice (§A9); each raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -91,8 +93,9 @@ def main(argv=None, *, device="cuda", model=None):
                    help="seg trains the [SEG]-routed SegVol branch (waits "
                         "for the segmentation slice)")
     p.add_argument("--online-slice-features", action="store_true",
-                   help="compute the 2E3 tower's 2D-slice features in-graph "
-                        "(waits for the model-variants slice)")
+                   help="compute the 2E3 tower's 2D-slice features "
+                        "in-graph from the volume (reference ViT4LLM_v3) "
+                        "instead of reading image_2d from the dataset")
     p.add_argument("--max-length", type=int, default=0,
                    help="0 = task default (mrg 800 / vqa 330)")
     p.add_argument("--tokenizer", default="")
@@ -140,10 +143,6 @@ def main(argv=None, *, device="cuda", model=None):
         raise NotImplementedError(
             "--task seg waits for the segmentation slice of the port "
             "(ROADMAP §A8)")
-    if args.online_slice_features:
-        raise NotImplementedError(
-            "--online-slice-features waits for the model-variants slice of "
-            "the port (ROADMAP §A7)")
     refuse_parallel_flags(args)
     device = resolve_device(device)
 
@@ -176,11 +175,12 @@ def main(argv=None, *, device="cuda", model=None):
     loader = DataLoader(dataset, args.batch_size, shuffle=True, seed=args.seed)
     remat = args.remat if args.remat is not None else not args.synthetic
     batch = next(iter(loader))  # the JAX CLI's init batch
-    if batch.get("image_2d") is None:
+    if batch.get("image_2d") is None and not cfg.online_slice_features:
         p.error(
-            "this dataset provides no 2D slice features (image_2d); use a "
-            "manifest that carries image_2d npys (in-graph slice features "
-            "wait for the model-variants slice)"
+            "this dataset provides no 2D slice features (image_2d); pass "
+            "--online-slice-features to compute them in-graph from the "
+            "volume (reference ViT4LLM_v3), or use a manifest that "
+            "carries image_2d npys"
         )
     build = functools.partial(HSENetVLM, remat=remat)
     if model is None:

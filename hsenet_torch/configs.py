@@ -8,13 +8,13 @@ Fields of the JAX copy that the port has no use for yet are left out:
 `Phi3Config.remat_policy` (the port's `remat` recomputes each Phi block in
 full, the JAX package's default "full" policy) and, in `TrainConfig`,
 those of the CLI and of later slices (`batch_size`, `dtype`, `remat`,
-`zero1`, `device_prefetch`, the device-trace window).
+`zero1`, the device-trace window).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -63,6 +63,25 @@ class ViT3DConfig:
     def patch_dim(self) -> int:
         p0, p1, p2 = self.patch_size
         return p0 * p1 * p2 * self.in_channels
+
+
+@dataclass(frozen=True)
+class ViT2DConfig:
+    """2D ViT trunk (BiomedCLIP ViT-B/16) behind the (32, 768) slice
+    features: 224x224 RGB slices in 16x16 patches -> 196 tokens + CLS."""
+
+    image_size: int = 224
+    patch_size: int = 16
+    hidden_size: int = 768
+    mlp_dim: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    in_channels: int = 3
+
+    @property
+    def num_patches(self) -> int:
+        g = self.image_size // self.patch_size
+        return g * g
 
 
 @dataclass(frozen=True)
@@ -212,11 +231,12 @@ class VLMConfig:
     select_feature: str = "patch"  # strip CLS before packing
     im_patch_token_id: int = -1
     seg_token_id: int = -1
-    # optional SegVol branch and in-graph 2D slice trunk (later slices)
+    # optional SegVol branch (a later slice) and in-graph 2D slice trunk
+    # (`models.vit.OnlineSliceFeatures`; `vit2d=None` is `ViT2DConfig()`)
     seg_enable: bool = False
     seg_vision: Optional[ViT3DConfig] = None
     online_slice_features: bool = False
-    vit2d: Optional[Any] = None
+    vit2d: Optional[ViT2DConfig] = None
     stop_tower_gradients: bool = True
 
     @property
@@ -234,8 +254,9 @@ class TrainConfig:
     """Optimizer, schedule and loop settings of a training run, with the JAX
     package's fields (a run's `run_config.json` has the same keys).
     `batch_size`, `dtype` and `remat` record what the CLI built; `zero1`
-    waits for the parallel slice (ROADMAP §A9) and `device_prefetch` for the
-    prefetcher (§A5): the loop places each batch as it comes."""
+    waits for the parallel slice (ROADMAP §A9). `device_prefetch` batches
+    are placed on the device ahead of the step (`data.prefetch`); 0 places
+    each batch as it comes."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 0.0
@@ -260,3 +281,35 @@ class TrainConfig:
     profile_dir: str = ""
     profile_start: int = 2
     profile_stop: int = 4
+
+
+@dataclass(frozen=True)
+class PreprocessConfig:
+    """CT preprocessing (`data.preprocess`): HU = slope*raw + intercept,
+    clamp to [hu_min, hu_max], resample to (1.5, 0.75, 0.75) mm, min-max
+    normalise, crop the foreground (>0), resize to (32, 256, 256). The
+    2D-slice path clamps to [slice_hu_min, slice_hu_max] and divides by
+    |slice_hu_max| before picking `num_slices` slices of `slice_size`^2."""
+
+    target_shape: Tuple[int, int, int] = (32, 256, 256)
+    target_spacing: Tuple[float, float, float] = (1.5, 0.75, 0.75)
+    hu_min: float = -1000.0
+    hu_max: float = 200.0
+    slice_hu_min: float = -1000.0
+    slice_hu_max: float = 1000.0
+    num_slices: int = 32
+    slice_size: int = 224
+
+
+@dataclass(frozen=True)
+class AugmentConfig:
+    """Train-time augmentation (`data.augment`): rot90 over (H, W), a flip
+    of each spatial axis, intensity scale and shift, each with its
+    probability."""
+
+    rot90_prob: float = 0.5
+    flip_prob: float = 0.10
+    scale_intensity_prob: float = 0.5
+    scale_intensity_factor: float = 0.1
+    shift_intensity_prob: float = 0.5
+    shift_intensity_offset: float = 0.1

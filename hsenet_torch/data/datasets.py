@@ -261,6 +261,16 @@ def _load_text(entry_text: str, data_root: str) -> str:
     return entry_text
 
 
+def _slice_features(entry: dict, data_root: str) -> dict:
+    """{"image_2d": the entry's (32, 768) BiomedCLIP features}, or {} for an
+    entry without `biomedclip_features` (a manifest for a model that
+    computes them in-graph, `VLMConfig.online_slice_features`)."""
+    if "biomedclip_features" not in entry:
+        return {}
+    feats = np.load(os.path.join(data_root, entry["biomedclip_features"]))
+    return {"image_2d": feats.astype(np.float32)}
+
+
 class CTRateCLIPDataset(_RetryDataset):
     """Stage-1 pairs: {image, input_ids, attention_mask, text}
     (CT_RateDataset, multi_dataset.py:167-277). Sentence sampling draws
@@ -329,7 +339,9 @@ class CTRateCLIPStage2Dataset(CTRateCLIPDataset):
 class CaptionDataset(_RetryDataset):
     """MRG samples (CapDataset_CT_Rate, multi_dataset.py:406-520): a
     manifest split of {image, biomedclip_features, text} entries, paths
-    under `args.data_root`; the prompt is drawn from `templates`."""
+    under `args.data_root`; the prompt is drawn from `templates`. An entry
+    without `biomedclip_features` gives no `image_2d` (the JAX package's
+    dataset needs it; the port's VLM can compute it in-graph)."""
 
     def __init__(
         self,
@@ -350,9 +362,6 @@ class CaptionDataset(_RetryDataset):
     def get(self, idx):
         entry = self.data_list[idx]
         image = np.load(os.path.join(self.args.data_root, entry["image"]))
-        image_2d = np.load(
-            os.path.join(self.args.data_root, entry["biomedclip_features"])
-        )
         answer = clean_report_text(_load_text(entry["text"], self.args.data_root))
         prompt = self._rng.choice(self.templates)
         question = self.image_tokens + prompt
@@ -361,7 +370,7 @@ class CaptionDataset(_RetryDataset):
         )
         return {
             "image": image.astype(np.float32),
-            "image_2d": image_2d.astype(np.float32),
+            **_slice_features(entry, self.args.data_root),
             "input_ids": tok["input_ids"],
             "attention_mask": tok["attention_mask"],
             "labels": tok["labels"],
@@ -372,7 +381,8 @@ class CaptionDataset(_RetryDataset):
 
 class VQALocationDataset(_RetryDataset):
     """RadGenome location VQA (VQADataset_CT_Rate, multi_dataset.py:524-645):
-    prompt template with {abnormality} substitution; answer = anatomy name."""
+    prompt template with {abnormality} substitution; answer = anatomy name.
+    Slice features as in `CaptionDataset`."""
 
     def __init__(
         self,
@@ -393,9 +403,6 @@ class VQALocationDataset(_RetryDataset):
     def get(self, idx):
         entry = self.data_list[idx]
         image = np.load(os.path.join(self.args.data_root, entry["image"]))
-        image_2d = np.load(
-            os.path.join(self.args.data_root, entry["biomedclip_features"])
-        )
         template = self._rng.choice(self.templates)
         question_text = template.format(abnormality=entry["abnormality"])
         answer = entry["anatomy"]
@@ -405,7 +412,7 @@ class VQALocationDataset(_RetryDataset):
         )
         return {
             "image": image.astype(np.float32),
-            "image_2d": image_2d.astype(np.float32),
+            **_slice_features(entry, self.args.data_root),
             "input_ids": tok["input_ids"],
             "attention_mask": tok["attention_mask"],
             "labels": tok["labels"],

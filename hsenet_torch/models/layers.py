@@ -5,6 +5,8 @@ package's models/layers.py).
     with packed qkv and an output projection with bias.
   * `PatchEmbed3D`: non-overlapping patch rearrange + Linear + learned
     position embeddings.
+  * `PatchEmbed2D`: the same over (B, H, W, C) images, without position
+    embeddings (the 2D trunk adds its own after the CLS token).
   * `SingleHeadCrossAttention`: full-width single-head cross attention,
     residual on the projected query, post-LN.
 
@@ -251,6 +253,23 @@ class PatchEmbed3D(nn.Module):
         tokens = self.proj(tokens)
         tokens = tokens + self.pos_embed.to(tokens.dtype)
         return dropout(tokens, self.dropout_rate, deterministic)
+
+
+class PatchEmbed2D(nn.Module):
+    """(B, H, W, C) -> (B, n_patches, hidden): each patch's pixels row-major,
+    channel last, through one Dense (a 16x16 stride-16 conv as a matmul)."""
+
+    def __init__(self, patch_size: int, in_channels: int, hidden: int, *,
+                 dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = Dense(patch_size * patch_size * in_channels, hidden,
+                          dtype=dtype, device=resolve_device(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.patch_size
+        return self.proj(rearrange(x, "b (h p1) (w p2) c -> b (h w) (p1 p2 c)",
+                                   p1=p, p2=p))
 
 
 class SingleHeadCrossAttention(nn.Module):

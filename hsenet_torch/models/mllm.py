@@ -2,7 +2,10 @@
 dual spatial packers + Phi LLM.
 
   * `encode_images`: dual tower -> per-stream packer (`mm_projector`,
-    `mm_projector2`) -> concat = 256 image tokens.
+    `mm_projector2`) -> concat = 256 image tokens. With
+    `online_slice_features` and no slice features given, the frozen 2D
+    trunk (`slice_encoder`, `models.vit.OnlineSliceFeatures`) computes them
+    from the volume first, without gradients.
   * `multimodal_embeds`: embed the token ids, then splice the image
     features over the placeholder block right after BOS.
   * `forward`: the training/eval forward, logits over the whole sequence;
@@ -24,10 +27,10 @@ import torch
 from torch import nn
 
 from hsenet_torch import resolve_device
-from hsenet_torch.configs import VLMConfig
+from hsenet_torch.configs import ViT2DConfig, VLMConfig
 from hsenet_torch.models.phi3 import KVCache, Phi3ForCausalLM
 from hsenet_torch.models.projector import build_projector
-from hsenet_torch.models.vit import DualVisionTower
+from hsenet_torch.models.vit import DualVisionTower, OnlineSliceFeatures
 
 
 def splice_image_embeds(token_embeds: torch.Tensor,
@@ -48,9 +51,8 @@ class HSENetVLM(nn.Module):
         super().__init__()
         device = resolve_device(device)
         for flag, what in (
-            (config.tower_mode == "med2e3", "tower_mode 'med2e3'"),
-            (config.seg_enable, "the SegVol branch"),
-            (config.online_slice_features, "in-graph slice features"),
+            (config.tower_mode == "med2e3", "tower_mode 'med2e3' (ROADMAP §A7)"),
+            (config.seg_enable, "the SegVol branch (ROADMAP §A8)"),
         ):
             if flag:
                 raise NotImplementedError(f"{what} comes with a later slice of the port")
@@ -67,10 +69,25 @@ class HSENetVLM(nn.Module):
                                                  device=device)
         self.llm = Phi3ForCausalLM(config.llm, dtype=dtype, device=device,
                                    remat=remat)
+        self.slice_encoder = None
+        if config.online_slice_features:
+            self.slice_encoder = OnlineSliceFeatures(
+                config.vit2d or ViT2DConfig(),
+                num_slices=config.vision.num_slices, dtype=dtype, device=device,
+            )
 
     def encode_images(self, volume: torch.Tensor,
                       slice_features: Optional[torch.Tensor] = None, *,
                       deterministic: bool = True) -> torch.Tensor:
+        if slice_features is None and self.slice_encoder is not None:
+            width = self.slice_encoder.config.hidden_size
+            if width != self.config.vision.hidden_size:
+                raise ValueError(
+                    f"the 2D trunk's features ({width} wide) do not fit the "
+                    f"2E3 tower's cross-attention ({self.config.vision.hidden_size})")
+            with torch.no_grad():  # the frozen trunk
+                slice_features = self.slice_encoder(volume,
+                                                    deterministic=deterministic)
         with torch.set_grad_enabled(
             torch.is_grad_enabled() and not self.config.stop_tower_gradients
         ):

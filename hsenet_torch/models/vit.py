@@ -1,6 +1,6 @@
-"""3D vision encoders (the port of the JAX package's
-models/vit.py): ViT3D (stage 1),
-its 2E3 slice-guided form (stage 2) and the dual-encoder tower.
+"""Vision encoders (the port of the JAX package's models/vit.py): ViT3D
+(stage 1), its 2E3 slice-guided form (stage 2), the dual-encoder tower and
+the 2D slice trunk.
 
   * `ViT3D`: patch embed -> [CLS | tokens] -> pre-LN blocks -> final LN.
   * slice-guided (2E3): patch embed -> single-head cross-attention from the
@@ -8,6 +8,9 @@ its 2E3 slice-guided form (stage 2) and the dual-encoder tower.
     per-patch score -> tokens *= score -> [CLS | tokens] -> the same tower.
   * `DualVisionTower`: both towers; strips CLS when select_feature is
     'patch'; `tower_mode` is dual_vits | 3d_vit | 2e3_vit.
+  * `ViT2D`: the BiomedCLIP ViT-B/16 trunk (timm names, pre-LN, CLS) that
+    turns 224x224 CLIP-normalised slices into the (32, 768) slice features;
+    `OnlineSliceFeatures` runs it in-graph on a volume's resized slices.
 
 The JAX package runs the tower as an `nn.scan` over stacked weights; here
 it is an `nn.ModuleList` of blocks (`hsenet_torch.bridge` unstacks the
@@ -29,10 +32,12 @@ import torch
 from torch import nn
 
 from hsenet_torch import resolve_device
-from hsenet_torch.configs import ViT3DConfig
+from hsenet_torch.configs import ViT2DConfig, ViT3DConfig
+from hsenet_torch.data.preprocess import clip_normalize, resize
 from hsenet_torch.models.layers import (
     Dense,
     LayerNorm,
+    PatchEmbed2D,
     PatchEmbed3D,
     SingleHeadCrossAttention,
     TransformerBlock,
@@ -129,6 +134,69 @@ class ViT3D(nn.Module):
         if return_scores:
             return x, scores
         return x
+
+
+class ViT2D(nn.Module):
+    """BiomedCLIP-compatible 2D ViT-B/16 trunk: patch embed, a CLS token,
+    position embeddings, `norm_pre`, pre-LN blocks with qkv bias (timm's),
+    final LN; returns the CLS feature. Its attention runs B1 like every
+    tower (196 + 1 tokens at head dim 64)."""
+
+    def __init__(self, config: ViT2DConfig, *, dtype=torch.float32,
+                 device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        cfg = self.config = config
+        self.patch_embed = PatchEmbed2D(cfg.patch_size, cfg.in_channels,
+                                        cfg.hidden_size, dtype=dtype,
+                                        device=device)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.hidden_size,
+                                                  device=device))
+        self.pos_embed = nn.Parameter(torch.zeros(
+            1, cfg.num_patches + 1, cfg.hidden_size, device=device))
+        self.norm_pre = LayerNorm(cfg.hidden_size, device=device)
+        self.tower = TransformerTower(
+            cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.mlp_dim,
+            qkv_bias=True, dtype=dtype, device=device,
+        )
+
+    def forward(self, images: torch.Tensor, *,
+                deterministic: bool = True) -> torch.Tensor:
+        """images (B, H, W, C) -> (B, hidden) f32 CLS feature."""
+        x = self.patch_embed(images)
+        cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
+        x = self.tower(self.norm_pre(x), deterministic=deterministic)
+        return x[:, 0]
+
+
+class OnlineSliceFeatures(nn.Module):
+    """In-graph BiomedCLIP slice features (the reference's ViT4LLM_v3 path,
+    vit.py:471-571): the volume resized to (num_slices, 224, 224) with the
+    JAX package's antialiased linear resize (`data.preprocess.resize`), a
+    per-slice min-max and CLIP normalisation, then the frozen 2D trunk on
+    every slice. Stands in for the offline (32, 768) feature npy."""
+
+    def __init__(self, config: ViT2DConfig, *, num_slices: int = 32,
+                 dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.config = config
+        self.num_slices = num_slices
+        self.slice_encoder_2d = ViT2D(config, dtype=dtype, device=device)
+
+    def forward(self, volume: torch.Tensor, *,
+                deterministic: bool = True) -> torch.Tensor:
+        """volume (B, 1, D, H, W) in [0, 1] -> (B, num_slices, hidden) f32."""
+        cfg, n, b = self.config, self.num_slices, volume.shape[0]
+        v = resize(volume[:, 0], (b, n, cfg.image_size, cfg.image_size),
+                   "linear")
+        mn = v.amin(dim=(2, 3), keepdim=True)
+        mx = v.amax(dim=(2, 3), keepdim=True)
+        rgb = clip_normalize((v - mn) / torch.clamp_min(mx - mn, 1e-8))
+        feats = self.slice_encoder_2d(
+            rgb.reshape(b * n, cfg.image_size, cfg.image_size, 3),
+            deterministic=deterministic)
+        return feats.reshape(b, n, cfg.hidden_size)
 
 
 class DualVisionTower(nn.Module):

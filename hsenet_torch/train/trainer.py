@@ -6,12 +6,18 @@ profiled window of steps (`TrainConfig.profile_dir`: a torch.profiler trace
 of steps [profile_start, profile_stop), Chrome/Perfetto JSON) and the
 TensorBoard logger of the CLIs (`TensorBoardLogger`).
 
+Batches reach the device through `data.prefetch.DevicePrefetcher`, which
+keeps `TrainConfig.device_prefetch` of them placed ahead of the step (0:
+each is placed as it comes). With `augment=` (an `AugmentConfig`) the
+`image` field is then augmented on the device (`data.augment`).
+
 The step's randomness is a pure function of (seed, step): step i passes the
 train step `fold_seed(cfg.seed, i)`, from which it seeds its own dropout
-generator. With the data position fast-forwarded on resume, a run restored
-from a checkpoint at step k consumes exactly the batches and randomness an
-unbroken run would have. On-device augmentation comes with its slice of
-the port (ROADMAP §A5).
+generator, and draws its augmentations from a CPU generator seeded with
+`fold_seed(cfg.seed, i, AUGMENT_STREAM)`. With the data position
+fast-forwarded on resume (before the prefetcher wraps the batches), a run
+restored from a checkpoint at step k consumes exactly the batches and
+randomness an unbroken run would have.
 """
 
 from __future__ import annotations
@@ -26,9 +32,14 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from hsenet_torch.configs import TrainConfig
+from hsenet_torch.configs import AugmentConfig, TrainConfig
+from hsenet_torch.data.augment import augment_batch
+from hsenet_torch.data.prefetch import DevicePrefetcher, default_place
 from hsenet_torch.train.train_state import TrainState
 from hsenet_torch.train.vlm import fold_seed
+
+# the augmentation's stream beside the step's dropout stream
+AUGMENT_STREAM = 0x617567
 
 
 @dataclass
@@ -146,19 +157,15 @@ class Trainer:
         cfg: TrainConfig,
         checkpoint_manager=None,
         hooks: Optional[TrainerHooks] = None,
-        augment=None,
+        augment: Optional[AugmentConfig] = None,
     ):
-        if augment is not None:
-            raise NotImplementedError(
-                "on-device augmentation comes with a later slice of the port "
-                "(ROADMAP §A5)"
-            )
         self.train_step = train_step
         self.state = state
         self.loader_factory = loader_factory
         self.cfg = cfg
         self.ckpt = checkpoint_manager
         self.hooks = hooks or TrainerHooks()
+        self.augment = augment
         self.history: List[Dict[str, float]] = []
         self.device = next(iter(state.params.values())).device
         self._profiler = None
@@ -186,11 +193,16 @@ class Trainer:
         self._profiler = None
 
     def _place(self, batch: dict) -> Dict[str, torch.Tensor]:
-        """Host batch -> device tensors (array fields only)."""
-        return {
-            k: torch.as_tensor(v).to(self.device, non_blocking=True)
-            for k, v in batch.items() if isinstance(v, np.ndarray)
-        }
+        """Host batch -> device tensors (array fields only), inline."""
+        return default_place(batch, self.device)
+
+    def _augmented(self, batch: Dict[str, torch.Tensor],
+                   step: int) -> Dict[str, torch.Tensor]:
+        if self.augment is None or "image" not in batch:
+            return batch
+        gen = torch.Generator().manual_seed(
+            fold_seed(self.cfg.seed, step, AUGMENT_STREAM))
+        return {**batch, "image": augment_batch(batch["image"], gen, self.augment)}
 
     def fit(self, total_steps: Optional[int] = None) -> TrainState:
         total = total_steps or self.cfg.total_steps
@@ -216,6 +228,10 @@ class Trainer:
             for _ in range(pending_skip):  # the batches the run had consumed
                 next(batches, None)
             pending_skip = 0
+            # batch i+1's copy runs while step i computes
+            depth = self.cfg.device_prefetch
+            if depth:
+                batches = iter(DevicePrefetcher(batches, depth, device=self.device))
             for batch in batches:
                 if step >= total:
                     break
@@ -224,8 +240,10 @@ class Trainer:
                         self._start_profile()
                     elif step == self.cfg.profile_stop and self._profiler is not None:
                         self._stop_profile()
+                placed = batch if depth else self._place(batch)
                 self.state, metrics = self.train_step(
-                    self.state, self._place(batch), fold_seed(self.cfg.seed, step)
+                    self.state, self._augmented(placed, step),
+                    fold_seed(self.cfg.seed, step)
                 )
                 step = self.state.step
 
@@ -260,6 +278,8 @@ class Trainer:
                     or step in self.hooks.milestone_steps
                 ):
                     self.ckpt.save(step, self.state)
+            if depth:
+                batches.close()  # stops the prefetcher's producer now
             epoch += 1
         if self._profiler is not None:  # the window reaches past total_steps
             self._stop_profile()

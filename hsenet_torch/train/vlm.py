@@ -29,10 +29,11 @@ Batch = Dict[str, torch.Tensor]
 def vlm_trainable_mask(model: nn.Module) -> Dict[str, bool]:
     """Parameter name -> trainable: the JAX package's default policy over
     the port's parameter names. LoRA adapters, both packers and the tied
-    token embedding train; the towers and the LLM base stay frozen."""
+    token embedding train; the towers, the 2D slice trunk and the LLM base
+    stay frozen."""
 
     def decide(name: str) -> bool:
-        if "vision_tower" in name:
+        if "vision_tower" in name or "slice_encoder" in name:
             return False
         return ("lora_a" in name or "lora_b" in name or "mm_projector" in name
                 or name == "llm.embed.weight")

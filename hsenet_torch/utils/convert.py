@@ -9,10 +9,13 @@ Covers the reference's persisted artifacts:
   * VLM deltas (`LaMedTrainer._save` keeps only mm_projector* + lora*,
     lamed_trainer.py:20-24);
   * Phi/BERT base weights (`models.phi3.convert_hf_phi3`,
-    `models.bert.convert_hf_bert`).
+    `models.bert.convert_hf_bert`);
+  * the BiomedCLIP 2D trunk (open_clip's `visual.trunk`, timm ViT-B/16
+    names), `convert_biomedclip_vit2d`.
 
 The port's modules keep the reference's (out, in) Linear layout, so a
-converter renames keys and casts to f32; nothing is transposed. Every
+converter renames keys and casts to f32; nothing is transposed (the 2D
+trunk's patch conv is flattened into its matmul weight). Every
 output equals the JAX converter's tree carried over by
 `hsenet_torch.bridge.flax_to_torch`, key for key and bit for bit.
 
@@ -33,8 +36,6 @@ Stage-2 extras (vit.py:330-340): slice_guided_attention.{Wq,Wk,Wv,
   output_linear,norm}, patch_score_proj.
 Packer keys (spatial_pooling_projector.py:121-153): resolution_attention.
   {Wq,Wk,Wv,output_linear,norm}, proj_mpls.{0,2}.
-The BiomedCLIP 2D trunk converter waits for the port's `ViT2D` (ROADMAP
-§A7).
 """
 
 from __future__ import annotations
@@ -143,6 +144,42 @@ def convert_reference_packer(sd: Mapping, prefix: str = "mm_projector."
                            "resolution_attention")
     out.update(_lin(sd, f"{prefix}proj_mpls.0", "proj_fc1"))
     out.update(_lin(sd, f"{prefix}proj_mpls.2", "proj_fc2"))
+    return out
+
+
+def convert_biomedclip_vit2d(sd: Mapping, num_layers: int = 12
+                             ) -> Dict[str, torch.Tensor]:
+    """timm/open_clip ViT-B/16 trunk state dict (`visual.trunk.` taken off)
+    -> the port's `ViT2D` state dict.
+
+    The reference extracts slice features with open_clip BiomedCLIP's
+    `model.visual.trunk` (CT-RATE_2D_to_npy_file.py:88). Trunk keys:
+    patch_embed.proj (a 16x16 conv), cls_token, pos_embed, norm_pre,
+    blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,mlp.fc2}, norm. The
+    conv's (out, c, p1, p2) weight becomes the (out, p1 p2 c) matmul weight
+    of `PatchEmbed2D` (patch pixels row-major, channel last); timm's
+    norm_pre is Identity for ViT-B/16 (BiomedCLIP included), so an absent
+    one becomes the identity LayerNorm (weight 1, bias 0)."""
+    conv = as_f32(sd["patch_embed.proj.weight"])  # (768, 3, 16, 16)
+    hidden = conv.shape[0]
+    out = {"patch_embed.proj.weight": conv.permute(0, 2, 3, 1).reshape(hidden, -1),
+           "patch_embed.proj.bias": as_f32(sd["patch_embed.proj.bias"]),
+           "cls_token": as_f32(sd["cls_token"]),
+           "pos_embed": as_f32(sd["pos_embed"])}
+    if "norm_pre.weight" in sd:
+        out.update(_ln(sd, "norm_pre", "norm_pre"))
+    else:
+        out.update({"norm_pre.weight": torch.ones(hidden),
+                    "norm_pre.bias": torch.zeros(hidden)})
+    for i in range(num_layers):
+        b, t = f"blocks.{i}", f"tower.blocks.{i}"
+        out.update(_ln(sd, f"{b}.norm1", f"{t}.norm1"))
+        out.update(_lin(sd, f"{b}.attn.qkv", f"{t}.attn.qkv"))
+        out.update(_lin(sd, f"{b}.attn.proj", f"{t}.attn.out_proj"))
+        out.update(_ln(sd, f"{b}.norm2", f"{t}.norm2"))
+        out.update(_lin(sd, f"{b}.mlp.fc1", f"{t}.mlp.fc1"))
+        out.update(_lin(sd, f"{b}.mlp.fc2", f"{t}.mlp.fc2"))
+    out.update(_ln(sd, "norm", "tower.norm"))
     return out
 
 

@@ -303,10 +303,9 @@ def test_convert_cli_vlm_deltas_and_later_kinds(tmp_path):
     want = bridged({name: jconv.convert_reference_packer(sd, f"model.{name}.")
                     for name in ("mm_projector", "mm_projector2")})
     assert_same_state(torch.load(out, weights_only=True), want)
-    for kind in ("llama", "biomedclip"):
-        with pytest.raises(NotImplementedError, match="§A7"):
-            tconvert_cli.main(["--kind", kind, "--input", out, "--output", "x"],
-                              device="cpu")
+    with pytest.raises(NotImplementedError, match="§A7"):
+        tconvert_cli.main(["--kind", "llama", "--input", out, "--output", "x"],
+                          device="cpu")
 
 
 def test_serve_checkpoint_serves_the_converted_int8_model(tmp_path):

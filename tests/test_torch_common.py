@@ -86,7 +86,7 @@ def test_port_sources_never_name_jax():
     offenders = [
         str(p.relative_to(PORT_DIR))
         for p in PORT_DIR.rglob("*")
-        if p.suffix in (".py", ".cu", ".cuh")
+        if p.suffix in (".py", ".cu", ".cuh", ".cc")
         and ("jax" in p.read_text() or "hsenet_tpu" in p.read_text())
     ]
     assert offenders == []
@@ -107,7 +107,10 @@ def test_importing_the_port_loads_no_jax():
         "hsenet_torch.eval.mrg, hsenet_torch.eval.vqa, hsenet_torch.eval.metrics, "
         "hsenet_torch.eval.ratescore, hsenet_torch.data.prompts, "
         "hsenet_torch.data.term_dictionary, hsenet_torch.cli.train_clip_stage1, "
-        "hsenet_torch.cli.train_clip_stage2, hsenet_torch.cli.train_vlm; "
+        "hsenet_torch.cli.train_clip_stage2, hsenet_torch.cli.train_vlm, "
+        "hsenet_torch.native, hsenet_torch.data.nifti, hsenet_torch.data.preprocess, "
+        "hsenet_torch.data.augment, hsenet_torch.data.prefetch, "
+        "hsenet_torch.cli.preprocess_ct; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'flax', 'hsenet_tpu'))]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -142,11 +145,24 @@ def test_entry_points_refuse_missing_cuda(build):
         jcfg.VLMConfig(tower_mode="2e3_vit"),
         jcfg.VLMConfig(tower_mode="med2e3"),
         jcfg.VLMConfig(packer=jcfg.PackerConfig(projector_type="qformer")),
+        jcfg.VLMConfig(online_slice_features=True, vit2d=jcfg.ViT2DConfig()),
+        jcfg.PreprocessConfig(),
+        jcfg.AugmentConfig(),
+        jcfg.ViT2DConfig(),
     ],
-    ids=["default", "2e3", "med2e3", "qformer"],
+    ids=["default", "2e3", "med2e3", "qformer", "online", "preprocess",
+         "augment", "vit2d"],
 )
 def test_config_copies_agree(jax_cfg):
     t = to_torch_config(jax_cfg)
+    if not isinstance(jax_cfg, jcfg.VLMConfig):
+        # the port's copy has every field, with the JAX defaults
+        assert dataclasses.asdict(t) == dataclasses.asdict(jax_cfg)
+        if isinstance(jax_cfg, jcfg.ViT2DConfig):
+            assert t.num_patches == jax_cfg.num_patches == 196
+        return
+    want_vit2d = jax_cfg.vit2d and dataclasses.asdict(jax_cfg.vit2d)
+    assert (t.vit2d and dataclasses.asdict(t.vit2d)) == want_vit2d
     assert t.num_image_tokens == jax_cfg.num_image_tokens
     assert t.vision.grid == jax_cfg.vision.grid
     assert t.vision.seq_len == jax_cfg.vision.seq_len == 2049
