@@ -207,6 +207,45 @@ In order:
    per round, tokens/s of both, 224 matvec launches per verify round (8
    rows each), first with the random weights, then with constant weights
    that accept every draft (the ceiling bench.py measures);
+11c. [serve-sample] the [serve] engine with do_sample=True on [serve]'s 12
+   closed-loop requests: a one-token nucleus (top-p 1e-9) gives the greedy
+   engine's tokens request for request, and with speculative=True the
+   greedy speculative engine's; T 0.7 / top-p 0.9 twice with one seed gives
+   equal tokens, another seed other tokens; every token in the vocabulary
+   and its budget; B1 and B5 launches counted as in [serve]; tokens/s,
+   TTFT and speculative sampling's mean_accepted beside greedy
+   speculation's;
+11d. [sample] the sampler (`warp_logits`, then a Gumbel-max draw) at 8 x
+   200,064 and 8 x 128,256 seeded peaked logits: 81,920 draws a row over
+   folded seeds, each token's frequency within 0.01 of the exact law above
+   p 1e-3 (and the rest's mass), none outside the nucleus, one seed twice
+   equal, a one-token nucleus the argmax; the device time of the warp and
+   one draw with and without top-p 0.9; [spec-law] `pld_round(sample=)`
+   against a constant target, each token within 0.03 of softmax(logits /
+   T); [cli-sample] `evaluate --task mrg --synthetic --do-sample` and
+   `serve --synthetic --do-sample [--speculative]` through `main(argv,
+   device="cuda")`;
+11e. [llama] `LlamaForCausalLM(LlamaConfig(quant_int8=True))` at
+   Llama-3-8B's width and depth, built layer by layer from a seeded
+   HF-layout state dict (`convert_hf_llama_layer`, `quantize_kernels_int8`)
+   with its peak memory: the greedy, speculative and sampled engines (8
+   slots, 8 prompts of 20-200 tokens): B1 32 launches an admission, B5 224
+   a decode step on the tensor-core entry; greedy tokens against the plain
+   path (every kernel replaced by its plain version), where they part the
+   two tokens' logits, replayed as the engine decodes, within the near-tie
+   limit; the speculative engine's partings from greedy printed; a decode
+   chunk profiled; `convert_checkpoint --kind llama --quant-int8` of a
+   file at full width and depth 2, its output served at one slot (B5 at M
+   = 1); [kernel-llama] B5 at Llama's four (K, N), held at M 1-8 beside
+   the wrong variants and timed at M = 8 and 1 with the codes cold, and B1
+   at the engine's admission shape, beside bound, plain and library;
+11f. [variants] full-width VLMs (towers at full depth, the LLM at 4
+   layers) with projector spatial_pooling, mlp and qformer and tower_mode
+   med2e3: two volumes through prefill, 8 greedy and 8 sampled tokens,
+   launches by shape held (QFormer's 4 attentions a projector at head dim
+   96), prefill logits within 5e-2 of the plain sdpa path, med2e3 served
+   through the engine without caches; QFormer's B1 shapes checked and
+   timed;
 12. [kernel] / [kernel-bwd] / [kernel-time] (flash_fwd and flash_bwd, the
    latter beside the old dQ + dK/dV pair) at the CLIP paths' shapes: the
    tower at batch 24 (24 x 12 x 2049, d 64) and BERT (24 x 12 x 128, valid
@@ -1091,6 +1130,132 @@ def forward_dropping(q, k, v, kv_t, off_t, causal, drop, score_cols=None):
     return (p @ v.float()).to(q.dtype)
 
 
+def matvec_row_share(out, ref):
+    """(max abs error, max error over its row's largest |ref|) of a matvec
+    output; a non-finite output reads as an infinite share."""
+    import torch
+
+    err = (out.float() - ref.float()).abs()
+    scale = ref.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    share = torch.where(out.float().isfinite(), err / scale, math.inf)
+    return err.max().item(), share.max().item()
+
+
+def matvec_codes(gen, k, n):
+    """Seeded int8 codes (N, K) and f32 scales (N,) on the card."""
+    import torch
+
+    w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    return w, (0.5 + torch.rand(n, generator=gen, device="cuda")) / (127 * k ** 0.5)
+
+
+def hold_matvec(tag, kernel, x, w, scale, phase="kernel-matvec"):
+    """One matvec entry against its plain version (MATVEC_ROW_TOL), two
+    launches bit-equal, beside two wrong variants that must miss."""
+    import torch
+
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    out = kernel(x, w, scale)
+    again = kernel(x, w, scale)
+    torch.cuda.synchronize()
+    ref = tqm.quant_matvec_int8_reference(x, w, scale)
+    max_abs, share = matvec_row_share(out, ref)
+    wrong = {
+        "scales shifted by one channel":
+            tqm.quant_matvec_int8_reference(x, w, scale.roll(1)),
+        "last 16 codes of K dropped":
+            tqm.quant_matvec_int8_reference(x[:, :-16], w[:, :-16], scale),
+    }
+    wrong = {what: matvec_row_share(o, ref)[1] for what, o in wrong.items()}
+    same = torch.equal(out, again)
+    print(f"[{phase}] {tag}: x{tuple(x.shape)} w_q{tuple(w.shape)} "
+          f"int8: max_abs_err {max_abs:.3e}, max err / row's max |ref| "
+          f"{share:.3e} (tol {MATVEC_ROW_TOL}); two launches bit-equal: "
+          f"{same}; wrong variants: "
+          + ", ".join(f"{what} {v:.3e}" for what, v in wrong.items()))
+    if not share <= MATVEC_ROW_TOL:
+        raise AssertionError(f"quant_matvec {tag} disagrees with its plain version")
+    if not same:
+        raise AssertionError(f"quant_matvec {tag}: two launches differ")
+    for what, v in wrong.items():
+        if v <= MATVEC_ROW_TOL:
+            raise AssertionError(f"the matvec tolerance passes {what} ({tag})")
+
+
+def time_matvec_cold(tag, name, k, n, gen, library, rows=(8, 1)):
+    """At (K, N) and each M of `rows`, with the codes read cold: both
+    entries in turns (new/old/old/new), the bound, the plain version, a
+    bf16 matmul on a converted copy and, where `library`,
+    `torch._weight_int8pack_mm`. Returns (results, yardstick) by key:
+    `name` at M = 8, `name_m1` at M = 1."""
+    import torch
+
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    results, yardstick = {}, {}
+    copies = int(MATVEC_COLD_BYTES // (k * n)) + 1
+    w, scale = matvec_codes(gen, k, n)
+    ws = [w] + [w.clone() for _ in range(copies - 1)]
+    wbs = [t.to(torch.bfloat16) for t in ws]
+    scale_b = scale.to(torch.bfloat16)
+    turn = itertools.count()
+
+    def cold(fn, pool):
+        return lambda: fn(pool[next(turn) % copies])
+
+    for m in rows:
+        x = torch.randn(m, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+        ref = tqm.quant_matvec_int8_reference(x, w, scale)
+        new_err = matvec_row_share(tqm.quant_matvec_mma_kernel(x, w, scale), ref)[0]
+        old_err = matvec_row_share(tqm.quant_matvec_fma_kernel(x, w, scale), ref)[0]
+        new = cold(lambda t: tqm.quant_matvec_mma_kernel(x, t, scale), ws)
+        old = cold(lambda t: tqm.quant_matvec_fma_kernel(x, t, scale), ws)
+        turns = [time_ms(f) for f in (new, old, old, new)]
+        nbytes = k * n + 2 * m * k + 2 * m * n + 4 * n
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = 2 * m * k * n / PEAK_BF16_FLOPS * 1e3
+        shared = {
+            "plain_ms": time_ms(cold(
+                lambda t: tqm.quant_matvec_int8_reference(x, t, scale), ws), reps=5),
+            "library_ms": time_ms(cold(
+                lambda t: torch.matmul(x, t.t()) * scale_b, wbs)),
+            "int8pack_ms": time_ms(cold(
+                lambda t: torch._weight_int8pack_mm(x, t, scale_b), ws))
+            if library else None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "mbytes": nbytes / 1e6, "gflop": 2 * m * k * n / 1e9, "rows": m,
+        }
+        key = name if m == 8 else f"{name}_m1"
+        r = results[key] = {"max_abs_err": new_err, "ms": (turns[0] + turns[3]) / 2,
+                            "old_ms": (turns[1] + turns[2]) / 2, **shared}
+        yardstick[key] = {"max_abs_err": old_err, "ms": r["old_ms"], **shared}
+        lib8 = ("not registered" if r["int8pack_ms"] is None
+                else f"{r['int8pack_ms']:.4f} ms")
+        print(f"[{tag}] {name} M={m}, plan {tuple(tqm.mma_plan(m, k, n))}, codes "
+              f"read cold ({copies} copies in turn), in turns new/old/old/new: "
+              f"tensor cores {r['ms']:.4f} ms ({nbytes / r['ms'] / 1e6:.0f} GB/s, "
+              f"{r['bound_ms'] / r['ms']:.1%} of the bound), CUDA cores "
+              f"{r['old_ms']:.4f} ms ({nbytes / r['old_ms'] / 1e6:.0f} GB/s, "
+              f"{r['bound_ms'] / r['old_ms']:.1%}); turns "
+              + " / ".join(f"{t:.4f}" for t in turns)
+              + f"; plain {r['plain_ms']:.4f} ms, bf16 matmul on a "
+              f"converted copy {r['library_ms']:.4f} ms, _weight_int8pack_mm "
+              f"{lib8}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{r['mbytes']:.2f} MB, {r['gflop']:.3f} GFLOP)")
+    del ws, wbs
+    return results, yardstick
+
+
+def int8pack_registered() -> bool:
+    import torch
+
+    return torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int8pack_mm", "CUDA")
+
+
 def check_matvec_kernel():
     """B5: the tensor-core entry against its plain version in bf16 at
     Phi-4-mini's four (K, N), a ragged shape and the `--synthetic` shapes,
@@ -1111,53 +1276,15 @@ def check_matvec_kernel():
     gen = torch.Generator(device="cuda").manual_seed(4)
     dev = "cuda"
 
-    def row_share(out, ref):
-        err = (out.float() - ref.float()).abs()
-        scale = ref.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
-        share = torch.where(out.float().isfinite(), err / scale, math.inf)
-        return err.max().item(), share.max().item()
-
-    def codes(k, n):
-        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
-                          dtype=torch.int8)
-        return w, (0.5 + torch.rand(n, generator=gen, device=dev)) / (127 * k ** 0.5)
-
-    def hold(tag, kernel, x, w, scale):
-        out = kernel(x, w, scale)
-        again = kernel(x, w, scale)
-        torch.cuda.synchronize()
-        ref = tqm.quant_matvec_int8_reference(x, w, scale)
-        max_abs, share = row_share(out, ref)
-        wrong = {
-            "scales shifted by one channel":
-                tqm.quant_matvec_int8_reference(x, w, scale.roll(1)),
-            "last 16 codes of K dropped":
-                tqm.quant_matvec_int8_reference(x[:, :-16], w[:, :-16], scale),
-        }
-        wrong = {what: row_share(o, ref)[1] for what, o in wrong.items()}
-        same = torch.equal(out, again)
-        print(f"[kernel-matvec] {tag}: x{tuple(x.shape)} w_q{tuple(w.shape)} "
-              f"int8: max_abs_err {max_abs:.3e}, max err / row's max |ref| "
-              f"{share:.3e} (tol {MATVEC_ROW_TOL}); two launches bit-equal: "
-              f"{same}; wrong variants: "
-              + ", ".join(f"{what} {v:.3e}" for what, v in wrong.items()))
-        if not share <= MATVEC_ROW_TOL:
-            raise AssertionError(f"quant_matvec {tag} disagrees with its plain version")
-        if not same:
-            raise AssertionError(f"quant_matvec {tag}: two launches differ")
-        for what, v in wrong.items():
-            if v <= MATVEC_ROW_TOL:
-                raise AssertionError(f"the matvec tolerance passes {what} ({tag})")
-
     for name, (k, n) in {**MATVEC_SHAPES, **MATVEC_CHECK_SHAPES}.items():
-        w, scale = codes(k, n)
+        w, scale = matvec_codes(gen, k, n)
         for m in MATVEC_CHECK_ROWS:
             x = torch.randn(m, k, generator=gen, device=dev, dtype=torch.bfloat16)
-            hold(f"{name} M={m} bf16, plan {tuple(tqm.mma_plan(m, k, n))}",
-                 tqm.quant_matvec_mma_kernel, x, w, scale)
+            hold_matvec(f"{name} M={m} bf16, plan {tuple(tqm.mma_plan(m, k, n))}",
+                        tqm.quant_matvec_mma_kernel, x, w, scale)
             if name in MATVEC_SYNTHETIC:
-                hold(f"{name} M={m} f32, CUDA-core entry",
-                     tqm.quant_matvec_fma_kernel, x.float(), w, scale)
+                hold_matvec(f"{name} M={m} f32, CUDA-core entry",
+                            tqm.quant_matvec_fma_kernel, x.float(), w, scale)
         # the dispatcher with leading dimensions, as the decode step calls
         # it: bf16 on the tensor-core entry, f32 on the CUDA-core entry
         x = torch.randn(8, k, generator=gen, device=dev, dtype=torch.bfloat16)
@@ -1176,7 +1303,7 @@ def check_matvec_kernel():
     # a launch's fixed time: both entries at the smallest synthetic shape
     # (codes and x in L2), beside one PyTorch launch that does next to
     # nothing
-    w, scale = codes(*MATVEC_CHECK_SHAPES["synthetic_64x32"])
+    w, scale = matvec_codes(gen, *MATVEC_CHECK_SHAPES["synthetic_64x32"])
     x = torch.randn(8, w.shape[1], generator=gen, device=dev, dtype=torch.bfloat16)
     tiny = torch.zeros(8, device=dev)
     floor = {"tensor-core entry": time_ms(
@@ -1188,72 +1315,23 @@ def check_matvec_kernel():
           f"PyTorch op, device ms: "
           + ", ".join(f"{what} {v:.4f}" for what, v in floor.items()))
 
-    library = torch._C._dispatch_has_kernel_for_dispatch_key(
-        "aten::_weight_int8pack_mm", "CUDA")
+    library = int8pack_registered()
     print(f"[kernel-matvec] torch._weight_int8pack_mm has a CUDA kernel: {library}")
     results, yardstick = {}, {}
     for name, (k, n) in MATVEC_SHAPES.items():
-        copies = int(MATVEC_COLD_BYTES // (k * n)) + 1
-        w, scale = codes(k, n)
-        ws = [w] + [w.clone() for _ in range(copies - 1)]
-        wbs = [t.to(torch.bfloat16) for t in ws]
-        scale_b = scale.to(torch.bfloat16)
-        turn = itertools.count()
-
-        def cold(fn, pool):
-            return lambda: fn(pool[next(turn) % copies])
-
-        for m in (8, 1):
-            x = torch.randn(m, k, generator=gen, device=dev, dtype=torch.bfloat16)
-            ref = tqm.quant_matvec_int8_reference(x, w, scale)
-            new_err = row_share(tqm.quant_matvec_mma_kernel(x, w, scale), ref)[0]
-            old_err = row_share(tqm.quant_matvec_fma_kernel(x, w, scale), ref)[0]
-            new = cold(lambda t: tqm.quant_matvec_mma_kernel(x, t, scale), ws)
-            old = cold(lambda t: tqm.quant_matvec_fma_kernel(x, t, scale), ws)
-            turns = [time_ms(f) for f in (new, old, old, new)]
-            nbytes = k * n + 2 * m * k + 2 * m * n + 4 * n
-            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-            t_ops = 2 * m * k * n / PEAK_BF16_FLOPS * 1e3
-            shared = {
-                "plain_ms": time_ms(cold(
-                    lambda t: tqm.quant_matvec_int8_reference(x, t, scale), ws), reps=5),
-                "library_ms": time_ms(cold(
-                    lambda t: torch.matmul(x, t.t()) * scale_b, wbs)),
-                "int8pack_ms": time_ms(cold(
-                    lambda t: torch._weight_int8pack_mm(x, t, scale_b), ws))
-                if library else None,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "mbytes": nbytes / 1e6, "gflop": 2 * m * k * n / 1e9, "rows": m,
-            }
-            key = name if m == 8 else f"{name}_m1"
-            r = results[key] = {"max_abs_err": new_err, "ms": (turns[0] + turns[3]) / 2,
-                                "old_ms": (turns[1] + turns[2]) / 2, **shared}
-            yardstick[key] = {"max_abs_err": old_err, "ms": r["old_ms"], **shared}
-            lib8 = ("not registered" if r["int8pack_ms"] is None
-                    else f"{r['int8pack_ms']:.4f} ms")
-            print(f"[kernel-matvec] {name} M={m}, codes read cold ({copies} "
-                  f"copies in turn), in turns new/old/old/new: tensor cores "
-                  f"{r['ms']:.4f} ms ({nbytes / r['ms'] / 1e6:.0f} GB/s, "
-                  f"{r['bound_ms'] / r['ms']:.1%} of the bound), CUDA cores "
-                  f"{r['old_ms']:.4f} ms ({nbytes / r['old_ms'] / 1e6:.0f} GB/s, "
-                  f"{r['bound_ms'] / r['old_ms']:.1%}); turns "
-                  + " / ".join(f"{t:.4f}" for t in turns)
-                  + f"; plain {r['plain_ms']:.4f} ms, bf16 matmul on a "
-                  f"converted copy {r['library_ms']:.4f} ms, _weight_int8pack_mm "
-                  f"{lib8}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
-                  f"{r['mbytes']:.2f} MB, {r['gflop']:.3f} GFLOP)")
-        del ws, wbs
+        r, y = time_matvec_cold("kernel-matvec", name, k, n, gen, library)
+        results.update(r)
+        yardstick.update(y)
 
     # the LM head's table (no path routes it through B5): the streaming
     # rate without a launch's fixed cost, beside the plain version, a bf16
     # matmul on a converted copy and torch._weight_int8pack_mm (the table's
     # 614 MB are read cold by every call: they exceed the L2 many times)
     k, n = MATVEC_LM_HEAD
-    w, scale = codes(k, n)
+    w, scale = matvec_codes(gen, k, n)
     x = torch.randn(8, k, generator=gen, device=dev, dtype=torch.bfloat16)
-    max_abs, share = row_share(tqm.quant_matvec_mma_kernel(x, w, scale),
-                               tqm.quant_matvec_int8_reference(x, w, scale))
+    max_abs, share = matvec_row_share(tqm.quant_matvec_mma_kernel(x, w, scale),
+                                      tqm.quant_matvec_int8_reference(x, w, scale))
     nbytes = k * n + 2 * 8 * k + 2 * 8 * n + 4 * n
     wb, scale_b = w.to(torch.bfloat16), scale.to(torch.bfloat16)
     r = results[f"lm_head_{k}x{n}"] = {
@@ -4811,7 +4889,8 @@ def run_serve_spec(card: str, cfg, model, serve_numbers, serve_tokens,
                    kv_int8_tokens):
     """[serve-spec]: the [serve] engine with speculative=True on [serve]'s
     closed-loop requests, tokens against the greedy engine's, and the same
-    with the int8 KV cache on [serve-kv-int8]'s requests."""
+    with the int8 KV cache on [serve-kv-int8]'s requests. Returns the
+    numbers and the bf16 cache's tokens by request."""
     import numpy as np
     import torch
 
@@ -4824,7 +4903,7 @@ def run_serve_spec(card: str, cfg, model, serve_numbers, serve_tokens,
         warm.submit(**{**req, "max_new": 4})
     warm.run_until_drained()
     del warm
-    numbers = {}
+    numbers, spec_tokens = {}, {}
     runs = (("bf16 cache", torch.bfloat16, serving_traffic(cfg, 20, 4, seed=11)[:12],
              serve_tokens),
             ("int8 cache", torch.int8, serving_traffic(cfg, 6, 2, seed=14)[:4],
@@ -4841,7 +4920,7 @@ def run_serve_spec(card: str, cfg, model, serve_numbers, serve_tokens,
         results = eng.run_until_drained()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = [results[u] for u in sorted(results)]
+        got = spec_tokens[label] = [results[u] for u in sorted(results)]
         n_tokens = sum(map(len, got))
         want_b1 = {"d64": 2 * cfg.vision.num_layers * eng.encode_misses,
                    "d128": cfg.llm.num_layers * len(requests)}
@@ -4894,7 +4973,7 @@ def run_serve_spec(card: str, cfg, model, serve_numbers, serve_tokens,
               f"greedy engine's: {len(requests) - len(diverged)} of "
               f"{len(requests)}; flash_fwd {got_b1}")
         check_near_ties("serve-spec", diverged)
-    return numbers
+    return numbers, spec_tokens["bf16 cache"]
 
 
 def write_eval_data(root, cfg):
@@ -5135,68 +5214,27 @@ def run_cli_evaluate(card: str):
 
 def check_eval_kernels(path_shapes, prompt_lens):
     """[kernel-eval]: flash_fwd_wgmma at every bf16 shape [cli-evaluate]
-    launched (key (kind, batch, heads, sq, skv, head_dim)) against its
-    plain version, beside the same attention without the last valid 64-key
-    tile (must miss the limit), and timed beside the bound, the plain
-    version and one SDPA call: towers non-causal over all their tokens, LLM
-    prefills causal at the first MRG batch's valid lengths. Returns the
-    results by name and the launch key -> name."""
+    launched (key (kind, batch, heads, sq, skv, head_dim)) through
+    `b1_case`: against its plain version, beside the same attention
+    without the last valid 64-key tile (must miss the limit), and timed
+    beside the bound, the plain version and one SDPA call: towers
+    non-causal over all their tokens, LLM prefills causal at the first MRG
+    batch's valid lengths. Returns the results by name and the launch key
+    -> name."""
     import torch
-    import torch.nn.functional as F
 
-    from hsenet_torch.ops import flash_attention as tfa
-
-    dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(13)
+    gen = torch.Generator(device="cuda").manual_seed(13)
     results, index = {}, {}
     for key in sorted(path_shapes):
-        kind, b, h, sq, skv, d = key
+        _, b, h, sq, skv, d = key
         tower = d == 64
-        name = f"eval_{'tower' if tower else 'llm'}_{b}x{h}x{sq}x{skv}"
-        index[key] = name
+        name = index[key] = f"eval_{'tower' if tower else 'llm'}_{b}x{h}x{sq}x{skv}"
         kv_lens = (skv,) * b if tower else tuple(prompt_lens[:b]) + (
             prompt_lens[0],) * max(0, b - len(prompt_lens))
-        causal = not tower
-        q = torch.randn(b, h, sq, d, generator=gen, device=dev, dtype=torch.bfloat16)
-        k, v = (torch.randn(b, h, skv, d, generator=gen, device=dev,
-                            dtype=torch.bfloat16) for _ in range(2))
-        kv_t = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
-        off_t = torch.zeros(b, dtype=torch.int32, device=dev)
-        kw = dict(kv_lens=kv_t, causal=causal, q_offset=off_t)
-        out = tfa.flash_attention(q, k, v, **kw)
-        ref = tfa.flash_attention_reference(q, k, v, **kw)
-        max_abs, row_rel, ok = compare(out, ref)
-        col = torch.arange(skv, device=dev)[None, None, None, :]
-        first = (kv_t[:, None, None, None] - 1) // 64 * 64
-        _, drop_rel, drop_ok = compare(
-            forward_dropping(q, k, v, kv_t, off_t, causal, col >= first), ref)
-        print(f"[kernel-eval] flash_fwd {name}: q{tuple(q.shape)} k{tuple(k.shape)} "
-              f"causal={causal} kv_lens={kv_lens[0] if tower else kv_lens}: max "
-              f"err / row's max |ref| {row_rel:.3e} (tol {KERNEL_ROW_TOL}); "
-              f"without the last valid 64-key tile {drop_rel:.3e}")
-        if not ok:
-            raise AssertionError(f"flash_fwd disagrees with its plain version at {name}")
-        if drop_ok:
-            raise AssertionError(f"the kernel tolerance passes a dropped key tile "
-                                 f"at {name}")
-        mask = tfa._valid(q, k, kv_t, off_t, causal)
-        bound, bound_by, flops, nbytes = kernel_bound(
-            kind, b, h, sq, skv, d, kv_lens, (0,) * b, causal)
-        r = results[name] = {
-            "max_abs_err": max_abs, "max_row_rel_err": row_rel,
-            "ms": time_ms(lambda: tfa._forward_kernel(q, k, v, kv_t, off_t, causal,
-                                                      d ** -0.5, False)),
-            "plain_ms": time_ms(lambda: tfa.flash_attention_reference(q, k, v, **kw),
-                                reps=5),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask)),
-            "bound_ms": bound, "bound_by": bound_by,
-            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-        }
-        print(f"[kernel-eval] flash_fwd {name}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library (SDPA) {r['library_ms']:.4f} ms, "
-              f"bound {bound:.4f} ms ({bound_by}: {r['gflop']:.2f} GFLOP, "
-              f"{r['mbytes']:.2f} MB), {path_shapes[key]} launches in [cli-evaluate]")
+        results[name] = b1_case("kernel-eval", name, b, h, sq, skv, d, kv_lens,
+                                not tower, gen)
+        print(f"[kernel-eval] flash_fwd {name}: {path_shapes[key]} launches in "
+              "[cli-evaluate]")
     return results, index
 
 
@@ -5857,6 +5895,957 @@ def run_clip_augment(card: str, plain_step_ms: float):
             "later_rel": rel, "batch": CLIP_BATCH}
 
 
+# [sample]: the sampler on the card at the two serving vocabularies
+# (Phi-4-mini's 200,064 and Llama-3's 128,256), 8 rows of seeded peaked
+# logits (a normal times 4, in bf16 as the decode's logits are), warped at
+# T 0.7 and top-p 0.9; SAMPLE_DRAWS draws a row over folded seeds,
+# SAMPLE_CHUNK at a time. The frequency of each token whose probability
+# exceeds SAMPLE_MIN_P, and the mass of the rest, must lie within
+# SAMPLE_FREQ_TOL of the exact law, and no draw may leave the nucleus. One
+# standard error of a frequency is at most 0.0017 at 81,920 draws, so the
+# limit is 5.7 of them for the ~100 tokens above SAMPLE_MIN_P (at 20,480
+# draws a token near p 0.5 read 0.0115 on the CPU's stream, 3.3 of them)
+SAMPLE_VOCABS = {"phi4_mini": 200064, "llama3": 128256}
+SAMPLE_ROWS = 8
+SAMPLE_DRAWS = 81920
+SAMPLE_CHUNK = 128
+SAMPLE_T = 0.7
+SAMPLE_TOP_P = 0.9
+SAMPLE_FREQ_TOL = 0.01
+SAMPLE_MIN_P = 1e-3
+# a nucleus of one token: sampling at it must give the argmax
+COLLAPSE_TOP_P = 1e-9
+# [spec-law]: speculative sampling against a constant target (the port of
+# the JAX package's tests/test_serving.py law test): each committed token's
+# frequency within this of softmax(logits / T)
+SPEC_LAW_TOL = 0.03
+SPEC_LAW_ROWS = 64
+SPEC_LAW_ROUNDS = 100
+# [llama]: Llama-3-8B's shape at full depth with int8 projections, served
+# by the engine at 8 slots over prompts of 20-200 tokens
+LLAMA_EOS = 128009  # Llama-3 <|eot_id|>
+LLAMA_SLOTS = 8
+LLAMA_PROMPT_CAP = 256
+LLAMA_MAX_NEW = 64
+LLAMA_CHUNK = 16
+LLAMA_REQUESTS = 8
+LLAMA_CONVERT_LAYERS = 2  # convert_checkpoint --kind llama runs at this depth
+# (K, N) of Llama-3-8B's int8 projections and how many of each a decode
+# step of one layer launches
+LLAMA_MATVEC_SHAPES = {"llama_qo_4096x4096": (4096, 4096),
+                       "llama_kv_4096x1024": (4096, 1024),
+                       "llama_gate_up_4096x14336": (4096, 14336),
+                       "llama_down_14336x4096": (14336, 4096)}
+LLAMA_MATVEC_PER_LAYER = {"llama_qo_4096x4096": 2, "llama_kv_4096x1024": 2,
+                          "llama_gate_up_4096x14336": 2,
+                          "llama_down_14336x4096": 1}
+# [variants]: the ablation projectors and tower_mode med2e3 at full width
+# (towers at full depth; the LLM cut to VARIANT_LLM_LAYERS layers), two
+# volumes a run; prefill logits through the kernels against the plain sdpa
+# path (relative L2, as [vit2d] holds features)
+VARIANTS = ("spatial_pooling", "mlp", "qformer", "med2e3")
+VARIANT_LLM_LAYERS = 4
+VARIANT_NEW_TOKENS = 8
+VARIANT_TEXT = (40, 60)
+VARIANT_LOGITS_REL_L2 = 5e-2
+
+
+def run_sample(card: str):
+    """[sample]: the sampler's law on the card at each serving vocabulary
+    (warp once, then SAMPLE_DRAWS Gumbel-max draws a row over folded
+    seeds), the same seed twice, a one-token nucleus against the argmax,
+    and the device time of the warp plus one draw with and without top-p."""
+    import torch
+
+    from hsenet_torch.eval.generate import (
+        _make_next_token,
+        categorical,
+        fold_seed,
+        seeded_generator,
+        warp_logits,
+    )
+
+    numbers = {}
+    for name, vocab in SAMPLE_VOCABS.items():
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        logits = (torch.randn(SAMPLE_ROWS, vocab, generator=gen, device="cuda")
+                  * 4).to(torch.bfloat16)
+        wl = warp_logits(logits, SAMPLE_T, SAMPLE_TOP_P)
+        law = torch.softmax(wl, dim=-1)
+        counts = torch.zeros(SAMPLE_ROWS, vocab, dtype=torch.int64, device="cuda")
+        ones = torch.ones(SAMPLE_ROWS, SAMPLE_CHUNK, dtype=torch.int64, device="cuda")
+        t0 = time.perf_counter()
+        for c in range(SAMPLE_DRAWS // SAMPLE_CHUNK):
+            tok = categorical(wl.expand(SAMPLE_CHUNK, -1, -1),
+                              seeded_generator(fold_seed(21, c), "cuda"))
+            counts.scatter_add_(1, tok.t().long(), ones)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        freq = counts.double() / SAMPLE_DRAWS
+        outside = int(counts[~wl.isfinite()].sum())
+        big = law > SAMPLE_MIN_P
+        tok_err = (freq - law.double()).abs()[big].max().item()
+        rest_err = ((freq * ~big).sum(-1) - (law.double() * ~big).sum(-1)).abs().max().item()
+        sample = _make_next_token(True, SAMPLE_T, SAMPLE_TOP_P)
+        same = torch.equal(sample(logits, 5), sample(logits, 5))
+        other = not torch.equal(sample(logits, 5), sample(logits, 6))
+        argmax = torch.equal(_make_next_token(True, SAMPLE_T, COLLAPSE_TOP_P)(logits, 7),
+                             logits.argmax(dim=-1).to(torch.int32))
+        times = {label: time_ms(lambda top_p=top_p: _make_next_token(
+                     True, SAMPLE_T, top_p)(logits, 8))
+                 for label, top_p in (("top_p_0.9", SAMPLE_TOP_P), ("no_top_p", None))}
+        nucleus = int(wl.isfinite().sum(-1).float().mean())
+        numbers[name] = {
+            "rows": SAMPLE_ROWS, "vocab": vocab, "draws_a_row": SAMPLE_DRAWS,
+            "nucleus_tokens_mean": nucleus, "tokens_above_min_p": int(big.sum()),
+            "max_token_freq_err": tok_err, "max_rest_mass_err": rest_err,
+            "draws_outside_nucleus": outside, "same_seed_equal": same,
+            "other_seed_differs": other, "collapse_is_argmax": argmax,
+            "draw_s": draw_s, "warp_and_draw_ms": times,
+        }
+        print(f"[sample] on {card}: {SAMPLE_ROWS} x {vocab} seeded logits "
+              f"(normal x 4, bf16), T {SAMPLE_T}, top-p {SAMPLE_TOP_P} (nucleus "
+              f"{nucleus} tokens a row on average): {SAMPLE_DRAWS} draws a row "
+              f"over {SAMPLE_DRAWS // SAMPLE_CHUNK} folded seeds in {draw_s:.2f} s; "
+              f"max |freq - p| over the {int(big.sum())} tokens above p "
+              f"{SAMPLE_MIN_P} {tok_err:.4f}, the rest's mass {rest_err:.4f} (tol "
+              f"{SAMPLE_FREQ_TOL}); draws outside the nucleus {outside}; same "
+              f"seed equal {same}, another seed differs {other}; top-p "
+              f"{COLLAPSE_TOP_P} gives the argmax {argmax}; warp + one draw "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+              + " (device)")
+        if not (tok_err <= SAMPLE_FREQ_TOL and rest_err <= SAMPLE_FREQ_TOL
+                and outside == 0 and same and other and argmax):
+            raise AssertionError(f"[sample] the sampler's law at {name} fails a check")
+        del logits, wl, law, counts
+    return numbers
+
+
+def run_spec_law(card: str):
+    """[spec-law]: `pld_round(sample=...)` on the card against a constant
+    target over a vocabulary of 8 (the port of the JAX package's law test):
+    whatever the n-gram drafter proposes, every committed token, with each
+    round's correction token, is distributed as softmax(logits / T)."""
+    import torch
+
+    from hsenet_torch.configs import Phi3Config
+    from hsenet_torch.eval.generate import fold_seed
+    from hsenet_torch.eval.speculative import pld_round
+    from hsenet_torch.models.phi3 import KVCache
+
+    vocab, k, b, temperature = 8, 4, SPEC_LAW_ROWS, 1.3
+    base = torch.linspace(0.0, 2.0, vocab, device="cuda")
+    target = torch.softmax(base / temperature, dim=-1)
+    cfg = Phi3Config(vocab_size=vocab, hidden_size=8, intermediate_size=8,
+                     num_layers=1, num_heads=1, num_kv_heads=1, head_dim=8)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    counts = torch.zeros(vocab, dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    for trial in range(SPEC_LAW_ROUNDS):
+        cache = KVCache.create(cfg, b, 64, dtype=torch.float32, device="cuda")
+        cache.lengths.fill_(8)
+        ctx = torch.randint(0, vocab, (b, 64), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        pending = torch.multinomial(target.expand(b, -1), 1, generator=gen)[:, 0]
+        out = pld_round(
+            lambda t, c: (base.expand(*t.shape, vocab), c), pending.int(), cache,
+            ctx, torch.full((b,), 9, dtype=torch.int32, device="cuda"),
+            torch.zeros(b, dtype=torch.bool, device="cuda"),
+            torch.zeros(b, dtype=torch.int32, device="cuda"),
+            torch.full((b,), 100, dtype=torch.int32, device="cuda"),
+            draft_len=k, ngram=2, eos_token_id=-1, pad_token_id=0,
+            sample=(fold_seed(23, trial), temperature, None))
+        nxt, inputs, commit = out[0], out[6], out[7]
+        keep = torch.arange(k + 1, device="cuda")[None, :] < commit[:, None]
+        counts += torch.bincount(inputs[keep].long(), minlength=vocab)
+        counts += torch.bincount(nxt.long(), minlength=vocab)
+    torch.cuda.synchronize()
+    n = int(counts.sum())
+    err = (counts.double() / n - target.double()).abs().max().item()
+    print(f"[spec-law] on {card}: {SPEC_LAW_ROUNDS} rounds x {b} rows, drafts "
+          f"of {k}, T {temperature}: {n} tokens in {time.perf_counter() - t0:.2f} "
+          f"s, max |freq - softmax(logits / T)| {err:.4f} (tol {SPEC_LAW_TOL})")
+    if n < 2000 or not err <= SPEC_LAW_TOL:
+        raise AssertionError("[spec-law] speculative sampling's law is off")
+    return {"tokens": n, "max_freq_err": err, "rounds": SPEC_LAW_ROUNDS, "rows": b}
+
+
+def run_serve_sample(card: str, cfg, model, serve_tokens, spec_tokens,
+                     spec_numbers):
+    """[serve-sample]: the [serve] engine with do_sample=True on [serve]'s
+    12 closed-loop requests: a one-token nucleus gives the greedy engine's
+    tokens request for request (and, speculative, the greedy speculative
+    engine's); T 0.7 / top-p 0.9 twice with one seed gives equal tokens,
+    another seed other tokens; tokens/s, TTFT and speculative sampling's
+    mean_accepted beside greedy speculation's; launches counted. Returns
+    the numbers, with the counted runs' decode steps and admissions."""
+    import torch
+
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    requests = serving_traffic(cfg, 20, 4, seed=11)[:12]
+    spec = dict(speculative=True, draft_len=SPEC_DRAFT_LEN, ngram=SPEC_NGRAM)
+    hot = dict(do_sample=True, temperature=SAMPLE_T, top_p=SAMPLE_TOP_P)
+    runs = {
+        "collapse": (dict(do_sample=True, top_p=COLLAPSE_TOP_P, rng=31), serve_tokens),
+        "spec_collapse": (dict(do_sample=True, top_p=COLLAPSE_TOP_P, rng=32, **spec),
+                          spec_tokens),
+        "hot": (dict(rng=33, **hot), None),
+        "hot_again": (dict(rng=33, **hot), None),
+        "hot_other_seed": (dict(rng=34, **hot), None),
+        "spec_hot": (dict(rng=35, **hot, **spec), None),
+    }
+    expect = {"encode_misses": 4, "encode_hits": 0, "prefix_misses": 4,
+              "prefix_hits": 8}
+    numbers, tokens = {}, {}
+    for name, (kw, want) in runs.items():
+        eng = make_engine(model, **kw)
+        torch.cuda.synchronize()
+        reset_counts()  # the sampling engine, counted
+        t0 = time.perf_counter()
+        for req in requests:
+            eng.submit(**req)
+        results = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = tokens[name] = [results[u] for u in sorted(results)]
+        if "speculative" in kw:
+            want_b1 = {"d64": 2 * cfg.vision.num_layers * eng.encode_misses,
+                       "d128": cfg.llm.num_layers * len(requests)}
+            got_b1 = {"d64": tfa.fwd_launches[(64, False)],
+                      "d128": tfa.fwd_launches[(128, False)]}
+            fwd_route(f"serve-sample {name}", tfa.launches, tfa.f32_launches)
+            if got_b1 != want_b1 or tqm.launches[tqm.KERNEL] or tqm.fma_launches[tqm.FMA]:
+                raise AssertionError(f"serve-sample {name}: flash launches {got_b1}, "
+                                     f"not {want_b1}, or a 64-row verify took B5")
+            counts = {"tokens": sum(map(len, got)), "flash_fwd_launches": got_b1,
+                      "prefix_misses": eng.prefix_misses, "prefix_hits": eng.prefix_hits}
+        else:
+            counts = check_serve_counts(f"serve-sample {name}", cfg, eng,
+                                        len(requests), results, expect)
+        budgets = [r["max_new"] for r in requests]
+        if not all(len(t) <= m for t, m in zip(got, budgets)) or not all(
+                0 <= t < cfg.llm.vocab_size for row in got for t in row):
+            raise AssertionError(f"serve-sample {name}: a token outside the "
+                                 "vocabulary or a request past its budget")
+        stats = eng.latency_stats()
+        numbers[name] = {**counts, "wall_s": wall,
+                         "tokens_per_s": counts["tokens"] / wall,
+                         "latency": stats, "mean_accepted": eng.mean_accepted,
+                         "sampling": {k: v for k, v in kw.items() if k != "rng"}}
+        equal = None if want is None else got == want
+        numbers[name]["equal_to_greedy"] = equal
+        print(f"[serve-sample] on {card}, {name} ({', '.join(f'{k}={v}' for k, v in kw.items())}): "
+              f"{counts['tokens']} tokens in {wall:.2f} s = "
+              f"{counts['tokens'] / wall:.1f} tokens/s, TTFT p50/p99 "
+              f"{stats['ttft_p50_s']:.3f}/{stats['ttft_p99_s']:.3f} s"
+              + (f", mean_accepted {eng.mean_accepted:.2f}" if "speculative" in kw else "")
+              + ("" if want is None else f"; tokens equal to the greedy "
+                 f"{'speculative ' if 'speculative' in kw else ''}engine's: {equal}"))
+        if equal is False:
+            raise AssertionError(f"serve-sample {name}: a one-token nucleus does "
+                                 "not give the greedy engine's tokens")
+    if tokens["hot"] != tokens["hot_again"]:
+        raise AssertionError("serve-sample: one seed gave two token streams")
+    if tokens["hot"] == tokens["hot_other_seed"]:
+        raise AssertionError("serve-sample: two seeds gave one token stream")
+    greedy_spec = spec_numbers["bf16 cache"]["mean_accepted"]
+    print(f"[serve-sample] speculative sampling (T {SAMPLE_T}, top-p "
+          f"{SAMPLE_TOP_P}) mean_accepted {numbers['spec_hot']['mean_accepted']:.2f} "
+          f"against greedy speculation's {greedy_spec:.2f} ([serve-spec]); "
+          f"sampled {numbers['hot']['tokens_per_s']:.1f} tokens/s")
+    numbers["greedy_spec_mean_accepted"] = greedy_spec
+    return numbers
+
+
+def run_cli_sample(card: str):
+    """[cli-sample]: `evaluate --task mrg --synthetic --do-sample` and
+    `serve --synthetic --do-sample [--speculative]` through `main(argv,
+    device="cuda")`: tiny f32 models, so every flash launch is f32 at the
+    padded width 64."""
+    import torch
+
+    from hsenet_torch.cli.evaluate import main as eval_main
+    from hsenet_torch.cli.serve import main as serve_main
+    from hsenet_torch.ops import flash_attention as tfa
+
+    sampling = ["--do-sample", "--temperature", "0.7", "--top-p", "0.9"]
+    runs = {
+        "evaluate": (eval_main, ["--task", "mrg", "--synthetic", *sampling,
+                                 "--gen-seed", "1"]),
+        "serve": (serve_main, ["--synthetic", "--num-requests", "6", *sampling,
+                               "--gen-seed", "3"]),
+        "serve_speculative": (serve_main, ["--synthetic", "--num-requests", "6",
+                                           "--speculative", *sampling,
+                                           "--gen-seed", "3"]),
+    }
+    numbers = {}
+    for name, (entry, argv) in runs.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        out = entry(argv, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd = tfa.launches["flash_fwd"]
+        print(f"[cli-sample] {name}: {' '.join(argv)} on {card}: {wall:.1f} s, "
+              f"flash launches {fwd} (f32 at the padded width 64: "
+              f"{tfa.f32_launches[('flash_fwd', 64)]}); "
+              + json.dumps({k: v for k, v in out.items() if not isinstance(v, (list, dict))}))
+        if not fwd or tfa.f32_launches[("flash_fwd", 64)] != fwd:
+            raise AssertionError(f"cli-sample {name}: the flash forward did not "
+                                 "run in f32 at the padded width")
+        if name == "evaluate" and not out["num_samples"]:
+            raise AssertionError("cli-sample: evaluate scored nothing")
+        if name != "evaluate" and out["requests"] != 6:
+            raise AssertionError(f"cli-sample {name}: not every request finished")
+        numbers[name] = {"wall_s": wall, "flash_fwd_f32_launches": fwd,
+                         **{k: v for k, v in out.items() if isinstance(v, (int, float))}}
+    return numbers
+
+
+def llama_config(num_layers=None, quant_embed: bool = False):
+    """`LlamaConfig()` (Llama-3-8B's shape) with int8 projections, at
+    `num_layers` where given."""
+    import dataclasses
+
+    from hsenet_torch.configs import LlamaConfig
+
+    cfg = LlamaConfig(quant_int8=True, quant_int8_embed=quant_embed)
+    return cfg if num_layers is None else dataclasses.replace(cfg, num_layers=num_layers)
+
+
+def hf_llama_top(cfg, seed: int):
+    """The embedding, final norm and LM head of a seeded HF Llama state dict,
+    bf16 on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v, h = cfg.vocab_size, cfg.hidden_size
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    return {"model.embed_tokens.weight": normal((v, h), 0.02),
+            "model.norm.weight": torch.ones(h, dtype=torch.bfloat16, device="cuda"),
+            "lm_head.weight": normal((v, h), h ** -0.5)}
+
+
+def hf_llama_layer(cfg, i: int, seed: int):
+    """Decoder layer i of a seeded HF Llama state dict, bf16 on the card:
+    each projection normal with std 1/sqrt(fan_in), norms 1."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1 + i)
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    shapes = {"self_attn.q_proj": (q, h), "self_attn.k_proj": (kv, h),
+              "self_attn.v_proj": (kv, h), "self_attn.o_proj": (h, q),
+              "mlp.gate_proj": (f, h), "mlp.up_proj": (f, h), "mlp.down_proj": (h, f)}
+    out = {f"model.layers.{i}.{name}.weight":
+           (torch.randn(shape, generator=gen, device="cuda") * shape[1] ** -0.5
+            ).to(torch.bfloat16) for name, shape in shapes.items()}
+    for norm in ("input_layernorm", "post_attention_layernorm"):
+        out[f"model.layers.{i}.{norm}.weight"] = torch.ones(
+            h, dtype=torch.bfloat16, device="cuda")
+    return out
+
+
+def build_llama(cfg, seed: int):
+    """`LlamaForCausalLM(cfg)` on the card from a seeded HF-layout state
+    dict drawn layer by layer: each layer converted (`convert_hf_llama_layer`),
+    quantised (`quantize_kernels_int8`), loaded and freed, so that the bf16
+    model (16 GB at full width) never exists whole. Returns the model and
+    the peak device memory of the build in GB."""
+    import dataclasses
+
+    import torch
+
+    from hsenet_torch.models.llama import (
+        LlamaForCausalLM,
+        convert_hf_llama,
+        convert_hf_llama_layer,
+    )
+    from hsenet_torch.models.lora import quantize_embed_int8, quantize_kernels_int8
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda").eval()
+    want = set(model.state_dict())
+    loaded = set()
+
+    def load(state):
+        if cfg.quant_int8_embed:
+            state = quantize_embed_int8(state)
+        result = model.load_state_dict(state, strict=False)
+        if result.unexpected_keys:
+            raise AssertionError(f"llama build: unexpected {result.unexpected_keys[:4]}")
+        loaded.update(state)
+
+    with torch.no_grad():
+        load(convert_hf_llama(hf_llama_top(cfg, seed),
+                              dataclasses.replace(cfg, num_layers=0)))
+        for i in range(cfg.num_layers):
+            load(quantize_kernels_int8(convert_hf_llama_layer(
+                hf_llama_layer(cfg, i, seed), i)))
+    if loaded != want:
+        raise AssertionError(f"llama build: {sorted(want - loaded)[:4]} not loaded")
+    torch.cuda.synchronize()
+    return model, torch.cuda.max_memory_allocated() / 1e9
+
+
+def llama_traffic(n: int, seed: int):
+    """`n` submit() kwargs: prompts of 20-200 random tokens, budgets of
+    16-64 new tokens, from a seeded numpy generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [dict(prompt_ids=rng.integers(3, 100000, int(rng.integers(20, 201))),
+                 max_new=int(rng.integers(16, LLAMA_MAX_NEW + 1)))
+            for _ in range(n)]
+
+
+def llama_engine(model, **kw):
+    import torch
+
+    from hsenet_torch.serving import ServingEngine
+
+    settings = dict(eos_token_id=LLAMA_EOS, num_slots=LLAMA_SLOTS,
+                    prompt_cap=LLAMA_PROMPT_CAP, max_new_tokens=LLAMA_MAX_NEW,
+                    chunk_size=LLAMA_CHUNK, cache_dtype=torch.bfloat16)
+    settings.update(kw)
+    return ServingEngine(model, **settings)
+
+
+def drain(eng, requests):
+    """Submit `requests`, drain the engine; (tokens by request, wall s)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uids = [eng.submit(**req) for req in requests]
+    results = eng.run_until_drained()
+    torch.cuda.synchronize()
+    return [results[u] for u in uids], time.perf_counter() - t0
+
+
+def check_llm_engine_counts(tag, cfg, eng, n_requests, matvec: bool):
+    """B1 launched once a layer per admission at head dim 128, all on
+    flash_fwd_wgmma; B5 7 x layers per decode step on the tensor-core entry
+    (or, for a speculative engine's 64-row verify, never)."""
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    fwd_route(tag, tfa.launches, tfa.f32_launches)
+    want_b1 = cfg.num_layers * n_requests
+    want_b5 = 7 * cfg.num_layers * eng.steps_run if matvec else 0
+    got_b1, got_b5 = tfa.fwd_launches[(128, False)], tqm.launches[tqm.KERNEL]
+    print(f"[{tag}] flash_fwd launches {got_b1} (expected {want_b1}: one a layer "
+          f"per admission), quant_matvec {got_b5} on the tensor-core entry "
+          f"(expected {want_b5}{f' = 7 x {cfg.num_layers} x {eng.steps_run} steps' if matvec else ''}), "
+          f"{tqm.fma_launches[tqm.FMA]} on the CUDA-core entry (expected 0)")
+    if (got_b1 != want_b1 or sum(tfa.launches.values()) != want_b1
+            or got_b5 != want_b5 or tqm.fma_launches[tqm.FMA]):
+        raise AssertionError(f"{tag}: launches off the expected counts")
+    return {"flash_fwd_launches": got_b1, "quant_matvec_launches": got_b5,
+            "decode_steps": eng.steps_run}
+
+
+def engine_replay_logits(cfg, model, prompt, tokens):
+    """f32 logits (V,) of the position after `prompt` + `tokens`, computed
+    as the Llama engine computes it on the current path: the prompt
+    prefilled at the engine's width (padded to LLAMA_PROMPT_CAP, a row of
+    its capacity), then `tokens` decoded one at a time; the f32 LM head on
+    the last hidden state."""
+    import torch
+
+    from hsenet_torch.models.phi3 import KVCache
+
+    n = len(prompt)
+    ids = torch.zeros((1, LLAMA_PROMPT_CAP), dtype=torch.int32, device="cuda")
+    ids[0, :n] = torch.as_tensor(prompt, device="cuda")
+    cache = KVCache.create(cfg, 1, LLAMA_PROMPT_CAP + LLAMA_MAX_NEW + LLAMA_CHUNK,
+                           device="cuda")
+    with torch.inference_mode():
+        hidden, cache = model.decoder(
+            model.embed_tokens(ids), cache=cache,
+            kv_lens=torch.tensor([n], dtype=torch.int32, device="cuda"))
+        h = hidden[0, n - 1]
+        for t in tokens:
+            hidden, cache = model.decoder(model.embed_tokens(torch.tensor(
+                [[t]], dtype=torch.int32, device="cuda")), cache=cache)
+            h = hidden[0, -1]
+        return f32_head_logits(model, h)
+
+
+def llama_divergences(tag, cfg, model, requests, got, want, hold=True):
+    """Where each request's `got` tokens first leave `want`, the gap
+    between the two tokens' logits at that position, replayed on the
+    current path as the engine decodes (`engine_replay_logits`); with
+    `hold`, each must be a near-tie: at most NEAR_TIE_SHARE of the logits'
+    RMS. Returns (request, position, top-2 margin, gap, gap's share of RMS)
+    for each parting."""
+    diverged = []
+    for r, (req, g, w) in enumerate(zip(requests, got, want)):
+        div = first_divergence(g, w)
+        if div is None:
+            continue
+        x = engine_replay_logits(cfg, model, req["prompt_ids"], w[:div]).float()
+        top = x.topk(2).values
+        margin = (top[0] - top[1]).item()
+        gap = (abs((x[g[div]] - x[w[div]]).item())
+               if div < len(g) and div < len(w) else margin)
+        share = gap / x.pow(2).mean().sqrt().item()
+        diverged.append((r, div, margin, gap, share))
+        print(f"[{tag}] request {r} parts at token {div}: top-2 logit margin "
+              f"{margin:.4e}, the two tokens' logits {gap:.4e} apart = "
+              f"{share:.3e} of the logits' RMS (near-tie limit {NEAR_TIE_SHARE})")
+    far = [d for d in diverged if d[4] > NEAR_TIE_SHARE]
+    if far and hold:
+        raise AssertionError(f"{tag}: tokens part away from a near-tie: {far}")
+    return diverged
+
+
+def run_llama(card: str, root: str):
+    """[llama]: Llama-3-8B's shape at full depth, int8 projections, built
+    layer by layer from a seeded HF-layout state dict; the greedy,
+    speculative and sampled engines on 8 prompts of 20-200 tokens; greedy
+    tokens against the plain path under the near-tie rule; a decode chunk
+    profiled; then `convert_checkpoint --kind llama --quant-int8` from a
+    file at full width and depth 2, served. Returns the numbers."""
+    import dataclasses
+
+    import torch
+
+    from hsenet_torch.models.llama import llama_as_phi3_config
+    from hsenet_torch.ops import attention
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    cfg = llama_config()
+    t0 = time.perf_counter()
+    model, build_peak = build_llama(cfg, seed=100)
+    n_codes = sum(b.numel() for b in model.buffers() if b.dtype == torch.int8)
+    n_float = sum(p.numel() for p in model.parameters())
+    print(f"[llama] LlamaForCausalLM(LlamaConfig(quant_int8=True)) on {card}: "
+          f"{cfg.num_layers} layers, {n_codes / 1e9:.3f} B int8 codes, "
+          f"{n_float / 1e9:.3f} B bf16 parameters (embedding, LM head, norms), "
+          f"built layer by layer in {time.perf_counter() - t0:.1f} s, peak "
+          f"{build_peak:.2f} GB, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          "allocated")
+    phi = llama_as_phi3_config(cfg)
+    numbers = {"build_peak_gb": build_peak, "int8_codes_b": n_codes / 1e9,
+               "bf16_params_b": n_float / 1e9}
+    requests = llama_traffic(LLAMA_REQUESTS, seed=41)
+    warm = llama_engine(model)
+    drain(warm, [{**r, "max_new": 4} for r in llama_traffic(2, seed=42)])
+    del warm
+    spec = dict(speculative=True, draft_len=SPEC_DRAFT_LEN, ngram=SPEC_NGRAM)
+    runs = {"greedy": {}, "speculative": spec,
+            "sampled": dict(do_sample=True, temperature=SAMPLE_T,
+                            top_p=SAMPLE_TOP_P, rng=43)}
+    tokens = {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, kw in runs.items():
+        eng = llama_engine(model, **kw)
+        reset_counts()  # the Llama engine, counted
+        got, wall = drain(eng, requests)
+        tokens[name] = got
+        counts = check_llm_engine_counts(f"llama {name}", phi, eng, len(requests),
+                                         matvec=name != "speculative")
+        if not all(0 <= t < cfg.vocab_size for row in got for t in row) or not all(
+                len(t) <= r["max_new"] for t, r in zip(got, requests)):
+            raise AssertionError(f"llama {name}: a token outside the vocabulary "
+                                 "or a request past its budget")
+        n_tok = sum(map(len, got))
+        stats = eng.latency_stats()
+        numbers[name] = {**counts, "tokens": n_tok, "wall_s": wall,
+                         "tokens_per_s": n_tok / wall, "latency": stats,
+                         "mean_accepted": eng.mean_accepted}
+        print(f"[llama] {name} engine, {len(requests)} requests, {LLAMA_SLOTS} "
+              f"slots: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} "
+              f"tokens/s, TTFT p50/p99 {stats['ttft_p50_s']:.3f}/"
+              f"{stats['ttft_p99_s']:.3f} s"
+              + (f", mean_accepted {eng.mean_accepted:.2f}" if kw.get("speculative") else ""))
+    numbers["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[llama] peak memory while serving {numbers['serve_peak_gb']:.2f} GB")
+    # the plain path: every kernel replaced by its plain version
+    sound = tqm.quant_matvec_kernel
+    tqm.quant_matvec_kernel = tqm.quant_matvec_int8_reference
+    attention.set_flash_mode("never")
+    try:
+        plain, _ = drain(llama_engine(model), requests)
+    finally:
+        tqm.quant_matvec_kernel = sound
+        attention.set_flash_mode("auto")
+    numbers["greedy_vs_plain"] = llama_divergences(
+        "llama kernels vs plain", phi, model, requests, tokens["greedy"], plain)
+    # reported, not held: the 64-row verify takes the plain int8 expression,
+    # whose scale rounds to bf16 (up to 1.5 bf16 units from B5's rows,
+    # ROADMAP §C), so its partings may sit past [spec]'s limit (0.051 of the
+    # RMS at one parting of the first run)
+    numbers["speculative_vs_greedy"] = llama_divergences(
+        "llama speculative vs greedy", phi, model, requests,
+        tokens["speculative"], tokens["greedy"], hold=False)
+    print(f"[llama] greedy requests equal to the plain path's: "
+          f"{sum(g == p for g, p in zip(tokens['greedy'], plain))} of "
+          f"{len(requests)}; speculative equal to greedy: "
+          f"{sum(s == g for s, g in zip(tokens['speculative'], tokens['greedy']))}")
+    # one decode chunk with 8 live slots, profiled
+    eng = llama_engine(model)
+    for req in llama_traffic(LLAMA_SLOTS, seed=44):
+        eng.submit(**{**req, "max_new": LLAMA_MAX_NEW})
+    with torch.inference_mode():
+        eng._admit()
+
+        def chunk():
+            eng._decode_chunk().cpu()
+
+        chunk()
+        wall = median_wall_ms(chunk, runs=3)
+        numbers["decode_chunk"] = profile_phase(
+            f"llama decode chunk ({LLAMA_CHUNK} steps x {LLAMA_SLOTS} slots)",
+            chunk, wall, top=8)
+    numbers["decode_chunk"]["step_wall_ms"] = wall / LLAMA_CHUNK
+    dev_ms = numbers["decode_chunk"]["device_ms"]
+    print(f"[llama] decode step {wall / LLAMA_CHUNK:.2f} ms wall, "
+          + ("device not measured" if dev_ms is None else
+             f"{dev_ms / LLAMA_CHUNK:.2f} ms device")
+          + f"; {LLAMA_SLOTS * LLAMA_CHUNK / (wall / 1e3):.1f} tokens/s at "
+          f"{LLAMA_SLOTS} live slots")
+    del eng
+    numbers["convert"] = run_llama_convert(card, root)
+    numbers["prompt_lens"] = [len(r["prompt_ids"]) for r in requests]
+    return numbers
+
+
+def run_llama_convert(card: str, root: str):
+    """`convert_checkpoint --kind llama --quant-int8` of a seeded HF state
+    dict at full width and depth LLAMA_CONVERT_LAYERS, written to a file;
+    the output loads into the int8 model, holds the codes of the same
+    quantisation, and serves one request (B5 at one row)."""
+    import os
+
+    import torch
+
+    from hsenet_torch.cli.common import restore_checkpoint
+    from hsenet_torch.cli.convert_checkpoint import main as convert_main
+    from hsenet_torch.models.llama import LlamaForCausalLM, llama_as_phi3_config
+    from hsenet_torch.models.lora import quantize_kernels_int8
+
+    cfg = llama_config(LLAMA_CONVERT_LAYERS, quant_embed=True)
+    sd = hf_llama_top(cfg, seed=200)
+    for i in range(cfg.num_layers):
+        sd.update(hf_llama_layer(cfg, i, seed=200))
+    probe = "model.layers.1.mlp.down_proj.weight"
+    want_codes = quantize_kernels_int8({"down_proj.weight": sd[probe]})
+    src, out = os.path.join(root, "llama_hf.bin"), os.path.join(root, "llama_int8.pt")
+    t0 = time.perf_counter()
+    torch.save({k: v.cpu() for k, v in sd.items()}, src)
+    write_s = time.perf_counter() - t0
+    del sd
+    t0 = time.perf_counter()
+    convert_main(["--kind", "llama", "--input", src, "--output", out, "--config-json",
+                  json.dumps({"num_layers": cfg.num_layers}), "--quant-int8"],
+                 device="cuda")
+    convert_s = time.perf_counter() - t0
+    model = restore_checkpoint(LlamaForCausalLM(cfg, dtype=torch.bfloat16,
+                                                device="cuda"), out).eval()
+    got_codes = model.decoder.layers[1].down_proj.weight_q
+    same = torch.equal(got_codes, want_codes["down_proj.weight_q"])
+    eng = llama_engine(model, num_slots=1)
+    reset_counts()
+    got, wall = drain(eng, llama_traffic(1, seed=45))
+    counts = check_llm_engine_counts("llama convert", llama_as_phi3_config(cfg),
+                                     eng, 1, matvec=True)
+    sizes = {"hf_file_gb": os.path.getsize(src) / 1e9,
+             "output_gb": os.path.getsize(out) / 1e9}
+    print(f"[llama] convert_checkpoint --kind llama --quant-int8 on {card}: "
+          f"{cfg.num_layers} layers at full width, HF file {sizes['hf_file_gb']:.2f} "
+          f"GB written in {write_s:.1f} s, converted in {convert_s:.1f} s to "
+          f"{sizes['output_gb']:.2f} GB; a layer's codes equal a quantisation "
+          f"of the same weights: {same}; served one request of {len(got[0])} "
+          f"tokens in {wall:.2f} s (1 slot: B5 at M = 1)")
+    if not same or not got[0]:
+        raise AssertionError("llama convert: the converted model's codes or its "
+                             "served request are wrong")
+    os.remove(src)
+    os.remove(out)
+    return {**sizes, "write_s": write_s, "convert_s": convert_s, **counts,
+            "served_tokens": len(got[0])}
+
+
+def b1_case(tag, name, b, h, sq, skv, d, kv_lens, causal, gen):
+    """B1 through `flash_attention` (head dim d, padded to the kernel's
+    width there) against its plain version at d, beside the same attention
+    without its last valid 64-key tile (must miss), timed beside the bound
+    at d, the plain version and one SDPA call."""
+    import torch
+    import torch.nn.functional as F
+
+    from hsenet_torch.ops import flash_attention as tfa
+
+    q = torch.randn(b, h, sq, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn(b, h, skv, d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    kv_t = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    off_t = torch.zeros(b, dtype=torch.int32, device="cuda")
+    kw = dict(kv_lens=kv_t, causal=causal, q_offset=off_t)
+    out = tfa.flash_attention(q, k, v, **kw)
+    ref = tfa.flash_attention_reference(q, k, v, **kw)
+    max_abs, rel, ok = compare(out, ref)
+    col = torch.arange(skv, device="cuda")[None, None, None, :]
+    first = (kv_t[:, None, None, None] - 1) // 64 * 64
+    _, drop_rel, drop_ok = compare(
+        forward_dropping(q, k, v, kv_t, off_t, causal, col >= first), ref)
+    mask = tfa._valid(q, k, kv_t, off_t, causal)
+    bound, bound_by, flops, nbytes = kernel_bound(
+        "flash_fwd", b, h, sq, skv, d, kv_lens, (0,) * b, causal)
+    r = {"max_abs_err": max_abs, "max_row_rel_err": rel,
+         "ms": time_ms(lambda: tfa.flash_attention(q, k, v, **kw)),
+         "plain_ms": time_ms(lambda: tfa.flash_attention_reference(q, k, v, **kw),
+                             reps=5),
+         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+             q, k, v, attn_mask=mask)),
+         "bound_ms": bound, "bound_by": bound_by, "gflop": flops / 1e9,
+         "mbytes": nbytes / 1e6, "head_dim": d,
+         "kernel_head_dim": tfa.kernel_head_dim(d, q.dtype)}
+    print(f"[{tag}] flash_fwd {name}: q{tuple(q.shape)} k{tuple(k.shape)} "
+          f"causal={causal} kv_lens {kv_lens}: max err / row's max |ref| "
+          f"{rel:.3e} (tol {KERNEL_ROW_TOL}); without the last valid 64-key "
+          f"tile {drop_rel:.3e}; kernel {r['ms']:.4f} ms (head dim {d} at the "
+          f"kernel's {r['kernel_head_dim']}{', copies included' if r['kernel_head_dim'] != d else ''}), "
+          f"plain {r['plain_ms']:.4f} ms, library (SDPA) {r['library_ms']:.4f} "
+          f"ms, bound {bound:.4f} ms ({bound_by}: {r['gflop']:.3f} GFLOP, "
+          f"{r['mbytes']:.2f} MB)")
+    if not ok:
+        raise AssertionError(f"flash_fwd disagrees with its plain version at {name}")
+    if drop_ok:
+        raise AssertionError(f"the kernel tolerance passes a dropped key tile at {name}")
+    return r
+
+
+def check_llama_kernels(prefill_kv: int):
+    """[kernel-llama]: B5's tensor-core entry at Llama-3-8B's four (K, N),
+    held at every M of MATVEC_CHECK_ROWS beside the two wrong variants, and
+    timed at M = 8 and 1 with the codes cold; B1 at the Llama engine's
+    admission shape (32 heads, 256 rows over a 336-slot row, causal, at
+    `prefill_kv`). Returns the matvec results by shape and B1's."""
+    import torch
+
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    library = int8pack_registered()
+    matvec = {}
+    for name, (k, n) in LLAMA_MATVEC_SHAPES.items():
+        w, scale = matvec_codes(gen, k, n)
+        for m in MATVEC_CHECK_ROWS:
+            x = torch.randn(m, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+            hold_matvec(f"{name} M={m} bf16, plan {tuple(tqm.mma_plan(m, k, n))}",
+                        tqm.quant_matvec_mma_kernel, x, w, scale, "kernel-llama")
+        del w, scale
+        r, _ = time_matvec_cold("kernel-llama", name, k, n, gen, library)
+        matvec.update(r)
+    capacity = LLAMA_PROMPT_CAP + LLAMA_MAX_NEW + LLAMA_CHUNK
+    name = f"llama_prefill_1x32x{LLAMA_PROMPT_CAP}x{capacity}"
+    flash = {name: b1_case("kernel-llama", name, 1, 32, LLAMA_PROMPT_CAP, capacity,
+                           128, (prefill_kv,), True, gen)}
+    return matvec, flash
+
+
+def variant_config(kind: str):
+    """`VLMConfig()` with projector `kind` (tower_mode 'med2e3' for
+    "med2e3"), the LLM cut to VARIANT_LLM_LAYERS layers."""
+    import dataclasses
+
+    from hsenet_torch.configs import VLMConfig
+
+    cfg = VLMConfig()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_layers=VARIANT_LLM_LAYERS))
+    if kind == "med2e3":
+        return dataclasses.replace(cfg, tower_mode="med2e3")
+    return dataclasses.replace(cfg, packer=dataclasses.replace(
+        cfg.packer, projector_type=kind))
+
+
+def image_tokens(cfg) -> int:
+    """The image tokens the VLM splices in: `num_image_tokens`, but for
+    spatial_pooling the pooled grid's size a stream ((grid / pooling)^3),
+    where the JAX package's `proj_out_num` counts the packer's windows."""
+    p = cfg.packer
+    if p.projector_type != "spatial_pooling":
+        return cfg.num_image_tokens
+    n = math.prod(g // p.pooling_size for g in p.grid)
+    return (2 if cfg.tower_mode == "dual_vits" else 1) * n
+
+
+def run_variants(card: str):
+    """[variants]: full-width VLMs (towers at full depth, the LLM at
+    VARIANT_LLM_LAYERS layers) with projector spatial_pooling, mlp and
+    qformer, and tower_mode med2e3: two volumes a run through prefill,
+    VARIANT_NEW_TOKENS greedy and as many sampled tokens; launches by shape
+    held to their expected counts; prefill logits against the plain sdpa
+    path; QFormer's B1 at head dim 96 checked and timed; med2e3 served
+    through the engine (no caches). Returns the numbers, the QFormer B1
+    results by shape and their launches."""
+    import torch
+
+    from hsenet_torch.eval.generate import make_greedy_generate
+    from hsenet_torch.models import init_random_
+    from hsenet_torch.models.mllm import HSENetVLM
+    from hsenet_torch.models.phi3 import KVCache
+    from hsenet_torch.ops import attention
+    from hsenet_torch.ops import flash_attention as tfa
+
+    numbers, qformer_counts = {}, {}
+    for kind in VARIANTS:
+        cfg = variant_config(kind)
+        t0 = time.perf_counter()
+        model = HSENetVLM(cfg, dtype=torch.bfloat16, device="cuda")
+        init_random_(model, torch.Generator(device="cuda").manual_seed(50))
+        model.eval()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda").manual_seed(51)
+        n_img = image_tokens(cfg)
+        b = len(VARIANT_TEXT)
+        kv = [1 + n_img + t for t in VARIANT_TEXT]
+        seq = max(kv)
+        ids = torch.randint(3, 100000, (b, seq), generator=gen, device="cuda")
+        ids[:, 0] = 1
+        ids[:, 1:1 + n_img] = IM_PATCH_TOKEN_ID
+        for row, n in enumerate(kv):
+            ids[row, n:] = 0
+        kv_t = torch.tensor(kv, dtype=torch.int32, device="cuda")
+        vol = torch.rand((b, 1, *cfg.vision.image_size), generator=gen, device="cuda")
+        sl = torch.randn((b, cfg.vision.num_slices, cfg.vision.slice_feature_dim),
+                         generator=gen, device="cuda")
+        streams = 2 if cfg.tower_mode == "dual_vits" else 1
+        tower_seq = cfg.vision.seq_len
+
+        def expect(capacity):
+            # launches of one encode + prefill by (kind, batch, heads, sq,
+            # skv, kernel head dim): 12 a tower, one an LLM layer, and
+            # QFormer's 4 attentions a projector (3 over its 32 queries, 1
+            # over the 2048 patch tokens) at head dim 96 padded to 128
+            want = {("flash_fwd", b, cfg.vision.num_heads, tower_seq, tower_seq, 64):
+                    cfg.vision.num_layers * streams,
+                    ("flash_fwd", b, cfg.llm.num_heads, seq, capacity, 128):
+                    cfg.llm.num_layers}
+            if kind == "qformer":
+                nq = cfg.packer.num_queries
+                want[("flash_fwd", b, 8, nq, nq, 128)] = 3 * streams
+                want[("flash_fwd", b, 8, nq, tower_seq - 1, 128)] = streams
+            return want
+
+        def prefill():
+            cache = KVCache.create(cfg.llm, b, seq, device="cuda")
+            with torch.inference_mode():
+                return model.prefill(ids, vol, sl, cache, kv_t)[0]
+
+        generate = make_greedy_generate(model, max_new_tokens=VARIANT_NEW_TOKENS,
+                                        eos_token_id=EOS_TOKEN_ID)
+        sampled = make_greedy_generate(model, max_new_tokens=VARIANT_NEW_TOKENS,
+                                       eos_token_id=EOS_TOKEN_ID, do_sample=True,
+                                       temperature=SAMPLE_T, top_p=SAMPLE_TOP_P)
+        prefill()  # warm-up
+        torch.cuda.synchronize()
+        run = {}
+        gen_cap = seq + VARIANT_NEW_TOKENS
+        for label, fn, capacity in (
+                ("prefill", prefill, seq),
+                ("greedy", lambda: generate(ids, kv_t, vol, sl), gen_cap),
+                ("sampled", lambda: sampled(ids, kv_t, vol, sl, rng=52), gen_cap)):
+            reset_counts()  # each run of the variant, counted
+            t1 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            run[label] = (out, time.perf_counter() - t1)
+            fwd_route(f"variants {kind} {label}", tfa.launches, tfa.f32_launches)
+            got, want = dict(tfa.shape_launches), expect(capacity)
+            if got != want:
+                raise AssertionError(f"variants {kind} {label}: launches {got}, "
+                                     f"expected {want}")
+            for key, n in got.items():
+                if kind == "qformer" and key[2] == 8:
+                    qformer_counts[key] = qformer_counts.get(key, 0) + n
+        logits = run["prefill"][0]
+        attention.set_flash_mode("never")
+        try:
+            plain = prefill()
+        finally:
+            attention.set_flash_mode("auto")
+        err = rel_l2(logits, plain)
+        tokens = {k: run[k][0] for k in ("greedy", "sampled")}
+        vocab_ok = all(bool(((t >= 0) & (t < cfg.llm.vocab_size)).all())
+                       for t in tokens.values())
+        numbers[kind] = {
+            "image_tokens": n_img, "prompt_lens": kv, "prefill_s": run["prefill"][1],
+            "greedy_s": run["greedy"][1], "sampled_s": run["sampled"][1],
+            "logits_rel_l2_vs_plain": err, "launches_per_generate": {
+                " ".join(map(str, k)): n for k, n in expect(gen_cap).items()},
+            "build_s": build_s}
+        print(f"[variants] {kind} on {card}: towers {cfg.tower_mode} at "
+              f"{cfg.vision.num_layers} blocks, LLM at {cfg.llm.num_layers} "
+              f"layers, {n_img} image tokens (config says "
+              f"{cfg.num_image_tokens}), prompts {kv}: prefill "
+              f"{run['prefill'][1] * 1e3:.1f} ms, {VARIANT_NEW_TOKENS} greedy "
+              f"tokens {run['greedy'][1]:.2f} s, sampled {run['sampled'][1]:.2f} "
+              f"s; prefill logits vs the plain path rel L2 {err:.3e} (tol "
+              f"{VARIANT_LOGITS_REL_L2}); launches a generate run "
+              f"{expect(gen_cap)}; built in {build_s:.1f} s; greedy "
+              f"{tokens['greedy'][0, :4].tolist()}, sampled "
+              f"{tokens['sampled'][0, :4].tolist()}")
+        if not err <= VARIANT_LOGITS_REL_L2 or not logits.isfinite().all() or not vocab_ok:
+            raise AssertionError(f"variants {kind}: logits off the plain path, or "
+                                 "a token outside the vocabulary")
+        if kind == "med2e3":
+            numbers[kind]["engine"] = run_med2e3_engine(cfg, model, ids, kv, vol, sl)
+        del model, run, logits, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    qformer = {}
+    for key in sorted(qformer_counts):
+        _, b, h, sq, skv, _ = key
+        name = f"qformer_{b}x{h}x{sq}x{skv}_d96"
+        qformer[name] = b1_case("variants", name, b, h, sq, skv, 96, (skv,) * b,
+                                False, gen)
+    counts = {f"qformer_{k[1]}x{k[2]}x{k[3]}x{k[4]}_d96": n
+              for k, n in qformer_counts.items()}
+    return numbers, qformer, counts
+
+
+def run_med2e3_engine(cfg, model, ids, kv, vol, sl):
+    """The med2e3 VLM served through the engine without caches: two
+    requests, each admission running the 3D tower and the LLM prefill."""
+    import torch
+
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, eos_token_id=EOS_TOKEN_ID, num_slots=2,
+                        prompt_cap=256, max_new_tokens=VARIANT_NEW_TOKENS,
+                        chunk_size=VARIANT_NEW_TOKENS, multimodal=True,
+                        cache_dtype=torch.bfloat16)
+    reqs = [dict(prompt_ids=ids[r, :kv[r]].cpu().numpy(),
+                 volume=vol[r:r + 1].cpu().numpy(),
+                 slice_features=sl[r:r + 1].cpu().numpy()) for r in range(2)]
+    reset_counts()
+    got, wall = drain(eng, reqs)
+    want = {"d64": cfg.vision.num_layers * 2, "d128": cfg.llm.num_layers * 2}
+    got_b1 = {"d64": tfa.fwd_launches[(64, False)],
+              "d128": tfa.fwd_launches[(128, False)]}
+    fwd_route("variants med2e3 engine", tfa.launches, tfa.f32_launches)
+    print(f"[variants] med2e3 through the engine (no caches): 2 requests, "
+          f"{sum(map(len, got))} tokens in {wall:.2f} s; flash_fwd {got_b1} "
+          f"(expected {want}: one 3D tower and the LLM per admission)")
+    if got_b1 != want or not all(got):
+        raise AssertionError("variants med2e3 engine: launches or tokens off")
+    return {"tokens": sum(map(len, got)), "wall_s": wall, "flash_fwd_launches": got_b1}
+
+
 def main() -> int:
     try:
         import torch
@@ -5963,14 +6952,41 @@ def main() -> int:
     # prompt-lookup speculative decoding on the same model: the engine,
     # then batch 1 on the bare LLM (last: its ceiling run overwrites the
     # LLM's weights)
-    spec_engine = run_serve_spec(card, serve_cfg, serve_model, serve_numbers,
-                                 serve_tokens, kv_int8_tokens)
+    spec_engine, spec_tokens = run_serve_spec(card, serve_cfg, serve_model,
+                                              serve_numbers, serve_tokens,
+                                              kv_int8_tokens)
+    # sampling on the same engine: a one-token nucleus against the greedy
+    # and speculative engines' tokens, seeds, speculative sampling
+    sample_serve = run_serve_sample(card, serve_cfg, serve_model, serve_tokens,
+                                    spec_tokens, spec_engine)
     spec_numbers = run_spec(card, serve_cfg, serve_model)
     spec_numbers["engine"] = spec_engine
     del serve_model
     gc.collect()
     torch.cuda.empty_cache()
-    lap("[serve] ... [spec]")
+    lap("[serve] ... [spec], [serve-sample]")
+    sample_numbers = run_sample(card)
+    spec_law_numbers = run_spec_law(card)
+    cli_sample_numbers = run_cli_sample(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("[sample], [spec-law], [cli-sample]")
+    # Llama-3-8B's shape at full depth, int8, under the engine; then B5 and
+    # B1 at its shapes
+    llama_root = tempfile.mkdtemp(prefix="hsenet_llama_")
+    try:
+        llama_numbers = run_llama(card, llama_root)
+    finally:
+        shutil.rmtree(llama_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    llama_matvec, llama_flash = check_llama_kernels(
+        int(statistics.median(llama_numbers["prompt_lens"])))
+    lap("[llama], [kernel-llama]")
+    variant_numbers, qformer_kernels, qformer_counts = run_variants(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("[variants]")
 
     # the CLIP pretraining stages: stage 1, stage 2 against the stage-1
     # model it just trained, one step's gradients against the plain path,
@@ -6006,8 +7022,11 @@ def main() -> int:
     # step (its towers run at the tower shape) and the counted serving runs
     # (closed loop, open loop, the long-budget engine): 24 tower launches
     # per encode miss, 32 per admission at its prefill shape
-    served = (serve_numbers["closed_loop"], serve_numbers["open_loop"])
-    admitted = (*served, *spec_numbers["engine"].values())
+    served = (serve_numbers["closed_loop"], serve_numbers["open_loop"],
+              *(sample_serve[k] for k in ("collapse", "hot", "hot_again",
+                                          "hot_other_seed")))
+    admitted = (*served, *spec_numbers["engine"].values(),
+                sample_serve["spec_collapse"], sample_serve["spec_hot"])
     long_run = serve_numbers["long"]
     fwd_counts = {
         "tower": counts["tower"] + train_counts["fwd_d64"] + sum(
@@ -6023,14 +7042,32 @@ def main() -> int:
         **{eval_index[key]: n for key, n in eval_shapes.items()},
         # [vit2d]'s preprocess_ct --vit2d-checkpoint run
         "vit2d_32": vit2d_numbers["launches"],
+        # the Llama engines' admissions (greedy, speculative, sampled and
+        # the converted model's), one shape at every prompt length
+        **{name: sum(llama_numbers[r]["flash_fwd_launches"]
+                     for r in ("greedy", "speculative", "sampled"))
+           + llama_numbers["convert"]["flash_fwd_launches"]
+           for name in llama_flash},
+        # QFormer's attentions in [variants] (head dim 96)
+        **qformer_counts,
     }
     # the matvec's launches at 8 rows: the decode steps of the closed and
     # open loops (the long-budget engine runs 2 slots)
     matvec_steps = sum(r["decode_steps"] for r in served)
     matvec_counts = {name: 32 * per_layer * matvec_steps
                      for name, per_layer in MATVEC_PER_LAYER.items()}
+    # the Llama engines' decode steps at 8 rows (greedy, sampled) and the
+    # converted 2-layer model's at 1 row
+    llama_steps = sum(llama_numbers[r]["decode_steps"] for r in ("greedy", "sampled"))
+    convert_run = llama_numbers["convert"]
+    for name, per_layer in LLAMA_MATVEC_PER_LAYER.items():
+        matvec_counts[name] = llama_config().num_layers * per_layer * llama_steps
+        matvec_counts[f"{name}_m1"] = (LLAMA_CONVERT_LAYERS * per_layer
+                                       * convert_run["decode_steps"])
     if sum(matvec_counts.values()) != sum(
-            r["quant_matvec_launches"] for r in served):
+            r["quant_matvec_launches"] for r in (
+                *served, llama_numbers["greedy"], llama_numbers["sampled"],
+                convert_run)):
         raise AssertionError("quant_matvec launches by shape do not add up")
     bwd_counts = {"train": train_counts["bwd"]}
     # the CLIP steps' launches by shape: one step each of [clip-stage1],
@@ -6123,10 +7160,16 @@ def main() -> int:
         entry("flash_fwd", "hsenet_torch/csrc/flash_fwd_wgmma.cu",
               f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
               {**per_shape, **clip_kernels["flash_fwd"], **encode_shapes,
-               **eval_kernels, **train_cli_kernels["flash_fwd"], **vit2d_kernels},
+               **eval_kernels, **train_cli_kernels["flash_fwd"], **vit2d_kernels,
+               **llama_flash, **qformer_kernels},
               fwd_counts, note + "; one W8A8 encode at its batch-8 tower shape "
               "and the speculative engine's admissions ([spec]'s one prefill "
-              "is left out); bf16 and f16, every path's launches counted under "
+              "is left out); the six [serve-sample] runs' admissions; the "
+              "[llama] engines' admissions at their one launch shape (timed at "
+              "the median prompt length); QFormer's attentions in [variants] "
+              "(head dim 96 at the kernel's 128, copies included; the other "
+              "[variants] launches are held there, not summed here); bf16 and "
+              "f16, every path's launches counted under "
               "flash_fwd_wgmma; old_ms under shapes is the mma.sync "
               "csrc/flash_fwd.cu's bf16 build at the same shape (a yardstick "
               "no path launches); the f16, head dim 160 and 256 shapes (C2) "
@@ -6173,15 +7216,19 @@ def main() -> int:
               f32_kernels["flash_bwd_dkv"], f32_counts["flash_bwd_dkv"],
               f32_note + "; plain and library times compute dQ, dK and dV"),
         entry("quant_matvec", "hsenet_torch/csrc/quant_matvec.cu",
-              "hsenet_tpu/ops/quant_matvec.py:42", matvec, matvec_counts,
+              "hsenet_tpu/ops/quant_matvec.py:42", {**matvec, **llama_matvec},
+              matvec_counts,
               "the tensor-core entry hsenet_quant_matvec_mma (every bf16 call); "
               "sums over the decode steps of the closed and open serving loops "
-              "at 8 slots: per-launch times at each (K, N), codes read cold, x its "
+              "and the four counted non-speculative [serve-sample] runs at 8 "
+              "slots, the [llama] greedy and sampled engines at 8 slots (the "
+              "llama_ shapes) and the converted 2-layer Llama at 1 slot (the "
+              "llama_ _m1 shapes): per-launch times at each (K, N), codes read cold, x its "
               "launches there; library is a matmul on a bf16 copy of the weight; "
               "old_ms under shapes is the CUDA-core entry timed in turns with "
               "it; int8pack_ms is torch._weight_int8pack_mm (null where the "
-              "card's PyTorch has no CUDA kernel for it); the _m1 shapes (M = 1) "
-              "and the LM head's table are on no counted path"),
+              "card's PyTorch has no CUDA kernel for it); Phi-4-mini's _m1 "
+              "shapes (M = 1) and the LM head's table are on no counted path"),
         entry("quant_matvec_fma", "hsenet_torch/csrc/quant_matvec.cu",
               "hsenet_tpu/ops/quant_matvec.py:42", {**matvec_old, **fma_shapes},
               fma_counts,
@@ -6215,6 +7262,9 @@ def main() -> int:
                       "cli_evaluate": eval_numbers, "ckpt": ckpt_numbers,
                       "cli_train": train_cli_numbers, "ct_data": ct_numbers,
                       "vit2d": vit2d_numbers, "clip_augment": augment_numbers,
+                      "sample": sample_numbers, "spec_law": spec_law_numbers,
+                      "serve_sample": sample_serve, "cli_sample": cli_sample_numbers,
+                      "llama": llama_numbers, "variants": variant_numbers,
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

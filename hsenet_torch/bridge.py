@@ -8,8 +8,9 @@ returns a state_dict that the matching port module accepts with
   * Dense `kernel` (in, out) -> Linear `weight` (out, in);
   * LayerNorm / RMSNorm `scale` -> `weight`; `bias` stays `bias`;
   * Embed `embedding` -> `weight` (it also serves the tied LM head);
-  * `pos_embed`, `cls_token`, `lora_a`, `lora_b`, CLIP's 0-d
-    `logit_scale` and a W8A8 dense's 0-d `act_scale` keep name and layout;
+  * `pos_embed`, `cls_token`, QFormer's `query_embeds`, `lora_a`,
+    `lora_b`, CLIP's 0-d `logit_scale` and a W8A8 dense's 0-d `act_scale`
+    keep name and layout;
   * int8 leaves become the int8 / f32 buffers of the port's modules and
     keep their dtype: `kernel_q` (in, out) int8 -> `weight_q` (out, in),
     transposed like `kernel`, so that one output channel is one
@@ -37,8 +38,8 @@ from torch import nn
 
 _SCAN_STACKS = (("tower", "blocks"), ("decoder", "layers"),
                 ("language_encoder", "layers"))
-_SAME_NAME = ("bias", "pos_embed", "cls_token", "lora_a", "lora_b",
-              "embedding_q", "logit_scale", "act_scale")
+_SAME_NAME = ("bias", "pos_embed", "cls_token", "query_embeds", "lora_a",
+              "lora_b", "embedding_q", "logit_scale", "act_scale")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):

@@ -12,14 +12,16 @@ Supported artifacts (see hsenet_torch/utils/convert.py for the mappings):
   * --kind biomedclip : open_clip BiomedCLIP's ViT-B/16 trunk (timm names;
     a `visual.trunk.` prefix is taken off) -> `ViT2D` state, which
     `preprocess_ct --vit2d-checkpoint` reads
-  * --kind llama waits for the model-variants slice of the port (ROADMAP
-    §A7) and raises `NotImplementedError`.
+  * --kind llama   : HF LlamaForCausalLM -> `models.llama.LlamaForCausalLM`
+    state (tensors renamed, kept in their dtype)
 
 The output is one `utils.checkpoint.save_params` file; `serve` and
 `evaluate` read it with `--checkpoint`. An existing output is refused.
 
     python -m hsenet_torch.cli.convert_checkpoint --kind phi3 \\
         --input /ckpts/phi4mini --output phi3_int8.pt --quant-int8
+    python -m hsenet_torch.cli.convert_checkpoint --kind llama \\
+        --input /ckpts/llama3_8b --output llama_int8.pt --quant-int8
     # the same on a host without a card
     python -c "from hsenet_torch.cli.convert_checkpoint import main; \\
         main(['--kind', 'bert', '--input', 'bert.bin', '--output', 'bert.pt'], \\
@@ -71,7 +73,7 @@ def main(argv=None, *, device="cuda"):
         "--quant-int8", action="store_true",
         help="after conversion, int8-quantize LLM projections and the "
         "embedding/LM-head table (serving analog of the reference's "
-        "bitsandbytes 8-bit load, train_VLM.py:376-380); phi3 only",
+        "bitsandbytes 8-bit load, train_VLM.py:376-380); phi3/llama only",
     )
     p.add_argument(
         "--quant-w8a8", action="store_true",
@@ -87,24 +89,21 @@ def main(argv=None, *, device="cuda"):
     )
     p.add_argument(
         "--config-json", default=None,
-        help="JSON dict of config-field overrides for phi3 "
+        help="JSON dict of config-field overrides for phi3/llama "
         '(e.g. \'{"num_layers": 2, "vocab_size": 64}\'); '
-        "defaults are Phi-4-mini's shapes",
+        "defaults are Phi-4-mini / Llama-3-8B shapes",
     )
     args = p.parse_args(argv)
-    if args.kind == "llama":
-        raise NotImplementedError(
-            "--kind llama waits for the model-variants slice of the port "
-            "(ROADMAP §A7)")
     if args.quant_w8a8 and args.kind not in ("clip-stage1", "clip-stage2"):
         p.error("--quant-w8a8 only applies to --kind clip-stage1/clip-stage2")
-    if args.quant_int8 and args.kind != "phi3":
-        p.error("--quant-int8 only applies to --kind phi3")
+    if args.quant_int8 and args.kind not in ("phi3", "llama"):
+        p.error("--quant-int8 only applies to --kind phi3/llama")
 
     from hsenet_torch import resolve_device
     from hsenet_torch.configs import BertConfig
 
     device = resolve_device(device)
+    overrides = json.loads(args.config_json) if args.config_json else {}
     sd = load_state_dict(args.input)
     print(f"loaded {len(sd)} tensors from {args.input}")
 
@@ -124,8 +123,12 @@ def main(argv=None, *, device="cuda"):
         from hsenet_torch.configs import Phi3Config
         from hsenet_torch.models.phi3 import convert_hf_phi3
 
-        overrides = json.loads(args.config_json) if args.config_json else {}
         state = convert_hf_phi3(sd, Phi3Config(**overrides))
+    elif args.kind == "llama":
+        from hsenet_torch.configs import LlamaConfig
+        from hsenet_torch.models.llama import convert_hf_llama
+
+        state = convert_hf_llama(sd, LlamaConfig(**overrides))
     elif args.kind == "biomedclip":
         from hsenet_torch.utils.convert import convert_biomedclip_vit2d
 

@@ -18,10 +18,18 @@ with the JAX CLI's arguments:
     python -m hsenet_torch.cli.evaluate --task mrg --manifest m.json \
         --data-root /data --checkpoint vlm.pt --csv mrg.csv
 
+    # sampled reports (temperature, nucleus top-p), reproducible from
+    # --gen-seed: each generate call draws with fold_seed(gen_seed, n), n
+    # counting the calls
+    python -m hsenet_torch.cli.evaluate --task mrg --synthetic --do-sample \
+        --temperature 0.7 --top-p 0.9 --gen-seed 1
+
 Without --checkpoint the weights are random, drawn from seed 0 (the JAX
-CLI draws its own from PRNGKey(0)). --do-sample waits for the sampling
-slice of the port (ROADMAP §A6), --task seg|rec for the segmentation slice
-(§A8), --dp / --tp above 1 for the parallel slice (§A9); each raises
+CLI draws its own from PRNGKey(0)). --do-sample draws from the port's own
+random stream (one seed, one token stream per device, none equal to the
+JAX CLI's); as in the JAX CLI it refuses --engine and --spec-decode.
+--task seg|rec waits for the segmentation slice (ROADMAP §A8), --dp / --tp
+above 1 for the parallel slice (§A9); each raises
 `NotImplementedError`. --task retrieval needs --synthetic: the JAX CLI
 builds no model configuration without it (ROADMAP §C).
 """
@@ -81,8 +89,8 @@ def main(argv=None, *, device="cuda", model=None):
     p.add_argument("--csv", default="", help="per-sample CSV output (mrg)")
     p.add_argument("--max-samples", type=int, default=0)
     p.add_argument("--do-sample", action="store_true",
-                   help="sample instead of greedy (waits for the sampling "
-                        "slice)")
+                   help="sample instead of greedy (HF generate's knobs; "
+                        "the reference harnesses default to greedy)")
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top-p", type=float, default=None)
     p.add_argument("--gen-seed", type=int, default=0,
@@ -116,8 +124,6 @@ def main(argv=None, *, device="cuda", model=None):
         (args.task in ("seg", "rec"),
          f"--task {args.task} waits for the segmentation slice of the port "
          "(ROADMAP §A8)"),
-        (args.do_sample, "--do-sample waits for the sampling slice of the "
-                         "port (ROADMAP §A6)"),
         (args.dp > 1 or args.tp > 1,
          "--dp / --tp above 1 wait for the parallel slice of the port "
          "(ROADMAP §A9)"),
@@ -213,6 +219,8 @@ def main(argv=None, *, device="cuda", model=None):
     if args.engine:
         from hsenet_torch.serving import ServingEngine, engine_generate_fn
 
+        if args.do_sample:  # the JAX CLI's assert
+            raise AssertionError("--engine eval is greedy-only")
         eng = ServingEngine(
             model,
             eos_token_id=tokenizer.eos_token_id,
@@ -231,11 +239,29 @@ def main(argv=None, *, device="cuda", model=None):
     elif args.spec_decode:
         from hsenet_torch.eval.speculative import make_pld_generate
 
+        if args.do_sample:  # the JAX CLI's assert
+            raise AssertionError("--spec-decode is greedy-only (lossless)")
         gen = make_pld_generate(model, draft_len=args.draft_len, **gen_kwargs)
     else:
         from hsenet_torch.eval.generate import make_greedy_generate
 
-        gen = make_greedy_generate(model, **gen_kwargs)
+        gen = make_greedy_generate(
+            model, do_sample=args.do_sample, temperature=args.temperature,
+            top_p=args.top_p, **gen_kwargs,
+        )
+    if args.do_sample:
+        # a fresh fold of one base seed per generate call: every batch
+        # samples independently and the run stays reproducible (--gen-seed)
+        import itertools
+
+        from hsenet_torch.eval.generate import fold_seed
+
+        counter = itertools.count()
+        inner_gen = gen
+
+        def gen(*a, **kw):
+            return inner_gen(*a, rng=fold_seed(args.gen_seed, next(counter)),
+                             **kw)
     if args.task == "mrg":
         from hsenet_torch.eval.mrg import evaluate_mrg
 

@@ -24,15 +24,21 @@ bare LLM (the port of the JAX package's cli/serve.py), built on
     python -m hsenet_torch.cli.serve --quant-int8 --llm-only \
         --checkpoint phi3_int8.pt --requests req.jsonl
 
+    # sampling (temperature, nucleus top-p), reproducible from --gen-seed;
+    # with --speculative it is exact speculative sampling
+    python -m hsenet_torch.cli.serve --quant-int8 --synthetic --do-sample \
+        --temperature 0.7 --top-p 0.9 --gen-seed 3 [--speculative]
+
 `volume` / `slice_features` are .npy paths; omit them with --llm-only to
 serve the bare decoder. --quant-int8 holds the LLM's projections and
 embedding as int8 codes, the tiny `--llm-only --synthetic` decoder's too
 (where the JAX CLI keeps it float, ROADMAP §C), whose f32 calls run the
 matvec's f32 route. Weights are random, drawn from --seed, unless
 --checkpoint names a `utils.checkpoint.save_params` file of the model's
-keys and shapes. --tp > 1 waits for the parallel slice (ROADMAP §A9),
---do-sample for the sampling slice (§A6); each raises
-`NotImplementedError`.
+keys and shapes. --gen-seed seeds the port's own random stream
+(`eval.generate.fold_seed`): one seed gives one token stream per device,
+none equal to the JAX CLI's. --tp > 1 waits for the parallel slice
+(ROADMAP §A9) and raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -83,13 +89,15 @@ def main(argv=None, *, device="cuda"):
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel shards (waits for the parallel slice)")
     p.add_argument("--do-sample", action="store_true",
-                   help="sample instead of greedy (waits for the sampling slice)")
+                   help="sample instead of greedy (temperature + top-p)")
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top-p", type=float, default=None)
-    p.add_argument("--gen-seed", type=int, default=0)
+    p.add_argument("--gen-seed", type=int, default=0,
+                   help="seed of the sampling stream for --do-sample")
     p.add_argument("--speculative", action="store_true",
                    help="prompt-lookup speculative decoding (lossless; "
-                        "the chunk becomes verify rounds)")
+                        "the chunk becomes verify rounds; with --do-sample "
+                        "exact speculative sampling)")
     p.add_argument("--draft-len", type=int, default=7)
     p.add_argument("--ngram", type=int, default=2)
     p.add_argument("--kv-int8", action="store_true",
@@ -111,12 +119,9 @@ def main(argv=None, *, device="cuda"):
     if args.kv_prefix_cache and args.llm_only:
         p.error("--kv-prefix-cache caches the image-block KV; it requires "
                 "the multimodal engine (drop --llm-only)")
-    for flag, what, item in (
-        (args.tp > 1, "--tp > 1 waits for the parallel slice", "§A9"),
-        (args.do_sample, "--do-sample waits for the sampling slice", "§A6"),
-    ):
-        if flag:
-            raise NotImplementedError(f"{what} of the port (ROADMAP {item})")
+    if args.tp > 1:
+        raise NotImplementedError(
+            "--tp > 1 waits for the parallel slice of the port (ROADMAP §A9)")
 
     from hsenet_torch import resolve_device
     from hsenet_torch.cli.common import (
@@ -174,6 +179,10 @@ def main(argv=None, *, device="cuda"):
         cache_dtype=torch.int8 if args.kv_int8
         else (torch.float32 if args.synthetic else torch.bfloat16),
         multimodal=multimodal,
+        do_sample=args.do_sample,
+        temperature=args.temperature,
+        top_p=args.top_p,
+        rng=args.gen_seed if args.do_sample else None,
         speculative=args.speculative,
         draft_len=args.draft_len,
         ngram=args.ngram,

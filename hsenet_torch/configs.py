@@ -216,6 +216,29 @@ class Phi3Config:
 
 
 @dataclass(frozen=True)
+class LlamaConfig:
+    """Llama-3-style decoder (the reference's `LamedLlamaForCausalLM`).
+    Defaults are Llama-3-8B: vocab 128256, hidden 4096, intermediate 14336,
+    32 layers, 32 q heads / 8 kv heads, head_dim 128, theta 500000, untied
+    head. `models.llama.llama_as_phi3_config` maps it onto the Phi3
+    decoder, int8 modes included."""
+
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    rms_norm_eps: float = 1e-5
+    tie_word_embeddings: bool = False
+    lora: Optional[LoRAConfig] = None
+    quant_int8: bool = False
+    quant_int8_embed: bool = False
+
+
+@dataclass(frozen=True)
 class VLMConfig:
     """HSENet VLM: dual vision tower + dual packers + Phi LLM. With
     dual_vits and parallel projectors the LLM sees 128+128=256 image

@@ -21,16 +21,25 @@ past the row's length, masked, and the next verify overwrites them).
 The 1-token decode forward and the multi-token verify forward sum in
 different orders, so at a genuine near-tie of the top two logits (a margin
 at rounding scale) the two can pick different tokens; away from ties the
-output equals greedy decoding token for token. Speculative sampling
-(`pld_round(sample=...)`) waits for the sampling slice of the port.
+output equals greedy decoding token for token.
+
+Speculative sampling (`pld_round(sample=(seed, temperature, top_p))`)
+accepts draft d_i when u_i < p_i(d_i), p_i the law of `warp_logits` (the
+plain sampler's warp, shared so that the two cannot part) at position i;
+at the first rejection it draws from the residual, that law with the
+rejected draft removed, and after full acceptance from p_k. With a
+deterministic proposal this is exactly plain sampling's law, token for
+token; only the random stream differs (the port's own, `fold_seed`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
 
+from hsenet_torch.eval.generate import categorical, seeded_generator, warp_logits
 from hsenet_torch.models.mllm import HSENetVLM
 from hsenet_torch.models.phi3 import KVCache
 
@@ -66,14 +75,15 @@ def pld_round(verify_fn: Callable, pending: torch.Tensor, cache: KVCache,
     `verify_fn(tokens (B, draft_len + 1), cache) -> (logits (B, draft_len
     + 1, V), cache)` runs the multi-token decode over the cache.
 
+    `sample=(seed, temperature, top_p)` turns the round into speculative
+    sampling (module docstring): its uniforms and its one categorical draw
+    per row come from a generator seeded with the integer `seed`, in that
+    order; nothing is read back to the host.
+
     Returns (pending, cache, ctx, ctx_len, done, emitted, inputs, commit):
     this round's (B, draft_len + 1) candidates and how many of each row's
     candidates were committed (0 for done rows); the caller writes
     `inputs[:, :commit]` where it keeps its output."""
-    if sample is not None:
-        raise NotImplementedError(
-            "speculative sampling (pld_round(sample=...)) waits for the "
-            "sampling slice of the port")
     k = draft_len
     b, ctx_cap = ctx.shape
     kv_cap = cache.k.shape[3]
@@ -102,10 +112,32 @@ def pld_round(verify_fn: Callable, pending: torch.Tensor, cache: KVCache,
     inputs = torch.cat([pending[:, None].to(drafts.dtype), drafts], dim=1)
     lengths = cache.lengths  # the decoder replaces, never edits, this tensor
     logits, cache = verify_fn(inputs, cache)
-    greedy = logits.argmax(dim=-1).to(torch.int32)  # (B, k + 1)
-    ok = torch.cumprod((drafts == greedy[:, :k]).to(torch.int32), dim=1)
-    a = ok.sum(dim=1)  # accepted drafts per row, 0..k
-    new_pending = greedy.gather(1, a[:, None].long())[:, 0]
+    if sample is None:
+        greedy = logits.argmax(dim=-1).to(torch.int32)  # (B, k + 1)
+        ok = torch.cumprod((drafts == greedy[:, :k]).to(torch.int32), dim=1)
+        a = ok.sum(dim=1)  # accepted drafts per row, 0..k
+        new_pending = greedy.gather(1, a[:, None].long())[:, 0]
+    else:
+        seed, temperature, top_p = sample
+        gen = seeded_generator(seed, dev)
+        wl = warp_logits(logits, temperature, top_p)  # (B, k + 1, V) f32
+        # accept d_i with probability p_i(d_i) (a pad draft at an unmatched
+        # position is a proposal like any other: the law stays exact)
+        d_probs = torch.softmax(wl[:, :k], dim=-1).gather(
+            2, drafts[..., None].long())[..., 0]
+        u = torch.rand((b, k), generator=gen, device=dev, dtype=torch.float32)
+        a = torch.cumprod((u < d_probs).to(torch.int32), dim=1).sum(dim=1)
+        # the token at position a: the residual (the rejected draft masked
+        # out, renormalised by the softmax of the draw) after a rejection,
+        # p_k itself after full acceptance
+        sel = wl.gather(1, a.long()[:, None, None].expand(b, 1, wl.shape[-1]))[:, 0]
+        ext = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+        rej = ext.gather(1, a.long()[:, None]).long()  # (B, 1)
+        masked = torch.where((a < k)[:, None],
+                             torch.full_like(sel[:, :1], -math.inf),
+                             sel.gather(1, rej))
+        sel = sel.scatter(1, rej, masked)  # no (B, V) one-hot
+        new_pending = categorical(sel, gen)
 
     # committed = inputs[:, :a + 1], cut at EOS and at the budget
     pos = torch.arange(k + 1, device=dev)[None, :]

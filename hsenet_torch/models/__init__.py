@@ -17,8 +17,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter of `module` from `generator`, in place.
 
     Dense weights are normal with std 1/sqrt(fan_in) (flax's lecun_normal
-    without truncation), embedding tables, position embeddings and the CLS
-    token normal with std 0.02, norm scales 1, biases and LoRA B 0, and
+    without truncation), embedding tables, position embeddings, the CLS
+    token and QFormer's learned queries normal with std 0.02, norm scales 1, biases and LoRA B 0, and
     CLIP's logit scale log(1/0.07). For runs that need no checkpoint: the
     generator fixes the weights, on the device where the module lives."""
     tables = {f"{name}.weight" for name, m in module.named_modules()
@@ -31,7 +31,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             p.fill_(LOGIT_SCALE_INIT)
         elif leaf == "weight" and p.ndim == 1:  # LayerNorm / RMSNorm scale
             p.fill_(1.0)
-        elif leaf in ("pos_embed", "cls_token") or name in tables:
+        elif leaf in ("pos_embed", "cls_token", "query_embeds") or name in tables:
             p.normal_(0.0, 0.02, generator=generator)
         elif leaf == "weight":
             p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)

@@ -95,5 +95,5 @@ class MaskedCLIPModel(nn.Module):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "MaskedCLIPModel comes with the legacy CLIP slice of the port "
-            "(MaskedViT3D, train/legacy_clip.py)"
+            "(MaskedViT3D, train/legacy_clip.py; ROADMAP §A7)"
         )

@@ -17,6 +17,11 @@ dual spatial packers + Phi LLM.
     the serving engine's split admission: the towers once per volume, the
     splice and LLM prefill per question, or only the question chunk over a
     cache row that already holds the BOS + image-block keys and values.
+
+tower_mode 'med2e3' runs the plain 3D tower; its projector
+(`Med2E3Projector`) takes the tower's tokens, the raw slice features and
+the prompt's token embeddings, so its image features depend on the prompt
+and `encode_images_only` refuses it.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from torch import nn
 from hsenet_torch import resolve_device
 from hsenet_torch.configs import ViT2DConfig, VLMConfig
 from hsenet_torch.models.phi3 import KVCache, Phi3ForCausalLM
-from hsenet_torch.models.projector import build_projector
+from hsenet_torch.models.projector import Med2E3Projector, build_projector
 from hsenet_torch.models.vit import DualVisionTower, OnlineSliceFeatures
 
 
@@ -50,19 +55,24 @@ class HSENetVLM(nn.Module):
                  device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
-        for flag, what in (
-            (config.tower_mode == "med2e3", "tower_mode 'med2e3' (ROADMAP §A7)"),
-            (config.seg_enable, "the SegVol branch (ROADMAP §A8)"),
-        ):
-            if flag:
-                raise NotImplementedError(f"{what} comes with a later slice of the port")
+        if config.seg_enable:
+            raise NotImplementedError(
+                "the SegVol branch (ROADMAP §A8) comes with a later slice of "
+                "the port")
         self.config = config
+        med2e3 = config.tower_mode == "med2e3"
         self.vision_tower = DualVisionTower(
-            config.vision, tower_mode=config.tower_mode,
+            config.vision, tower_mode="3d_vit" if med2e3 else config.tower_mode,
             select_feature=config.select_feature, dtype=dtype, device=device,
         )
-        self.mm_projector = build_projector(config.packer, dtype=dtype,
-                                            device=device)
+        if med2e3:
+            self.mm_projector = Med2E3Projector(
+                config.packer, num_slices=config.vision.num_slices,
+                slice_dim=config.vision.slice_feature_dim, dtype=dtype,
+                device=device)
+        else:
+            self.mm_projector = build_projector(config.packer, dtype=dtype,
+                                                device=device)
         self.mm_projector2 = None
         if config.tower_mode == "dual_vits" and config.use_parallel_projector:
             self.mm_projector2 = build_projector(config.packer, dtype=dtype,
@@ -78,7 +88,10 @@ class HSENetVLM(nn.Module):
 
     def encode_images(self, volume: torch.Tensor,
                       slice_features: Optional[torch.Tensor] = None, *,
+                      text_embeds: Optional[torch.Tensor] = None,
                       deterministic: bool = True) -> torch.Tensor:
+        """Towers + projectors -> (B, n_img, llm_hidden). med2e3 also reads
+        `text_embeds`, the prompt's token embeddings."""
         if slice_features is None and self.slice_encoder is not None:
             width = self.slice_encoder.config.hidden_size
             if width != self.config.vision.hidden_size:
@@ -100,6 +113,9 @@ class HSENetVLM(nn.Module):
                 self.mm_projector(f1, deterministic=deterministic),
                 proj2(f2, deterministic=deterministic),
             ], dim=1)
+        if self.config.tower_mode == "med2e3":
+            return self.mm_projector(feats, slice_features, text_embeds,
+                                     deterministic=deterministic)
         return self.mm_projector(feats, deterministic=deterministic)
 
     def multimodal_embeds(self, input_ids: torch.Tensor,
@@ -111,6 +127,7 @@ class HSENetVLM(nn.Module):
             return embeds
         return splice_image_embeds(
             embeds, self.encode_images(volume, slice_features,
+                                       text_embeds=embeds,
                                        deterministic=deterministic)
         )
 
@@ -142,7 +159,13 @@ class HSENetVLM(nn.Module):
                            ) -> torch.Tensor:
         """Vision side alone: towers + packers -> (B, n_img, llm_hidden),
         the prompt-independent part of a multimodal prefill that the
-        serving engine keeps per volume."""
+        serving engine keeps per volume. Not for tower_mode 'med2e3',
+        whose projector reads the prompt."""
+        if self.config.tower_mode == "med2e3":
+            raise ValueError(
+                "med2e3 image features depend on the prompt; they cannot "
+                "be cached per volume"
+            )
         return self.encode_images(volume, slice_features, deterministic=True)
 
     def prefill_with_features(self, input_ids: torch.Tensor,

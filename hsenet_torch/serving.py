@@ -32,9 +32,17 @@ stay those of the greedy engine. The per-slot context buffer, its length
 and the token budget live on the device; the candidates and commit counts
 of a chunk's rounds reach the host in one copy.
 
-The engine is greedy. Sampling (`do_sample=True`, and so speculative
-sampling) and a device mesh (`mesh=`) wait for later slices of the port
-and raise `NotImplementedError`.
+Greedy by default. `do_sample=True` (HF generate's `temperature` /
+`top_p`) draws every token from `eval.generate.warp_logits`, by the seed
+`rng=` folded as the JAX engine folds its key: the prefill stream is
+`fold_seed(rng, 0)` folded with the admission ordinal, the decode stream
+`fold_seed(rng, 1)` folded with the engine's global step counter (one
+index per decode step, or per verify round). A fixed submission order
+reproduces its tokens on one device; the stream is the port's own
+(`eval.generate`), not the JAX package's. With `speculative=True` it is
+exact speculative sampling (`pld_round(sample=...)`). A device mesh
+(`mesh=`) waits for the parallel slice of the port and raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ import numpy as np
 import torch
 
 from hsenet_torch import resolve_device
-from hsenet_torch.eval.generate import _make_next_token
+from hsenet_torch.eval.generate import _make_next_token, fold_seed
 from hsenet_torch.eval.speculative import pld_round
 from hsenet_torch.models.phi3 import KVCache
 
@@ -71,8 +79,8 @@ class _Request:
 
 
 class ServingEngine:
-    """Greedy continuous-batching engine over a causal-LM module of the
-    port, whose weights are already on `device`.
+    """Continuous-batching engine over a causal-LM module of the port,
+    whose weights are already on `device`; greedy unless `do_sample`.
 
     Usage:
         eng = ServingEngine(model, eos_token_id=2)
@@ -101,6 +109,9 @@ class ServingEngine:
         mesh=None,
         multimodal: bool = False,
         do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p=None,
+        rng: Optional[int] = None,
         speculative: bool = False,
         draft_len: int = 7,
         ngram: int = 2,
@@ -108,14 +119,11 @@ class ServingEngine:
         kv_prefix_cache_size: int = 0,
         device="cuda",
     ):
-        for flag, what in (
-            (do_sample, "do_sample=True waits for the sampling slice of "
-                        "the port"),
-            (mesh is not None, "mesh= waits for the parallel slice of the "
-                               "port"),
-        ):
-            if flag:
-                raise NotImplementedError(what)
+        if mesh is not None:
+            raise NotImplementedError("mesh= waits for the parallel slice of "
+                                      "the port")
+        if do_sample and rng is None:
+            raise ValueError("do_sample=True requires rng=")
         self.device = resolve_device(device)
         self.model = model
         self.eos = eos_token_id
@@ -135,7 +143,14 @@ class ServingEngine:
             self.capacity = prompt_cap + max_new_tokens + 2 * (draft_len + 1)
         else:
             self.capacity = prompt_cap + max_new_tokens + chunk_size
-        self._next_token = _make_next_token()
+        self._next_token = _make_next_token(do_sample, temperature, top_p)
+        # sampling: disjoint streams for the prefills (folded with the
+        # admission ordinal) and the decode (folded with the step counter)
+        self._sample = (temperature, top_p) if do_sample else None
+        self._admitted = 0
+        if do_sample:
+            self._rng_prefill = fold_seed(rng, 0)
+            self._rng_decode = fold_seed(rng, 1)
 
         cfg = model.config.llm if multimodal else model.config
         self._cache = KVCache.create(cfg, num_slots, self.capacity,
@@ -407,7 +422,7 @@ class ServingEngine:
         cache, token, done = self._cache, self._token, self._done
         pad = torch.full_like(token, self.pad)
         emitted = []
-        for _ in range(self.chunk):
+        for i in range(self.chunk):
             emitted.append(torch.where(done, pad, token))
             if self.multimodal:
                 logits, cache = self.model.decode_step(token[:, None], cache)
@@ -415,7 +430,8 @@ class ServingEngine:
                 logits, cache = self.model(token[:, None], cache=cache)
                 logits = logits[:, 0]
             done_next = done | (token == self.eos)
-            nxt = torch.where(done_next, pad, self._next_token(logits))
+            nxt = torch.where(done_next, pad, self._next_token(
+                logits, self._decode_seed(i)))
             # the decoder added 1 to every row's length: free and finished
             # slots must not advance (their rows are overwritten at the
             # next admission, but a length past capacity would clamp the
@@ -439,17 +455,27 @@ class ServingEngine:
             return self.model(tokens, cache=cache, kv_lens=verify_lens)
 
         toks, counts = [], []
-        for _ in range(self.chunk):
+        for i in range(self.chunk):
+            sample = None
+            if self._sample is not None:
+                sample = (self._decode_seed(i), *self._sample)
             (self._token, self._cache, self._ctx, self._ctx_len, self._done,
              self._emitted, inputs, commit) = pld_round(
                 verify, self._token, self._cache, self._ctx, self._ctx_len,
                 self._done, self._emitted, self._limit,
                 draft_len=self.draft_len, ngram=self.ngram,
-                eos_token_id=self.eos, pad_token_id=self.pad,
+                eos_token_id=self.eos, pad_token_id=self.pad, sample=sample,
             )
             toks.append(inputs)
             counts.append(commit)
         return torch.stack(toks), torch.stack(counts)
+
+    def _decode_seed(self, i: int) -> Optional[int]:
+        """The seed of step (or verify round) i of the chunk in flight:
+        the decode stream folded with the global step counter."""
+        if self._sample is None:
+            return None
+        return fold_seed(self._rng_decode, self.steps_run + i)
 
     def _slot_row(self, s: int) -> KVCache:
         """A batch-1 cache that is a view of slot `s` of the live cache,
@@ -565,10 +591,15 @@ class ServingEngine:
             req = self._queue.pop(0)
             row = self._slot_row(s)
             logits = self._prefill(req, row)
-            # the prefill's argmax becomes the slot's pending token; the
-            # decode chunk emits it as the request's first output
+            # the prefill's token (argmax, or a draw from the prefill
+            # stream folded with the admission ordinal) becomes the slot's
+            # pending token; the decode chunk emits it as the first output
+            seed = None
+            if self._sample is not None:
+                seed = fold_seed(self._rng_prefill, self._admitted)
+                self._admitted += 1
             self._cache.lengths[s] = row.lengths[0]
-            self._token[s] = self._next_token(logits)[0]
+            self._token[s] = self._next_token(logits, seed)[0]
             self._done[s] = False
             if self.speculative:
                 self._seed_context(s, req)

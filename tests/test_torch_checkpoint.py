@@ -303,9 +303,22 @@ def test_convert_cli_vlm_deltas_and_later_kinds(tmp_path):
     want = bridged({name: jconv.convert_reference_packer(sd, f"model.{name}.")
                     for name in ("mm_projector", "mm_projector2")})
     assert_same_state(torch.load(out, weights_only=True), want)
-    with pytest.raises(NotImplementedError, match="§A7"):
-        tconvert_cli.main(["--kind", "llama", "--input", out, "--output", "x"],
-                          device="cpu")
+    # --kind llama converts an HF Llama state (tests/test_torch_variants.py
+    # holds it against the JAX converter at every leaf)
+    from hsenet_tpu.configs import LlamaConfig
+    from hsenet_tpu.models.llama import LlamaForCausalLM as JaxLlama
+    from hsenet_tpu.utils.export_hf import export_hf_llama
+
+    llama = LlamaConfig(vocab_size=64, hidden_size=16, intermediate_size=32,
+                        num_layers=1, num_heads=2, num_kv_heads=1, head_dim=8)
+    params = jax.tree.map(np.asarray, JaxLlama(llama, dtype=jnp.float32).init(
+        jax.random.PRNGKey(0), jnp.ones((1, 4), jnp.int32)))
+    sd = to_torch_state_dict(export_hf_llama(params, llama))
+    overrides = {k: getattr(llama, k) for k in (
+        "vocab_size", "hidden_size", "intermediate_size", "num_layers",
+        "num_heads", "num_kv_heads", "head_dim")}
+    out = _convert(tmp_path, "llama", sd, "--config-json", json.dumps(overrides))
+    assert_same_state(torch.load(out, weights_only=True), bridged(params))
 
 
 def test_serve_checkpoint_serves_the_converted_int8_model(tmp_path):

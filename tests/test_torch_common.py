@@ -149,9 +149,10 @@ def test_entry_points_refuse_missing_cuda(build):
         jcfg.PreprocessConfig(),
         jcfg.AugmentConfig(),
         jcfg.ViT2DConfig(),
+        jcfg.LlamaConfig(),
     ],
     ids=["default", "2e3", "med2e3", "qformer", "online", "preprocess",
-         "augment", "vit2d"],
+         "augment", "vit2d", "llama"],
 )
 def test_config_copies_agree(jax_cfg):
     t = to_torch_config(jax_cfg)

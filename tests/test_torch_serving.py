@@ -348,17 +348,22 @@ def test_latency_stats_and_backdating(llm):
 
 
 @pytest.mark.parametrize(
-    "kwargs,slice_name",
-    # speculative decoding is ported; speculative sampling waits for the
-    # sampling slice
-    [(dict(speculative=True, do_sample=True), "sampling"),
-     (dict(do_sample=True), "sampling"),
-     (dict(mesh=object()), "parallel")],
+    "kwargs,error,match",
+    # a mesh waits for the parallel slice; sampling (plain and speculative)
+    # raises as the JAX engine does without its seed, and builds with one
+    [(dict(speculative=True, do_sample=True), ValueError, "requires rng="),
+     (dict(do_sample=True), ValueError, "requires rng="),
+     (dict(mesh=object()), NotImplementedError, "parallel")],
     ids=["speculative", "do_sample", "mesh"],
 )
-def test_engine_options_of_later_slices_raise(llm, kwargs, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
+def test_engine_options_of_later_slices_raise(llm, kwargs, error, match):
+    with pytest.raises(error, match=match):
         ServingEngine(llm["tm"], eos_token_id=2, device="cpu", **kwargs)
+    if error is ValueError:
+        eng = ServingEngine(llm["tm"], eos_token_id=2, device="cpu", rng=0,
+                            cache_dtype=torch.float32, **LLM_KW, **kwargs)
+        eng.submit(llm["prompts"][0], 3)
+        assert [len(t) for t in eng.run_until_drained().values()] == [3]
 
 
 @pytest.mark.parametrize("entry", ["engine", "cli"])
@@ -422,11 +427,15 @@ def test_cli_rejects_caches_with_llm_only(flag, capsys):
 
 
 @pytest.mark.parametrize(
-    "flags,slice_name",
-    [(["--tp", "2"], "parallel"),
-     (["--speculative", "--do-sample"], "sampling"), (["--do-sample"], "sampling")],
+    "flags,error,match",
+    # --tp waits for the parallel slice; --do-sample (with --speculative
+    # too) refuses a temperature of 0 as the JAX CLI does
+    [(["--tp", "2"], NotImplementedError, "parallel"),
+     (["--speculative", "--do-sample", "--temperature", "0"], ValueError,
+      "temperature must be > 0"),
+     (["--do-sample", "--temperature", "0"], ValueError, "temperature must be > 0")],
     ids=["tp", "speculative", "do-sample"],
 )
-def test_cli_options_of_later_slices_raise(flags, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
+def test_cli_options_of_later_slices_raise(flags, error, match):
+    with pytest.raises(error, match=match):
         tserve.main(["--synthetic", *flags, *CLI_SMALL], device="cpu")

@@ -107,9 +107,44 @@ def test_mock_rounds_match_jax(prompt, pending, eos, max_new, period, expect):
 
 
 def test_speculative_sampling_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="sampling"):
-        pld_round(None, None, None, None, None, None, None, None, draft_len=2,
-                  ngram=2, eos_token_id=2, pad_token_id=0, sample=(0, 1.0, None))
+    """Speculative sampling (`pld_round(sample=...)`) on the mock model: at
+    a one-token nucleus every round's state equals the greedy round's and
+    the JAX greedy round's, over a cycle that accepts every draft and a
+    prompt that rejects them."""
+    from hsenet_tpu.eval.speculative import pld_round as jax_pld_round
+
+    draft_len, period, cap = 4, 7, 24
+    for prompt in ([0, 1, 2, 3, 4, 5, 6, 0, 1], [3, 3, 3, 3, 3, 3]):
+        plen = len(prompt)
+        ctx = np.zeros((1, cap), np.int32)
+        ctx[0, :plen] = prompt
+        pending = (prompt[-1] + 1) % period
+        ctx[0, plen] = pending
+        state = dict(pending=[pending], ctx=ctx, ctx_len=[plen + 1], done=[False],
+                     emitted=[0], limit=[12])
+        kw = dict(draft_len=draft_len, ngram=2, eos_token_id=100, pad_token_id=0)
+        jcache = JaxKVCache.create(LLM, 1, cap, dtype=jnp.float32).replace(
+            lengths=jnp.full((1,), plen, jnp.int32))
+        want = jax_pld_round(
+            _mock_verify_jax(period), jnp.asarray(state["pending"], jnp.int32),
+            jcache, jnp.asarray(ctx), jnp.asarray(state["ctx_len"], jnp.int32),
+            jnp.asarray(state["done"]), jnp.asarray(state["emitted"], jnp.int32),
+            jnp.asarray(state["limit"], jnp.int32), **kw)
+        for sample in (None, (11, 1.0, 1e-9), (12, 0.5, 1e-9)):
+            tcache = KVCache.create(to_torch_config(LLM), 1, cap,
+                                    dtype=torch.float32, device="cpu")
+            tcache.lengths.fill_(plen)
+            got = pld_round(
+                _mock_verify_torch(period),
+                torch.tensor(state["pending"], dtype=torch.int32), tcache,
+                torch.tensor(ctx), torch.tensor(state["ctx_len"], dtype=torch.int32),
+                torch.tensor(state["done"]),
+                torch.tensor(state["emitted"], dtype=torch.int32),
+                torch.tensor(state["limit"], dtype=torch.int32), sample=sample, **kw)
+            for i in (0, 2, 3, 4, 5, 6, 7):  # all but the cache
+                np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
+            np.testing.assert_array_equal(got[1].lengths.numpy(),
+                                          np.asarray(want[1].lengths))
 
 
 def _repetitive_prompts(rng, vocab):
@@ -220,10 +255,26 @@ def test_engine_equals_jax_engine_multimodal(vlm, cache):
     assert (teng.prefix_misses, teng.prefix_hits) == (2, 3)
 
 
-def test_engine_speculative_sampling_raises(llm):
-    with pytest.raises(NotImplementedError, match="sampling"):
+@pytest.mark.parametrize("cache", list(CACHES))
+def test_engine_speculative_sampling_raises(llm, cache):
+    """The speculative sampling engine raises without its seed, as the JAX
+    engine does; with one, at a one-token nucleus, its tokens equal the
+    JAX greedy speculative engine's over the float and the int8 cache."""
+    jdtype, tdtype = CACHES[cache]
+    with pytest.raises(ValueError, match="requires rng="):
         ServingEngine(llm["tm"], eos_token_id=2, device="cpu", do_sample=True,
                       **SPEC)
+    jeng = JaxEngine(llm["jm"], llm["params"], eos_token_id=2,
+                     cache_dtype=jdtype, **LLM_KW, **SPEC)
+    teng = ServingEngine(llm["tm"], eos_token_id=2, cache_dtype=tdtype,
+                         device="cpu", do_sample=True, top_p=1e-9, rng=4,
+                         **LLM_KW, **SPEC)
+    results = []
+    for eng in (jeng, teng):
+        uids = [eng.submit(p) for p in llm["prompts"]]
+        out = eng.run_until_drained()
+        results.append([out[u] for u in uids])
+    assert results[1] == results[0]
 
 
 @pytest.mark.parametrize("llm_only", [True, False], ids=["llm-only", "vlm"])
