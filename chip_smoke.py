@@ -301,6 +301,38 @@ In order:
    run's wall, step ms, samples/s, peak memory and the idle share over
    the profiled step; [kernel-train-cli] then holds and times B1 and B3
    at the shapes those runs launched that no phase above timed;
+16c. [kernel-seg] B1 and B3 at this slice's shapes against the plain
+   versions, wrong variants beside each limit, timed beside the bound, the
+   plain version and SDPA: SegVol's ViT-B at 2 x 12 x 2048 x 64 (forward,
+   with the log-sum-exp, B3) and at batch 1 (a sliding window), the legacy
+   masked CLIP's masked stream at 24 x 12 x 1793 and 1281 x 64 (with the
+   log-sum-exp, B3);
+16d. [segvol] SegVol at ViT3DConfig(classification=False) in bf16 at batch
+   2, text-prompted: 12 B1 launches, logits against the plain attention
+   path (rel L2 5e-2) beside shifted heads (must miss), the predictor's
+   cached grid equal to the uncached one, `sliding_window_segment` over a
+   (48, 384, 384) volume in 8 windows, ms a volume; SegVol on SwinConfig()
+   in bf16 against f32;
+16e. [cli-train-seg] `train_vlm --task seg --online-slice-features` at full
+   width (VLMConfig() with LoRA on Phi-4-mini, SegVol trainable, remat) for
+   3 steps at batch 2 on a seg manifest the script writes (box masks, [SEG]
+   answers), the seg eval at the last: launches by shape, finite lm_loss
+   and seg_loss, SegVol's leaves moved, step ms, peak memory;
+   [cli-evaluate-seg] `evaluate --task seg` (f32 SegVol, prompts from a
+   random stage-1 CLIP that the port saves, through --clip-checkpoint) and
+   `evaluate --task rec --reference-compatible` on the same entries
+   (VLMConfig() with the in-graph slice features through `model=`): the
+   runs and their launches held, the random scores printed; B1 and B3 then
+   at the shapes those runs launched that no phase above timed, f32
+   included;
+16f. [clip-masked] `MaskedCLIPModel(CLIPConfig())` at batch 24 through the
+   legacy step at the ramp's steps 0, 5000 and 20000 (2048, 1792 and 1280
+   kept patches): launches by shape, finite losses, step ms; gradients at
+   batch 6 against the plain path beside two planted faults; the W8A8
+   static mode of both streams against bf16 (per-token cosine >= 0.995);
+   [remat-dots] runs inside [train-grads]: the finetune step's gradients
+   with the Phi remat policy "dots" against "full", step ms and peak
+   memory of each;
 17. prints one JSON line of kernel numbers, then as its last line
    {"ok": true, "device": {...}}.
 
@@ -621,6 +653,26 @@ AUG_RESUME_AT = 2
 # the step after the resumed one trains on weights whose last update went
 # through dQ's f32 reduce-adds, which land in another order each run
 AUG_LATER_STEP_RTOL = 1e-3
+
+SEG_BATCH = 2  # SegVol's batch in [segvol], train_vlm --task seg and evaluate --task seg
+# a volume that (32, 256, 256) windows at overlap 0.25 cover in 2 x 2 x 2 = 8
+SEG_WINDOW_VOLUME = (48, 384, 384)
+SEG_VOLUMES = 4  # seg manifest entries, 2 train and 2 validation
+SEG_TRAIN_STEPS = 3
+SEG_TARGETS = ("liver", "right kidney", "spleen", "pancreas")
+# SegVol's bf16 logits through B1 against the plain attention path, and its
+# Swin encoder in bf16 against f32, as relative L2 of the logits
+SEGVOL_REL_L2 = 5e-2
+SWIN_REL_L2 = 5e-2
+# the legacy masked CLIP: the ramp's buckets at steps 0, 5000 and 20000 keep
+# 2048, 1792 and 1280 of 2048 patches
+MASKED_STEPS = (0, 5000, 20000)
+MASKED_W8A8_BATCH = 8
+# [remat-dots]: "dots" keeps the projections' outputs where "full"
+# recomputes them; the arithmetic is the same and only dQ's f32 reduce-adds
+# land in another order, so the two gradients agree far inside the kernel
+# limits
+REMAT_DOTS_REL_L2 = 1e-2
 CRC32C_CHECK = 0xE3069283  # CRC-32C of b"123456789"
 
 
@@ -2672,7 +2724,8 @@ def run_train_path(card: str):
 def check_train_grads():
     """One step's gradients through the kernels against the same step
     through the plain sdpa path, same weights and batch, no dropout; then
-    the same step with planted faults in the attention backward."""
+    the same step with planted faults in the attention backward; then
+    [remat-dots] on the same model and batch."""
     import torch
 
     from hsenet_torch.ops import attention
@@ -2748,9 +2801,11 @@ def check_train_grads():
               + ", ".join(f"{g} {r:.3e}" for g, r in wrong[fault].items()))
         if max(wrong[fault].values()) <= TRAIN_GRAD_REL_L2:
             raise AssertionError(f"the training gradient limit passes {fault}")
-    del model, params, g_p
+    del g_p
+    dots = run_remat_dots(model, names, params, batch)
+    del model, params
     return {"loss_kernel": loss_k, "loss_plain": loss_p, "grad_rel_l2": rel,
-            "planted_faults_rel_l2": wrong}
+            "planted_faults_rel_l2": wrong, "remat_dots": dots}
 
 
 def build_serving_model():
@@ -6846,6 +6901,751 @@ def run_med2e3_engine(cfg, model, ids, kv, vol, sl):
     return {"tokens": sum(map(len, got)), "wall_s": wall, "flash_fwd_launches": got_b1}
 
 
+def seg_kernel_cases():
+    """B1 and B3 at the shapes of this slice's paths: SegVol's ViT-B (2,048
+    tokens, no CLS, so no ragged tile) at batch 2 (forward, and with the
+    log-sum-exp and B3 where train_vlm --task seg trains it) and at batch 1
+    (one sliding window); the legacy masked CLIP's masked stream at batch
+    24 at the buckets 1,792 and 1,280 (1,793 and 1,281 tokens with CLS: a
+    ragged last tile of one row; the bucket 2,048 runs at the tower's 2,049,
+    [kernel-time]'s clip_tower)."""
+    from hsenet_torch.train.legacy_clip import bucketed_unmasked_tokens
+
+    v, c = seg_vit_config(), clip_config().vision
+    h, s, d = v.num_heads, v.num_patches, v.hidden_size // v.num_heads
+    cases = [
+        ("segvol_vit", (SEG_BATCH, h, s, d), (s,) * SEG_BATCH, False,
+         (SEG_BATCH, h), ("flash_fwd", "flash_fwd_lse")),
+        ("segvol_window", (1, h, s, d), (s,), False, (1, h), ("flash_fwd",)),
+    ]
+    for step in MASKED_STEPS[1:]:
+        n = bucketed_unmasked_tokens(step, c.num_patches) + 1
+        cases.append((f"masked_{n}", (CLIP_BATCH, c.num_heads, n,
+                                      c.hidden_size // c.num_heads),
+                       (n,) * CLIP_BATCH, False, (4, c.num_heads),
+                       ("flash_fwd_lse",)))
+    return cases
+
+
+def seg_shape_index():
+    index = {}
+    for name, (b, h, s, d), _, _, _, fwd_kinds in seg_kernel_cases():
+        for kind in fwd_kinds:
+            index[(kind, b, h, s, s, d)] = (
+                "flash_fwd", name + ("_lse" if kind == "flash_fwd_lse" else ""))
+        if "flash_fwd_lse" in fwd_kinds:
+            index[("flash_bwd", b, h, s, s, d)] = ("flash_bwd", name)
+    return index
+
+
+def check_seg_kernels():
+    """[kernel-seg]: B1 and B3 at `seg_kernel_cases` against the plain
+    versions (2e-2 of each row's largest value, wrong variants beside each
+    limit), timed beside the bound, the plain version and SDPA."""
+    return check_flash_cases(seg_kernel_cases(), seed=29)
+
+
+def counted(fn):
+    """`fn()` with every launch count set to 0 just before; its result, the
+    flash launches by shape (bf16, f16 and f32 alike) and by kernel, and the
+    f32 launches."""
+    from hsenet_torch.ops import flash_attention as tfa
+
+    reset_counts()
+    out = fn()
+    return (out, dict(tfa.shape_launches), dict(tfa.launches),
+            dict(tfa.f32_launches))
+
+
+def seg_vit_config():
+    """SegVol's encoder as `evaluate --task seg` builds it: ViT-B over
+    (32, 256, 256) in (4, 16, 16) patches without CLS."""
+    from hsenet_torch.configs import ViT3DConfig
+
+    return ViT3DConfig(classification=False)
+
+
+def build_segvol(dtype, seed: int, swin=None):
+    import torch
+
+    from hsenet_torch.models import init_random_
+    from hsenet_torch.models.segvol import SegVol
+
+    model = SegVol(seg_vit_config(), swin, dtype=dtype, device="cuda")
+    return init_random_(model, torch.Generator(device="cuda").manual_seed(seed)).eval()
+
+
+def rel_l2_of(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def run_segvol(card: str):
+    """[segvol]: SegVol at `ViT3DConfig(classification=False)` (ViT-B, 12
+    layers, (32, 256, 256)) in bf16 at batch 2, text-prompted: 12 B1
+    launches a forward at 2 x 12 x 2048 x 64, the logits against the same
+    model through the plain attention path beside a path with the heads'
+    outputs shifted by one head (must miss), `SegVolPredictor`'s cached grid equal to
+    `encode_image`'s and its prediction to the forward's,
+    `sliding_window_segment` over a (48, 384, 384) volume in 8 windows (96
+    launches at batch 1), ms a volume; then SegVol on `SwinConfig()` in
+    bf16 against f32 (no flash kernel: windows of 64 tokens with a bias)."""
+    import torch
+
+    from hsenet_torch.configs import SwinConfig
+    from hsenet_torch.eval.sliding_window import (
+        SegVolPredictor,
+        make_segvol_predictor,
+        sliding_window_segment,
+        window_offsets,
+    )
+    from hsenet_torch.models import layers
+    from hsenet_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    cfg = seg_vit_config()
+    model = build_segvol(torch.bfloat16, seed=1)
+    vol = torch.rand(SEG_BATCH, 1, *cfg.image_size, generator=gen, device="cuda")
+    text = torch.randn(SEG_BATCH, cfg.hidden_size, generator=gen, device="cuda")
+    numbers = {}
+    with torch.no_grad():
+        logits, shapes, by_kernel, f32 = counted(lambda: model(vol, text))
+        torch.cuda.synchronize()
+        key = (cfg.num_heads, cfg.num_patches, cfg.num_patches,
+               cfg.hidden_size // cfg.num_heads)
+        want_shapes = {("flash_fwd", SEG_BATCH, *key): cfg.num_layers}
+        fwd_route("segvol", by_kernel, f32)
+        print(f"[segvol] SegVol(ViT3DConfig(classification=False)) bf16, batch "
+              f"{SEG_BATCH}, text prompts: logits {tuple(logits.shape)}, finite "
+              f"{bool(logits.isfinite().all())}; B1 launches by shape {shapes}")
+        if shapes != want_shapes or not bool(logits.isfinite().all()):
+            raise AssertionError(f"[segvol] launches {shapes}, not {want_shapes}")
+        try:
+            attention.set_flash_mode("never")
+            plain = model(vol, text)
+            # the wrong variant: each head's output in the next head's
+            # columns. A random ViT attends nearly uniformly, so a dropped
+            # key tile moves these logits by ~2e-3 (f32 on the CPU): the
+            # kernel checks of [kernel-seg] hold that fault
+            sound = layers.multi_head_attention
+            layers.multi_head_attention = lambda q, k, v, **kw: \
+                attention.sdpa_reference(q, k, v).roll(1, dims=1)
+            dropped = model(vol, text)
+        finally:
+            attention.set_flash_mode("auto")
+            layers.multi_head_attention = sound
+        rel, wrong = rel_l2_of(logits, plain), rel_l2_of(dropped, plain)
+        print(f"[segvol] logits through B1 against the plain attention path: "
+              f"rel L2 {rel:.3e} (limit {SEGVOL_REL_L2}); the plain path with the "
+              f"heads' outputs shifted by one head {wrong:.3e}")
+        if not rel <= SEGVOL_REL_L2 or wrong <= SEGVOL_REL_L2:
+            raise AssertionError("[segvol] the logits' limit failed or passes "
+                                 "shifted heads")
+        numbers["logits_rel_l2"], numbers["shifted_heads_rel_l2"] = rel, wrong
+
+        pred = SegVolPredictor(model)
+        pred.set_image(vol)
+        direct = model.encode_image(vol)
+        cached = pred.predict(text_embedding=text)
+        same_grid = torch.equal(pred.get_image_embedding(), direct)
+        pred_rel = rel_l2_of(cached, logits)
+        print(f"[segvol] SegVolPredictor: cached grid equals encode_image's bit "
+              f"for bit: {same_grid}; predict against the forward: rel L2 "
+              f"{pred_rel:.3e}")
+        if not same_grid or pred_rel > 1e-6:
+            raise AssertionError("[segvol] the predictor's cache is not the "
+                                 "uncached encode")
+        numbers["predictor_rel_l2"] = pred_rel
+
+        wall = median_wall_ms(lambda: model(vol, text), runs=5)
+        numbers["ms_per_volume"] = wall / SEG_BATCH
+        encode = median_wall_ms(lambda: model.encode_image(vol), runs=5)
+        decode = median_wall_ms(lambda: model.decode(direct, cfg.image_size,
+                                                     text_embedding=text), runs=5)
+        numbers.update(encode_ms=encode, decode_ms=decode, forward_ms=wall)
+        numbers["profile"] = profile_phase("segvol forward, batch 2",
+                                           lambda: model(vol, text), wall)
+
+        big = torch.rand(1, *SEG_WINDOW_VOLUME, generator=gen, device="cuda")
+        predict = make_segvol_predictor(model)
+        windows = len(window_offsets(SEG_WINDOW_VOLUME, cfg.image_size))
+        t0 = time.perf_counter()
+        blended, w_shapes, by_kernel, f32 = counted(lambda: sliding_window_segment(
+            lambda p: predict(p, text[:1]), big, cfg.image_size))
+        torch.cuda.synchronize()
+        sw_s = time.perf_counter() - t0
+        fwd_route("segvol window", by_kernel, f32)
+        want_w = {("flash_fwd", 1, *key): windows * cfg.num_layers}
+        print(f"[segvol] sliding_window_segment over {SEG_WINDOW_VOLUME} in "
+              f"{windows} windows: {tuple(blended.shape)}, finite "
+              f"{bool(blended.isfinite().all())}, {sw_s:.2f} s; B1 launches "
+              f"{w_shapes}")
+        if windows < 8 or w_shapes != want_w or not bool(blended.isfinite().all()):
+            raise AssertionError(f"[segvol] sliding window launches {w_shapes}, "
+                                 f"not {want_w}")
+        numbers["sliding_window"] = {"windows": windows, "wall_s": sw_s}
+        for key, n in w_shapes.items():
+            shapes[key] = shapes.get(key, 0) + n
+        del model, big, blended, pred, direct
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        swin = SwinConfig()
+        f32_model = build_segvol(torch.float32, seed=2, swin=swin)
+        bf16_model = build_segvol(torch.bfloat16, seed=2, swin=swin)
+        bf16_model.load_state_dict(f32_model.state_dict())
+        text = torch.randn(1, swin.out_dim, generator=gen, device="cuda")
+        want = f32_model(vol[:1], text)
+        got, swin_shapes, _, _ = counted(lambda: bf16_model(vol[:1], text))
+        swin_rel = rel_l2_of(got, want)
+        swin_ms = {name: median_wall_ms(lambda m=m: m(vol[:1], text), runs=3)
+                   for name, m in (("bf16", bf16_model), ("f32", f32_model))}
+        print(f"[segvol] SegVol on SwinConfig() (grid {swin.grid} x "
+              f"{swin.out_dim}), batch 1: bf16 against f32 rel L2 {swin_rel:.3e} "
+              f"(limit {SWIN_REL_L2}); flash launches {swin_shapes or 'none'}; "
+              f"ms a volume bf16 {swin_ms['bf16']:.1f}, f32 {swin_ms['f32']:.1f}")
+        if not swin_rel <= SWIN_REL_L2 or swin_shapes:
+            raise AssertionError("[segvol] the Swin encoder's bf16 logits miss f32's")
+        numbers["swin"] = {"bf16_vs_f32_rel_l2": swin_rel, "ms": swin_ms}
+    print(f"[segvol] on {card}: {numbers['ms_per_volume']:.2f} ms a volume at "
+          f"batch {SEG_BATCH} (encode {encode:.2f} ms, decode {decode:.2f} ms a "
+          "batch)")
+    numbers["card"] = card
+    del f32_model, bf16_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers, shapes
+
+
+def write_seg_data(root):
+    """This slice's manifests under `root`: SEG_VOLUMES volumes (1, 32, 256,
+    256) f32 from a numpy seed, each with a box mask (32, 256, 256) of its
+    own size, place and target (SEG_TARGETS), in a seg QA / REC manifest of 2 train and 2
+    validation entries (the CLIs build these sets without a class list, so
+    each entry names its target). Returns the manifest's path."""
+    import os
+
+    import numpy as np
+
+    shape = seg_vit_config().image_size
+    rng = np.random.default_rng(43)
+    entries = []
+    for i in range(SEG_VOLUMES):
+        np.save(os.path.join(root, f"segvol{i}.npy"),
+                rng.random((1, *shape), dtype=np.float32))
+        mask = np.zeros(shape, np.float32)
+        d, h, w = shape
+        z, y, x = (int(rng.integers(0, n // 2)) for n in shape)
+        mask[z:z + d // 4 + i, y:y + h // 4, x:x + w // 4 + i] = 1.0
+        np.save(os.path.join(root, f"segmask{i}.npy"), mask)
+        entries.append({"image": f"segvol{i}.npy", "seg": f"segmask{i}.npy",
+                        "target": SEG_TARGETS[i]})
+    path = os.path.join(root, "seg.json")
+    with open(path, "w") as f:
+        json.dump({"train": entries[:2], "validation": entries[2:]}, f)
+    return path
+
+
+def seg_vlm_launches(cfg, batch, seq, lse_fwd=True):
+    """One `train_vlm --task seg --online-slice-features` step's flash
+    launches by shape: the VLM step's (`vlm_launches`), the 2D trunk's, and
+    SegVol's ViT (forward with the log-sum-exp, no remat, and its B3);
+    `lse_fwd=False`: the seg eval's forwards."""
+    v = cfg.seg_vision or cfg.vision
+    seg = (batch, v.num_heads, v.num_patches, v.num_patches,
+           v.hidden_size // v.num_heads)
+    out = {**vlm_launches(cfg, batch, seq, lse_fwd), **trunk_launches(cfg, batch)}
+    if lse_fwd:
+        out.update({("flash_fwd_lse", *seg): v.num_layers,
+                    ("flash_bwd", *seg): v.num_layers})
+    else:
+        out[("flash_fwd", *seg)] = v.num_layers
+    return out
+
+
+def run_cli_train_seg(card: str, root: str, manifest: str):
+    """[cli-train-seg]: `train_vlm.main(["--task", "seg",
+    "--online-slice-features", ...])` at the CLI's full width (VLMConfig()
+    with LoRA on Phi-4-mini, 32 layers, SegVol trainable, remat on) on the
+    seg manifest, batch 2 x 330 tokens, SEG_TRAIN_STEPS steps and the seg
+    eval at the last: launches by shape each step, finite lm_loss and
+    seg_loss, SegVol's leaves moved by the updates (their gradients are not
+    zero), step ms and peak memory. Returns the numbers, the launches by
+    shape over the run and the LLM's valid lengths by batch size."""
+    import argparse
+    import os
+
+    import torch
+
+    from hsenet_torch.cli import train_vlm
+    from hsenet_torch.cli.common import build_vlm_config
+
+    argv = ["--task", "seg", "--online-slice-features", "--manifest", manifest,
+            "--data-root", root, "--batch-size", str(SEG_BATCH), "--total-steps",
+            str(SEG_TRAIN_STEPS), "--log-every", "1", "--eval-every",
+            str(SEG_TRAIN_STEPS), "--checkpoint-every", "1000",
+            "--remat", "--output-dir", os.path.join(root, "train_seg")]
+    snapshot = ("seg_module.image_encoder.tower.blocks.0.attn.qkv.weight",
+                "seg_module.mask_decoder.hyper_mlp0.fc1.weight",
+                "seg_module.mask_decoder.transformer.block1.mlp_fc1.weight",
+                "seg_projector.layers_0.weight", "seg_projector.layers_2.weight")
+    state, rec = run_train_cli("vlm seg", train_vlm.main, argv, snapshot=snapshot)
+    cfg = build_vlm_config(argparse.Namespace(synthetic=False,
+                                              online_slice_features=True))
+    step = seg_vlm_launches(cfg, SEG_BATCH, 330)
+    numbers = check_train_cli_run("vlm seg", rec, lambda s: step,
+                                  seg_vlm_launches(cfg, SEG_BATCH, 330, False),
+                                  SEG_BATCH, falls=False)
+    logged = [m for _, m in rec["logged"]]
+    lm = [m["lm_loss"] for m in logged]
+    seg = [m["seg_loss"] for m in logged]
+    end = state.model.state_dict()
+    moved = {k: not torch.equal(end[k].cpu(), v) for k, v in rec["before"].items()}
+    per_step = launches_by_kernel(step)
+    print(f"[cli-train-seg] lm_loss {[round(x, 4) for x in lm]}, seg_loss "
+          f"{[round(x, 4) for x in seg]}; B1/B3 launches a step {per_step}; "
+          f"SegVol and seg_projector leaves moved by the updates: {moved}")
+    if not all(map(math.isfinite, lm + seg)) or not all(moved.values()) or len(moved) != len(snapshot):
+        raise AssertionError("[cli-train-seg] a loss is not finite or the seg "
+                             "branch's gradients are zero")
+    numbers.update(lm_loss=lm, seg_loss=seg, seg_leaves_moved=moved,
+                   launches_per_step_by_kernel=per_step, card=card)
+    del state, end
+    rec["before"] = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = {}
+    for counts in (*rec["steps"].values(), rec["after"]):
+        for key, n in counts.items():
+            shapes[key] = shapes.get(key, 0) + n
+    return numbers, shapes, {SEG_BATCH: rec["lens"][0]}
+
+
+class recording_kv_lens:
+    """Within the block, the valid lengths of the first flash forward
+    launched at each (kind, batch, heads, sq, skv, head_dim): `lens`."""
+
+    def __enter__(self):
+        from hsenet_torch.ops import flash_attention as tfa
+
+        self.tfa, self.inner, self.lens = tfa, tfa._forward, {}
+
+        def spy(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+            key = ("flash_fwd_lse" if with_lse else "flash_fwd", *q.shape[:3],
+                   k.shape[2], q.shape[3])
+            self.lens.setdefault(key, tuple(int(n) for n in kv.tolist()))
+            return self.inner(q, k, v, kv, q_off, causal, sm_scale, with_lse)
+
+        tfa._forward = spy
+        return self.lens
+
+    def __exit__(self, *exc):
+        self.tfa._forward = self.inner
+
+
+def f32_b1_case(tag, name, b, h, sq, skv, d, kv_lens, gen):
+    """B1's f32 route at one shape against its f32 plain version (5e-3 of
+    each (batch, head) slice's largest value), beside the same attention
+    without the last 64 valid keys (must miss), timed beside the bound at
+    the TF32 peak, the plain version and f32 SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from hsenet_torch.ops import flash_attention as tfa
+
+    q = torch.randn(b, h, sq, d, generator=gen, device="cuda")
+    k, v = (torch.randn(b, h, skv, d, generator=gen, device="cuda") for _ in range(2))
+    kv_t = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    off_t = torch.zeros(b, dtype=torch.int32, device="cuda")
+    kw = dict(kv_lens=kv_t, causal=False, q_offset=off_t)
+    out = tfa.flash_attention(q, k, v, **kw)
+    ref = tfa.flash_attention_reference(q, k, v, **kw)
+    max_abs, rel = slice_rel(out, ref)
+    col = torch.arange(skv, device="cuda")[None, None, None, :]
+    drop = slice_rel(forward_dropping(q, k, v, kv_t, off_t, False,
+                                      col >= kv_t[:, None, None, None] - 64), ref)[1]
+    bound, bound_by, flops, nbytes = kernel_bound(
+        "flash_fwd", b, h, sq, skv, d, kv_lens, (0,) * b, False, elem=4,
+        peak=PEAK_TF32_FLOPS)
+    mask = tfa._valid(q, k, kv_t, off_t, False)
+    r = {"max_abs_err": max_abs, "max_slice_rel_err": rel,
+         "ms": time_ms(lambda: tfa.flash_attention(q, k, v, **kw)),
+         "plain_ms": time_ms(lambda: tfa.flash_attention_reference(q, k, v, **kw),
+                             reps=3),
+         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+             q, k, v, attn_mask=mask)),
+         "bound_ms": bound, "bound_by": bound_by, "gflop": flops / 1e9,
+         "mbytes": nbytes / 1e6}
+    print(f"[{tag}] flash_fwd f32 {name}: q{tuple(q.shape)} kv_lens "
+          f"{kv_lens if len(set(kv_lens)) > 1 else kv_lens[0]}: err / slice's "
+          f"max |ref| {rel:.3e} (tol {KERNEL_F32_TOL}), without the last 64 "
+          f"valid keys {drop:.3e}; kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, library (f32 SDPA) {r['library_ms']:.4f} ms, "
+          f"bound {bound:.4f} ms at the TF32 peak ({bound_by})")
+    if not rel <= KERNEL_F32_TOL:
+        raise AssertionError(f"the f32 forward disagrees with its plain version at {name}")
+    if drop <= KERNEL_F32_TOL:
+        raise AssertionError(f"the f32 limit passes 64 dropped keys at {name}")
+    return r
+
+
+def run_cli_evaluate_seg(card: str, root: str, manifest: str):
+    """[cli-evaluate-seg]: `evaluate --task seg` on the seg manifest's
+    validation split at batch 2 (SegVol at ViT3DConfig(classification=False)
+    in f32, as the JAX CLI builds it, random weights from seed 0), its
+    prompts embedded by a random stage-1 CLIP (`CLIPConfig()`, f32) that the
+    port saves with `save_params` and the CLI restores from
+    --clip-checkpoint; then `evaluate --task rec --reference-compatible` on
+    the same entries as a PosREC manifest at batch 2, 32 new tokens, with
+    `VLMConfig()` (LoRA on Phi-4-mini, bf16, random from seed 0) built with
+    the in-graph slice features and passed through `model=` (the grounding
+    entries carry no slice features, and the CLI has no flag for them).
+    Random weights make the scores meaningless: they are printed, and the
+    runs and their launches are held. Returns the numbers, the bf16 and the
+    f32 launches by shape and the valid lengths of each shape's first
+    launch."""
+    import argparse
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from hsenet_torch.cli.common import build_vlm_config, random_model
+    from hsenet_torch.cli.evaluate import main as evaluate_main
+    from hsenet_torch.configs import CLIPConfig
+    from hsenet_torch.models.clip import CLIPModel
+    from hsenet_torch.models.mllm import HSENetVLM
+    from hsenet_torch.utils.checkpoint import save_params
+
+    clip_path = os.path.join(root, "clip_stage1.pt")
+    clip = random_model(CLIPModel, CLIPConfig(), dtype=torch.float32,
+                        device="cuda", seed=5)
+    save_params(clip_path, clip.state_dict())
+    del clip
+    numbers, lens = {}, {}
+
+    def run(tag, argv, model=None):
+        out = io.StringIO()
+        with recording_kv_lens() as seen, contextlib.redirect_stdout(out):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (metrics, shapes, by_kernel, f32) = counted(
+                lambda: evaluate_main(argv, model=model))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if json.loads(out.getvalue()) != json.loads(json.dumps(metrics)):
+            raise AssertionError(f"[cli-evaluate-seg] {tag}: the JSON print is "
+                                 "not the result")
+        fwd_route(f"cli-evaluate-seg {tag}", by_kernel, f32)
+        lens.update(seen)
+        print(f"[cli-evaluate-seg] {tag}: evaluate {' '.join(argv)}: {metrics} "
+              f"in {wall:.2f} s; flash launches by shape {shapes}")
+        return {"metrics": metrics, "wall_s": wall,
+                "launches": {" ".join(map(str, k)): n for k, n in shapes.items()}}, shapes
+
+    seg_argv = ["--task", "seg", "--manifest", manifest, "--data-root", root,
+                "--batch-size", str(SEG_BATCH), "--clip-checkpoint", clip_path]
+    numbers["seg"], seg_shapes = run("seg", seg_argv)
+    cfg = seg_vit_config()
+    clip_cfg = CLIPConfig()
+    text = clip_cfg.text
+    batches = (SEG_VOLUMES // 2) // SEG_BATCH
+    want = {("flash_fwd", SEG_BATCH, cfg.num_heads, cfg.num_patches, cfg.num_patches,
+             cfg.hidden_size // cfg.num_heads): batches * cfg.num_layers,
+            ("flash_fwd", SEG_BATCH, text.num_heads, clip_cfg.max_text_len,
+             clip_cfg.max_text_len, text.hidden_size // text.num_heads):
+                batches * text.num_layers}
+    if seg_shapes != want or numbers["seg"]["metrics"]["num_samples"] != SEG_VOLUMES // 2:
+        raise AssertionError(f"[cli-evaluate-seg] seg: launches {seg_shapes}, not {want}")
+
+    vlm_cfg = build_vlm_config(argparse.Namespace(synthetic=False,
+                                                  online_slice_features=True))
+    t0 = time.perf_counter()
+    vlm = random_model(HSENetVLM, vlm_cfg, dtype=torch.bfloat16, device="cuda",
+                       seed=0)
+    print(f"[cli-evaluate-seg] VLMConfig() with LoRA and the in-graph slice "
+          f"features, bf16, built in {time.perf_counter() - t0:.1f} s")
+    rec_argv = ["--task", "rec", "--reference-compatible", "--manifest", manifest,
+                "--data-root", root, "--batch-size", str(SEG_BATCH),
+                "--max-new-tokens", str(EVAL_MAX_NEW)]
+    numbers["rec"], rec_shapes = run("rec", rec_argv, model=vlm)
+    metrics = numbers["rec"]["metrics"]
+    if metrics["num_samples"] != SEG_VOLUMES // 2 or not all(
+            k in metrics for k in ("mean_iou", "acc@0.25", "acc@0.5")):
+        raise AssertionError("[cli-evaluate-seg] rec scored no sample")
+    towers = sum(n for k, n in rec_shapes.items() if k[3] == vlm_cfg.vision.seq_len)
+    if towers != 2 * vlm_cfg.vision.num_layers * batches:
+        raise AssertionError(f"[cli-evaluate-seg] rec: {towers} tower launches")
+    del vlm
+    gc.collect()
+    torch.cuda.empty_cache()
+    numbers["card"] = card
+    return numbers, rec_shapes, seg_shapes, lens
+
+
+def check_seg_f32_kernels(path_shapes, lens):
+    """[kernel-seg] in f32: B1's f32 route at each shape `evaluate --task
+    seg` launched (SegVol's ViT and the CLIP text tower), at that run's
+    valid lengths. Returns the results by name and the launch key -> name."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    results, index = {}, {}
+    for key in sorted(path_shapes):
+        _, b, h, sq, skv, d = key
+        name = index[key] = f"eval_seg_f32_{b}x{h}x{sq}"
+        results[name] = f32_b1_case("kernel-seg", name, b, h, sq, skv, d,
+                                    lens[key], gen)
+    return results, index
+
+
+def masked_clip_model(cfg, seed: int, quant: bool = False):
+    """`MaskedCLIPModel` computing in bf16 with remat, random weights drawn
+    on the card (seed `seed`), every parameter an f32 master."""
+    import torch
+
+    from hsenet_torch.models import init_random_
+    from hsenet_torch.models.clip import MaskedCLIPModel
+    from hsenet_torch.train.vlm import to_training_dtypes
+
+    model = MaskedCLIPModel(cfg, dtype=torch.bfloat16, remat=True, device="cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(seed))
+    return to_training_dtypes(model, {n: True for n, _ in model.named_parameters()})
+
+
+def masked_clip_launches(cfg, batch, kept):
+    """The flash launches of one legacy masked CLIP step: the full stream
+    and the masked stream of `kept` patches each through the tower (forward
+    twice per block under remat, with the log-sum-exp, and B3), BERT
+    once."""
+    want = {}
+    v = cfg.vision
+    for seq in (v.seq_len, kept + 1):
+        key = (batch, v.num_heads, seq, seq, v.hidden_size // v.num_heads)
+        want[("flash_fwd_lse", *key)] = want.get(("flash_fwd_lse", *key), 0) + 2 * v.num_layers
+        want[("flash_bwd", *key)] = want.get(("flash_bwd", *key), 0) + v.num_layers
+    t = cfg.text
+    text = (batch, t.num_heads, cfg.max_text_len, cfg.max_text_len,
+            t.hidden_size // t.num_heads)
+    want[("flash_fwd_lse", *text)] = t.num_layers
+    want[("flash_bwd", *text)] = t.num_layers
+    return want
+
+
+def run_clip_masked(card: str):
+    """[clip-masked]: `MaskedCLIPModel(CLIPConfig())` at batch 24 (bf16 over
+    f32 masters, remat) through `make_masked_clip_train_step` at the ramp's
+    steps 0, 5000 and 20000 (2048, 1792 and 1280 kept patches): launches by
+    shape each step, finite losses, step ms, peak memory; the gradients at
+    batch 6 and bucket 1280 against the plain attention path after a few
+    steps on the batch, beside two planted backward faults; the W8A8 static
+    mode of both streams against bf16 (per-token cosine). Returns the
+    numbers and the launches by shape of the three steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hsenet_torch.configs import TrainConfig
+    from hsenet_torch.models.lora import calibrate_w8a8_act_scales, quantize_towers_w8a8
+    from hsenet_torch.models.vit import MaskedViT3D
+    from hsenet_torch.ops import attention
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.train.legacy_clip import (
+        bucketed_unmasked_tokens,
+        make_masked_clip_train_step,
+        masked_clip_loss_fn,
+    )
+    from hsenet_torch.train.train_state import TrainState, make_optimizer
+
+    cfg = clip_config()
+    n_patch = cfg.vision.num_patches
+    kept = [bucketed_unmasked_tokens(s, n_patch) for s in MASKED_STEPS]
+    if kept[0] != n_patch or len(set(kept)) != len(kept):
+        raise AssertionError(f"[clip-masked] buckets {kept}")
+    model = masked_clip_model(cfg, seed=7)
+    tx = make_optimizer(TrainConfig(learning_rate=1e-4, warmup_ratio=0.0,
+                                    schedule="constant"))
+    state, step = TrainState.create(model, tx), make_masked_clip_train_step(model, tx)
+    batch = {k: torch.as_tensor(v).to("cuda") for k, v in
+             clip_batch(cfg, CLIP_BATCH, "clip2", seed=37).items()
+             if isinstance(v, np.ndarray)}
+    state, _ = step(state, batch, 0, kept[-1])  # warm-up, not counted
+    rows, shapes = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for s, k in zip(MASKED_STEPS, kept):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, metrics), launched, by_kernel, f32 = counted(
+            lambda: step(state, batch, s, k))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        fwd_route(f"clip-masked {k}", by_kernel, f32)
+        want = masked_clip_launches(cfg, CLIP_BATCH, k)
+        m = {key: float(v) for key, v in metrics.items()}
+        print(f"[clip-masked] step at ramp step {s}: {k} kept patches, {ms:.1f} "
+              f"ms, {m}; launches by shape {launched}")
+        if launched != want or not all(map(math.isfinite, m.values())):
+            raise AssertionError(f"[clip-masked] launches {launched}, not {want}, "
+                                 "or a loss is not finite")
+        for key, n in launched.items():
+            shapes[key] = shapes.get(key, 0) + n
+        rows.append({"ramp_step": s, "kept": k, "step_ms": ms, **m})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[clip-masked] batch {CLIP_BATCH} on {card}: step ms "
+          f"{[round(r['step_ms'], 1) for r in rows]}, peak memory {peak:.2f} GB")
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gradients through the kernels against the plain path, after a few
+    # steps on the batch pulled the features apart (see [clip-grads])
+    small = {k: torch.as_tensor(v).to("cuda") for k, v in
+             clip_batch(cfg, CLIP_GRADS_BATCH, "clip2", seed=23).items()
+             if isinstance(v, np.ndarray)}
+    state, step = TrainState.create(model, tx), make_masked_clip_train_step(model, tx)
+    for _ in range(CLIP_GRADS_WARM_STEPS):
+        state, metrics = step(state, small, 0, kept[-1])
+    names, params = zip(*model.named_parameters())
+    groups = {"tower": ("vision_encoder.",), "bert": ("language_encoder.",),
+              "projections": ("mm_", "logit_scale")}
+
+    def grads():
+        loss, _ = masked_clip_loss_fn(model, small, kept[-1])
+        return loss.item(), torch.autograd.grad(loss, params, allow_unused=True)
+
+    def rel_l2(g, ref):
+        rel = {}
+        for group, prefixes in groups.items():
+            idx = [i for i, n in enumerate(names) if n.startswith(prefixes)]
+            num = sum((g[i].float() - ref[i].float()).pow(2).sum() for i in idx)
+            den = sum(ref[i].float().pow(2).sum() for i in idx)
+            rel[group] = (num / den).sqrt().item()
+        return rel
+
+    loss_k, g_k = grads()
+    try:
+        attention.set_flash_mode("never")
+        loss_p, g_p = grads()
+    finally:
+        attention.set_flash_mode("auto")
+    rel = rel_l2(g_k, g_p)
+    del g_k
+    sound = tfa.flash_attention_backward
+    faults = {"delta left out": lambda q, k, v, o, *rest: sound(
+                  q, k, v, torch.zeros_like(o), *rest),
+              "no attention gradient": lambda q, k, v, *rest: tuple(
+                  torch.zeros_like(t) for t in (q, k, v))}
+    wrong = {}
+    for fault, backward in faults.items():
+        try:
+            tfa.flash_attention_backward = backward
+            _, g_w = grads()
+        finally:
+            tfa.flash_attention_backward = sound
+        wrong[fault] = rel_l2(g_w, g_p)
+        del g_w
+    print(f"[clip-masked] gradients at batch {CLIP_GRADS_BATCH}, {kept[-1]} kept, "
+          f"after {CLIP_GRADS_WARM_STEPS} steps: loss kernel {loss_k:.6f} vs plain "
+          f"{loss_p:.6f}; rel L2 by " + ", ".join(f"{g} {r:.3e}" for g, r in rel.items())
+          + f" (tol {TRAIN_GRAD_REL_L2}); planted faults: "
+          + "; ".join(f"{f}: " + ", ".join(f"{g} {r:.3e}" for g, r in w.items())
+                      for f, w in wrong.items()))
+    if max(rel.values()) > TRAIN_GRAD_REL_L2:
+        raise AssertionError("[clip-masked] gradients through the kernels "
+                             "disagree with the plain path")
+    for fault, w in wrong.items():
+        if max(w["tower"], w["bert"]) <= TRAIN_GRAD_REL_L2:
+            raise AssertionError(f"[clip-masked] the gradient limit passes {fault}")
+    del state, step, params, g_p, small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # W8A8 static mode of both streams: int8 tower blocks, activation scales
+    # calibrated on the batch, against the bf16 encoder of the same weights
+    enc = model.vision_encoder.eval()
+    qcfg = dataclasses.replace(cfg.vision, quant_w8a8=True, quant_w8a8_static=True)
+    qenc = MaskedViT3D(qcfg, dtype=torch.bfloat16, device="cuda")
+    qenc.load_state_dict(quantize_towers_w8a8(
+        {k: v.detach() for k, v in enc.state_dict().items()}, static=True), strict=True)
+    wbatch = clip_batch(cfg, MASKED_W8A8_BATCH, "clip2", seed=47)
+    args = (torch.as_tensor(wbatch["image"]).to("cuda"),
+            torch.as_tensor(wbatch["image_2d"]).to("cuda"), kept[-1])
+    with torch.no_grad():
+        calibrate_w8a8_act_scales(qenc.eval(), [args])
+        got = qenc(*args)
+        want = enc(*args)
+    cos = {name: token_cosines(g, w) for name, g, w in
+           zip(("full", "masked"), got, want)}
+    print(f"[clip-masked] W8A8 static, batch {MASKED_W8A8_BATCH}, {kept[-1]} kept: "
+          "per-token cosine against bf16: " + ", ".join(
+              f"{n} min {c.min().item():.5f} mean {c.mean().item():.5f}"
+              for n, c in cos.items()) + f" (limit min >= {W8A8_COSINE_MIN})")
+    if min(c.min().item() for c in cos.values()) < W8A8_COSINE_MIN:
+        raise AssertionError("[clip-masked] the W8A8 streams miss bf16")
+    del model, enc, qenc, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": rows, "peak_memory_gb": peak, "grad_rel_l2": rel,
+            "planted_faults_rel_l2": wrong, "loss_kernel": loss_k,
+            "loss_plain": loss_p,
+            "w8a8_cosine": {n: {"min": c.min().item(), "mean": c.mean().item()}
+                            for n, c in cos.items()}, "card": card}, shapes
+
+
+def run_remat_dots(model, names, params, batch):
+    """[remat-dots]: [train]'s finetune step (3 x 800) with Phi remat policy
+    "dots" against "full" on the same model and batch: the trainable
+    leaves' gradients (relative L2 by group, limit REMAT_DOTS_REL_L2), the
+    forward + backward ms and the peak memory of each."""
+    import dataclasses
+
+    import torch
+
+    from hsenet_torch.train.vlm import vlm_loss_fn
+
+    decoder = model.llm.decoder
+    full_cfg = decoder.config
+    out = {}
+    for policy in ("full", "dots"):
+        decoder.config = dataclasses.replace(full_cfg, remat_policy=policy)
+
+        def grads():
+            loss, _ = vlm_loss_fn(model, batch)
+            return torch.autograd.grad(loss, params)
+
+        try:
+            g = grads()
+            ms = median_wall_ms(grads, runs=3)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            grads()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            decoder.config = full_cfg
+        out[policy] = {"grads": g, "ms": ms, "peak_gb": peak}
+    groups = {"lora": "lora_", "packers": "mm_projector", "embedding": "llm.embed"}
+    rel = {}
+    for group, key in groups.items():
+        idx = [i for i, n in enumerate(names) if key in n]
+        num = sum((out["dots"]["grads"][i].float() - out["full"]["grads"][i].float())
+                  .pow(2).sum() for i in idx)
+        den = sum(out["full"]["grads"][i].float().pow(2).sum() for i in idx)
+        rel[group] = (num / den).sqrt().item()
+    print(f"[remat-dots] finetune step 3 x 800: gradient rel L2 dots against full "
+          + ", ".join(f"{g} {r:.3e}" for g, r in rel.items())
+          + f" (limit {REMAT_DOTS_REL_L2}); forward + backward ms full "
+          f"{out['full']['ms']:.1f}, dots {out['dots']['ms']:.1f}; peak memory "
+          f"full {out['full']['peak_gb']:.2f} GB, dots {out['dots']['peak_gb']:.2f} GB")
+    if max(rel.values()) > REMAT_DOTS_REL_L2:
+        raise AssertionError("[remat-dots] the dots policy's gradients miss full's")
+    return {"grad_rel_l2": rel,
+            **{f"{p}_ms": out[p]["ms"] for p in out},
+            **{f"{p}_peak_gb": out[p]["peak_gb"] for p in out}}
+
+
 def main() -> int:
     try:
         import torch
@@ -7018,6 +7818,48 @@ def main() -> int:
         train_cli_shapes, known, train_cli_lens)
     lap("[cli-train], [kernel-train-cli]")
 
+    # the segmentation slice: B1 and B3 at its shapes; SegVol with its
+    # predictor, the sliding window and the Swin encoder; the seg finetune
+    # and the seg and REC evaluations through the CLIs on a seg manifest;
+    # then B1 and B3 at the shapes those runs launched that no phase above
+    # timed; the legacy masked CLIP
+    seg_kernels = check_seg_kernels()
+    lap("[kernel-seg]")
+    segvol_numbers, segvol_shapes = run_segvol(card)
+    lap("[segvol]")
+    seg_root = tempfile.mkdtemp(prefix="hsenet_seg_")
+    try:
+        seg_manifest = write_seg_data(seg_root)
+        train_seg_numbers, train_seg_shapes, train_seg_lens = run_cli_train_seg(
+            card, seg_root, seg_manifest)
+        gc.collect()
+        torch.cuda.empty_cache()
+        (eval_seg_numbers, rec_shapes, eval_seg_f32_shapes,
+         eval_seg_lens) = run_cli_evaluate_seg(card, seg_root, seg_manifest)
+    finally:
+        shutil.rmtree(seg_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    known_seg = {**known, **train_cli_index, **seg_shape_index()}
+    train_seg_kernels, train_seg_index = check_train_cli_kernels(
+        train_seg_shapes, known_seg, train_seg_lens)
+    known_seg.update(train_seg_index)
+    rec_kernels, rec_index = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    for key in sorted(k for k in rec_shapes if k not in known_seg):
+        _, b, h, sq, skv, d = key
+        name = rec_index[key] = f"eval_rec_{b}x{h}x{sq}x{skv}"
+        rec_kernels[name] = b1_case("kernel-seg", name, b, h, sq, skv, d,
+                                    eval_seg_lens[key], d != 64, gen)
+    known_seg.update({k: ("flash_fwd", n) for k, n in rec_index.items()})
+    seg_f32_kernels, seg_f32_index = check_seg_f32_kernels(eval_seg_f32_shapes,
+                                                           eval_seg_lens)
+    lap("[cli-train-seg], [cli-evaluate-seg], their kernels")
+    masked_numbers, masked_shapes = run_clip_masked(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("[clip-masked]")
+
     # launches on the main paths, by shape: one generate run, one training
     # step (its towers run at the tower shape) and the counted serving runs
     # (closed loop, open loop, the long-budget engine): 24 tower launches
@@ -7090,6 +7932,16 @@ def main() -> int:
         counts[shape] = counts.get(shape, 0) + n
         train_cli_counts[kernel][shape] = train_cli_counts[kernel].get(shape, 0) + n
     train_cli_numbers["launches_by_shape"] = train_cli_counts
+    # this slice's launches by shape: [segvol]'s forward and sliding window,
+    # the [cli-train-seg] run, the [cli-evaluate-seg] rec run (the seg run is
+    # f32, below) and the three [clip-masked] steps
+    seg_counts = {"flash_fwd": {}, "flash_bwd": {}}
+    for path in (segvol_shapes, train_seg_shapes, rec_shapes, masked_shapes):
+        for key, n in path.items():
+            kernel, shape = known_seg[key]
+            counts = fwd_counts if kernel == "flash_fwd" else bwd_counts
+            counts[shape] = counts.get(shape, 0) + n
+            seg_counts[kernel][shape] = seg_counts[kernel].get(shape, 0) + n
     # the f32 launches by shape: the two [cli-serve] runs and one step of
     # [train-f32]
     f32_counts = {k: {} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -7097,6 +7949,12 @@ def main() -> int:
         for key, n in counts.items():
             kernel, shape = f32_index[key]
             f32_counts[kernel][shape] = f32_counts[kernel].get(shape, 0) + n
+    # the f32 launches of [cli-evaluate-seg]'s seg run (SegVol and BERT)
+    f32_kernels["flash_fwd"].update(seg_f32_kernels)
+    for key, n in eval_seg_f32_shapes.items():
+        name = seg_f32_index[key]
+        f32_counts["flash_fwd"][name] = f32_counts["flash_fwd"].get(name, 0) + n
+        seg_counts["flash_fwd"][name] = n
 
     def entry(name, source, replaces, shapes, path_counts, note):
         # a kernel that no path launches: its per-launch numbers, summed
@@ -7138,11 +7996,16 @@ def main() -> int:
             "cached, train_vlm mrg and resumed, vqa --int8-base; the "
             "train_cli_ shapes) and the seventh, train_vlm "
             "--online-slice-features (its trunk at vit2d_64), and [vit2d]'s "
-            "preprocess_ct --vit2d-checkpoint run (vit2d_32): per-launch times "
-            "at each shape x its launches there")
+            "preprocess_ct --vit2d-checkpoint run (vit2d_32); this slice's runs: "
+            "[segvol]'s forward at batch 2 and its sliding window (segvol_), "
+            "the [cli-train-seg] run whole (SegVol at segvol_vit, the rest at "
+            "their shapes), [cli-evaluate-seg]'s rec run and the three "
+            "[clip-masked] steps (masked_ and the clip_ shapes): per-launch "
+            "times at each shape x its launches there")
     jax_fa = "hsenet_tpu/ops/flash_attention.py"
-    f32_note = ("f32 route (TF32 products), sums over the two [cli-serve] runs "
-                "and one step of [train-f32]: per-launch times at the padded "
+    f32_note = ("f32 route (TF32 products), sums over the two [cli-serve] runs, "
+                "one step of [train-f32] and [cli-evaluate-seg]'s seg run (SegVol "
+                "and the CLIP text tower in f32, eval_seg_f32_): per-launch times at the padded "
                 "width at each shape x its launches there; bound at the TF32 "
                 "peak; library is f32 SDPA")
     wide_note = ("the wide route (ROADMAP C2: bf16 and f16 above head dim 256, "
@@ -7161,7 +8024,8 @@ def main() -> int:
               f"{jax_fa}:109 (_flash_kernel), {jax_fa}:256 (_flash_kernel_stream)",
               {**per_shape, **clip_kernels["flash_fwd"], **encode_shapes,
                **eval_kernels, **train_cli_kernels["flash_fwd"], **vit2d_kernels,
-               **llama_flash, **qformer_kernels},
+               **llama_flash, **qformer_kernels, **seg_kernels["flash_fwd"],
+               **train_seg_kernels["flash_fwd"], **rec_kernels},
               fwd_counts, note + "; one W8A8 encode at its batch-8 tower shape "
               "and the speculative engine's admissions ([spec]'s one prefill "
               "is left out); the six [serve-sample] runs' admissions; the "
@@ -7178,7 +8042,8 @@ def main() -> int:
               f"{jax_fa}:552 (_bwd_dq_kernel), {jax_fa}:611 (_bwd_dkv_kernel), "
               f"{jax_fa}:678 (_bwd_dq_kernel_stream), {jax_fa}:750 "
               "(_bwd_dkv_kernel_stream)",
-              {**bwd, **clip_kernels["flash_bwd"], **train_cli_kernels["flash_bwd"]},
+              {**bwd, **clip_kernels["flash_bwd"], **train_cli_kernels["flash_bwd"],
+               **seg_kernels["flash_bwd"], **train_seg_kernels["flash_bwd"]},
               bwd_counts,
               note + "; bf16; plain and library times compute dQ, dK and dV"),
         entry("flash_bwd_dq_d256", "hsenet_torch/csrc/flash_bwd_dq.cu",
@@ -7265,7 +8130,10 @@ def main() -> int:
                       "sample": sample_numbers, "spec_law": spec_law_numbers,
                       "serve_sample": sample_serve, "cli_sample": cli_sample_numbers,
                       "llama": llama_numbers, "variants": variant_numbers,
-                      "card": card}))
+                      "segvol": segvol_numbers, "cli_train_seg": train_seg_numbers,
+                      "cli_evaluate_seg": eval_seg_numbers,
+                      "clip_masked": masked_numbers,
+                      "seg_launches_by_shape": seg_counts, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,13 @@ returns a state_dict that the matching port module accepts with
   * Dense `kernel` (in, out) -> Linear `weight` (out, in);
   * LayerNorm / RMSNorm `scale` -> `weight`; `bias` stays `bias`;
   * Embed `embedding` -> `weight` (it also serves the tied LM head);
+  * a ConvTranspose `kernel` (kd, kh, kw, in, out) -> ConvTranspose3d
+    `weight` (in, out, kd, kh, kw) with the spatial axes flipped (SegVol's
+    upscaling);
   * `pos_embed`, `cls_token`, QFormer's `query_embeds`, `lora_a`,
-    `lora_b`, CLIP's 0-d `logit_scale` and a W8A8 dense's 0-d `act_scale`
-    keep name and layout;
+    `lora_b`, CLIP's 0-d `logit_scale`, a W8A8 dense's 0-d `act_scale`,
+    SegVol's `gaussian_matrix`, prompt and output token tables and Swin's
+    `relative_position_bias_table` keep name and layout;
   * int8 leaves become the int8 / f32 buffers of the port's modules and
     keep their dtype: `kernel_q` (in, out) int8 -> `weight_q` (out, in),
     transposed like `kernel`, so that one output channel is one
@@ -39,7 +43,11 @@ from torch import nn
 _SCAN_STACKS = (("tower", "blocks"), ("decoder", "layers"),
                 ("language_encoder", "layers"))
 _SAME_NAME = ("bias", "pos_embed", "cls_token", "query_embeds", "lora_a",
-              "lora_b", "embedding_q", "logit_scale", "act_scale")
+              "lora_b", "embedding_q", "logit_scale", "act_scale",
+              # SegVol's prompt encoder and mask decoder, Swin's bias table
+              "gaussian_matrix", "point_embeddings", "not_a_point_embed",
+              "no_mask_embed", "iou_token", "mask_tokens",
+              "relative_position_bias_table")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -53,6 +61,12 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
 
 def _leaf(name: str, value: np.ndarray, path,
           quant_embed: bool = False) -> Tuple[str, np.ndarray]:
+    if name == "kernel" and value.ndim == 5:
+        # flax ConvTranspose (kd, kh, kw, in, out), no kernel transpose ->
+        # nn.ConvTranspose3d (in, out, kd, kh, kw): flax puts K[k - 1 - a]
+        # where PyTorch puts W[a], so the spatial axes flip
+        flipped = value.transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1]
+        return "weight", np.ascontiguousarray(flipped)
     if name in ("kernel", "kernel_q"):
         if value.ndim != 2:
             raise ValueError(f"{'/'.join(path)}: Dense kernel of shape {value.shape}")

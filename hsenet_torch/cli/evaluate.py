@@ -1,5 +1,5 @@
-"""Evaluation entry point: MRG, VQA and CLIP retrieval (the port of the JAX
-package's cli/evaluate.py).
+"""Evaluation entry point: MRG, VQA, CLIP retrieval, segmentation and REC
+(the port of the JAX package's cli/evaluate.py).
 
 Counterparts of the reference Bench scripts (`eval_HSENet_CT_Rate_MRG.py`,
 `eval_HSENet_BIMCV_R_MRG.py`, `eval_HSENet_Rad_Geome_VQA.py`) and the
@@ -10,6 +10,8 @@ with the JAX CLI's arguments:
     python -m hsenet_torch.cli.evaluate --task mrg --synthetic
     python -m hsenet_torch.cli.evaluate --task vqa --synthetic --engine
     python -m hsenet_torch.cli.evaluate --task retrieval --synthetic
+    python -m hsenet_torch.cli.evaluate --task seg --synthetic
+    python -m hsenet_torch.cli.evaluate --task rec --synthetic
     # the same on a host without a card: `main` takes `device="cpu"`
     python -c "from hsenet_torch.cli.evaluate import main; \
         main(['--task', 'mrg', '--synthetic'], device='cpu')"
@@ -28,8 +30,16 @@ Without --checkpoint the weights are random, drawn from seed 0 (the JAX
 CLI draws its own from PRNGKey(0)). --do-sample draws from the port's own
 random stream (one seed, one token stream per device, none equal to the
 JAX CLI's); as in the JAX CLI it refuses --engine and --spec-decode.
---task seg|rec waits for the segmentation slice (ROADMAP §A8), --dp / --tp
-above 1 for the parallel slice (§A9); each raises
+
+`seg` scores SegVol alone (`ViT3DConfig(classification=False)`, f32 as in
+the JAX CLI) by dice over `SegQADataset` batches; its prompts are embedded
+by a stage-1 CLIP's text tower restored from --clip-checkpoint (required
+without --synthetic, which prompts with a fixed embedding). `rec` generates
+box answers over `PosRECDataset` batches and scores their IoU and
+accuracy at 0.25 and 0.5, with the reference's bounding-extent IoU under
+--reference-compatible (Bench/utils.py:38-54).
+
+--dp / --tp above 1 wait for the parallel slice (ROADMAP §A9) and raise
 `NotImplementedError`. --task retrieval needs --synthetic: the JAX CLI
 builds no model configuration without it (ROADMAP §C).
 """
@@ -58,14 +68,94 @@ def _tiny_clip_cfg():
     )
 
 
+def _evaluate_seg(args, parser, device, model, max_samples):
+    """--task seg: SegVol's dice over seg QA batches (see the module
+    docstring)."""
+    import numpy as np
+
+    from hsenet_torch.cli.common import random_model, restore_checkpoint
+    from hsenet_torch.configs import CLIPConfig, ViT3DConfig
+    from hsenet_torch.data.datasets import (
+        DataArgs,
+        DataLoader,
+        SegQADataset,
+        SimpleTokenizer,
+    )
+    from hsenet_torch.eval.segmentation import evaluate_segmentation
+    from hsenet_torch.models.segvol import SegVol
+
+    if args.synthetic:
+        vit_cfg = ViT3DConfig(
+            image_size=(8, 16, 16), patch_size=(2, 4, 4), hidden_size=32,
+            mlp_dim=64, num_layers=1, num_heads=4, classification=False,
+        )
+    else:
+        vit_cfg = ViT3DConfig(classification=False)
+    if model is None:
+        model = random_model(SegVol, vit_cfg, dtype=torch.float32,
+                             device=device, seed=0)
+    if args.checkpoint:
+        restore_checkpoint(model, args.checkpoint)
+
+    def segment_fn(volume, text_emb):
+        return model(volume, text_emb)
+
+    if args.synthetic:
+        def text_embed_fn(prompts):
+            # a fixed embedding drives the prompt encoder without a text tower
+            return np.ones((len(prompts), vit_cfg.hidden_size), np.float32)
+    else:
+        # real runs embed the prompts with a stage-1 CLIP's text tower
+        if not args.clip_checkpoint:
+            parser.error("--task seg without --synthetic needs "
+                         "--clip-checkpoint (stage-1 CLIP params for "
+                         "prompt embeddings)")
+        from hsenet_torch.cli.common import load_tokenizer
+        from hsenet_torch.models.clip import CLIPModel
+
+        clip_cfg = CLIPConfig()
+        clip = random_model(CLIPModel, clip_cfg, dtype=torch.float32,
+                            device=device, seed=0)
+        restore_checkpoint(clip, args.clip_checkpoint)
+        tok = load_tokenizer(args, clip_cfg.text.vocab_size)
+
+        @torch.no_grad()
+        def text_embed_fn(prompts):
+            rows = [tok(t_, max_length=clip_cfg.max_text_len, truncation=True,
+                        padding="max_length") for t_ in prompts]
+            ids, mask = (
+                torch.as_tensor(np.concatenate(
+                    [np.asarray(r[k]).reshape(1, -1) for r in rows]),
+                    device=device)
+                for k in ("input_ids", "attention_mask"))
+            return clip.encode_text(ids, mask)[0]
+
+    if args.synthetic:
+        rng = np.random.default_rng(0)
+        batches = [{
+            "image": rng.random((2, 1, *vit_cfg.image_size)).astype("float32"),
+            "seg": (rng.random((2, 1, *vit_cfg.image_size)) > 0.5
+                    ).astype("float32"),
+            "question": ["segment the liver [SEG]", "segment the heart [SEG]"],
+        }]
+    else:
+        ds = SegQADataset(DataArgs(data_root=args.data_root), SimpleTokenizer(),
+                          args.manifest, args.split)
+        batches = DataLoader(ds, batch_size=args.batch_size, shuffle=False,
+                             drop_remainder=False)
+    return evaluate_segmentation(segment_fn, text_embed_fn, batches,
+                                 max_samples=max_samples, device=device)
+
+
 def main(argv=None, *, device="cuda", model=None):
     """Score the task `argv` describes and print the metrics as JSON (the
     JAX CLI's print). Runs on the CUDA card unless the caller passes
     `device="cpu"`, where every kernel is replaced by its plain version.
 
     `model`, where given, is evaluated in place of the configuration's
-    model with random weights: a `HSENetVLM` for mrg/vqa, a `CLIPModel`
-    for retrieval, on `device` (--checkpoint, if set, loads into it)."""
+    model with random weights: a `HSENetVLM` for mrg/vqa/rec, a
+    `CLIPModel` for retrieval, a `SegVol` for seg, on `device`
+    (--checkpoint, if set, loads into it)."""
     p = argparse.ArgumentParser()
     p.add_argument(
         "--task", choices=["mrg", "vqa", "retrieval", "seg", "rec"],
@@ -73,7 +163,7 @@ def main(argv=None, *, device="cuda", model=None):
     )
     p.add_argument("--reference-compatible", action="store_true",
                    help="rec: score with the reference's bounding-extent "
-                        "IoU (waits for the segmentation slice)")
+                        "IoU (Bench/utils.py:38-54)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--data-root", default="")
     p.add_argument("--manifest", default="")
@@ -121,9 +211,6 @@ def main(argv=None, *, device="cuda", model=None):
                         "slice)")
     args = p.parse_args(argv)
     for flag, what in (
-        (args.task in ("seg", "rec"),
-         f"--task {args.task} waits for the segmentation slice of the port "
-         "(ROADMAP §A8)"),
         (args.dp > 1 or args.tp > 1,
          "--dp / --tp above 1 wait for the parallel slice of the port "
          "(ROADMAP §A9)"),
@@ -174,6 +261,11 @@ def main(argv=None, *, device="cuda", model=None):
         print(json.dumps(metrics, indent=2))
         return metrics
 
+    if args.task == "seg":
+        metrics = _evaluate_seg(args, p, device, model, max_samples)
+        print(json.dumps(metrics, indent=2))
+        return metrics
+
     from hsenet_torch.models.mllm import HSENetVLM
 
     max_new = args.max_new_tokens or (512 if args.task == "mrg" else 74)
@@ -197,6 +289,10 @@ def main(argv=None, *, device="cuda", model=None):
         from hsenet_torch.data.datasets import CaptionDataset
 
         ds = CaptionDataset(data_args, tokenizer, args.manifest, args.split)
+    elif args.task == "rec":
+        from hsenet_torch.data.datasets import PosRECDataset
+
+        ds = PosRECDataset(data_args, tokenizer, args.manifest, args.split)
     else:
         from hsenet_torch.data.datasets import VQALocationDataset
 
@@ -262,7 +358,29 @@ def main(argv=None, *, device="cuda", model=None):
         def gen(*a, **kw):
             return inner_gen(*a, rng=fold_seed(args.gen_seed, next(counter)),
                              **kw)
-    if args.task == "mrg":
+    if args.task == "rec":
+        import numpy as np
+
+        from hsenet_torch.eval.segmentation import evaluate_rec
+
+        if args.synthetic:
+            # the synthetic caption batches carry no gold boxes; fixed ones
+            # run the IoU path end to end, as in the JAX CLI
+            def _with_boxes(it):
+                for b_ in it:
+                    b_ = dict(b_)
+                    b_["box"] = [
+                        np.asarray([0.1, 0.1, 0.1, 0.6, 0.6, 0.6], np.float32)
+                        for _ in range(len(b_["input_ids"]))
+                    ]
+                    yield b_
+
+            loader = _with_boxes(loader)
+        metrics = evaluate_rec(
+            gen, loader, tokenizer, max_samples=max_samples,
+            reference_compatible=args.reference_compatible, device=device,
+        )
+    elif args.task == "mrg":
         from hsenet_torch.eval.mrg import evaluate_mrg
 
         metrics = evaluate_mrg(

@@ -1,5 +1,5 @@
-"""VLM finetune entry point, MRG or VQA (the port of the JAX package's
-cli/train_vlm.py).
+"""VLM finetune entry point, MRG, VQA or SEG (the port of the JAX
+package's cli/train_vlm.py).
 
 Counterpart of the reference `train_VLM.py` + `script/train_vlm_{mrg,vqa}.sh`
 (LoRA r16/a32, projectors + embeddings trainable, towers/LLM base frozen;
@@ -24,9 +24,12 @@ packers and token table over them. The run ends with
 `save_vlm_deltas(<out>/vlm_deltas)`. --online-slice-features computes the
 2E3 tower's slice features in-graph from the volume with the frozen
 BiomedCLIP trunk (`models.vit.OnlineSliceFeatures`), so the manifest needs
-no `biomedclip_features`. --task seg waits for the segmentation slice
-(ROADMAP §A8), --pp, --sp, --fsdp, --zero1 and --dp / --tp above 1 for the
-parallel slice (§A9); each raises `NotImplementedError`.
+no `biomedclip_features`. --task seg also trains the [SEG]-routed SegVol
+branch (`seg_enable`, dice + BCE added to the LM loss, `SegQADataset`);
+seg manifests carry no slice features, so it pairs with
+--online-slice-features. --pp, --sp, --fsdp, --zero1 and --dp / --tp above
+1 wait for the parallel slice (ROADMAP §A9) and raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -67,8 +70,9 @@ def main(argv=None, *, device="cuda", model=None):
     """Finetune as `argv` says; returns the final `TrainState` (its `model`
     is the trained VLM). Runs on the CUDA card unless the caller passes
     `device="cpu"`. `model`, where given, is the float `HSENetVLM` of
-    `build_vlm_config` (on `device`) in place of one drawn from --seed; the
-    grafts and --int8-base apply to it."""
+    `build_vlm_config` (with the seg branch under --task seg; on `device`)
+    in place of one drawn from --seed; the grafts and --int8-base apply to
+    it."""
     from hsenet_torch import resolve_device
     from hsenet_torch.data.datasets import SPECIAL_TOKENS, DataArgs, DataLoader
     from hsenet_torch.models.lora import quantize_kernels_int8
@@ -90,8 +94,8 @@ def main(argv=None, *, device="cuda", model=None):
     p = argparse.ArgumentParser()
     add_train_args(p)
     p.add_argument("--task", choices=["mrg", "vqa", "seg"], default="mrg",
-                   help="seg trains the [SEG]-routed SegVol branch (waits "
-                        "for the segmentation slice)")
+                   help="seg trains the [SEG]-routed SegVol branch "
+                        "(dice+BCE added to the LM loss)")
     p.add_argument("--online-slice-features", action="store_true",
                    help="compute the 2E3 tower's 2D-slice features "
                         "in-graph from the volume (reference ViT4LLM_v3) "
@@ -139,10 +143,6 @@ def main(argv=None, *, device="cuda", model=None):
                 "the param placement); drop --zero1")
     if args.task == "seg" and (args.pp > 1 or args.sp > 1):
         p.error("--task seg uses the plain train step (no --pp / --sp)")
-    if args.task == "seg":
-        raise NotImplementedError(
-            "--task seg waits for the segmentation slice of the port "
-            "(ROADMAP §A8)")
     refuse_parallel_flags(args)
     device = resolve_device(device)
 
@@ -151,6 +151,11 @@ def main(argv=None, *, device="cuda", model=None):
     train_cfg = train_config_from_args(args)
     dtype = dtype_from_args(args)
     tokenizer = load_tokenizer(args, cfg.llm.vocab_size, SPECIAL_TOKENS)
+    seg = args.task == "seg"
+    if seg:
+        cfg = dataclasses.replace(
+            cfg, seg_enable=True,
+            seg_token_id=int(tokenizer.convert_tokens_to_ids("[SEG]")))
     data_args = DataArgs(data_root=args.data_root, max_length=max_length,
                          proj_out_num=cfg.num_image_tokens)
     if args.synthetic:
@@ -160,7 +165,8 @@ def main(argv=None, *, device="cuda", model=None):
                                         max_length=min(max_length, 96))
         dataset = SyntheticCTDataset(
             n=max(args.batch_size * 2, 8), shape=(1, *cfg.vision.image_size),
-            tokenizer=tokenizer, mode="caption", args=data_args,
+            tokenizer=tokenizer, mode="seg" if seg else "caption",
+            args=data_args,
             num_slices=cfg.vision.num_slices,
             slice_dim=cfg.vision.slice_feature_dim,
         )
@@ -168,6 +174,10 @@ def main(argv=None, *, device="cuda", model=None):
         from hsenet_torch.data.datasets import CaptionDataset
 
         dataset = CaptionDataset(data_args, tokenizer, args.manifest, "train")
+    elif seg:
+        from hsenet_torch.data.datasets import SegQADataset
+
+        dataset = SegQADataset(data_args, tokenizer, args.manifest, "train")
     else:
         from hsenet_torch.data.datasets import VQALocationDataset
 
@@ -224,9 +234,10 @@ def main(argv=None, *, device="cuda", model=None):
     ckpt = CheckpointManager(args.output_dir, async_save=args.async_save)
     train_state = restore_or_fresh(TrainState.create(model, tx), args, ckpt)
     dump_config(args.output_dir, cfg, train_cfg)
-    step_fn = make_vlm_train_step(model, tx, grad_accum=args.grad_accum)
+    step_fn = make_vlm_train_step(model, tx, grad_accum=args.grad_accum,
+                                  seg=seg)
 
-    evaluate = make_vlm_eval_fn(model)
+    evaluate = make_vlm_eval_fn(model, seg=seg)
     val_cache = {}  # the validation loader is built once
 
     def on_eval(step, eval_state):

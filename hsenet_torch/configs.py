@@ -3,12 +3,8 @@
 The port's own copy of the dataclasses its paths need from the JAX
 package's `configs.py`, with the same fields, defaults and derived
 properties, so one configuration describes the same model in both packages.
-Fields of the JAX copy that the port has no use for yet are left out:
-`ViT3DConfig.attn_block_q` (a TPU VMEM block size),
-`Phi3Config.remat_policy` (the port's `remat` recomputes each Phi block in
-full, the JAX package's default "full" policy) and, in `TrainConfig`,
-those of the CLI and of later slices (`batch_size`, `dtype`, `remat`,
-`zero1`, the device-trace window).
+Fields of the JAX copy that the port has no use for are left out:
+`ViT3DConfig.attn_block_q` (a TPU VMEM block size).
 """
 
 from __future__ import annotations
@@ -63,6 +59,40 @@ class ViT3DConfig:
     def patch_dim(self) -> int:
         p0, p1, p2 = self.patch_size
         return p0 * p1 * p2 * self.in_channels
+
+
+@dataclass(frozen=True)
+class SwinConfig:
+    """Hierarchical 3D Swin encoder, SegVol's other image encoder:
+    windowed attention with a relative position bias, shifted windows every
+    other block, patch merging between stages. The defaults give SegVol's
+    (4,16,16) x 768 feature grid from (32,256,256) volumes: patch (2,4,4)
+    -> (16,64,64) at 192, two merges -> (4,16,16) at 768."""
+
+    in_channels: int = 1
+    image_size: Tuple[int, int, int] = (32, 256, 256)
+    patch_size: Tuple[int, int, int] = (2, 4, 4)
+    embed_dim: int = 192
+    window_size: Tuple[int, int, int] = (4, 4, 4)
+    depths: Tuple[int, ...] = (2, 2, 2)
+    num_heads: Tuple[int, ...] = (6, 12, 24)
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    dropout_rate: float = 0.0
+    patch_norm: bool = False
+    gelu_approx: bool = False
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """The last stage's feature grid (each merge halves every axis)."""
+        scale = 2 ** (len(self.depths) - 1)
+        return tuple(
+            i // p // scale for i, p in zip(self.image_size, self.patch_size)
+        )  # type: ignore[return-value]
+
+    @property
+    def out_dim(self) -> int:
+        return self.embed_dim * 2 ** (len(self.depths) - 1)
 
 
 @dataclass(frozen=True)
@@ -201,6 +231,12 @@ class Phi3Config:
     # embedding with its tied LM head (`QuantEmbed`)
     quant_int8: bool = False
     quant_int8_embed: bool = False
+    # what a model built with remat=True keeps for the backward:
+    #   "full": each block's input only, the block recomputed in full;
+    #   "dots": also the outputs of the matrix products without a batch
+    #   dimension (the projections), so only the rest is recomputed
+    #   (`models.layers.checkpointed`)
+    remat_policy: str = "full"
 
     @property
     def q_dim(self) -> int:
@@ -254,8 +290,9 @@ class VLMConfig:
     select_feature: str = "patch"  # strip CLS before packing
     im_patch_token_id: int = -1
     seg_token_id: int = -1
-    # optional SegVol branch (a later slice) and in-graph 2D slice trunk
-    # (`models.vit.OnlineSliceFeatures`; `vit2d=None` is `ViT2DConfig()`)
+    # optional SegVol branch (`seg_vision=None` is `vision` without CLS)
+    # and in-graph 2D slice trunk (`models.vit.OnlineSliceFeatures`;
+    # `vit2d=None` is `ViT2DConfig()`)
     seg_enable: bool = False
     seg_vision: Optional[ViT3DConfig] = None
     online_slice_features: bool = False

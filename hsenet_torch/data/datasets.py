@@ -1,15 +1,15 @@
 """The part of the JAX package's data/datasets.py that the training CLIs'
 and the evaluation harnesses' batches need: the tokenization rules, the
 word-level tokenizer of tests and synthetic runs, batching and the host
-loader, the synthetic CT dataset in caption, clip and clip2 modes, the
+loader, the synthetic CT dataset in caption, clip, clip2 and seg modes, the
 CT-RATE CLIP pairs (`CTRateCLIPDataset`, `ITRDataset`,
 `CTRateCLIPStage2Dataset`), the manifest-driven MRG (`CaptionDataset`),
 location-VQA (`VQALocationDataset`) and closed-VQA (`ClosedVQADataset`,
 `YesNoVQADataset`) sets, the M3D sets (`M3DCapDataset`, `M3DVQADataset`,
-`M3DVQAYNDataset`) and the task mix (`MixDataset`, `build_task_mix`). The
+`M3DVQAYNDataset`), the grounding sets (`PosRECDataset`, `PosREGDataset`,
+`SegQADataset`) and the task mix (`MixDataset`, `build_task_mix`). The
 host side is plain numpy, as in the JAX package; the trainer and the
-harnesses move each batch to the device. The grounding sets (seg, rec,
-reg) come with the segmentation slice (ROADMAP §A8).
+harnesses move each batch to the device.
 
 Reproduced semantics: question = [BOS] + "<im_patch>" * proj_out_num +
 prompt; question + " " + answer tokenized right-padded, EOS patched at the
@@ -30,7 +30,15 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from hsenet_torch.data.prompts import Caption_templates, VQA_location_templates
+from hsenet_torch.data.prompts import (
+    Caption_templates,
+    PosREC_templates,
+    PosREG_templates,
+    Seg_templates,
+    VQA_location_templates,
+)
+from hsenet_torch.data.term_dictionary import describe, term_dict
+from hsenet_torch.utils.boxes import format_box, mask2box
 
 IGNORE_INDEX = -100
 IM_PATCH_TOKEN = "<im_patch>"
@@ -588,6 +596,171 @@ class M3DVQAYNDataset(M3DVQADataset):
         return row["Question"], str(row["Answer"])
 
 
+class _GroundingDataset(_RetryDataset):
+    """What the grounding sets share (reference multi_dataset.py:1003-1631):
+    the manifest, the class list, plain or description mode, a random
+    stream per sample, "no" answers for empty masks. Manifest entries carry
+    image and seg paths and either a `target` name or a `cls_id` into
+    `classes` (the registry's list for the corpus code)."""
+
+    def __init__(self, args: DataArgs, tokenizer, manifest: str, split="train",
+                 templates=None, classes: Optional[List[str]] = None,
+                 description: bool = False, term_dictionary=None, seed=0):
+        self.args = args
+        self.tokenizer = tokenizer
+        self.data_list = _load_manifest(manifest, split, args.val_limit)
+        self.templates = dict(templates or self.default_templates())
+        self.classes = classes
+        self.description = description
+        self.term_dictionary = term_dictionary
+        self.image_tokens = IM_PATCH_TOKEN * args.proj_out_num
+        self.seed = seed
+
+    def default_templates(self):
+        raise NotImplementedError
+
+    def _target(self, entry) -> str:
+        if "target" in entry:
+            return entry["target"]
+        if self.classes is None:
+            raise ValueError("entry has cls_id but dataset got no classes")
+        return self.classes[int(entry["cls_id"])]
+
+    def _describe(self, target: str, rng: random.Random) -> str:
+        return describe(target, rng, self.term_dictionary or term_dict)
+
+    def _pick(self, group: str, rng: random.Random) -> str:
+        return rng.choice(self.templates[group])
+
+    def _rng(self, idx: int) -> random.Random:
+        return random.Random(self.seed * 1_000_003 + idx)
+
+    def _load_pair(self, entry):
+        image = np.load(os.path.join(self.args.data_root, entry["image"]))
+        seg = np.load(os.path.join(self.args.data_root, entry["seg"]))
+        if seg.ndim == 3:
+            seg = seg[None]
+        return image.astype(np.float32), seg
+
+    def _pack(self, image, question, answer, extra=None):
+        tok = tokenize_qa_sample(self.tokenizer, question, answer,
+                                 self.args.max_length)
+        ret = {
+            "image": image,
+            "input_ids": tok["input_ids"],
+            "attention_mask": tok["attention_mask"],
+            "labels": tok["labels"],
+            "question": question,
+            "answer": answer,
+        }
+        if extra:
+            ret.update(extra)
+        return ret
+
+
+class PosRECDataset(_GroundingDataset):
+    """Referring-expression comprehension: a target's name (or description)
+    asked, its 3D box answered (reference PosRECDataset,
+    multi_dataset.py:1003-1173); absent targets get "no" answers and no
+    `box`."""
+
+    question_type = "REC"
+
+    def default_templates(self):
+        return PosREC_templates
+
+    def get(self, idx):
+        entry = self.data_list[idx]
+        rng = self._rng(idx)
+        image, seg = self._load_pair(entry)
+        target = self._target(entry)
+        box = mask2box(seg[0])
+        if self.description:
+            question = self._pick("des_questions", rng).format(
+                self._describe(target, rng))
+        else:
+            question = self._pick("cls_questions", rng).format(target)
+        question = self.image_tokens + question
+        extra = {}
+        if box is not None:
+            box_text = format_box(box)
+            if self.description:
+                answer = self._pick("des_answers", rng).format(target, box_text)
+            else:
+                answer = self._pick("cls_answers", rng).format(box_text)
+            extra["box"] = box
+        else:
+            group = "des_no_answers" if self.description else "cls_no_answers"
+            answer = self._pick(group, rng).format(target)
+        return self._pack(image, question, answer, extra)
+
+
+class PosREGDataset(_GroundingDataset):
+    """Region grounding: a box asked, the target's name answered (with a
+    term-dictionary description in description mode); absent targets get
+    the name-slot "no" questions (reference PosREGDataset,
+    multi_dataset.py:1176-1352)."""
+
+    question_type = "REG"
+
+    def default_templates(self):
+        return PosREG_templates
+
+    def get(self, idx):
+        entry = self.data_list[idx]
+        rng = self._rng(idx)
+        image, seg = self._load_pair(entry)
+        target = self._target(entry)
+        box = mask2box(seg[0])
+        if box is not None:
+            box_text = format_box(box)
+            if self.description:
+                question = self._pick("des_questions", rng).format(box_text)
+                answer = self._pick("des_answers", rng).format(
+                    target, self._describe(target, rng))
+            else:
+                question = self._pick("cls_questions", rng).format(box_text)
+                answer = self._pick("cls_answers", rng).format(target)
+        elif self.description:
+            question = self._pick("des_no_questions", rng).format(
+                self._describe(target, rng))
+            answer = self._pick("des_no_answers", rng).format(target)
+        else:
+            question = self._pick("cls_no_questions", rng).format(target)
+            answer = self._pick("cls_no_answers", rng).format(target)
+        return self._pack(image, self.image_tokens + question, answer)
+
+
+class SegQADataset(_GroundingDataset):
+    """Segmentation Q&A: [SEG]-token answers with the real masks
+    (reference SegDataset / RefSegDataset, multi_dataset.py:1354-1631)."""
+
+    question_type = "SEG"
+
+    def default_templates(self):
+        return Seg_templates
+
+    def get(self, idx):
+        entry = self.data_list[idx]
+        rng = self._rng(idx)
+        image, seg = self._load_pair(entry)
+        target = self._target(entry)
+        if self.description:
+            question = self._pick("des_questions", rng).format(
+                self._describe(target, rng))
+        else:
+            question = self._pick("cls_questions", rng).format(target)
+        question = self.image_tokens + question
+        if np.any(seg):
+            answer = (self._pick("des_answers", rng).format(target)
+                      if self.description else self._pick("cls_answers", rng))
+        else:
+            group = "des_no_answers" if self.description else "cls_no_answers"
+            answer = self._pick(group, rng).format(target)
+        return self._pack(image, question, answer,
+                          {"seg": seg.astype(np.float32)})
+
+
 class MixDataset:
     """Task mixer (reference UniDatasets / TextDatasets_CT_Rate,
     multi_dataset.py:1692-1809): concatenation of datasets, optionally with
@@ -610,15 +783,6 @@ class MixDataset:
         return sample
 
 
-def _grounding_task(name: str):
-    def build():
-        raise NotImplementedError(
-            f"the '{name}' task's dataset comes with the segmentation slice of "
-            "the port (ROADMAP §A8)")
-
-    return build
-
-
 def build_task_mix(
     use_training_data: str,
     args: DataArgs,
@@ -630,17 +794,16 @@ def build_task_mix(
     """Task-mix factory mirroring the reference's `use_training_data`
     selector (TextDatasets_CT_Rate / UniDatasets, multi_dataset.py:1692-1809):
     'caption' | 'openvqa' | 'closedvqa' | 'yn' | 'closedvqa_and_caption' |
-    'caption_and_openvqa' | 'seg' | 'rec' | 'reg', '+'-combinable. The
-    seg, rec and reg sets raise when built (ROADMAP §A8); an unknown task
-    raises ValueError."""
+    'caption_and_openvqa' | 'seg' | 'rec' | 'reg', '+'-combinable; an
+    unknown task raises ValueError."""
     builders = {
         "caption": lambda: CaptionDataset(args, tokenizer, manifest, split),
         "openvqa": lambda: VQALocationDataset(args, tokenizer, manifest, split),
         "closedvqa": lambda: ClosedVQADataset(args, tokenizer, manifest, split),
         "yn": lambda: YesNoVQADataset(args, tokenizer, manifest, split),
-        "seg": _grounding_task("seg"),
-        "rec": _grounding_task("rec"),
-        "reg": _grounding_task("reg"),
+        "seg": lambda: SegQADataset(args, tokenizer, manifest, split),
+        "rec": lambda: PosRECDataset(args, tokenizer, manifest, split),
+        "reg": lambda: PosREGDataset(args, tokenizer, manifest, split),
     }
     aliases = {
         "closedvqa_and_caption": "closedvqa+caption",
@@ -735,7 +898,7 @@ class SyntheticCTDataset(_RetryDataset):
         n: int = 32,
         shape=(1, 32, 256, 256),
         tokenizer=None,
-        mode: str = "clip",  # clip | clip2 | caption (seg: a later slice)
+        mode: str = "clip",  # clip | clip2 | caption | seg
         args: Optional[DataArgs] = None,
         num_slices: int = 32,
         slice_dim: int = 768,
@@ -755,11 +918,6 @@ class SyntheticCTDataset(_RetryDataset):
         ]
 
     def get(self, idx):
-        if self.mode not in ("clip", "clip2", "caption"):
-            raise NotImplementedError(
-                f"SyntheticCTDataset mode {self.mode!r} comes with a later "
-                "slice of the port (the SEG stage)"
-            )
         rng = np.random.default_rng(idx)
         image = rng.random(self.shape, np.float32)
         text = self._reports[idx]
@@ -786,6 +944,30 @@ class SyntheticCTDataset(_RetryDataset):
                 "input_ids": tok["input_ids"][0],
                 "attention_mask": tok["attention_mask"][0],
                 "text": text,
+            }
+        if self.mode == "seg":
+            # synthetic seg QA: a random box blob and a [SEG]-token answer
+            # (reference SegDataset semantics, multi_dataset.py:1354-1516)
+            seg = np.zeros(self.shape, np.float32)
+            d, h, w = self.shape[-3:]
+            z0 = int(rng.integers(0, max(d // 2, 1)))
+            y0 = int(rng.integers(0, max(h // 2, 1)))
+            x0 = int(rng.integers(0, max(w // 2, 1)))
+            seg[..., z0:z0 + d // 2, y0:y0 + h // 2, x0:x0 + w // 2] = 1.0
+            question = (IM_PATCH_TOKEN * self.args.proj_out_num
+                        + "Can you segment the lesion in this image?")
+            answer = "It is [SEG]."
+            tok = tokenize_qa_sample(self.tokenizer, question, answer,
+                                     self.args.max_length)
+            return {
+                "image": image,
+                "image_2d": image_2d,
+                "seg": seg,
+                "input_ids": tok["input_ids"],
+                "attention_mask": tok["attention_mask"],
+                "labels": tok["labels"],
+                "question": question,
+                "answer": answer,
             }
         question = IM_PATCH_TOKEN * self.args.proj_out_num + "Describe the scan."
         tok = tokenize_qa_sample(

@@ -25,12 +25,14 @@ is kept with probability 1 - rate and scaled by 1 / (1 - rate). Its masks
 come from the `torch.Generator` that `dropout_rng` installs around the call
 (the counterpart of `rngs={"dropout": key}` in flax's `apply`).
 `checkpointed` runs a block under activation checkpointing with the same
-masks in its recomputation.
+masks in its recomputation, keeping either the block's input alone (policy
+"full") or also its projections' outputs (policy "dots").
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Iterator, Optional, Tuple
 
@@ -38,7 +40,11 @@ import torch
 import torch.nn.functional as F
 from einops import rearrange
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from hsenet_torch import resolve_device
 from hsenet_torch.ops.attention import multi_head_attention
@@ -83,17 +89,39 @@ def _run_from_state(block, generator, state, deterministic, x, *args):
         return block(x, *args, deterministic=deterministic)
 
 
+# the products that remat policy "dots" keeps: 2-D matrix products, what a
+# Dense or a LoRA adapter on a (B, S, D) input becomes once autograd has
+# flattened it (the JAX package's dots_with_no_batch_dims_saveable; batched
+# products, the attention kernels and the elementwise glue are recomputed)
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in DOT_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def checkpointed(block: nn.Module, x: torch.Tensor, *args,
-                 deterministic: bool) -> torch.Tensor:
+                 deterministic: bool, policy: str = "full") -> torch.Tensor:
     """`block(x, *args, deterministic=...)` under activation checkpointing
-    (the JAX package's `nn.remat` with its default "full" policy): only the
-    block's inputs are kept, and the backward recomputes the block. The
-    dropout generator is set back to its state before the block, so the
+    (the JAX package's `nn.remat`). Policy "full" keeps only the block's
+    inputs and the backward recomputes the block; "dots" also keeps the
+    outputs of `DOT_OPS` (selective checkpointing) and recomputes the rest.
+    The dropout generator is set back to its state before the block, so the
     recomputation draws the same masks as the first run."""
+    if policy == "full":
+        extra = {}
+    elif policy == "dots":
+        extra = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    else:
+        raise ValueError(f"remat policy must be 'full' or 'dots', not {policy!r}")
     generator = _DROPOUT_RNG
     state = None if generator is None else generator.get_state()
     return checkpoint(_run_from_state, block, generator, state, deterministic,
-                      x, *args, use_reentrant=False, preserve_rng_state=False)
+                      x, *args, use_reentrant=False, preserve_rng_state=False,
+                      **extra)
 
 
 class Dense(nn.Linear):

@@ -18,6 +18,11 @@ dual spatial packers + Phi LLM.
     splice and LLM prefill per question, or only the question chunk over a
     cache row that already holds the BOS + image-block keys and values.
 
+  * `forward_with_seg` (with `seg_enable`): the LM logits and SegVol's
+    logits prompted by the hidden states before the [SEG] tokens, through
+    `seg_projector` (`seg_module` is SegVol on `seg_vision`, or on the
+    vision config without CLS).
+
 tower_mode 'med2e3' runs the plain 3D tower; its projector
 (`Med2E3Projector`) takes the tower's tokens, the raw slice features and
 the prompt's token embeddings, so its image features depend on the prompt
@@ -26,15 +31,19 @@ and `encode_images_only` refuses it.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from hsenet_torch import resolve_device
 from hsenet_torch.configs import ViT2DConfig, VLMConfig
+from hsenet_torch.models.layers import Dense, dropout
 from hsenet_torch.models.phi3 import KVCache, Phi3ForCausalLM
 from hsenet_torch.models.projector import Med2E3Projector, build_projector
+from hsenet_torch.models.segvol import SegVol
 from hsenet_torch.models.vit import DualVisionTower, OnlineSliceFeatures
 
 
@@ -50,15 +59,26 @@ def splice_image_embeds(token_embeds: torch.Tensor,
     )
 
 
+class SegProjector(nn.Module):
+    """Linear-ReLU-Linear from the LLM width to the vision width
+    (lamed_arch.py:91-96; the trailing Dropout(0.1) is applied by
+    `HSENetVLM.forward_with_seg`). The layers keep the names flax's
+    `nn.Sequential` gives them."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, dtype, device):
+        super().__init__()
+        self.layers_0 = Dense(in_dim, in_dim, dtype=dtype, device=device)
+        self.layers_2 = Dense(in_dim, out_dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layers_2(F.relu(self.layers_0(x)))
+
+
 class HSENetVLM(nn.Module):
     def __init__(self, config: VLMConfig, *, dtype=torch.bfloat16,
                  device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
-        if config.seg_enable:
-            raise NotImplementedError(
-                "the SegVol branch (ROADMAP §A8) comes with a later slice of "
-                "the port")
         self.config = config
         med2e3 = config.tower_mode == "med2e3"
         self.vision_tower = DualVisionTower(
@@ -85,6 +105,14 @@ class HSENetVLM(nn.Module):
                 config.vit2d or ViT2DConfig(),
                 num_slices=config.vision.num_slices, dtype=dtype, device=device,
             )
+        if config.seg_enable:
+            seg_cfg = config.seg_vision or dataclasses.replace(
+                config.vision, classification=False)
+            self.seg_module = SegVol(seg_cfg, dtype=dtype, device=device)
+            self.seg_projector = SegProjector(
+                config.llm.hidden_size, config.vision.hidden_size, dtype=dtype,
+                device=device)
+            self.seg_dropout_rate = 0.1  # the reference's fixed Dropout(0.1)
 
     def encode_images(self, volume: torch.Tensor,
                       slice_features: Optional[torch.Tensor] = None, *,
@@ -201,6 +229,37 @@ class HSENetVLM(nn.Module):
         embeds = self.llm.embed_tokens(token)
         logits, cache = self.llm.decode_embeds(embeds, cache=cache)
         return logits[:, 0], cache
+
+    def forward_with_seg(self, input_ids: torch.Tensor, volume: torch.Tensor,
+                         slice_features: Optional[torch.Tensor] = None, *,
+                         kv_lens: Optional[torch.Tensor] = None,
+                         deterministic: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(LM logits (B, S, V), SegVol logits (B, 1, D, H, W) f32), SegVol
+        prompted by the [SEG] tokens (lamed_phi3.py:87-135): the hidden
+        states at the positions just before each [SEG] token, mean-pooled
+        per row, through `seg_projector` and dropout (`seg_dropout_rate`,
+        0.1). A row without
+        [SEG] prompts with zeros (its seg loss is gated by the caller)."""
+        if not self.config.seg_enable:
+            raise ValueError("the seg branch is disabled in the config")
+        embeds = self.multimodal_embeds(input_ids, volume, slice_features,
+                                        deterministic=deterministic)
+        logits, _, hidden = self.llm.decode_embeds(
+            embeds, kv_lens=kv_lens, deterministic=deterministic,
+            return_hidden=True)
+        # position t where token t + 1 is [SEG] (shifted left, zero tail)
+        is_seg = input_ids == self.config.seg_token_id
+        mask = torch.cat([is_seg[:, 1:], torch.zeros_like(is_seg[:, :1])],
+                         dim=1).to(hidden.dtype)
+        denom = mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+        pooled = torch.einsum("bs,bsh->bh", mask / denom, hidden)
+        prompt = dropout(self.seg_projector(pooled), self.seg_dropout_rate,
+                         deterministic)
+        prompt = torch.where((mask.sum(dim=1) > 0)[:, None], prompt,
+                             torch.zeros((), dtype=prompt.dtype,
+                                         device=prompt.device))
+        return logits, self.seg_module(volume, text_embedding=prompt)
 
     def verify_step(self, tokens: torch.Tensor, cache: KVCache,
                     kv_lens: torch.Tensor) -> Tuple[torch.Tensor, KVCache]:

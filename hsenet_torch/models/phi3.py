@@ -14,9 +14,11 @@ Training (no cache) runs causal flash attention with per-row kv_lens, and
 its gradient through the backward kernels.
 
 `remat=True` recomputes each block in the backward pass
-(`torch.utils.checkpoint`), keeping only the block inputs: the JAX
-package's "full" remat policy. The dropout generator's state at the start
-of each block is kept too, so the recomputed block draws the same masks.
+(`models.layers.checkpointed`) under `config.remat_policy`: "full" keeps
+only the block inputs, "dots" also the projections' outputs (the JAX
+package's `dots_with_no_batch_dims_saveable`). The dropout generator's
+state at the start of each block is kept too, so the recomputed block
+draws the same masks.
 
 With `quant_int8` the seven projections of each block hold int8 codes
 (`models.lora.LoRADense(quantized=True)`), with `quant_int8_embed` the
@@ -331,7 +333,8 @@ class Phi3Decoder(nn.Module):
         for i, layer in enumerate(self.layers):
             if remat:
                 x = checkpointed(layer, x, cos, sin, kv_lens,
-                                 deterministic=deterministic)
+                                 deterministic=deterministic,
+                                 policy=cfg.remat_policy)
                 continue
             if cache is None:
                 layer_cache = None
@@ -387,11 +390,15 @@ class Phi3ForCausalLM(nn.Module):
                       cache: Optional[KVCache] = None,
                       positions: Optional[torch.Tensor] = None,
                       deterministic: bool = True,
-                      last_token_only: bool = False):
+                      last_token_only: bool = False,
+                      return_hidden: bool = False):
+        """(logits, cache), and with `return_hidden` the final normed hidden
+        states of every position as a third item."""
         hidden, cache = self.decoder(
             inputs_embeds, kv_lens=kv_lens, cache=cache, positions=positions,
             deterministic=deterministic,
         )
+        full_hidden = hidden
         if last_token_only:
             if kv_lens is not None and hidden.shape[1] > 1:
                 idx = (kv_lens.long() - 1).clamp(min=0)
@@ -399,7 +406,10 @@ class Phi3ForCausalLM(nn.Module):
                 hidden = hidden[rows, idx.to(hidden.device)][:, None]
             else:
                 hidden = hidden[:, -1:]
-        return self.compute_logits(hidden), cache
+        logits = self.compute_logits(hidden)
+        if return_hidden:
+            return logits, cache, full_hidden
+        return logits, cache
 
     def forward(self, input_ids: Optional[torch.Tensor] = None, *,
                 inputs_embeds: Optional[torch.Tensor] = None,

@@ -1,11 +1,14 @@
 """Vision encoders (the port of the JAX package's models/vit.py): ViT3D
 (stage 1), its 2E3 slice-guided form (stage 2), the dual-encoder tower and
-the 2D slice trunk.
+the 2D slice trunk, and the legacy masked-contrastive ViT.
 
   * `ViT3D`: patch embed -> [CLS | tokens] -> pre-LN blocks -> final LN.
   * slice-guided (2E3): patch embed -> single-head cross-attention from the
     patch tokens onto the per-slice features -> Linear(hidden->1)+Sigmoid
     per-patch score -> tokens *= score -> [CLS | tokens] -> the same tower.
+  * `MaskedViT3D`: the full stream and a masked stream of the top-k
+    slice-guided patches through one tower, the latter with its own final
+    LayerNorm (the legacy masked CLIP).
   * `DualVisionTower`: both towers; strips CLS when select_feature is
     'patch'; `tower_mode` is dual_vits | 3d_vit | 2e3_vit.
   * `ViT2D`: the BiomedCLIP ViT-B/16 trunk (timm names, pre-LN, CLS) that
@@ -67,15 +70,17 @@ class TransformerTower(nn.Module):
         )
         self.norm = LayerNorm(hidden, device=device)
 
-    def forward(self, x: torch.Tensor, *,
-                deterministic: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                skip_final_norm: bool = False) -> torch.Tensor:
+        """The blocks, then the final LayerNorm unless `skip_final_norm`
+        (the masked stream of `MaskedViT3D` applies its own)."""
         remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
                 x = checkpointed(block, x, deterministic=deterministic)
             else:
                 x = block(x, deterministic=deterministic)
-        return self.norm(x)
+        return x if skip_final_norm else self.norm(x)
 
 
 class ViT3D(nn.Module):
@@ -134,6 +139,77 @@ class ViT3D(nn.Module):
         if return_scores:
             return x, scores
         return x
+
+
+class MaskedViT3D(nn.Module):
+    """The legacy masked-contrastive ViT (the reference's `ViT`, vit.py:67-219):
+    one tower, two streams.
+
+    The full stream is [CLS | patches] through the tower. The masked stream
+    scores each patch by the slice-guided cross-attention (`patch_score_proj`
+    in f32, a sigmoid), weights the patches by their scores, keeps the
+    `unmasked_tokens` best in ascending index order, prepends the CLS token
+    and runs the same blocks with its own final LayerNorm `norm_masked`.
+    The masked stream runs first, as in the JAX package.
+
+    The kept patches are the first `unmasked_tokens` of a stable descending
+    sort of the scores, so equal scores (an f32 sigmoid saturates at 1.0)
+    keep the lower index first, as the JAX package's `lax.top_k` does."""
+
+    def __init__(self, config: ViT3DConfig, *, dtype=torch.float32,
+                 device="cuda", remat: bool = False):
+        super().__init__()
+        device = resolve_device(device)
+        cfg = self.config = config
+        self.patch_embed = PatchEmbed3D(
+            cfg.patch_size, cfg.in_channels, cfg.num_patches, cfg.hidden_size,
+            dropout_rate=cfg.dropout_rate, dtype=dtype, device=device,
+        )
+        self.cls_token = nn.Parameter(
+            torch.zeros(1, 1, cfg.hidden_size, device=device))
+        self.tower = TransformerTower(
+            cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.mlp_dim,
+            qkv_bias=cfg.qkv_bias, dropout_rate=cfg.dropout_rate,
+            gelu_approx=cfg.gelu_approx, quant=cfg.quant_w8a8,
+            quant_static=cfg.quant_w8a8_static, dtype=dtype, device=device,
+            remat=remat,
+        )
+        self.slice_guided_attention = SingleHeadCrossAttention(
+            cfg.hidden_size, dropout_rate=cfg.slice_dropout_rate, dtype=dtype,
+            device=device,
+        )
+        self.patch_score_proj = Dense(cfg.hidden_size, 1, dtype=torch.float32,
+                                      device=device)
+        self.norm_masked = LayerNorm(cfg.hidden_size, device=device)
+
+    def _with_cls(self, tokens: torch.Tensor) -> torch.Tensor:
+        cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], -1, -1)
+        return torch.cat([cls, tokens], dim=1)
+
+    def forward(self, volume: torch.Tensor, slice_features: torch.Tensor,
+                unmasked_tokens: Optional[int] = None, *,
+                deterministic: bool = True):
+        """(B, 1 + N, hidden) f32 full stream, and with `unmasked_tokens`
+        also the (B, 1 + unmasked_tokens, hidden) masked stream."""
+        x = self.patch_embed(volume, deterministic=deterministic)
+        x_masked = None
+        if unmasked_tokens is not None:
+            sf = slice_features.to(x.dtype)
+            guided, _ = self.slice_guided_attention(
+                x, sf, sf, deterministic=deterministic)
+            scores = torch.sigmoid(self.patch_score_proj(guided))[..., 0]
+            weighted = x * scores[..., None].to(x.dtype)
+            order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+            top = torch.sort(order[:, :unmasked_tokens], dim=1).values
+            kept = torch.gather(
+                weighted, 1, top[..., None].expand(-1, -1, weighted.shape[-1]))
+            x_masked = self.norm_masked(self.tower(
+                self._with_cls(kept), deterministic=deterministic,
+                skip_final_norm=True))
+        x_full = self.tower(self._with_cls(x), deterministic=deterministic)
+        if unmasked_tokens is None:
+            return x_full
+        return x_full, x_masked
 
 
 class ViT2D(nn.Module):

@@ -1,8 +1,8 @@
 """VLM finetune train step (the port of the JAX package's train/vlm.py).
 
 Freezing follows the reference's train_VLM.py: the LLM base is frozen; the
-LoRA adapters, both packers and the (tied) token embedding train; the
-vision towers stay frozen. Here freezing is `requires_grad=False`, and the
+LoRA adapters, both packers, the (tied) token embedding and the SegVol
+branch train; the vision towers stay frozen. Here freezing is `requires_grad=False`, and the
 trainable leaves are held as f32 masters (`to_training_dtypes`) while the
 modules compute in bf16, casting them at use as the JAX modules cast their
 f32 params. Frozen leaves may stay in bf16: the JAX package casts them to
@@ -26,17 +26,22 @@ from hsenet_torch.train.train_state import AdamW, TrainState, global_norm
 Batch = Dict[str, torch.Tensor]
 
 
-def vlm_trainable_mask(model: nn.Module) -> Dict[str, bool]:
+def vlm_trainable_mask(model: nn.Module, *,
+                       train_seg: bool = True) -> Dict[str, bool]:
     """Parameter name -> trainable: the JAX package's default policy over
-    the port's parameter names. LoRA adapters, both packers and the tied
-    token embedding train; the towers, the 2D slice trunk and the LLM base
+    the port's parameter names. LoRA adapters, both packers, the tied token
+    embedding and (with `train_seg`) the SegVol branch (`seg_module`,
+    `seg_projector`) train; the towers, the 2D slice trunk and the LLM base
     stay frozen."""
 
     def decide(name: str) -> bool:
+        if "lora_a" in name or "lora_b" in name or "mm_projector" in name:
+            return True
+        if "seg_projector" in name or "seg_module" in name:
+            return train_seg
         if "vision_tower" in name or "slice_encoder" in name:
             return False
-        return ("lora_a" in name or "lora_b" in name or "mm_projector" in name
-                or name == "llm.embed.weight")
+        return name == "llm.embed.weight"
 
     return {name: decide(name) for name, _ in model.named_parameters()}
 
@@ -68,10 +73,41 @@ def vlm_loss_fn(model: nn.Module, batch: Batch,
     return loss, {"loss": loss, "token_acc": acc}
 
 
-def make_vlm_eval_fn(model: nn.Module):
-    """Held-out eval: `evaluate(loader) -> {"val_loss", "val_token_acc"}`,
-    means over the loader's batches, deterministic (no dropout)."""
-    keys = ("input_ids", "labels", "attention_mask", "image", "image_2d")
+def vlm_seg_loss_fn(model: nn.Module, batch: Batch,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """LM loss plus dice + BCE on SegVol's logits for the rows whose mask
+    is not empty (lamed_phi3.py:87-135; the other rows add 0), averaged over
+    those rows. Dropout as in `vlm_loss_fn`."""
+    from hsenet_torch.models.segvol import binary_dice_loss, masked_bce_loss
+
+    kv_lens = batch["attention_mask"].sum(dim=-1).to(torch.int32)
+    with dropout_rng(generator):
+        logits, seg_logits = model.forward_with_seg(
+            batch["input_ids"], batch["image"], batch.get("image_2d"),
+            kv_lens=kv_lens, deterministic=generator is None,
+        )
+    lm_loss, acc = masked_lm_loss(logits, batch["labels"])
+    segs = batch["seg"]  # (B, 1, D, H, W), zeros where a row has none
+    has_seg = (segs.sum(dim=(1, 2, 3, 4)) > 0).float()
+    per_row = torch.stack([
+        binary_dice_loss(seg_logits[i:i + 1], segs[i:i + 1])
+        + masked_bce_loss(seg_logits[i:i + 1], segs[i:i + 1])
+        for i in range(segs.shape[0])])
+    seg_loss = (per_row * has_seg).sum() / has_seg.sum().clamp_min(1.0)
+    loss = lm_loss + seg_loss
+    return loss, {"loss": loss, "lm_loss": lm_loss, "seg_loss": seg_loss,
+                  "token_acc": acc}
+
+
+def make_vlm_eval_fn(model: nn.Module, seg: bool = False):
+    """Held-out eval: `evaluate(loader) -> {"val_loss", "val_token_acc"}`
+    (with `seg`, through `vlm_seg_loss_fn`, also "val_lm_loss" and
+    "val_seg_loss"), means over the loader's batches, deterministic (no
+    dropout)."""
+    loss_fn = vlm_seg_loss_fn if seg else vlm_loss_fn
+    keys = ("input_ids", "labels", "attention_mask", "image", "image_2d") + (
+        ("seg",) if seg else ())
     device = next(model.parameters()).device
 
     @torch.no_grad()
@@ -80,7 +116,7 @@ def make_vlm_eval_fn(model: nn.Module):
         for batch in loader:
             dev = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
                    if k in keys}
-            _, metrics = vlm_loss_fn(model, dev)
+            _, metrics = loss_fn(model, dev)
             rows.append({k: float(v) for k, v in metrics.items()})
         if not rows:
             return {}
@@ -154,9 +190,12 @@ def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1,
     return train_step
 
 
-def make_vlm_train_step(model: nn.Module, tx: AdamW, grad_accum: int = 1):
-    """The plain VLM finetune step (see `make_masked_train_step`); the
-    trainable leaves are those of the state, which `tx`'s mask picked."""
+def make_vlm_train_step(model: nn.Module, tx: AdamW, grad_accum: int = 1,
+                        seg: bool = False):
+    """The plain VLM finetune step (see `make_masked_train_step`), with
+    `seg` over `vlm_seg_loss_fn`; the trainable leaves are those of the
+    state, which `tx`'s mask picked."""
+    loss_fn = vlm_seg_loss_fn if seg else vlm_loss_fn
     return make_masked_train_step(
-        functools.partial(vlm_loss_fn, model), tx, grad_accum=grad_accum
+        functools.partial(loss_fn, model), tx, grad_accum=grad_accum
     )

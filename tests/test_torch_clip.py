@@ -376,8 +376,13 @@ def test_init_random_and_the_parts_left_out():
     log_cfg = dataclasses.replace(to_torch_config(CLIP1), scale_is_log=True)
     assert CLIPModel(log_cfg, device="cpu").scale().item() == pytest.approx(
         1 / 0.07, rel=1e-6)
-    with pytest.raises(NotImplementedError, match="legacy CLIP"):
-        MaskedCLIPModel(to_torch_config(CLIP1))
+    # the legacy masked CLIP draws the same way, its masked stream's own
+    # final norm included (test_torch_masked_clip.py holds it to JAX)
+    masked = init_random_(MaskedCLIPModel(to_torch_config(CLIP1), device="cpu"),
+                          torch.Generator().manual_seed(0))
+    assert masked.scale().item() == pytest.approx(np.log(1 / 0.07))
+    assert torch.equal(masked.vision_encoder.norm_masked.weight,
+                       torch.ones(CLIP1.vision.hidden_size))
     step = tstage1.make_stage1_train_step(model, tts.make_optimizer(
         to_torch_config(TRAIN_CFG)))
     with pytest.raises(TypeError):  # a stage step without its seed

@@ -110,7 +110,10 @@ def test_importing_the_port_loads_no_jax():
         "hsenet_torch.cli.train_clip_stage2, hsenet_torch.cli.train_vlm, "
         "hsenet_torch.native, hsenet_torch.data.nifti, hsenet_torch.data.preprocess, "
         "hsenet_torch.data.augment, hsenet_torch.data.prefetch, "
-        "hsenet_torch.cli.preprocess_ct; "
+        "hsenet_torch.cli.preprocess_ct, hsenet_torch.models.segvol, "
+        "hsenet_torch.models.swin, hsenet_torch.eval.sliding_window, "
+        "hsenet_torch.eval.segmentation, hsenet_torch.train.legacy_clip, "
+        "hsenet_torch.utils.boxes, hsenet_torch.data.registry; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'flax', 'hsenet_tpu'))]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -150,9 +153,10 @@ def test_entry_points_refuse_missing_cuda(build):
         jcfg.AugmentConfig(),
         jcfg.ViT2DConfig(),
         jcfg.LlamaConfig(),
+        jcfg.SwinConfig(),
     ],
     ids=["default", "2e3", "med2e3", "qformer", "online", "preprocess",
-         "augment", "vit2d", "llama"],
+         "augment", "vit2d", "llama", "swin"],
 )
 def test_config_copies_agree(jax_cfg):
     t = to_torch_config(jax_cfg)
@@ -161,6 +165,9 @@ def test_config_copies_agree(jax_cfg):
         assert dataclasses.asdict(t) == dataclasses.asdict(jax_cfg)
         if isinstance(jax_cfg, jcfg.ViT2DConfig):
             assert t.num_patches == jax_cfg.num_patches == 196
+        if isinstance(jax_cfg, jcfg.SwinConfig):
+            assert t.grid == jax_cfg.grid == (4, 16, 16)
+            assert t.out_dim == jax_cfg.out_dim == 768
         return
     want_vit2d = jax_cfg.vit2d and dataclasses.asdict(jax_cfg.vit2d)
     assert (t.vit2d and dataclasses.asdict(t.vit2d)) == want_vit2d

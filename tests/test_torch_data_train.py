@@ -55,8 +55,8 @@ REPORTS = [
 
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
-    """Volumes, slice features, report .txt files, a manifest whose entries
-    carry every field the manifest sets read, a yes/no manifest without
+    """Volumes, slice features, seg masks, report .txt files, a manifest
+    whose entries carry every field the manifest sets read, a yes/no manifest without
     choices, an M3D-Cap JSON and an M3D-VQA CSV, from a numpy seed."""
     root = tmp_path_factory.mktemp("data")
     rng = np.random.default_rng(5)
@@ -66,8 +66,14 @@ def data(tmp_path_factory):
         np.save(root / f"feat{i}.npy", rng.standard_normal((4, 16)))
         with open(root / f"report{i}.txt", "w") as f:
             f.write(report)
+        seg = np.zeros((4, 8, 8), np.float32)
+        if i != 2:  # an empty mask: the grounding sets' "no" answers
+            seg[i % 2:3, 1:5 + i, 2:7] = 1.0
+        np.save(root / f"seg{i}.npy", seg)
         entries.append({
             "image": f"vol{i}.npy", "biomedclip_features": f"feat{i}.npy",
+            "seg": f"seg{i}.npy", "target": ["liver", "kidney", "spleen",
+                                             "lung"][i],
             "text": report if i % 2 else f"report{i}.txt",
             "abnormality": ["nodule", "effusion", "emphysema", "hernia"][i],
             "anatomy": ["right lung", "pleura", "lung", "abdomen"][i],
@@ -193,9 +199,23 @@ def test_build_task_mix_refuses_an_unknown_task(data, spec):
 
 @pytest.mark.parametrize("spec", ["seg", "caption+rec", "reg"])
 def test_grounding_tasks_raise_when_built(data, spec):
-    with pytest.raises(NotImplementedError, match="§A8"):
-        tds.build_task_mix(spec, tds.DataArgs(data_root=data["root"]),
-                           tds.SimpleTokenizer(), data["manifest"])
+    """The grounding tasks (seg QA, REC, REG) build as the JAX package's do:
+    the same samples, the mix padding zero seg masks where a task has
+    none."""
+    mixes = []
+    for ds in (tds, jds):
+        tok = ds.SimpleTokenizer(vocab_size=512)
+        tok.add_special_tokens({"additional_special_tokens": ds.SPECIAL_TOKENS})
+        args = ds.DataArgs(data_root=data["root"], max_length=160, proj_out_num=4)
+        mixes.append(ds.build_task_mix(spec, args, tok, data["manifest"], "train",
+                                       pad_seg_shape=(1, 4, 8, 8)))
+    port, ref = mixes
+    assert type(port).__name__ == type(ref).__name__ == "MixDataset"
+    assert len(port) == len(ref) == 4 * len(spec.split("+"))
+    for i in range(len(ref)):
+        got = port[i]  # one read: a caption read draws from its generator
+        assert_samples_equal(got, ref[i])
+        assert got["seg"].shape == (1, 4, 8, 8)
 
 
 @pytest.mark.parametrize("extra", [(), ("embed",), ("o_proj", "norm")])
@@ -266,9 +286,8 @@ def test_add_train_args_equals_jax():
 
 
 # config fields of the JAX package that the port leaves out: the Pallas
-# kernels' query block (a TPU tiling knob) and the Phi remat policy "dots"
-# (ROADMAP §A7)
-TPU_ONLY = {"attn_block_q", "remat_policy"}
+# kernels' query block (a TPU tiling knob)
+TPU_ONLY = {"attn_block_q"}
 
 
 def _strip(blob):

@@ -421,5 +421,13 @@ def test_finetune_data_matches_jax():
                 assert got[key] == value
     row = batches[1][0]
     assert (row["labels"][:, :1 + 4 + 3] == -100).all()  # BOS, image, prompt
-    with pytest.raises(NotImplementedError):
-        tdata.SyntheticCTDataset(n=2, mode="seg").get(0)
+    # mode "seg" (a box mask and a [SEG] answer) gives the JAX samples too
+    seg = [data.SyntheticCTDataset(n=2, shape=(1, 4, 16, 16), mode="seg",
+                                   num_slices=2, slice_dim=16)[1]
+           for data in (jdata, tdata)]
+    assert sorted(seg[1]) == sorted(seg[0])
+    for key, value in seg[0].items():
+        if isinstance(value, np.ndarray):
+            np.testing.assert_array_equal(seg[1][key], value)
+        else:
+            assert seg[1][key] == value

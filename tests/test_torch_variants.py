@@ -105,8 +105,7 @@ def test_llama_configs_agree():
     assert dataclasses.asdict(t) == dataclasses.asdict(LLAMA)
     want = dataclasses.asdict(jax_as_phi3(LLAMA))
     got = dataclasses.asdict(llama_as_phi3_config(t))
-    assert got == {k: want[k] for k in got}
-    assert set(want) - set(got) == {"remat_policy"}
+    assert got == want  # remat_policy included since the port has it
     phi = llama_as_phi3_config(t)
     assert (phi.rotary_dim, phi.attention_bias, phi.rope_short_factor) == (8, False, None)
 
