@@ -333,6 +333,16 @@ In order:
    [remat-dots] runs inside [train-grads]: the finetune step's gradients
    with the Phi remat policy "dots" against "full", step ms and peak
    memory of each;
+16g. the parallel slice at VLMConfig() (all 32 LLM layers): [dist-world1]
+   the training CLIs with --zero1 / --fsdp and evaluate --dp 1 --tp 1 in a
+   one-rank NCCL group against plain runs; [dist-tp2] serve --tp 2 and
+   [dist-dp2] (a CLIP step, train_vlm --dp 2 with --zero1 and --fsdp,
+   evaluate --dp 2) as two ranks on the one card over gloo (`chip_smoke.py
+   --dist-rank`), each against one process beside a wrong variant that
+   must miss (the row-parallel all-reduce left out, the feature gather
+   without gradient, ranks keeping their own gradients, ranks keeping
+   their own ids); FSDP's step peak of device memory below ZeRO-1's;
+   [kernel-tp] B5 at the tp = 2 shards and B1 / B3 at the new shapes;
 17. prints one JSON line of kernel numbers, then as its last line
    {"ok": true, "device": {...}}.
 
@@ -3937,7 +3947,9 @@ def run_train_cli(tag, main, argv, snapshot=()):
     time between two device synchronisations; the host batches' valid
     lengths (read as each is placed, by the prefetcher or inline); with
     `snapshot`, copies of the model's leaves whose names hold one of those
-    strings as training starts. Returns (state, record)."""
+    strings as training starts; the peak of allocated device memory over the
+    whole run and over `Trainer.fit` alone (the step's peak: the model
+    built and placed). Returns (state, record)."""
     import torch
 
     from hsenet_torch.data import prefetch as tprefetch
@@ -3984,7 +3996,14 @@ def run_train_cli(tag, main, argv, snapshot=()):
             return out
 
         self.train_step = timed_step
-        return fit(self, total_steps)
+        torch.cuda.synchronize()
+        rec["build_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            return fit(self, total_steps)
+        finally:
+            torch.cuda.synchronize()
+            rec["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
     def spy_host_arrays(batch):  # each host batch, prefetched or placed inline
         rec["lens"].append(tuple(int(n) for n in batch["attention_mask"].sum(-1)))
@@ -4009,7 +4028,8 @@ def run_train_cli(tag, main, argv, snapshot=()):
             setattr(obj, name, value)
     rec["after"] = take_counts()
     rec["matvec_launches"] = tqm.launches[tqm.KERNEL] + tqm.fma_launches[tqm.FMA]
-    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["peak_gb"] = max(rec.get("build_peak_gb", 0.0),
+                         torch.cuda.max_memory_allocated() / 1e9)
     fwd_route(f"cli-train {tag}", rec["route"]["launches"], rec["route"]["f32"])
     losses = [m["loss"] for _, m in rec["logged"]]
     print(f"[cli-train] {tag}: {' '.join(argv)}")
@@ -4310,7 +4330,7 @@ def run_cli_train(card: str):
     return numbers, shapes, lens
 
 
-def train_cli_kernel_cases(path_shapes, known, lens):
+def train_cli_kernel_cases(path_shapes, known, lens, prefix="train_cli"):
     """The flash cases of the [cli-train] shapes that no earlier phase
     timed: the VLM towers (non-causal over 2049 tokens) and the LLM at the
     runs' batch sizes (causal, the first training batch's valid lengths),
@@ -4323,7 +4343,7 @@ def train_cli_kernel_cases(path_shapes, known, lens):
     cases = []
     for (b, h, s, _, d), kinds in sorted(by_shape.items()):
         tower = d == 64
-        name = f"train_cli_{'tower' if tower else 'llm'}_{b}x{h}x{s}"
+        name = f"{prefix}_{'tower' if tower else 'llm'}_{b}x{h}x{s}"
         kv = (s,) * b if tower else lens[b]
         fwd = tuple(k for k in ("flash_fwd", "flash_fwd_lse")
                     if k in kinds or (k == "flash_fwd_lse" and "flash_bwd" in kinds))
@@ -4331,11 +4351,11 @@ def train_cli_kernel_cases(path_shapes, known, lens):
     return cases
 
 
-def check_train_cli_kernels(path_shapes, known, lens):
+def check_train_cli_kernels(path_shapes, known, lens, prefix="train_cli"):
     """[kernel-train-cli]: B1 and B3 at the [cli-train] shapes no earlier
-    phase held and timed (`check_flash_cases`). Returns the results and the
-    launch key -> (kernel, shape name)."""
-    cases = train_cli_kernel_cases(path_shapes, known, lens)
+    phase held and timed (`check_flash_cases`), named `prefix`_... Returns
+    the results and the launch key -> (kernel, shape name)."""
+    cases = train_cli_kernel_cases(path_shapes, known, lens, prefix)
     results = check_flash_cases(cases, seed=17)
     index = {}
     for name, (b, h, s, d), _, _, _, fwd_kinds in cases:
@@ -7646,6 +7666,978 @@ def run_remat_dots(model, names, params, batch):
             **{f"{p}_peak_gb": out[p]["peak_gb"] for p in out}}
 
 
+# ---- the parallel slice: [dist-world1], [dist-tp2], [dist-dp2], [kernel-tp] ----
+
+# the dist phases run the CLIs' models at VLMConfig(), all 32 LLM layers
+DIST_STEPS = 2
+DIST_WORLD1_RTOL = 1e-3  # a one-rank group against the plain run
+DIST_REL_TOL = 5e-2  # two ranks against one process (relative L2, bf16)
+# the trained leaves' move (trained - initial) against one process's: an
+# early Adam step moves an element by about lr x sign(g), so an element
+# whose gradient rounding carries across 0 moves the other way; a quarter
+# of the move is far above that and far below a move of other gradients
+DIST_MOVE_TOL = 0.25
+DIST_TIMEOUT = 600  # seconds a world of two ranks may take
+DIST_SERVE_REQUESTS = 4
+DIST_SERVE_NEW = 24
+DIST_EVAL_NEW = 16
+DIST_CLIP_SEED = 51
+# B5 at Phi-4-mini's tensor-parallel shards (tp = 2): (K, N) of q, k and v,
+# gate and up (column-parallel: N / 2), o and down (row-parallel: K / 2)
+TP_MATVEC_SHAPES = {"tp2_q_3072x1536": (3072, 1536), "tp2_kv_3072x512": (3072, 512),
+                    "tp2_gate_up_3072x4096": (3072, 4096),
+                    "tp2_o_1536x3072": (1536, 3072), "tp2_down_4096x3072": (4096, 3072)}
+TP_MATVEC_PER_LAYER = {"tp2_q_3072x1536": 1, "tp2_kv_3072x512": 2,
+                       "tp2_gate_up_3072x4096": 2, "tp2_o_1536x3072": 1,
+                       "tp2_down_4096x3072": 1}
+# the [main] path's prefill at tp = 2: 12 of the 24 heads, 320 tokens over
+# a 352-slot cache
+TP_PREFILL = ("flash_fwd", len(KV_LENS), 12, PROMPT_LEN, PROMPT_LEN + MAX_NEW_TOKENS,
+              128)
+
+
+class patched:
+    """Set attributes for the block: patched((obj, name, value), ...)."""
+
+    def __init__(self, *patches):
+        self.patches = patches
+
+    def __enter__(self):
+        self.saved = [(obj, name, getattr(obj, name)) for obj, name, _ in self.patches]
+        for obj, name, value in self.patches:
+            setattr(obj, name, value)
+
+    def __exit__(self, *exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+
+
+def dist_vlm_config():
+    import argparse
+
+    from hsenet_torch.cli.common import build_vlm_config
+
+    return build_vlm_config(argparse.Namespace(synthetic=False))
+
+
+def dist_vlm_model():
+    """The training CLIs' VLM (`build_vlm_config`: VLMConfig() with LoRA)
+    with every dropout rate at 0, drawn on the card from train_vlm's
+    default seed, for `train_vlm.main(model=)`: dp ranks draw their own
+    dropout masks, so the runs compared across layouts train without
+    dropout."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from hsenet_torch.cli.common import random_model
+    from hsenet_torch.models.mllm import HSENetVLM
+
+    cfg = dist_vlm_config()
+    cfg = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, dropout_rate=0.0,
+                                        slice_dropout_rate=0.0),
+        packer=dataclasses.replace(cfg.packer, dropout_rate=0.0),
+        llm=dataclasses.replace(cfg.llm, lora=dataclasses.replace(
+            cfg.llm.lora, dropout_rate=0.0)))
+    return random_model(functools.partial(HSENetVLM, remat=True), cfg,
+                        dtype=torch.bfloat16, device="cuda", seed=42)
+
+
+def dist_requests(cfg):
+    """DIST_SERVE_REQUESTS multimodal requests from a numpy seed, over two
+    volumes: BOS, the image block, 16 + 8 i text tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(57)
+    n_img = cfg.num_image_tokens
+    vols = [rng.random((1, *cfg.vision.image_size), np.float32) for _ in range(2)]
+    feats = [rng.standard_normal((cfg.vision.num_slices, cfg.vision.slice_feature_dim)
+                                 ).astype(np.float32) for _ in range(2)]
+    out = []
+    for i in range(DIST_SERVE_REQUESTS):
+        ids = rng.integers(3, 100000, 1 + n_img + 16 + 8 * i).astype(np.int32)
+        ids[0] = 1
+        ids[1:1 + n_img] = IM_PATCH_TOKEN_ID
+        out.append({"id": f"r{i}", "prompt_ids": ids, "volume": vols[i % 2],
+                    "slice_features": feats[i % 2], "vol": i % 2})
+    return out
+
+
+def write_dist_data(root):
+    """The dist phases' data under `root`: [cli-train]'s volumes and CLIP and
+    MRG manifests (two train entries, each with its own report);
+    [cli-evaluate]'s MRG manifest under `root/eval`; the serving requests as
+    JSONL over .npy files. Returns the paths by name."""
+    import os
+
+    import numpy as np
+
+    paths = write_train_cli_data(root)
+    cfg = dist_vlm_config()
+    paths["eval_root"] = os.path.join(root, "eval")
+    os.makedirs(paths["eval_root"])
+    paths["eval"] = write_eval_data(paths["eval_root"], cfg)["mrg"]
+    paths["requests"] = os.path.join(root, "requests.jsonl")
+    with open(paths["requests"], "w") as f:
+        for r in dist_requests(cfg):
+            vol = os.path.join(root, f"req_vol{r['vol']}.npy")
+            feat = os.path.join(root, f"req_feat{r['vol']}.npy")
+            np.save(vol, r["volume"])
+            np.save(feat, r["slice_features"])
+            f.write(json.dumps({"id": r["id"], "prompt_ids": r["prompt_ids"].tolist(),
+                                "max_new": DIST_SERVE_NEW, "volume": vol,
+                                "slice_features": feat}) + "\n")
+    return paths
+
+
+def dist_train_argv(paths, kind, out):
+    # lr 1e-3: the second step (the first runs at the warmup's 0) moves a
+    # leaf by about 1e-3, well above the runs' rounding
+    steps = ["--total-steps", str(DIST_STEPS), "--log-every", "1", "--eval-every", "0",
+             "--checkpoint-every", "1000", "--remat", "--learning-rate", "1e-3",
+             "--data-root", paths["root"], "--output-dir", out]
+    if kind == "clip":
+        return ["--manifest", paths["clip"], "--batch-size",
+                str(TRAIN_CLI_BATCH["clip"])] + steps
+    return ["--task", "mrg", "--manifest", paths["mrg"], "--batch-size",
+            str(TRAIN_CLI_BATCH["mrg"])] + steps
+
+
+def dist_eval_argv(paths, batch):
+    return ["--task", "mrg", "--manifest", paths["eval"], "--data-root",
+            paths["eval_root"], "--batch-size", str(batch), "--max-new-tokens",
+            str(DIST_EVAL_NEW)]
+
+
+def dist_train(tag, main, argv, snapshot=()):
+    """`run_train_cli` of one training CLI: (state, record); the record's
+    flash launches by shape over the whole run under "shapes". The run's
+    output directory (its exports: 2.4 GB of token table for the VLM) is
+    removed after it."""
+    import shutil
+
+    state, rec = run_train_cli(tag, main, argv, snapshot)
+    shutil.rmtree(argv[argv.index("--output-dir") + 1], ignore_errors=True)
+    shapes = dict(rec["after"])
+    for counts in rec["steps"].values():
+        for k, n in counts.items():
+            shapes[k] = shapes.get(k, 0) + n
+    rec["shapes"] = shapes
+    return state, rec
+
+
+def dist_eval(tag, argv):
+    """`evaluate.main(argv)` counted: (metrics with the generated ids of
+    every row in order under "ids", the flash launches by shape, the first
+    batch's prompt lengths)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hsenet_torch.cli.evaluate import main as evaluate_main
+    from hsenet_torch.ops import flash_attention as tfa
+
+    reset_counts()
+    with recording_generate() as calls, contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        metrics = evaluate_main(argv)
+        torch.cuda.synchronize()
+    fwd_route(f"dist {tag}", tfa.launches, tfa.f32_launches)
+    print(f"[dist] {tag}: evaluate {' '.join(argv)}: {metrics['num_samples']} "
+          f"samples in {time.perf_counter() - t0:.2f} s")
+    ids = [row for _, out in calls for row in out.tolist()]
+    lens = tuple(int(n) for n in calls[0][0]["attention_mask"].sum(-1))
+    return {**metrics, "ids": ids}, dict(tfa.shape_launches), lens
+
+
+def trainable_rel(got, want):
+    """Relative L2 distance of two {name: tensor} sets over all leaves."""
+    num = sum((got[k].float() - want[k].float().to(got[k].device)).pow(2).sum().item()
+              for k in want)
+    den = sum(w.float().pow(2).sum().item() for w in want.values())
+    return math.sqrt(num / den)
+
+
+def move_rel(got, want, before):
+    """Relative L2 distance of two trained {name: tensor} sets over the
+    move of `want` from `before` (trained - initial), on the host."""
+    num = sum((got[k].float().cpu() - want[k].float().cpu()).pow(2).sum().item()
+              for k in want)
+    den = sum((want[k].float().cpu() - before[k].float().cpu()).pow(2).sum().item()
+              for k in want)
+    return math.sqrt(num / den)
+
+
+class recorded_lora_grads:
+    """Within the block, each VLM train step's gradients of the LoRA leaves,
+    as the step's norm reads them (after the dp reduction), land in the
+    list in bf16 on the host."""
+
+    def __enter__(self):
+        import torch
+
+        from hsenet_torch.train import vlm as tvlm
+
+        self.real = real = tvlm.global_norm
+        steps = self.steps = []
+
+        def spy(grads, names, model):
+            steps.append({n: g.detach().to(torch.bfloat16).cpu()
+                          for n, g in zip(names, grads) if "lora_" in n})
+            return real(grads, names, model)
+
+        tvlm.global_norm = spy
+        return steps
+
+    def __exit__(self, *exc):
+        from hsenet_torch.train import vlm as tvlm
+
+        tvlm.global_norm = self.real
+
+
+def losses_rel(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def logged(rec, key="loss"):
+    return [m[key] for _, m in rec["logged"]]
+
+
+def run_dist_world1(card, paths):
+    """[dist-world1]: at VLMConfig(), the plain runs (no process group) of
+    train_clip_stage1, train_vlm and evaluate (batch 1), then in a one-rank
+    NCCL group train_clip_stage1 --zero1, train_vlm --zero1 and --fsdp and
+    evaluate --dp 1 --tp 1 (train_vlm on `dist_vlm_model`, without dropout):
+    the losses and the trained leaves within DIST_WORLD1_RTOL of the plain
+    runs' (the untrained leaves must miss),
+    the reports equal; each VLM run's step peak of device memory. Returns
+    (numbers, flash launches by shape of the counted runs, the LLM's batch
+    lengths by batch size, the plain VLM run's record, the plain eval's
+    metrics, its first batch's prompt lengths, the plain VLM run's LoRA
+    leaves and each step's LoRA gradients)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from hsenet_torch.cli import train_clip_stage1, train_vlm
+
+    root = paths["root"]
+    numbers, shapes, lens = {}, {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            shapes[k] = shapes.get(k, 0) + n
+
+    def trained(state):
+        return {k: v.detach().clone() for k, v in state.params.items()}
+
+    s1, s1_rec = dist_train("dist-world1 stage 1 plain", train_clip_stage1.main,
+                            dist_train_argv(paths, "clip", os.path.join(root, "w1_s1")),
+                            snapshot=("mm_vision_proj",))
+    plain_s1 = trained(s1)
+    del s1
+    def vlm_main(argv):
+        return train_vlm.main(argv, model=dist_vlm_model())
+
+    with recorded_lora_grads() as plain_grads:
+        vlm, vlm_rec = dist_train("dist-world1 vlm plain", vlm_main,
+                                  dist_train_argv(paths, "mrg",
+                                                  os.path.join(root, "w1_vlm")),
+                                  snapshot=("lora_",))
+    plain_vlm = {k: v.cpu() for k, v in trained(vlm).items() if "lora_" in k}
+    del vlm
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain_eval, eval_shapes, eval_lens = dist_eval("dist-world1 evaluate plain",
+                                                   dist_eval_argv(paths, 1))
+    for rec in (s1_rec, vlm_rec):
+        add(rec["shapes"])
+        for n in rec["lens"]:
+            lens.setdefault(len(n), n)
+    add(eval_shapes)
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    try:
+        runs = {}
+        st, rec = dist_train("dist-world1 stage 1 --zero1", train_clip_stage1.main,
+                             dist_train_argv(paths, "clip", os.path.join(root, "w1_s1z"))
+                             + ["--zero1"])
+        backend = dist.get_backend()
+        runs["stage1_zero1"] = (rec, trained(st), s1_rec, plain_s1)
+        del st
+        for flag in ("--zero1", "--fsdp"):
+            st, rec = dist_train(f"dist-world1 vlm {flag}", vlm_main,
+                                 dist_train_argv(paths, "mrg",
+                                                 os.path.join(root, f"w1_vlm{flag}"))
+                                 + [flag])
+            runs[f"vlm_{flag[2:]}"] = (rec, {k: v for k, v in trained(st).items()
+                                             if "lora_" in k}, vlm_rec, plain_vlm)
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+        grouped_eval, g_shapes, _ = dist_eval("dist-world1 evaluate --dp 1 --tp 1",
+                                           dist_eval_argv(paths, 1) + ["--dp", "1",
+                                                                       "--tp", "1"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+            os.environ.pop(key, None)
+    print(f"[dist-world1] on {card}: a one-rank {backend} group")
+    if backend != "nccl":
+        raise AssertionError(f"[dist-world1] the group's backend is {backend}, not nccl")
+    for name, (rec, params, plain_rec, plain) in runs.items():
+        add(rec["shapes"])
+        loss_rel = losses_rel(logged(rec), logged(plain_rec))
+        rel = trainable_rel(params, plain)
+        before = {k: v for k, v in plain_rec["before"].items() if k in plain}
+        wrong = trainable_rel(before, {k: plain[k] for k in before})
+        print(f"[dist-world1] {name}: losses {logged(rec)} against the plain run's "
+              f"{logged(plain_rec)}: max relative difference {loss_rel:.3e}; the "
+              f"trained leaves ({len(plain)}) at relative L2 {rel:.3e} (limit "
+              f"{DIST_WORLD1_RTOL}); wrong variant, the leaves before training: "
+              f"{wrong:.3e}; device memory peak {rec['peak_gb']:.2f} GB, in the "
+              f"steps {rec['step_peak_gb']:.2f} GB (the plain run's "
+              f"{plain_rec['step_peak_gb']:.2f} GB)")
+        if not (loss_rel <= DIST_WORLD1_RTOL and rel <= DIST_WORLD1_RTOL):
+            raise AssertionError(f"[dist-world1] {name} is not the plain run")
+        if wrong <= DIST_WORLD1_RTOL:
+            raise AssertionError(f"[dist-world1] the limit passes untrained leaves ({name})")
+        numbers[name] = {"losses": logged(rec), "plain_losses": logged(plain_rec),
+                         "loss_rel": loss_rel, "params_rel": rel, "wrong_rel": wrong,
+                         "wall_s": rec["wall_s"], "step_ms": rec["step_ms"],
+                         "peak_gb": rec["peak_gb"], "step_peak_gb": rec["step_peak_gb"],
+                         "plain_step_peak_gb": plain_rec["step_peak_gb"]}
+    add(g_shapes)
+    same = grouped_eval == plain_eval
+    print(f"[dist-world1] evaluate --dp 1 --tp 1 in the group: reports equal to "
+          f"the plain run's: {same} (bleu {grouped_eval.get('bleu')})")
+    if not same:
+        raise AssertionError("[dist-world1] evaluate's reports differ in the group")
+    numbers["evaluate"] = {"equal": same}
+    return (numbers, shapes, lens, vlm_rec, plain_eval, eval_lens,
+            {"leaves": plain_vlm, "grads": plain_grads})
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(phase, root, world=2):
+    """`python chip_smoke.py --dist-rank <phase> <root>` as `world` ranks of
+    one gloo group on the card (two ranks cannot share one card over
+    NCCL), each child's output printed after it; a child that fails or
+    overruns DIST_TIMEOUT fails the phase, and every child is stopped.
+    Returns rank 0's results (`<root>/<phase>.pt`)."""
+    import os
+
+    import torch
+
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": str(world)}
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dist-rank", phase, root],
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=DIST_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines()[-60:]:
+            print(f"[{phase} rank {r}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"[{phase}] rank {r} exited with {p.returncode}")
+    print(f"[{phase}] two ranks on one card over gloo: {time.perf_counter() - t0:.1f} s")
+    return torch.load(os.path.join(root, f"{phase}.pt"), weights_only=False)
+
+
+def dist_serve_argv(paths, out):
+    return ["--quant-int8", "--kv-int8", "--requests", paths["requests"], "--output",
+            out, "--slots", str(SERVE_SLOTS), "--chunk", str(SERVE_CHUNK),
+            "--prompt-cap", str(SERVE_PROMPT_CAP), "--max-new-tokens",
+            str(DIST_SERVE_NEW), "--eos-token-id", str(EOS_TOKEN_ID), "--seed", "0"]
+
+
+def dist_generate_inputs():
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(58)
+    ids = torch.randint(3, 100000, (len(KV_LENS), PROMPT_LEN), generator=gen,
+                        device="cuda")
+    for row, n in enumerate(KV_LENS):
+        ids[row, n:] = 0
+    return ids, torch.tensor(KV_LENS, dtype=torch.int32, device="cuda")
+
+
+class captured_engines:
+    """Within the block, every `ServingEngine` built lands in the list."""
+
+    def __enter__(self):
+        from hsenet_torch import serving
+
+        self.real, made = serving.ServingEngine, []
+
+        class Recorded(self.real):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        serving.ServingEngine = Recorded
+        return made
+
+    def __exit__(self, *exc):
+        from hsenet_torch import serving
+
+        serving.ServingEngine = self.real
+
+
+def dist_serve(tag, paths, out, extra=()):
+    """The serve CLI on the dist requests, counted; then one admission's
+    first-token logits for request 0 and greedy generate over the [main]
+    path's two prompts on the engine's LLM (counted apart). Returns a dict
+    of the results and the engine."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hsenet_torch.cli import serve
+    from hsenet_torch.eval.generate import make_greedy_generate_llm_only
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    with captured_engines() as made, contextlib.redirect_stdout(io.StringIO()):
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = serve.main(dist_serve_argv(paths, out) + list(extra))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng = made[0]
+    fwd_route(f"dist {tag}", tfa.launches, tfa.f32_launches)
+    res = {"summary": summary, "wall_s": wall, "steps": eng.steps_run,
+           "matvec": tqm.launches[tqm.KERNEL], "fma": tqm.fma_launches[tqm.FMA],
+           "shapes": dict(tfa.shape_launches), "cache_heads": eng._cache.k.shape[2],
+           "heads": (eng.model.config.llm.num_heads, eng.model.config.llm.num_kv_heads)}
+    ids, lens = dist_generate_inputs()
+    reset_counts()
+    gen = make_greedy_generate_llm_only(eng.model.llm, max_new_tokens=MAX_NEW_TOKENS,
+                                        eos_token_id=EOS_TOKEN_ID,
+                                        cache_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    res["gen_tokens"] = gen(ids, lens).cpu()
+    torch.cuda.synchronize()
+    res["gen_wall_s"] = time.perf_counter() - t0
+    res["gen_matvec"] = tqm.launches[tqm.KERNEL]
+    res["gen_shapes"] = dict(tfa.shape_launches)
+    request = dist_requests(eng.model.config)[0]
+    request = {**request, "volume": request["volume"][None],
+               "slice_features": request["slice_features"][None]}
+    res["logits"] = admission_logits(eng, request).float().cpu()
+    return res, eng, request
+
+
+def dist_child_tp2(root):
+    """Rank of [dist-tp2]: serve --quant-int8 --kv-int8 --tp 2, the
+    admission logits with the row-parallel all-reduce and without it (the
+    wrong variant), generate at tp = 2."""
+    import os
+
+    import torch
+
+    from hsenet_torch.models import lora
+
+    with open(os.path.join(root, "paths.json")) as f:
+        paths = json.load(f)
+    res, eng, request = dist_serve("tp2", paths, os.path.join(root, "tp2.jsonl"),
+                                   ("--tp", "2"))
+    with patched((lora, "reduce_from_group", lambda x, group: x)):
+        res["wrong_logits"] = admission_logits(eng, request).float().cpu()
+    res["model_layers"] = eng.model.config.llm.num_layers
+    return res
+
+
+def run_dist_tp2(card, paths):
+    """[dist-tp2]: the serve CLI at VLMConfig() (int8 weights and KV cache,
+    8 slots, all 32 LLM layers) on two ranks with
+    --tp 2 against one process: tokens equal or parting at a near-tie,
+    the admission's first-token logits within DIST_REL_TOL (relative L2)
+    where the variant without the row-parallel all-reduce must miss; B5
+    launched 7 x layers per decode step at the shard shapes, B1 at 12
+    heads; greedy generate over the [main] path's prompts likewise.
+    Returns (numbers, the ranks' launches)."""
+    import os
+
+    import torch
+
+    from hsenet_torch.models.phi3 import KVCache
+
+    root = paths["root"]
+    one, eng, _ = dist_serve("tp1", paths, os.path.join(root, "tp1.jsonl"))
+    two = run_ranks("dist-tp2", root)
+
+    def rows(path):
+        with open(path) as f:
+            return {r["id"]: r["tokens"] for r in map(json.loads, f)}
+
+    want, got = rows(os.path.join(root, "tp1.jsonl")), rows(os.path.join(root, "tp2.jsonl"))
+    if set(want) != set(got) or len(want) != DIST_SERVE_REQUESTS:
+        raise AssertionError("[dist-tp2] the two runs did not serve the same requests")
+    model, cfg = eng.model, eng.model.config
+    reqs = {r["id"]: r for r in dist_requests(cfg)}
+    diverged = []
+    for rid in sorted(want):
+        div = first_divergence(got[rid], want[rid])
+        if div is None:
+            continue
+        r = reqs[rid]
+        # the margin on f32 logits of the last hidden state (the model's
+        # own head rounds them to bf16)
+        prefix = torch.tensor([list(r["prompt_ids"]) + want[rid][:div]], device="cuda")
+        with torch.inference_mode():
+            cache = KVCache.create(cfg.llm, 1, prefix.shape[1], device="cuda")
+            embeds = model.multimodal_embeds(
+                prefix, torch.as_tensor(r["volume"][None], device="cuda"),
+                torch.as_tensor(r["slice_features"][None], device="cuda"))
+            _, _, hidden = model.llm.decode_embeds(
+                embeds, cache=cache, return_hidden=True,
+                kv_lens=torch.tensor([prefix.shape[1]], dtype=torch.int32,
+                                     device="cuda"))
+            logits = f32_head_logits(model.llm, hidden[0, -1])
+        chosen = got[rid][div] if div < len(got[rid]) else None
+        diverged.append((rid, div, *next_token_margin(logits, chosen)))
+    check_near_ties("dist-tp2 serve", diverged)
+    ids, lens = dist_generate_inputs()
+    gen_div = []
+    for row in range(len(KV_LENS)):
+        g, w = two["gen_tokens"][row].tolist(), one["gen_tokens"][row].tolist()
+        _, d = greedy_divergences(cfg, model.llm, ids[row:row + 1, :lens[row]], g, w)
+        gen_div += [(row, *x[1:]) for x in d]
+    check_near_ties("dist-tp2 generate", gen_div)
+    rel = rel_l2(two["logits"], one["logits"])
+    wrong = rel_l2(two["wrong_logits"], one["logits"])
+    layers = two["model_layers"]
+    want_b5 = 7 * layers * two["steps"]
+    print(f"[dist-tp2] on {card}: serve --quant-int8 --kv-int8 --tp 2 "
+          f"({DIST_SERVE_REQUESTS} requests, {SERVE_SLOTS} slots, {layers} LLM layers): "
+          f"each rank holds {two['heads']} (query, kv) heads, a cache of "
+          f"{two['cache_heads']} kv heads; requests equal to one process's: "
+          f"{sum(got[k] == want[k] for k in want)}/{len(want)}, partings "
+          f"{[(d[0], d[1]) for d in diverged]}; generate rows parting "
+          f"{[(d[0], d[1]) for d in gen_div]}; admission logits relative L2 {rel:.3e} "
+          f"(limit {DIST_REL_TOL}), without the row-parallel all-reduce "
+          f"{wrong:.3e}; B5 launches a rank {two['matvec']} (expected {want_b5} = 7 x "
+          f"{layers} x {two['steps']} steps); wall {two['wall_s']:.2f} s against one "
+          f"process's {one['wall_s']:.2f} s (two ranks sharing one card over gloo "
+          f"through the host: not a tensor-parallel speed)")
+    if not rel <= DIST_REL_TOL:
+        raise AssertionError("[dist-tp2] the tp = 2 logits are not one process's")
+    if wrong <= DIST_REL_TOL:
+        raise AssertionError("[dist-tp2] the limit passes the missing all-reduce")
+    if two["matvec"] != want_b5 or two["fma"]:
+        raise AssertionError("[dist-tp2] B5 launches are not 7 per layer and step")
+    if two["heads"] != (12, 4) or two["cache_heads"] != 4:
+        raise AssertionError(f"[dist-tp2] a rank holds {two['heads']} heads")
+    numbers = {"requests_equal": sum(got[k] == want[k] for k in want),
+               "partings": diverged, "generate_partings": gen_div,
+               "logits_rel": rel, "wrong_logits_rel": wrong,
+               "wall_s": two["wall_s"], "one_process_wall_s": one["wall_s"],
+               "gen_wall_s": two["gen_wall_s"], "decode_steps": two["steps"],
+               "matvec_launches_per_rank": two["matvec"],
+               "note": "two ranks share one card over gloo: times are no tp speed"}
+    del eng, model
+    return numbers, two
+
+
+def clip_step_grads(model, batch):
+    """The stage-1 loss of `batch` and its gradients (averaged over dp where
+    the model is placed on a mesh), deterministic."""
+    import torch
+
+    from hsenet_torch.train.stage1 import stage1_loss_fn
+    from hsenet_torch.train.train_state import reduce_gradients
+
+    params = dict(model.named_parameters())
+    loss, _ = stage1_loss_fn(model, batch, None)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params.values(), grads)]
+    mesh = model.__dict__.get("mesh")
+    if mesh is not None:
+        grads = reduce_gradients(grads, list(params), model, mesh)
+    return loss.detach(), dict(zip(params, grads))
+
+
+def dist_clip_batch(rows=None):
+    import torch
+
+    batch = clip_batch(clip_config(), CLIP_BATCH, "clip", seed=DIST_CLIP_SEED)
+    out = {k: torch.as_tensor(batch[k]).cuda() for k in ("image", "input_ids",
+                                                        "attention_mask")}
+    return out if rows is None else {k: v[rows] for k, v in out.items()}
+
+
+def gather_keeping_own(x, group, dim=0):
+    """[dist-dp2]'s wrong variant of the feature gather: the other ranks'
+    rows without their gradient, this rank's own with it."""
+    import torch
+    import torch.distributed as dist
+
+    from hsenet_torch.parallel.mesh import all_gather
+
+    parts = list(all_gather(x, group, dim).split(x.shape[dim], dim))
+    parts[dist.get_rank(group)] = x
+    return torch.cat(parts, dim)
+
+
+def dist_child_dp2(root):
+    """Rank of [dist-dp2]: the CLIP stage-1 step at batch 24 (12 rows a rank)
+    and with the wrong gather; train_vlm --dp 2 with --zero1, with --fsdp,
+    and with --zero1 where each rank keeps its own gradients (the wrong
+    variant), each against the one-process run's LoRA gradients and
+    trained LoRA leaves (`vlm_ref.pt`); evaluate --dp 2 (and with each
+    rank's own ids beside zeros in place of the gathered ones, the wrong
+    variant)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from hsenet_torch.cli import train_vlm
+    from hsenet_torch.configs import MeshConfig
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.parallel import mesh as pmesh
+    from hsenet_torch.parallel.sharding import gather_leaf, is_sharded, shard_params
+    from hsenet_torch.train import stage1 as tstage1
+    from hsenet_torch.train import vlm as tvlm
+
+    with open(os.path.join(root, "paths.json")) as f:
+        paths = json.load(f)
+    rank = dist.get_rank()
+    res = {}
+    mesh = pmesh.create_mesh(MeshConfig(dp=2, tp=1), device="cuda")
+    model = shard_params(build_clip_model(clip_config(), DIST_CLIP_SEED), mesh)
+    n = CLIP_BATCH // 2
+    batch = dist_clip_batch(slice(rank * n, (rank + 1) * n))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = clip_step_grads(model, batch)
+    torch.cuda.synchronize()
+    res["clip_ms"] = (time.perf_counter() - t0) * 1e3
+    res["clip_shapes"] = dict(tfa.shape_launches)
+    ref = torch.load(os.path.join(root, "clip_ref.pt"), weights_only=True)
+    res["clip_loss"] = loss.item()
+    res["clip_rel"] = trainable_rel(grads, ref["grads"])
+    del grads
+    with patched((tstage1, "gather_with_grad", gather_keeping_own)):
+        wloss, wgrads = clip_step_grads(model, batch)
+    res["clip_wrong_rel"] = trainable_rel(wgrads, ref["grads"])
+    res["clip_wrong_loss"] = wloss.item()
+    del model, wgrads, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ref = torch.load(os.path.join(root, "vlm_ref.pt"), weights_only=True)
+
+    def vlm_main(argv):
+        return train_vlm.main(argv, model=dist_vlm_model())
+
+    def vlm_run(tag, flags, *patches):
+        with recorded_lora_grads() as steps, patched(*patches):
+            state, rec = dist_train(f"dist-dp2 vlm {tag}", vlm_main,
+                                    dist_train_argv(paths, "mrg", os.path.join(
+                                        root, f"dp2_{tag}{rank}")) + ["--dp", "2", *flags])
+        model = state.model
+        leaves = {k: gather_leaf(model, k, v).detach().cpu()
+                  for k, v in model.state_dict().items() if "lora_" in k}
+        # FSDP's gradients are this rank's shards: its leaves are compared
+        out = {"logged": rec["logged"], "shapes": rec["shapes"], "lens": rec["lens"],
+               "grad_rel": None if "--fsdp" in flags else [
+                   trainable_rel(g, w) for g, w in zip(steps, ref["grads"])],
+               "params_rel": trainable_rel(leaves, ref["leaves"]),
+               "move_rel": move_rel(leaves, ref["leaves"], ref["before"]),
+               "moment_split": any(m.shape != p.shape for m, p in zip(
+                   state.opt_state.mu, state.params.values())),
+               "params_split": is_sharded(model),
+               "wall_s": rec["wall_s"], "step_ms": rec["step_ms"],
+               "peak_gb": rec["peak_gb"], "step_peak_gb": rec["step_peak_gb"]}
+        del state, model, leaves, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    res["vlm"] = vlm_run("zero1", ["--zero1"])
+    res["vlm_fsdp"] = vlm_run("fsdp", ["--fsdp"])
+    res["vlm_wrong"] = vlm_run("local-grads", ["--zero1"], (
+        tvlm, "reduce_gradients", lambda grads, names, model, mesh: grads))
+    del ref
+    res["eval"], res["eval_shapes"], _ = dist_eval(
+        "dp2 evaluate --dp 2", dist_eval_argv(paths, 2) + ["--dp", "2"])
+
+    def own_rows_only(t, group, dim=0):
+        parts = [torch.zeros_like(t)] * dist.get_world_size(group)
+        parts[dist.get_rank(group)] = t
+        return torch.cat(parts, dim)
+
+    with patched((pmesh, "all_gather", own_rows_only)):
+        res["eval_wrong"], _, _ = dist_eval("dp2 evaluate, wrong variant",
+                                         dist_eval_argv(paths, 2) + ["--dp", "2"])
+    return res
+
+
+def run_dist_dp2(card, paths, world1):
+    """[dist-dp2]: two ranks on the one card. The CLIP stage-1 step at batch
+    24 (12 rows a rank) against one process's at batch 24: loss and every
+    gradient (relative L2 over all leaves) within DIST_REL_TOL, where the
+    gather that keeps only the rank's own rows' gradient must miss.
+    train_vlm --dp 2 with --zero1 and with --fsdp (on `dist_vlm_model`,
+    without dropout) against [dist-world1]'s plain run (two reports of their
+    own, one a rank): losses and gradient
+    norms within DIST_REL_TOL; each step's LoRA gradients (--zero1) within
+    DIST_REL_TOL and the trained LoRA leaves' move within DIST_MOVE_TOL,
+    where a real run whose ranks keep their own gradients must miss both;
+    FSDP's step peak of device memory below ZeRO-1's. evaluate --dp 2
+    (batch 2: one row a rank) reporting and generating what the plain run
+    does at batch 1, where ranks that keep their own ids must not. Returns
+    (numbers, rank 0's launches by shape and lengths)."""
+    import os
+
+    import torch
+
+    root = paths["root"]
+    plain_vlm, plain_eval, plain_lora = world1[3], world1[4], world1[6]
+    torch.save({"before": {k: v for k, v in plain_vlm["before"].items()
+                           if k in plain_lora["leaves"]},
+                "leaves": plain_lora["leaves"], "grads": plain_lora["grads"]},
+               os.path.join(root, "vlm_ref.pt"))
+    model = build_clip_model(clip_config(), DIST_CLIP_SEED)
+    loss, grads = clip_step_grads(model, dist_clip_batch())
+    torch.save({"loss": loss.item(),
+                "grads": {k: g.to(torch.bfloat16).cpu() for k, g in grads.items()}},
+               os.path.join(root, "clip_ref.pt"))
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = run_ranks("dist-dp2", root)
+    loss_rel = abs(two["clip_loss"] - loss.item()) / abs(loss.item())
+    print(f"[dist-dp2] on {card}: CLIP stage-1 step at batch {CLIP_BATCH}, "
+          f"{CLIP_BATCH // 2} rows a rank: loss {two['clip_loss']:.6f} against one "
+          f"process's {loss.item():.6f} (relative {loss_rel:.3e}); gradients at "
+          f"relative L2 {two['clip_rel']:.3e} (limit {DIST_REL_TOL}); wrong variant, "
+          f"the gather without the other ranks' gradient: {two['clip_wrong_rel']:.3e}; "
+          f"step {two['clip_ms']:.1f} ms a rank (two ranks sharing one card over gloo)")
+    if not (loss_rel <= DIST_REL_TOL and two["clip_rel"] <= DIST_REL_TOL):
+        raise AssertionError("[dist-dp2] the two-rank CLIP step is not one process's")
+    if two["clip_wrong_rel"] <= DIST_REL_TOL:
+        raise AssertionError("[dist-dp2] the limit passes the gather without gradient")
+    want, want_n = logged(plain_vlm), logged(plain_vlm, "grad_norm")
+    vlm = {}
+    for key, name in (("vlm", "--zero1"), ("vlm_fsdp", "--fsdp"),
+                      ("vlm_wrong", "--zero1, each rank keeping its own gradients")):
+        run = two[key]
+        got, got_n = [m["loss"] for _, m in run["logged"]], [
+            m["grad_norm"] for _, m in run["logged"]]
+        l_rel, n_rel = losses_rel(got, want), losses_rel(got_n, want_n)
+        g_rel = None if run["grad_rel"] is None else max(run["grad_rel"])
+        vlm[key] = {"losses": got, "grad_norms": got_n, "loss_rel": l_rel,
+                    "grad_norm_rel": n_rel, "lora_grad_rel": run["grad_rel"],
+                    "lora_params_rel": run["params_rel"],
+                    "lora_move_rel": run["move_rel"], "wall_s": run["wall_s"],
+                    "step_ms": run["step_ms"], "peak_gb": run["peak_gb"],
+                    "step_peak_gb": run["step_peak_gb"]}
+        print(f"[dist-dp2] train_vlm --dp 2 {name}: losses {got} against --dp 1's "
+              f"{want} (max relative {l_rel:.3e}), gradient norms {got_n} against "
+              f"{want_n} (max relative {n_rel:.3e}); LoRA gradients by step at "
+              f"relative L2 {run['grad_rel']} (limit {DIST_REL_TOL}); trained LoRA "
+              f"leaves at relative L2 {run['params_rel']:.3e}, their move from the "
+              f"initial leaves at {run['move_rel']:.3e} of --dp 1's (limit "
+              f"{DIST_MOVE_TOL}); Adam's moments split over the ranks: "
+              f"{run['moment_split']}, the parameters: {run['params_split']}; "
+              f"device memory peak a rank {run['peak_gb']:.2f} "
+              f"GB, in the steps {run['step_peak_gb']:.2f} GB; steps "
+              f"{[round(t, 1) for t in run['step_ms']]} ms (two ranks sharing one "
+              f"card over gloo)")
+        if key == "vlm_wrong":
+            if g_rel <= DIST_REL_TOL or run["move_rel"] <= DIST_MOVE_TOL:
+                raise AssertionError("[dist-dp2] the limits pass ranks that keep "
+                                     "their own gradients")
+            continue
+        split = run["params_split"] if key == "vlm_fsdp" else run["moment_split"]
+        if not (l_rel <= DIST_REL_TOL and n_rel <= DIST_REL_TOL
+                and run["move_rel"] <= DIST_MOVE_TOL and split
+                and (g_rel is None or g_rel <= DIST_REL_TOL)):
+            raise AssertionError(f"[dist-dp2] train_vlm --dp 2 {name} is not --dp 1")
+    print(f"[dist-dp2] step peak of device memory a rank: --fsdp "
+          f"{two['vlm_fsdp']['step_peak_gb']:.2f} GB, --zero1 "
+          f"{two['vlm']['step_peak_gb']:.2f} GB")
+    if not two["vlm_fsdp"]["step_peak_gb"] < two["vlm"]["step_peak_gb"]:
+        raise AssertionError("[dist-dp2] FSDP's step peak is not below ZeRO-1's")
+    same = two["eval"] == plain_eval
+    wrong_same = two["eval_wrong"] == plain_eval
+    print(f"[dist-dp2] evaluate --dp 2: reports and generated ids equal to "
+          f"--dp 1's: {same}; with each rank's own ids beside zeros in place of "
+          f"the gathered ones: {wrong_same}")
+    if not same or wrong_same:
+        raise AssertionError("[dist-dp2] evaluate --dp 2 does not report --dp 1's")
+    numbers = {"clip": {k: two[k] for k in ("clip_loss", "clip_rel", "clip_wrong_rel",
+                                            "clip_ms")},
+               "clip_one_process_loss": loss.item(),
+               "vlm_plain": {"losses": want, "grad_norms": want_n,
+                             "step_peak_gb": plain_vlm["step_peak_gb"]},
+               **vlm, "evaluate_equal": same,
+               "note": "two ranks share one card over gloo: times are no dp speed"}
+    return numbers, two
+
+
+def check_tp_kernels(dist_shapes, known, lens, fwd_lens):
+    """[kernel-tp], in this process alone: B5's tensor-core entry at the five
+    tp = 2 shard shapes (held at M = 8 and 1 beside the two wrong variants,
+    timed at M = 8 with the codes cold, with the bound, the plain version
+    and the library's products), B1 at the tp = 2 prefill (2 x 12 x 320 over
+    352), B1 with the log-sum-exp and B3 at the dp-split CLIP batch (12 x
+    12 x 2049 x 64, BERT at 12 x 12 x 128); then B1 and B3 at every other
+    shape the dist runs launched that no phase above held: the training
+    shapes as [kernel-train-cli] holds them (the LLM at its first batch's
+    lengths `lens`), forward-only shapes (the tp engine's admissions at 12
+    heads, the evaluations' prefills) at the valid lengths `fwd_lens` gives
+    by (batch, heads): the first request's, the first batch's. Returns (matvec
+    results, flash results by kernel, launch key -> (kernel, shape
+    name))."""
+    import torch
+
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    matvec = {}
+    library = int8pack_registered()
+    for name, (k, n) in TP_MATVEC_SHAPES.items():
+        w, scale = matvec_codes(gen, k, n)
+        for m in (8, 1):
+            x = torch.randn(m, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+            hold_matvec(f"{name} M={m} bf16, plan {tuple(tqm.mma_plan(m, k, n))}",
+                        tqm.quant_matvec_mma_kernel, x, w, scale, phase="kernel-tp")
+        r, _ = time_matvec_cold("kernel-tp", name, k, n, gen, library, rows=(8,))
+        matvec.update(r)
+    fwd, index = {}, {}
+    b, h, sq, skv, d = TP_PREFILL[1:]
+    name = f"tp2_prefill_{b}x{h}x{sq}x{skv}"
+    fwd[name] = b1_case("kernel-tp", name, b, h, sq, skv, d, KV_LENS, True, gen)
+    index[TP_PREFILL] = ("flash_fwd", name)
+    cases = [("clip_tower_dp2", (CLIP_BATCH // 2, 12, 2049, 64),
+              (2049,) * (CLIP_BATCH // 2), False, (4, 12), ("flash_fwd_lse",)),
+             ("clip_bert_dp2", (CLIP_BATCH // 2, 12, 128, 64),
+              CLIP_TEXT_LENS[:CLIP_BATCH // 2], False, (CLIP_BATCH // 2, 12),
+              ("flash_fwd_lse",))]
+    dp = check_flash_cases(cases, seed=62)
+    for name, (b, h, s, d), _, _, _, _ in cases:
+        index[("flash_fwd_lse", b, h, s, s, d)] = ("flash_fwd", name + "_lse")
+        index[("flash_bwd", b, h, s, s, d)] = ("flash_bwd", name)
+    fwd.update(dp["flash_fwd"])
+    bwd = dict(dp["flash_bwd"])
+    known = {**known, **index}
+    square = {k: n for k, n in dist_shapes.items() if k[3] == k[4] and k not in known}
+    train, train_index = check_train_cli_kernels(square, known, lens, prefix="dist")
+    fwd.update(train["flash_fwd"])
+    bwd.update(train["flash_bwd"])
+    index.update(train_index)
+    for key in sorted(k for k in dist_shapes if k not in known and k not in index):
+        kind, b, h, sq, skv, d = key
+        name = f"dist_{'llm' if d == 128 else 'tower'}_{b}x{h}x{sq}x{skv}"
+        kv = fwd_lens.get((b, h), (sq,) * b) if d == 128 else (sq,) * b
+        fwd[name] = b1_case("kernel-tp", name, b, h, sq, skv, d, kv, d == 128, gen)
+        index[key] = ("flash_fwd", name)
+    return matvec, {"flash_fwd": fwd, "flash_bwd": bwd}, index
+
+
+def dist_child(argv) -> int:
+    """A rank of a two-rank phase: `chip_smoke.py --dist-rank <phase> <root>`,
+    in a gloo group of the environment the parent set (two ranks cannot
+    share one card over NCCL; the CLIs keep the group they find); rank 0
+    writes its results to `<root>/<phase>.pt`."""
+    import os
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    phase, root = argv
+    try:
+        dist.init_process_group("gloo", init_method="env://")
+        res = {"dist-tp2": dist_child_tp2, "dist-dp2": dist_child_dp2}[phase](root)
+        if dist.get_rank() == 0:
+            torch.save(res, os.path.join(root, f"{phase}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+def run_dist(card):
+    """The parallel slice's two-rank and one-rank phases on a temporary
+    directory: [dist-world1], [dist-tp2], [dist-dp2]. Returns (numbers, the
+    flash launches by shape of every counted run, B5's launches by shard
+    shape, the LLM's first batch lengths by batch size, the forward-only
+    shapes' valid lengths by (batch, heads))."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    root = tempfile.mkdtemp(prefix="hsenet_dist_")
+    try:
+        paths = write_dist_data(root)
+        paths["root"] = root
+        with open(f"{root}/paths.json", "w") as f:
+            json.dump(paths, f)
+        world1 = run_dist_world1(card, paths)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp2_numbers, tp2 = run_dist_tp2(card, paths)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp2_numbers, dp2 = run_dist_dp2(card, paths, world1)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    numbers = {"world1": world1[0], "tp2": tp2_numbers, "dp2": dp2_numbers}
+    # launches by shape: [dist-world1]'s counted runs, two ranks' of each
+    # two-rank run (rank 0's counts, twice: the ranks launch alike)
+    shapes = dict(world1[1])
+    for counts in (tp2["shapes"], tp2["gen_shapes"], dp2["clip_shapes"],
+                   dp2["vlm"]["shapes"], dp2["vlm_fsdp"]["shapes"], dp2["eval_shapes"]):
+        for k, n in counts.items():
+            shapes[k] = shapes.get(k, 0) + 2 * n
+    steps = tp2["steps"] + MAX_NEW_TOKENS - 1
+    matvec_counts = {name: 2 * per_layer * tp2["model_layers"] * steps
+                     for name, per_layer in TP_MATVEC_PER_LAYER.items()}
+    if sum(matvec_counts.values()) != 2 * (tp2["matvec"] + tp2["gen_matvec"]):
+        raise AssertionError("[dist-tp2] B5 launches by shard shape do not add up")
+    lens = dict(world1[2])
+    for n in dp2["vlm"]["lens"]:
+        lens.setdefault(len(n), n)
+    # the forward-only shapes' valid lengths: the tp engine's first request,
+    # the evaluations' first batch (one row a call)
+    fwd_lens = {(1, 12): (len(dist_requests(dist_vlm_config())[0]["prompt_ids"]),),
+                (1, 24): world1[5][:1]}
+    return numbers, shapes, matvec_counts, lens, fwd_lens
+
+
 def main() -> int:
     try:
         import torch
@@ -7860,6 +8852,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("[clip-masked]")
 
+    # the parallel slice: the CLIs in a one-rank NCCL group and on two ranks
+    # sharing the card (tp = 2 serving, dp = 2 training and evaluation),
+    # then B5 at the tp shards and B1 / B3 at the shapes those runs
+    # launched that no phase above held
+    (dist_numbers, dist_shapes, tp_matvec_counts, dist_lens,
+     dist_fwd_lens) = run_dist(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("[dist-world1], [dist-tp2], [dist-dp2]")
+    tp_matvec, dist_kernels, dist_index = check_tp_kernels(
+        dist_shapes, known_seg, dist_lens, dist_fwd_lens)
+    lap("[kernel-tp]")
+
     # launches on the main paths, by shape: one generate run, one training
     # step (its towers run at the tower shape) and the counted serving runs
     # (closed loop, open loop, the long-budget engine): 24 tower launches
@@ -7942,6 +8947,16 @@ def main() -> int:
             counts = fwd_counts if kernel == "flash_fwd" else bwd_counts
             counts[shape] = counts.get(shape, 0) + n
             seg_counts[kernel][shape] = seg_counts[kernel].get(shape, 0) + n
+    # the parallel slice's launches by shape
+    dist_counts = {"flash_fwd": {}, "flash_bwd": {}}
+    known_dist = {**known_seg, **dist_index}
+    for key, n in dist_shapes.items():
+        kernel, shape = known_dist[key]
+        counts = fwd_counts if kernel == "flash_fwd" else bwd_counts
+        counts[shape] = counts.get(shape, 0) + n
+        dist_counts[kernel][shape] = dist_counts[kernel].get(shape, 0) + n
+    dist_numbers["launches_by_shape"] = dist_counts
+    matvec_counts.update(tp_matvec_counts)
     # the f32 launches by shape: the two [cli-serve] runs and one step of
     # [train-f32]
     f32_counts = {k: {} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -8000,8 +9015,12 @@ def main() -> int:
             "[segvol]'s forward at batch 2 and its sliding window (segvol_), "
             "the [cli-train-seg] run whole (SegVol at segvol_vit, the rest at "
             "their shapes), [cli-evaluate-seg]'s rec run and the three "
-            "[clip-masked] steps (masked_ and the clip_ shapes): per-launch "
-            "times at each shape x its launches there")
+            "[clip-masked] steps (masked_ and the clip_ shapes); the parallel "
+            "slice's runs ([dist-world1]'s seven CLI runs, the two ranks' "
+            "serve --tp 2 and generate of [dist-tp2], the CLIP step, train_vlm "
+            "--dp 2 --zero1 and evaluate --dp 2 of [dist-dp2]; tp2_, dist_ and "
+            "_dp2 shapes, forward-only dist_ shapes timed at every key valid): "
+            "per-launch times at each shape x its launches there")
     jax_fa = "hsenet_tpu/ops/flash_attention.py"
     f32_note = ("f32 route (TF32 products), sums over the two [cli-serve] runs, "
                 "one step of [train-f32] and [cli-evaluate-seg]'s seg run (SegVol "
@@ -8025,7 +9044,8 @@ def main() -> int:
               {**per_shape, **clip_kernels["flash_fwd"], **encode_shapes,
                **eval_kernels, **train_cli_kernels["flash_fwd"], **vit2d_kernels,
                **llama_flash, **qformer_kernels, **seg_kernels["flash_fwd"],
-               **train_seg_kernels["flash_fwd"], **rec_kernels},
+               **train_seg_kernels["flash_fwd"], **rec_kernels,
+               **dist_kernels["flash_fwd"]},
               fwd_counts, note + "; one W8A8 encode at its batch-8 tower shape "
               "and the speculative engine's admissions ([spec]'s one prefill "
               "is left out); the six [serve-sample] runs' admissions; the "
@@ -8043,7 +9063,8 @@ def main() -> int:
               f"{jax_fa}:678 (_bwd_dq_kernel_stream), {jax_fa}:750 "
               "(_bwd_dkv_kernel_stream)",
               {**bwd, **clip_kernels["flash_bwd"], **train_cli_kernels["flash_bwd"],
-               **seg_kernels["flash_bwd"], **train_seg_kernels["flash_bwd"]},
+               **seg_kernels["flash_bwd"], **train_seg_kernels["flash_bwd"],
+               **dist_kernels["flash_bwd"]},
               bwd_counts,
               note + "; bf16; plain and library times compute dQ, dK and dV"),
         entry("flash_bwd_dq_d256", "hsenet_torch/csrc/flash_bwd_dq.cu",
@@ -8081,14 +9102,16 @@ def main() -> int:
               f32_kernels["flash_bwd_dkv"], f32_counts["flash_bwd_dkv"],
               f32_note + "; plain and library times compute dQ, dK and dV"),
         entry("quant_matvec", "hsenet_torch/csrc/quant_matvec.cu",
-              "hsenet_tpu/ops/quant_matvec.py:42", {**matvec, **llama_matvec},
-              matvec_counts,
+              "hsenet_tpu/ops/quant_matvec.py:42",
+              {**matvec, **llama_matvec, **tp_matvec}, matvec_counts,
               "the tensor-core entry hsenet_quant_matvec_mma (every bf16 call); "
               "sums over the decode steps of the closed and open serving loops "
               "and the four counted non-speculative [serve-sample] runs at 8 "
               "slots, the [llama] greedy and sampled engines at 8 slots (the "
               "llama_ shapes) and the converted 2-layer Llama at 1 slot (the "
-              "llama_ _m1 shapes): per-launch times at each (K, N), codes read cold, x its "
+              "llama_ _m1 shapes), the two ranks' decode steps of [dist-tp2]'s "
+              "serve --tp 2 and generate at the tp2_ shard shapes: per-launch "
+              "times at each (K, N), codes read cold, x its "
               "launches there; library is a matmul on a bf16 copy of the weight; "
               "old_ms under shapes is the CUDA-core entry timed in turns with "
               "it; int8pack_ms is torch._weight_int8pack_mm (null where the "
@@ -8132,7 +9155,7 @@ def main() -> int:
                       "llama": llama_numbers, "variants": variant_numbers,
                       "segvol": segvol_numbers, "cli_train_seg": train_seg_numbers,
                       "cli_evaluate_seg": eval_seg_numbers,
-                      "clip_masked": masked_numbers,
+                      "clip_masked": masked_numbers, "dist": dist_numbers,
                       "seg_launches_by_shape": seg_counts, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -8143,4 +9166,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_child(sys.argv[2:]))
     sys.exit(main())

@@ -1,13 +1,15 @@
 """What the port's entry points share: the training CLIs' arguments and
 their run configuration (`add_train_args`, `train_config_from_args`,
 `dtype_from_args`, `dump_config`, `resolve_resume_dir`,
-`restore_or_fresh`, `load_tokenizer`, `refuse_parallel_flags`), the VLM
-configurations of a run, models with random weights for runs that need no
-checkpoint, and the restore of a `--checkpoint` into such a model.
+`restore_or_fresh`, `load_tokenizer`), the process mesh of `--dp` / `--tp`
+(`mesh_from_args`, `loader_shard`, `maybe_zero1`), the VLM configurations
+of a run, models with random weights for runs that need no checkpoint,
+and the restore of a `--checkpoint` into such a model.
 
-The JAX package's `maybe_zero1` and `mesh_from_args` come with the parallel
-slice of the port (ROADMAP §A9); until then `--zero1`, `--dp` above 1 and
-`--tp` above 1 raise (`refuse_parallel_flags`)."""
+Launched by `torchrun --nproc-per-node N -m hsenet_torch.cli.<cli>`, a CLI
+joins the process group and builds the (dp, tp) mesh; run as one plain
+process with `--dp` and `--tp` at 1 it takes the single-card path. `--pp`
+and `--sp` raise until ROADMAP §A11 (`refuse_parallel_flags`)."""
 
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from hsenet_torch.configs import (
     LoRAConfig,
+    MeshConfig,
     PackerConfig,
     Phi3Config,
     TrainConfig,
@@ -43,18 +46,16 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--warmup-ratio", type=float, default=0.03)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--dp", type=int, default=-1,
-                   help="data-parallel replicas; -1 = every device, which is "
-                        "one card here (above 1 waits for the parallel slice)")
+                   help="data-parallel replicas; -1 = every process left "
+                        "(world // tp)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel shards (above 1 waits for the "
-                        "parallel slice)")
+                   help="tensor-parallel shards of the LLM")
     p.add_argument("--async-save", action="store_true",
                    help="checkpoint saves return once the state is copied "
                         "to the host; the write runs on a background thread "
                         "(utils/checkpoint.py)")
     p.add_argument("--zero1", action="store_true",
-                   help="shard optimizer state over the dp axis (ZeRO-1; "
-                        "waits for the parallel slice)")
+                   help="shard optimizer state over the dp axis (ZeRO-1)")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--remat", action="store_true", default=None,
@@ -82,19 +83,51 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
 
 
 def refuse_parallel_flags(args) -> None:
-    """Raise for the flags of the parallel slice (ROADMAP §A9): the port
-    trains on one card until then."""
+    """Raise for pipeline and sequence parallelism, which wait for a later
+    slice of the port (ROADMAP §A11)."""
     for flag, what in (
-        (args.zero1, "--zero1"),
-        (args.dp > 1, f"--dp {args.dp}"),
-        (args.tp > 1, f"--tp {args.tp}"),
         (getattr(args, "pp", 1) > 1, f"--pp {getattr(args, 'pp', 1)}"),
         (getattr(args, "sp", 1) > 1, f"--sp {getattr(args, 'sp', 1)}"),
-        (getattr(args, "fsdp", False), "--fsdp"),
     ):
         if flag:
             raise NotImplementedError(
-                f"{what} waits for the parallel slice of the port (ROADMAP §A9)")
+                f"{what} waits for a later slice of the port (ROADMAP §A11)")
+
+
+def mesh_from_args(args, device):
+    """The (dp, tp) `DeviceMesh` of `--dp` / `--tp` (`parallel/mesh.py`):
+    joins the process group that torchrun's environment names, if any.
+    None for one process at --dp -1 or 1 and --tp 1; a mesh larger than
+    the group raises ValueError, `--pp` / `--sp` NotImplementedError."""
+    from hsenet_torch.parallel.mesh import create_mesh, init_distributed
+
+    refuse_parallel_flags(args)
+    init_distributed(device)
+    return create_mesh(MeshConfig(dp=args.dp, tp=args.tp), device=device)
+
+
+def loader_shard(mesh, batch_size: int):
+    """(per-rank batch size, num_shards, shard_index) of a global batch of
+    `batch_size` over the mesh's dp ranks: the `DataLoader` arguments that
+    give each dp rank its rows (the ranks of one tp group read the same)."""
+    from hsenet_torch.parallel.mesh import axis_rank, axis_size
+
+    dp = axis_size(mesh, "dp")
+    if batch_size % dp:
+        raise ValueError(f"--batch-size {batch_size} does not divide by "
+                         f"dp ({dp})")
+    return batch_size // dp, dp, axis_rank(mesh, "dp")
+
+
+def maybe_zero1(state, args, mesh):
+    """`state` with ZeRO-1 optimizer moments (`parallel/zero.py`) when
+    --zero1 is set over a mesh whose dp is above 1; else unchanged."""
+    if not getattr(args, "zero1", False) or mesh is None:
+        return state
+    from hsenet_torch.parallel.zero import shard_opt_state
+
+    return dataclasses.replace(state, opt_state=shard_opt_state(
+        state.opt_state, list(state.params.values()), mesh))
 
 
 def train_config_from_args(args) -> TrainConfig:
@@ -133,16 +166,18 @@ def resolve_resume_dir(args, ckpt=None) -> str:
     start). Relaunching the same command after a preemption continues from
     the last completed save; with the trainer's (seed, step) dropout streams
     and its fast-forward of the loader, the restarted run reproduces an
-    unbroken one. `ckpt`: the CLI's CheckpointManager on --output-dir. One
-    process decides alone; the agreement across processes comes with the
-    parallel slice (ROADMAP §A9)."""
+    unbroken one. `ckpt`: the CLI's CheckpointManager on --output-dir.
+    Rank 0 decides and every rank takes its answer."""
+    from hsenet_torch.parallel.mesh import broadcast_object
+
     if args.resume != "auto":
         return args.resume
     if ckpt is None:
         from hsenet_torch.utils.checkpoint import CheckpointManager
 
         ckpt = CheckpointManager(args.output_dir)
-    return args.output_dir if ckpt.latest_step() is not None else ""
+    return broadcast_object(
+        args.output_dir if ckpt.latest_step() is not None else "")
 
 
 def restore_or_fresh(state, args, ckpt):

@@ -39,9 +39,17 @@ box answers over `PosRECDataset` batches and scores their IoU and
 accuracy at 0.25 and 0.5, with the reference's bounding-extent IoU under
 --reference-compatible (Bench/utils.py:38-54).
 
---dp / --tp above 1 wait for the parallel slice (ROADMAP §A9) and raise
-`NotImplementedError`. --task retrieval needs --synthetic: the JAX CLI
-builds no model configuration without it (ROADMAP §C).
+--dp / --tp (mrg, vqa, rec) run over the processes of `torchrun
+--nproc-per-node N -m hsenet_torch.cli.evaluate ...`: the LLM split over tp,
+each batch split over dp (`eval.generate.make_data_parallel_generate`),
+every rank holding the whole batch's ids; rank 0 prints and writes --csv.
+`--dp N --do-sample` draws the tokens of `--dp 1`. --engine shards over tp
+only: with --dp above 1 it is the JAX CLI's AssertionError. --task
+retrieval needs --synthetic: the JAX CLI builds no model configuration
+without it (ROADMAP §C).
+
+    torchrun --nproc-per-node 2 -m hsenet_torch.cli.evaluate --task mrg \
+        --manifest m.json --data-root /data --checkpoint vlm.pt --dp 2
 """
 
 from __future__ import annotations
@@ -205,27 +213,26 @@ def main(argv=None, *, device="cuda", model=None):
     p.add_argument("--kv-int8", action="store_true",
                    help="int8 KV cache (per-token/head absmax scales)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel replicas (waits for the parallel slice)")
+                   help="data-parallel replicas (torchrun's processes)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel LLM shards (waits for the parallel "
-                        "slice)")
+                   help="tensor-parallel LLM shards")
     args = p.parse_args(argv)
-    for flag, what in (
-        (args.dp > 1 or args.tp > 1,
-         "--dp / --tp above 1 wait for the parallel slice of the port "
-         "(ROADMAP §A9)"),
-        (args.task == "retrieval" and not args.synthetic,
-         "--task retrieval needs --synthetic: the JAX CLI builds no model "
-         "configuration without it (ROADMAP §C)"),
-    ):
-        if flag:
-            raise NotImplementedError(what)
+    if args.task == "retrieval" and not args.synthetic:
+        raise NotImplementedError(
+            "--task retrieval needs --synthetic: the JAX CLI builds no model "
+            "configuration without it (ROADMAP §C)")
 
     from hsenet_torch import resolve_device
     from hsenet_torch.cli.common import (
         build_vlm_config,
         random_model,
         restore_checkpoint,
+    )
+    from hsenet_torch.configs import MeshConfig
+    from hsenet_torch.parallel.mesh import (
+        create_mesh,
+        init_distributed,
+        is_main_process,
     )
     from hsenet_torch.data.datasets import (
         SPECIAL_TOKENS,
@@ -237,6 +244,9 @@ def main(argv=None, *, device="cuda", model=None):
 
     device = resolve_device(device)
     max_samples = args.max_samples or None
+    init_distributed(device)
+    mesh = create_mesh(MeshConfig(dp=args.dp, tp=args.tp), device=device)
+    main_rank = is_main_process()
 
     if args.task == "retrieval":
         from hsenet_torch.eval.retrieval import clip_retrieval_eval
@@ -306,6 +316,10 @@ def main(argv=None, *, device="cuda", model=None):
         model = random_model(HSENetVLM, cfg, dtype=dtype, device=device, seed=0)
     if args.checkpoint:
         restore_checkpoint(model, args.checkpoint)
+    if mesh is not None:
+        from hsenet_torch.parallel.sharding import shard_params
+
+        shard_params(model, mesh)
 
     cache_dtype = torch.int8 if args.kv_int8 else dtype
     gen_kwargs = dict(
@@ -315,8 +329,12 @@ def main(argv=None, *, device="cuda", model=None):
     if args.engine:
         from hsenet_torch.serving import ServingEngine, engine_generate_fn
 
-        if args.do_sample:  # the JAX CLI's assert
+        if args.do_sample:  # the JAX CLI's asserts
             raise AssertionError("--engine eval is greedy-only")
+        if args.dp > 1:
+            raise AssertionError(
+                "--engine shards tensor-parallel only (--tp); for dp-style "
+                "scaling run one engine per replica")
         eng = ServingEngine(
             model,
             eos_token_id=tokenizer.eos_token_id,
@@ -329,6 +347,7 @@ def main(argv=None, *, device="cuda", model=None):
             speculative=args.spec_decode, draft_len=args.draft_len,
             volume_cache_size=args.engine_vol_cache,
             kv_prefix_cache_size=args.engine_kv_prefix_cache,
+            mesh=mesh,
             device=device,
         )
         gen = engine_generate_fn(eng)
@@ -345,6 +364,11 @@ def main(argv=None, *, device="cuda", model=None):
             model, do_sample=args.do_sample, temperature=args.temperature,
             top_p=args.top_p, **gen_kwargs,
         )
+    if not args.engine and mesh is not None:
+        from hsenet_torch.eval.generate import make_data_parallel_generate
+
+        # inside the sampling fold below, so it sees each call's seed
+        gen = make_data_parallel_generate(gen, mesh)
     if args.do_sample:
         # a fresh fold of one base seed per generate call: every batch
         # samples independently and the run stays reproducible (--gen-seed)
@@ -384,7 +408,8 @@ def main(argv=None, *, device="cuda", model=None):
         from hsenet_torch.eval.mrg import evaluate_mrg
 
         metrics = evaluate_mrg(
-            gen, loader, tokenizer, csv_path=args.csv or None,
+            gen, loader, tokenizer,
+            csv_path=(args.csv or None) if main_rank else None,
             max_samples=max_samples, device=device,
         )
     else:
@@ -392,7 +417,8 @@ def main(argv=None, *, device="cuda", model=None):
 
         metrics = evaluate_vqa(gen, loader, tokenizer, max_samples=max_samples,
                                device=device)
-    print(json.dumps(metrics, indent=2, default=str))
+    if main_rank:
+        print(json.dumps(metrics, indent=2, default=str))
     return metrics
 
 

@@ -37,8 +37,12 @@ matvec's f32 route. Weights are random, drawn from --seed, unless
 --checkpoint names a `utils.checkpoint.save_params` file of the model's
 keys and shapes. --gen-seed seeds the port's own random stream
 (`eval.generate.fold_seed`): one seed gives one token stream per device,
-none equal to the JAX CLI's. --tp > 1 waits for the parallel slice
-(ROADMAP §A9) and raises `NotImplementedError`.
+none equal to the JAX CLI's.
+
+    # tensor-parallel over two cards: the LLM split by the Megatron rules,
+    # the KV cache by kv heads; rank 0 reads --requests and writes --output
+    torchrun --nproc-per-node 2 -m hsenet_torch.cli.serve --quant-int8 \
+        --tp 2 --requests req.jsonl --output out.jsonl
 """
 
 from __future__ import annotations
@@ -87,7 +91,8 @@ def main(argv=None, *, device="cuda"):
     p.add_argument("--eos-token-id", type=int, default=2)
     p.add_argument("--pad-token-id", type=int, default=0)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel shards (waits for the parallel slice)")
+                   help="tensor-parallel shards (serve over a tp mesh of "
+                        "torchrun's processes)")
     p.add_argument("--do-sample", action="store_true",
                    help="sample instead of greedy (temperature + top-p)")
     p.add_argument("--temperature", type=float, default=1.0)
@@ -119,9 +124,6 @@ def main(argv=None, *, device="cuda"):
     if args.kv_prefix_cache and args.llm_only:
         p.error("--kv-prefix-cache caches the image-block KV; it requires "
                 "the multimodal engine (drop --llm-only)")
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1 waits for the parallel slice of the port (ROADMAP §A9)")
 
     from hsenet_torch import resolve_device
     from hsenet_torch.cli.common import (
@@ -130,9 +132,21 @@ def main(argv=None, *, device="cuda"):
         random_model,
         restore_checkpoint,
     )
+    from hsenet_torch.configs import MeshConfig
+    from hsenet_torch.parallel.mesh import (
+        broadcast_object,
+        create_mesh,
+        init_distributed,
+        is_main_process,
+    )
     from hsenet_torch.serving import ServingEngine
 
     device = resolve_device(device)
+    mesh = None
+    if args.tp > 1:
+        init_distributed(device)
+        mesh = create_mesh(MeshConfig(dp=1, tp=args.tp), device=device)
+    main_rank = is_main_process()
     rng = np.random.default_rng(args.seed)
     dtype = torch.float32 if args.synthetic else torch.bfloat16
 
@@ -188,6 +202,7 @@ def main(argv=None, *, device="cuda"):
         ngram=args.ngram,
         volume_cache_size=args.vol_cache if multimodal else 0,
         kv_prefix_cache_size=args.kv_prefix_cache if multimodal else 0,
+        mesh=mesh,
         device=device,
     )
 
@@ -230,31 +245,15 @@ def main(argv=None, *, device="cuda"):
     else:
         if not args.requests:
             p.error("--requests JSONL required (or --synthetic)")
-        with open(args.requests) as f:
-            for line in f:
-                if not line.strip():
-                    continue
-                req = json.loads(line)
-                kw = {}
-                if multimodal:
-                    if not req.get("volume"):
-                        raise SystemExit(
-                            f"request {req.get('id', '?')}: 'volume' is "
-                            "required when serving a VLM; use --llm-only "
-                            "for text-only requests"
-                        )
-                    kw["volume"] = np.load(req["volume"])
-                    if req.get("slice_features"):
-                        kw["slice_features"] = np.load(req["slice_features"])
-                uid = eng.submit(
-                    np.asarray(req["prompt_ids"], np.int32),
-                    max_new=req.get("max_new"),
-                    **kw,
-                )
-                id_of[uid] = req.get("id", str(uid))
+        # rank 0 reads the requests (and their arrays); every rank submits
+        # the same list in the same order
+        reqs = _read_requests(args.requests, multimodal) if main_rank else None
+        for name, ids, max_new, kw in broadcast_object(reqs):
+            uid = eng.submit(ids, max_new=max_new, **kw)
+            id_of[uid] = name if name is not None else str(uid)
 
     # ---- serve ----
-    out_f = open(args.output, "w") if args.output else None
+    out_f = open(args.output, "w") if args.output and main_rank else None
     t0 = time.perf_counter()
     finished = 0
     total_tokens = 0
@@ -291,8 +290,34 @@ def main(argv=None, *, device="cuda"):
     summary.update({
         f"latency_{k}": round(v, 3) for k, v in eng.latency_stats().items()
     })
-    print(json.dumps(summary))
+    if main_rank:
+        print(json.dumps(summary))
     return summary
+
+
+def _read_requests(path: str, multimodal: bool):
+    """[(id, prompt ids, max_new, submit kwargs)] of a JSONL request file,
+    the .npy arrays it names loaded."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            req = json.loads(line)
+            kw = {}
+            if multimodal:
+                if not req.get("volume"):
+                    raise SystemExit(
+                        f"request {req.get('id', '?')}: 'volume' is "
+                        "required when serving a VLM; use --llm-only "
+                        "for text-only requests"
+                    )
+                kw["volume"] = np.load(req["volume"])
+                if req.get("slice_features"):
+                    kw["slice_features"] = np.load(req["slice_features"])
+            out.append((req.get("id"), np.asarray(req["prompt_ids"], np.int32),
+                        req.get("max_new"), kw))
+    return out
 
 
 if __name__ == "__main__":

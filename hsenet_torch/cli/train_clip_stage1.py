@@ -20,8 +20,12 @@ The weights are drawn from --seed on the device (or `main(model=...)`
 trains a given `CLIPModel`). At the end the run exports `<out>/clip_params`
 (the whole CLIP: stage 2's teacher) and `<out>/tower_params` (the vision
 encoder: the VLM's `tower_stage1` graft) with `utils.checkpoint.save_params`.
---sp above 1, --zero1, --dp and --tp above 1 wait for the parallel slice of
-the port (ROADMAP §A9) and raise `NotImplementedError`.
+`--dp`, `--tp` and `--zero1` run over the processes of `torchrun
+--nproc-per-node N -m hsenet_torch.cli.train_clip_stage1 ...`: each dp rank
+loads its rows of the --batch-size global batch and the contrastive loss
+is the global one (`train/stage1.py`); the CLIP has no LLM, so tp ranks
+hold replicas. --sp above 1 waits for ROADMAP §A11 and raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -34,8 +38,10 @@ from hsenet_torch.cli.common import (
     dtype_from_args,
     dump_config,
     load_tokenizer,
+    loader_shard,
+    maybe_zero1,
+    mesh_from_args,
     random_model,
-    refuse_parallel_flags,
     restore_or_fresh,
     train_config_from_args,
 )
@@ -95,9 +101,10 @@ def build_clip_model(cfg: CLIPConfig, args, *, device, seed: int):
 
 def retrieval_eval_hook(model, args, loader, val_dataset):
     """The trainer's `on_eval`: retrieval recall@5/10 of the model's current
-    weights over the validation split (the training loader for
-    --synthetic), its loader built on the first eval and kept. An eval that
-    fails prints and returns {}: it must not end the run."""
+    weights over the validation split (for --synthetic the training data,
+    the whole global batch on every rank), its loader built on the first
+    eval and kept. An eval that fails prints and returns {}: it must not
+    end the run."""
     from hsenet_torch.data.datasets import DataLoader
     from hsenet_torch.eval.retrieval import make_clip_retrieval_eval_fn
 
@@ -106,8 +113,12 @@ def retrieval_eval_hook(model, args, loader, val_dataset):
 
     def on_eval(step, state):
         try:
-            if args.synthetic:
+            if args.synthetic and loader.num_shards == 1:
                 val = loader
+            elif args.synthetic:
+                val = val_cache.setdefault("val", DataLoader(
+                    loader.dataset, args.batch_size, shuffle=True,
+                    seed=args.seed))
             elif "val" in val_cache:
                 val = val_cache["val"]
             else:
@@ -122,26 +133,31 @@ def retrieval_eval_hook(model, args, loader, val_dataset):
 
 
 def train_and_export(model, step_fn, state, loader_fn, args, train_cfg, ckpt,
-                     on_eval):
+                     on_eval, mesh=None):
     """Fit with the CLIs' hooks (TensorBoard at <out>/tb, the eval hook),
-    then export <out>/clip_params and <out>/tower_params."""
+    then export <out>/clip_params and <out>/tower_params; over a mesh rank
+    0 alone logs and writes."""
+    from hsenet_torch.parallel.mesh import is_main_process
+    from hsenet_torch.parallel.sharding import full_state_dict
     from hsenet_torch.train.trainer import TensorBoardLogger, Trainer, TrainerHooks
     from hsenet_torch.utils.checkpoint import save_params
     from hsenet_torch.utils.convert import extract_subtree
 
+    main_rank = is_main_process()
     hooks = TrainerHooks(
-        on_log=TensorBoardLogger(f"{args.output_dir}/tb"),
+        on_log=TensorBoardLogger(f"{args.output_dir}/tb") if main_rank else None,
         on_eval=on_eval if train_cfg.eval_every else None,
     )
     trainer = Trainer(step_fn, state, loader_fn, train_cfg,
-                      checkpoint_manager=ckpt, hooks=hooks)
+                      checkpoint_manager=ckpt, hooks=hooks, mesh=mesh)
     state = trainer.fit()
-    hooks.on_log.close()
-    final = model.state_dict()
-    save_params(f"{args.output_dir}/clip_params", final, overwrite=True)
-    save_params(f"{args.output_dir}/tower_params",
-                extract_subtree(final, "vision_encoder."), overwrite=True)
-    print(f"done: step {state.step}")
+    final = full_state_dict(model)
+    if main_rank:
+        hooks.on_log.close()
+        save_params(f"{args.output_dir}/clip_params", final, overwrite=True)
+        save_params(f"{args.output_dir}/tower_params",
+                    extract_subtree(final, "vision_encoder."), overwrite=True)
+        print(f"done: step {state.step}")
     return state
 
 
@@ -152,6 +168,8 @@ def main(argv=None, *, device="cuda", model=None):
     `CLIPModel` to train (on `device`) in place of one drawn from --seed."""
     from hsenet_torch import resolve_device
     from hsenet_torch.data.datasets import DataArgs, DataLoader
+    from hsenet_torch.parallel.mesh import is_main_process
+    from hsenet_torch.parallel.sharding import shard_params
     from hsenet_torch.train.stage1 import make_stage1_train_step
     from hsenet_torch.train.train_state import TrainState, make_optimizer
     from hsenet_torch.train.vlm import to_training_dtypes
@@ -160,13 +178,13 @@ def main(argv=None, *, device="cuda", model=None):
     p = argparse.ArgumentParser()
     add_train_args(p)
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence parallelism over the ViT's tokens (waits "
-                        "for the parallel slice)")
+                   help="sequence parallelism over the ViT's tokens "
+                        "(waits for ROADMAP §A11)")
     add_clip_args(p)
     p.add_argument("--tokenizer", default="", help="HF tokenizer path")
     args = p.parse_args(argv)
-    refuse_parallel_flags(args)
     device = resolve_device(device)
+    mesh = mesh_from_args(args, device)
 
     clip_cfg = clip_config_from_args(args)
     train_cfg = train_config_from_args(args)
@@ -184,7 +202,9 @@ def main(argv=None, *, device="cuda", model=None):
         from hsenet_torch.data.datasets import CTRateCLIPDataset
 
         dataset = CTRateCLIPDataset(data_args, tokenizer, args.manifest, "train")
-    loader = DataLoader(dataset, args.batch_size, shuffle=True, seed=args.seed)
+    rows, shards, index = loader_shard(mesh, args.batch_size)
+    loader = DataLoader(dataset, rows, shuffle=True, seed=args.seed,
+                        num_shards=shards, shard_index=index)
     # the JAX CLI draws its init batch here: the CT-RATE set's sentence
     # sampling then continues from the same draw
     next(iter(loader))
@@ -192,10 +212,14 @@ def main(argv=None, *, device="cuda", model=None):
         model = build_clip_model(clip_cfg, args, device=device, seed=train_cfg.seed)
     model.train()
     to_training_dtypes(model, {n: True for n, _ in model.named_parameters()})
+    if mesh is not None:
+        shard_params(model, mesh)
     tx = make_optimizer(train_cfg)
     ckpt = CheckpointManager(args.output_dir, async_save=args.async_save)
-    state = restore_or_fresh(TrainState.create(model, tx), args, ckpt)
-    dump_config(args.output_dir, clip_cfg, train_cfg)
+    state = maybe_zero1(TrainState.create(model, tx, mesh=mesh), args, mesh)
+    state = restore_or_fresh(state, args, ckpt)
+    if is_main_process():
+        dump_config(args.output_dir, clip_cfg, train_cfg)
 
     def val_dataset():
         from hsenet_torch.data.datasets import CTRateCLIPDataset
@@ -204,7 +228,8 @@ def main(argv=None, *, device="cuda", model=None):
 
     on_eval = retrieval_eval_hook(model, args, loader, val_dataset)
     return train_and_export(model, make_stage1_train_step(model, tx), state,
-                            lambda: loader, args, train_cfg, ckpt, on_eval)
+                            lambda: loader, args, train_cfg, ckpt, on_eval,
+                            mesh)
 
 
 if __name__ == "__main__":

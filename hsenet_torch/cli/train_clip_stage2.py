@@ -16,8 +16,11 @@ restored strictly from --stage1-checkpoint, and the student's
 `language_encoder`, `mm_vision_proj` and `mm_language_proj` start as copies
 of the teacher's (reference :185-190). --cached-teacher serves the teacher's
 features from a `TeacherCache`. The exports are stage 1's: `<out>/clip_params`
-and `<out>/tower_params`. --sp above 1 and the flags of the parallel slice
-raise `NotImplementedError` (ROADMAP §A9).
+and `<out>/tower_params`. `--dp`, `--tp` and `--zero1` run as in stage 1:
+the teacher is replicated on every rank, each dp rank recomputes (or
+caches) the teacher's features of its own rows, and both the contrastive
+and the relation loss run over the global (B, B) logits. --sp above 1
+waits for ROADMAP §A11 and raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ from hsenet_torch.cli.common import (
     add_train_args,
     dump_config,
     load_tokenizer,
-    refuse_parallel_flags,
+    loader_shard,
+    maybe_zero1,
+    mesh_from_args,
     restore_or_fresh,
     train_config_from_args,
 )
@@ -81,6 +86,8 @@ def main(argv=None, *, device="cuda", model=None):
     of one drawn from --seed."""
     from hsenet_torch import resolve_device
     from hsenet_torch.data.datasets import DataArgs, DataLoader
+    from hsenet_torch.parallel.mesh import is_main_process
+    from hsenet_torch.parallel.sharding import shard_params
     from hsenet_torch.train.stage2 import (
         TeacherCache,
         make_stage2_train_step,
@@ -98,15 +105,15 @@ def main(argv=None, *, device="cuda", model=None):
                    help="params path of the pretrained stage-1 CLIP (teacher)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence parallelism over both towers' tokens "
-                        "(waits for the parallel slice)")
+                        "(waits for ROADMAP §A11)")
     p.add_argument("--cached-teacher", action="store_true",
                    help="precompute/cache frozen-teacher embeddings per "
                         "sample instead of re-running the teacher forward "
                         "every step (the reference recomputes, "
                         "CLIP_stage2.py:124-128)")
     args = p.parse_args(argv)
-    refuse_parallel_flags(args)
     device = resolve_device(device)
+    mesh = mesh_from_args(args, device)
 
     teacher_cfg = clip_config_from_args(args)
     student_cfg = dataclasses.replace(
@@ -132,7 +139,9 @@ def main(argv=None, *, device="cuda", model=None):
 
         dataset = CTRateCLIPStage2Dataset(data_args, tokenizer, args.manifest,
                                           "train")
-    loader = DataLoader(dataset, args.batch_size, shuffle=True, seed=args.seed)
+    rows, shards, index = loader_shard(mesh, args.batch_size)
+    loader = DataLoader(dataset, rows, shuffle=True, seed=args.seed,
+                        num_shards=shards, shard_index=index)
     next(iter(loader))  # the JAX CLI's init batch (see train_clip_stage1)
 
     if model is None:
@@ -157,10 +166,14 @@ def main(argv=None, *, device="cuda", model=None):
         del saved, template
     teacher.eval()
 
+    if mesh is not None:
+        shard_params(model, mesh)
     tx = make_optimizer(train_cfg)
     ckpt = CheckpointManager(args.output_dir, async_save=args.async_save)
-    state = restore_or_fresh(TrainState.create(model, tx), args, ckpt)
-    dump_config(args.output_dir, student_cfg, train_cfg)
+    state = maybe_zero1(TrainState.create(model, tx, mesh=mesh), args, mesh)
+    state = restore_or_fresh(state, args, ckpt)
+    if is_main_process():
+        dump_config(args.output_dir, student_cfg, train_cfg)
     step_fn = make_stage2_train_step(model, teacher, student_cfg, tx,
                                      cached_teacher=args.cached_teacher)
     batches = (CachedTeacherLoader(loader, TeacherCache(make_teacher_embed_fn(teacher)))
@@ -174,7 +187,7 @@ def main(argv=None, *, device="cuda", model=None):
 
     on_eval = retrieval_eval_hook(model, args, loader, val_dataset)
     return train_and_export(model, step_fn, state, lambda: batches, args,
-                            train_cfg, ckpt, on_eval)
+                            train_cfg, ckpt, on_eval, mesh)
 
 
 if __name__ == "__main__":

@@ -27,9 +27,16 @@ BiomedCLIP trunk (`models.vit.OnlineSliceFeatures`), so the manifest needs
 no `biomedclip_features`. --task seg also trains the [SEG]-routed SegVol
 branch (`seg_enable`, dice + BCE added to the LM loss, `SegQADataset`);
 seg manifests carry no slice features, so it pairs with
---online-slice-features. --pp, --sp, --fsdp, --zero1 and --dp / --tp above
-1 wait for the parallel slice (ROADMAP §A9) and raise
-`NotImplementedError`.
+--online-slice-features.
+
+`--dp`, `--tp`, `--zero1` and `--fsdp` run over the processes of `torchrun
+--nproc-per-node N -m hsenet_torch.cli.train_vlm ...`: each dp rank loads its
+rows of the --batch-size global batch (its share of each --grad-accum
+microbatch), the LM loss is the token mean over the global microbatch,
+the LLM is split over tp by the Megatron rules and, with --fsdp, every
+large parameter over dp as well (`parallel/sharding.py`). The JAX CLI's
+refusals of bad combinations come first; --pp and --sp wait for ROADMAP
+§A11 and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -44,8 +51,10 @@ from hsenet_torch.cli.common import (
     dtype_from_args,
     dump_config,
     load_tokenizer,
+    loader_shard,
+    maybe_zero1,
+    mesh_from_args,
     random_model,
-    refuse_parallel_flags,
     restore_or_fresh,
     train_config_from_args,
 )
@@ -77,6 +86,12 @@ def main(argv=None, *, device="cuda", model=None):
     from hsenet_torch.data.datasets import SPECIAL_TOKENS, DataArgs, DataLoader
     from hsenet_torch.models.lora import quantize_kernels_int8
     from hsenet_torch.models.mllm import HSENetVLM
+    from hsenet_torch.parallel.mesh import is_main_process
+    from hsenet_torch.parallel.sharding import (
+        full_state_dict,
+        shard_params,
+        shard_params_fsdp,
+    )
     from hsenet_torch.train.train_state import TrainState, make_optimizer
     from hsenet_torch.train.trainer import TensorBoardLogger, Trainer, TrainerHooks
     from hsenet_torch.train.vlm import (
@@ -114,14 +129,14 @@ def main(argv=None, *, device="cuda", model=None):
                         "reference's HF gradient_accumulation_steps); "
                         "batch-size must divide evenly")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline-parallel stages (waits for the parallel "
-                        "slice)")
+                   help="pipeline-parallel stages (waits for ROADMAP §A11)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence parallelism for the LLM decoder (waits for "
-                        "the parallel slice)")
+                        "ROADMAP §A11)")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard parameters over the dp axis (waits for the "
-                        "parallel slice)")
+                   help="shard parameters (and thus optimizer moments) over "
+                        "the dp axis, composed with --tp "
+                        "(parallel/sharding.py::shard_params_fsdp)")
     p.add_argument("--n-micro", type=int, default=2,
                    help="microbatches per pipeline tick group (with --pp)")
     p.add_argument("--int8-base", action="store_true",
@@ -143,8 +158,8 @@ def main(argv=None, *, device="cuda", model=None):
                 "the param placement); drop --zero1")
     if args.task == "seg" and (args.pp > 1 or args.sp > 1):
         p.error("--task seg uses the plain train step (no --pp / --sp)")
-    refuse_parallel_flags(args)
     device = resolve_device(device)
+    mesh = mesh_from_args(args, device)
 
     max_length = args.max_length or (800 if args.task == "mrg" else 330)
     cfg = build_vlm_config(args)
@@ -182,7 +197,9 @@ def main(argv=None, *, device="cuda", model=None):
         from hsenet_torch.data.datasets import VQALocationDataset
 
         dataset = VQALocationDataset(data_args, tokenizer, args.manifest, "train")
-    loader = DataLoader(dataset, args.batch_size, shuffle=True, seed=args.seed)
+    rows, shards, index = loader_shard(mesh, args.batch_size)
+    loader = DataLoader(dataset, rows, shuffle=True, seed=args.seed,
+                        num_shards=shards, shard_index=index)
     remat = args.remat if args.remat is not None else not args.synthetic
     batch = next(iter(loader))  # the JAX CLI's init batch
     if batch.get("image_2d") is None and not cfg.online_slice_features:
@@ -229,11 +246,17 @@ def main(argv=None, *, device="cuda", model=None):
     model.train()
     mask = vlm_trainable_mask(model)
     to_training_dtypes(model, mask)
+    if mesh is not None:
+        (shard_params_fsdp if args.fsdp else shard_params)(model, mesh)
 
     tx = make_optimizer(train_cfg, trainable_mask=mask)
     ckpt = CheckpointManager(args.output_dir, async_save=args.async_save)
-    train_state = restore_or_fresh(TrainState.create(model, tx), args, ckpt)
-    dump_config(args.output_dir, cfg, train_cfg)
+    train_state = maybe_zero1(TrainState.create(model, tx, mesh=mesh), args,
+                              mesh)
+    train_state = restore_or_fresh(train_state, args, ckpt)
+    main_rank = is_main_process()
+    if main_rank:
+        dump_config(args.output_dir, cfg, train_cfg)
     step_fn = make_vlm_train_step(model, tx, grad_accum=args.grad_accum,
                                   seg=seg)
 
@@ -257,15 +280,17 @@ def main(argv=None, *, device="cuda", model=None):
             return {}
 
     hooks = TrainerHooks(
-        on_log=TensorBoardLogger(f"{args.output_dir}/tb"),
+        on_log=TensorBoardLogger(f"{args.output_dir}/tb") if main_rank else None,
         on_eval=on_eval if train_cfg.eval_every else None,
     )
     trainer = Trainer(step_fn, train_state, lambda: loader, train_cfg,
-                      checkpoint_manager=ckpt, hooks=hooks)
+                      checkpoint_manager=ckpt, hooks=hooks, mesh=mesh)
     train_state = trainer.fit()
-    hooks.on_log.close()
-    save_vlm_deltas(f"{args.output_dir}/vlm_deltas", model.state_dict())
-    print(f"done: step {train_state.step}")
+    final = full_state_dict(model)
+    if main_rank:
+        hooks.on_log.close()
+        save_vlm_deltas(f"{args.output_dir}/vlm_deltas", final)
+        print(f"done: step {train_state.step}")
     return train_state
 
 

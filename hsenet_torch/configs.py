@@ -310,11 +310,24 @@ class VLMConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Process mesh layout. dp: data parallel; tp: tensor parallel (LLM);
+    pp: pipeline parallel and sp: sequence parallel (ROADMAP §A11, not in
+    the port yet). dp = -1 means every process left over: world // tp."""
+
+    dp: int = -1
+    tp: int = 1
+    pp: int = 1
+    sp: int = 1
+    axis_names: Tuple[str, str] = ("dp", "tp")
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Optimizer, schedule and loop settings of a training run, with the JAX
     package's fields (a run's `run_config.json` has the same keys).
     `batch_size`, `dtype` and `remat` record what the CLI built; `zero1`
-    waits for the parallel slice (ROADMAP §A9). `device_prefetch` batches
+    is what `--zero1` set (`parallel/zero.py`). `device_prefetch` batches
     are placed on the device ahead of the step (`data.prefetch`); 0 places
     each batch as it comes."""
 

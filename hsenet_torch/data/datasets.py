@@ -850,8 +850,19 @@ def collate(samples: List[dict]) -> Dict[str, np.ndarray]:
 
 class DataLoader:
     """Shuffling epoch iterator with drop_remainder batching (host side).
-    The JAX package's thread-pool decoding and multi-host sharding come
-    with later slices of the port."""
+
+    Data-parallel shards (`num_shards` = dp, `shard_index` = the dp rank):
+    every rank shuffles the same epoch order, drops the remainder that
+    does not divide by `num_shards`, and takes every `num_shards`-th index
+    from `shard_index`, as the JAX package's loader does; `batch_size` is
+    then the rank's share of the global batch. A dataset whose tokenizer
+    is the word-level `SimpleTokenizer` is read whole: that tokenizer
+    numbers words as it first sees them, so each rank reads every row of
+    the global batch in one process's order and keeps its own. Every
+    rank then holds one process's vocabulary (and the datasets' sequential
+    draws, such as the prompt templates, are one process's too); the host
+    reads dp times the rows. The JAX package's thread-pool decoding comes
+    with a later slice of the port."""
 
     def __init__(
         self,
@@ -861,17 +872,26 @@ class DataLoader:
         seed: int = 0,
         drop_remainder: bool = True,
         collate_fn: Callable = collate,
+        num_shards: int = 1,
+        shard_index: int = 0,
     ):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(
+                f"shard_index {shard_index} not in [0, {num_shards})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_remainder = drop_remainder
         self.collate_fn = collate_fn
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.epoch = 0
+        self.read_whole = num_shards > 1 and isinstance(
+            getattr(dataset, "tokenizer", None), SimpleTokenizer)
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.num_shards
         if self.drop_remainder:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -881,11 +901,20 @@ class DataLoader:
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
         self.epoch += 1
-        for start in range(0, len(order), self.batch_size):
-            idxs = order[start:start + self.batch_size]
-            if len(idxs) < self.batch_size and self.drop_remainder:
+        # the common length first, so every rank runs the same steps
+        order = order[: len(order) - len(order) % self.num_shards]
+        rows = self.batch_size * self.num_shards  # the global batch
+        for start in range(0, len(order), rows):
+            idxs = order[start:start + rows]
+            own = idxs[self.shard_index::self.num_shards]
+            if len(own) < self.batch_size and self.drop_remainder:
                 return
-            yield self.collate_fn([self.dataset[int(i)] for i in idxs])
+            if self.read_whole:
+                samples = [self.dataset[int(i)] for i in idxs]
+                samples = samples[self.shard_index::self.num_shards]
+            else:
+                samples = [self.dataset[int(i)] for i in own]
+            yield self.collate_fn(samples)
 
 
 class SyntheticCTDataset(_RetryDataset):

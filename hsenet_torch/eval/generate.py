@@ -7,6 +7,9 @@ per-row EOS freezing: once a row has emitted EOS, every later position of
 that row is `pad_token_id`. Right-padded ragged prompts are handled by
 per-row KV-cache lengths.
 
+`make_data_parallel_generate` splits a batch over the dp ranks of a mesh
+(the JAX package's SPMD wrapper of the same name).
+
 Greedy by default; `do_sample=True` with `temperature` / `top_p` draws
 each token from `warp_logits` (temperature, then the nucleus filter), HF
 generate's sampling knobs. The random stream is the port's own: the JAX
@@ -22,7 +25,7 @@ the law of the tokens is held against JAX.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -87,13 +90,28 @@ def seeded_generator(seed: int, device) -> torch.Generator:
     return gen
 
 
-def categorical(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+def categorical(logits: torch.Tensor, gen: torch.Generator,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One draw per row from softmax(logits) over the last axis, by
     Gumbel-max as the JAX package's `categorical` draws: argmax(logits -
     log(-log u)) with u uniform in [tiny, 1), so a -inf logit is never
-    drawn. Returns int32 (...,)."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device,
-                   dtype=torch.float32)
+    drawn. Returns int32 (...,).
+
+    `rows` = (offset, total): `logits` are rows offset.. of a global batch
+    of `total` rows (a data-parallel rank's share): the uniforms of the
+    whole global batch are drawn and this share's rows taken, so every
+    layout draws the tokens of one process. Rows past `total` (padding)
+    reuse the last row's uniforms."""
+    if rows is None:
+        u = torch.rand(logits.shape, generator=gen, device=logits.device,
+                       dtype=torch.float32)
+    else:
+        offset, total = rows
+        u = torch.rand((total,) + tuple(logits.shape[1:]), generator=gen,
+                       device=logits.device, dtype=torch.float32)
+        index = torch.arange(offset, offset + logits.shape[0],
+                             device=logits.device).clamp(max=total - 1)
+        u = u[index]
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return (logits.float() - torch.log(-torch.log(u))).argmax(dim=-1).to(
         torch.int32)
@@ -104,7 +122,8 @@ def _make_next_token(do_sample: bool = False, temperature: float = 1.0,
     """(logits (B, V), seed) -> token (B,) int32: argmax (the seed is not
     read), or a draw from `warp_logits` with a generator seeded by `seed`."""
     if not do_sample:
-        return lambda logits, seed=None: logits.argmax(dim=-1).to(torch.int32)
+        return lambda logits, seed=None, rows=None: logits.argmax(dim=-1).to(
+            torch.int32)
     if temperature <= 0:
         # HF raises too: dividing by 0 or a negative corrupts the law
         raise ValueError(
@@ -112,18 +131,18 @@ def _make_next_token(do_sample: bool = False, temperature: float = 1.0,
             "use do_sample=False for greedy"
         )
 
-    def next_token(logits, seed):
+    def next_token(logits, seed, rows=None):
         return categorical(warp_logits(logits, temperature, top_p),
-                           seeded_generator(seed, logits.device))
+                           seeded_generator(seed, logits.device), rows)
 
     return next_token
 
 
 def _greedy_loop(step_fn, token, cache, n_steps, eos_token_id, pad_token_id,
-                 next_token, rng):
+                 next_token, rng, rows=None):
     """The decode loop both generators share: emits `n_steps` tokens from
     the prefill's first `token`, pad after EOS; step i (from 1) draws with
-    seed `fold_seed(rng, i)` when sampling."""
+    seed `fold_seed(rng, i)` when sampling (`rows`: see `categorical`)."""
     done = torch.zeros_like(token, dtype=torch.bool)
     pad = torch.full_like(token, pad_token_id)
     out = []
@@ -133,7 +152,8 @@ def _greedy_loop(step_fn, token, cache, n_steps, eos_token_id, pad_token_id,
             break  # the JAX loop's last decode step feeds no output
         next_logits, cache = step_fn(token[:, None], cache)
         next_tok = next_token(next_logits,
-                              None if rng is None else fold_seed(rng, i + 1))
+                              None if rng is None else fold_seed(rng, i + 1),
+                              rows)
         done = done | (token == eos_token_id)
         token = torch.where(done, pad, next_tok)
     return torch.stack(out, dim=1)
@@ -156,20 +176,22 @@ def make_greedy_generate(
     top_p=None,
 ) -> Callable[..., torch.Tensor]:
     """Returns generate(input_ids, kv_lens, volume=None, slice_features=None,
-    *, rng=None) -> (B, max_new_tokens) int32 token ids (pad after EOS), on
-    the model's device.
+    *, rng=None, rows=None) -> (B, max_new_tokens) int32 token ids (pad
+    after EOS), on the model's device.
 
     `do_sample=True` draws each token from `warp_logits(logits,
     temperature, top_p)`; generate then requires `rng=`, an integer seed
     (the prefill's token draws with `fold_seed(rng, 0)`, decode step i with
-    `fold_seed(rng, i)`, the JAX package's folds of its key)."""
+    `fold_seed(rng, i)`, the JAX package's folds of its key). `rows` places
+    the batch inside a global one (`categorical`)."""
     next_token = _make_next_token(do_sample, temperature, top_p)
 
     @torch.inference_mode()
     def generate(input_ids: torch.Tensor, kv_lens: torch.Tensor,
                  volume: Optional[torch.Tensor] = None,
                  slice_features: Optional[torch.Tensor] = None, *,
-                 rng: Optional[int] = None) -> torch.Tensor:
+                 rng: Optional[int] = None,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         _check_rng(do_sample, rng)
         b, prompt_len = input_ids.shape
         cache = KVCache.create(
@@ -179,11 +201,50 @@ def make_greedy_generate(
         logits, cache = model.prefill(
             input_ids, volume, slice_features, cache, kv_lens.to(torch.int32)
         )
-        first = next_token(logits, None if rng is None else fold_seed(rng, 0))
+        first = next_token(logits, None if rng is None else fold_seed(rng, 0),
+                           rows)
         return _greedy_loop(model.decode_step, first, cache, max_new_tokens,
-                            eos_token_id, pad_token_id, next_token, rng)
+                            eos_token_id, pad_token_id, next_token, rng, rows)
 
     return generate
+
+
+def make_data_parallel_generate(gen: Callable, mesh) -> Callable:
+    """`gen` (generate(input_ids, kv_lens, *arrays, **kw) -> ids) over the
+    mesh's dp ranks: the batch is padded to a multiple of dp by repeating
+    its last row, each rank generates its contiguous share, and the ids are
+    all-gathered and the padding sliced off, so every rank returns the ids
+    of the whole batch. With `rng=` (sampling) each rank draws the noise of
+    the unpadded global batch and takes its rows (`rows=`), so the tokens
+    are those of one process. `gen` alone where dp is 1. The model's own
+    placement (replicated, or tensor-parallel) is the caller's."""
+    from hsenet_torch.parallel.mesh import all_gather, axis_group, axis_rank, axis_size
+
+    dp = axis_size(mesh, "dp")
+    if dp == 1:
+        return gen
+    rank, group = axis_rank(mesh, "dp"), axis_group(mesh, "dp")
+
+    def wrapped(input_ids, kv_lens, *rest, **kwargs):
+        b = input_ids.shape[0]
+        pad = (-b) % dp
+        n = (b + pad) // dp
+
+        def mine(a):
+            if a is None:
+                return None
+            a = torch.as_tensor(a)
+            if pad:
+                a = torch.cat([a] + [a[-1:]] * pad)
+            return a[rank * n:(rank + 1) * n]
+
+        if kwargs.get("rng") is not None:
+            kwargs["rows"] = (rank * n, b)
+        out = gen(mine(input_ids), mine(kv_lens), *[mine(a) for a in rest],
+                  **kwargs)
+        return all_gather(out.contiguous(), group, 0)[:b]
+
+    return wrapped
 
 
 def make_greedy_generate_llm_only(

@@ -29,6 +29,16 @@ They round half to even, clip at +-127 and floor the scale at 1e-8, and
 give the codes and scales the JAX package's converters give on the same
 float weights.
 
+Under tensor parallelism (`parallel.sharding.shard_params` sets `tp` and
+`tp_mode`) a `LoRADense` holds its Megatron shard and computes
+  * column-parallel: y = f(x) W_r^T + b_r + f(drop(x) A) B_r * alpha / r,
+    this rank's output columns, no collective forward (f sums the input's
+    gradient over tp);
+  * row-parallel: x is this rank's input columns; x W_r^T and x A_r are
+    summed over tp in one all-reduce, then (.) B * alpha / r and the bias
+    are added once. The dropout mask is drawn at the full input width and
+    sliced, so it is the single-card mask.
+
 `DenseW8A8` is the W8A8 serving dense of the vision towers: int8 weights
 (the same `weight_q` / `weight_scale` buffers, so `quantize_kernels_int8`
 converts both forms) times int8 activations, summed in int32 by the
@@ -48,6 +58,7 @@ from hsenet_torch import resolve_device
 from hsenet_torch.configs import LoRAConfig
 from hsenet_torch.models.layers import Dense, dropout
 from hsenet_torch.ops.quant_matvec import quant_matvec_int8
+from hsenet_torch.parallel.mesh import copy_to_group, reduce_from_group
 
 QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
                  "gate_proj", "up_proj", "down_proj")
@@ -57,7 +68,11 @@ VIT_QUANT_TARGETS = ("qkv", "out_proj", "fc1", "fc2")
 
 class LoRADense(Dense):
     """Dense with optional LoRA adapters and optional int8 weight-only
-    storage, computing in `dtype`."""
+    storage, computing in `dtype`; a tensor-parallel shard where `tp` is
+    set (see the module docstring)."""
+
+    tp = None  # parallel.sharding.TPGroup of a tensor-parallel shard
+    tp_mode = None  # "column" or "row"
 
     def __init__(self, in_dim: int, features: int, *, use_bias: bool = False,
                  lora: Optional[LoRAConfig] = None, quantized: bool = False,
@@ -88,10 +103,21 @@ class LoRADense(Dense):
                 torch.zeros(lora.rank, features, dtype=dtype, device=device)
             )
 
+    def _product(self, x: torch.Tensor, bias: bool) -> torch.Tensor:
+        dt = self.compute_dtype
+        if self.quantized:
+            y = quant_matvec_int8(x, self.weight_q, self.weight_scale)
+            return y + self.bias.to(dt) if bias and self.bias is not None else y
+        return F.linear(x, self.weight.to(dt),
+                        self.bias.to(dt) if bias and self.bias is not None
+                        else None)
+
     def forward(self, x: torch.Tensor, *,
                 deterministic: bool = True) -> torch.Tensor:
         dt = self.compute_dtype
         x = x.to(dt)
+        if self.tp is not None:
+            return self._forward_tp(x, deterministic)
         if self.quantized:
             y = quant_matvec_int8(x, self.weight_q, self.weight_scale)
             if self.bias is not None:
@@ -102,6 +128,43 @@ class LoRADense(Dense):
             h = dropout(x, self.lora.dropout_rate, deterministic)
             y = y + (h @ self.lora_a.to(dt)) @ self.lora_b.to(dt) * self.lora.scale
         return y
+
+    def _forward_tp(self, x: torch.Tensor, deterministic: bool) -> torch.Tensor:
+        dt, group = self.compute_dtype, self.tp.group
+        if self.tp_mode == "column":
+            y = self._product(copy_to_group(x, group), bias=True)
+            if self.lora is not None:
+                h = dropout(x, self.lora.dropout_rate, deterministic)
+                h = copy_to_group(h @ self.lora_a.to(dt), group)
+                y = y + h @ self.lora_b.to(dt) * self.lora.scale
+            return y
+        y = self._product(x, bias=False)
+        if self.lora is not None:
+            h = _dropout_slice(x, self.lora.dropout_rate, deterministic,
+                               self.tp.rank, self.tp.size)
+            width = y.shape[-1]
+            both = reduce_from_group(
+                torch.cat([y, h @ self.lora_a.to(dt)], dim=-1), group)
+            y = both[..., :width] + both[..., width:] @ self.lora_b.to(dt) \
+                * self.lora.scale
+        else:
+            y = reduce_from_group(y, group)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
+
+
+def _dropout_slice(x: torch.Tensor, rate: float, deterministic: bool,
+                   rank: int, size: int) -> torch.Tensor:
+    """`dropout` of the full-width input whose last-dim slice `rank` of
+    `size` is `x`: the mask is drawn at the full width and sliced."""
+    if deterministic or rate == 0.0:
+        return x
+    full = x.new_zeros(x.shape[:-1] + (x.shape[-1] * size,))
+    keep = dropout(full + 1, rate, deterministic) != 0
+    keep = keep[..., rank * x.shape[-1]:(rank + 1) * x.shape[-1]]
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
 
 
 class QuantEmbed(nn.Module):

@@ -31,6 +31,13 @@ Unlike the JAX package, whose arrays are immutable, the port writes new
 keys and values into the cache in place and returns the same cache; this
 keeps one copy of the cache in device memory.
 
+Under tensor parallelism (`parallel.sharding.shard_params`) each block
+holds num_heads / tp query and num_kv_heads / tp key/value heads (its
+`config` is the local one; where num_kv_heads does not divide by tp, every
+kv head, replicated, with `kv_select` picking each query head's), the
+embedding and the LM head a slice of the vocabulary; the logits are
+gathered to the whole vocabulary.
+
 `convert_hf_phi3` carries HF `Phi3ForCausalLM` weights over.
 """
 
@@ -211,6 +218,12 @@ def _update_cache_layer_quant(cache_k, cache_v, k_scale, v_scale, kq, vq,
 
 
 class Phi3Block(nn.Module):
+    # a TP shard whose kv heads do not split over tp keeps them all (its k /
+    # v projections replicated) and reads, for each of its query heads, the
+    # kv head that head attends to: (first query head of the rank, query
+    # heads per kv head, tp group); set by parallel.sharding.shard_params
+    kv_select = None
+
     def __init__(self, config: Phi3Config, *, dtype=torch.bfloat16,
                  device="cuda"):
         super().__init__()
@@ -246,11 +259,19 @@ class Phi3Block(nn.Module):
 
         y = self.input_norm(x)
         q = rearrange(proj("q_proj", y), "b s (n d) -> b n s d", n=cfg.num_heads)
-        k = rearrange(proj("k_proj", y), "b s (n d) -> b n s d", n=cfg.num_kv_heads)
-        v = rearrange(proj("v_proj", y), "b s (n d) -> b n s d", n=cfg.num_kv_heads)
+        k, v = proj("k_proj", y), proj("v_proj", y)
+        if self.kv_select is not None:
+            # replicated k / v: each rank's gradient covers its query heads
+            # only, so it is summed over tp (Megatron's f)
+            from hsenet_torch.parallel.mesh import copy_to_group
+
+            k, v = (copy_to_group(t, self.kv_select[2]) for t in (k, v))
+        k = rearrange(k, "b s (n d) -> b n s d", n=cfg.num_kv_heads)
+        v = rearrange(v, "b s (n d) -> b n s d", n=cfg.num_kv_heads)
         q, k = apply_rope(q, k, cos, sin, cfg.rotary_dim)
 
         if layer_cache is None:
+            k, v = self._local_kv(k, q), self._local_kv(v, q)
             attn = multi_head_attention(q, k, v, kv_lens=kv_lens, causal=True)
         else:
             if len(layer_cache) == 5:
@@ -267,6 +288,7 @@ class Phi3Block(nn.Module):
                 ck, cv, lengths = layer_cache
                 _update_cache_layer(ck, cv, k, v, lengths)
                 k_read, v_read = ck.to(q.dtype), cv.to(q.dtype)
+            k_read, v_read = self._local_kv(k_read, q), self._local_kv(v_read, q)
             s = q.shape[2]
             if s == 1:
                 # decode: one query over the cache, plain sdpa
@@ -284,6 +306,15 @@ class Phi3Block(nn.Module):
         y = self.post_attn_norm(x)
         y = F.silu(proj("gate_proj", y)) * proj("up_proj", y)
         return x + proj("down_proj", y)
+
+    def _local_kv(self, t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """`t` (B, Hkv, T, D) as this rank's query heads read it: unchanged,
+        or under `kv_select` the kv head of each local query head."""
+        if self.kv_select is None:
+            return t
+        first, per_kv, _ = self.kv_select
+        heads = torch.arange(first, first + q.shape[1], device=t.device) // per_kv
+        return t.index_select(1, heads)
 
 
 class Phi3Decoder(nn.Module):
@@ -375,10 +406,36 @@ class Phi3ForCausalLM(nn.Module):
             self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
                                      bias=False, dtype=dtype, device=device)
 
+    tp = None  # parallel.sharding.TPGroup once the model is a TP shard
+
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed(input_ids).to(self.dtype)
+        if self.tp is None:
+            return self.embed(input_ids).to(self.dtype)
+        from hsenet_torch.parallel.mesh import reduce_from_group
+
+        # vocabulary-split table: look up the ids this rank holds, zeros
+        # for the others, and sum the rows over tp
+        rows = (self.embed.embedding_q if self.config.quant_int8_embed
+                else self.embed.weight).shape[0]
+        local = input_ids.long() - self.tp.rank * rows
+        inside = (local >= 0) & (local < rows)
+        out = self.embed(local.clamp(0, rows - 1)).to(self.dtype)
+        out = torch.where(inside[..., None], out, torch.zeros(
+            (), dtype=self.dtype, device=out.device))
+        return reduce_from_group(out, self.tp.group)
 
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Logits over the whole vocabulary; a TP shard computes its
+        vocabulary slice and all-gathers the rest, so every rank holds the
+        same logits."""
+        if self.tp is not None:
+            from hsenet_torch.parallel.mesh import copy_to_group, gather_from_group
+
+            local = self._logits(copy_to_group(hidden, self.tp.group))
+            return gather_from_group(local, self.tp.group, -1)
+        return self._logits(hidden)
+
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
         tied = self.config.tie_word_embeddings
         if tied and self.config.quant_int8_embed:
             return self.embed.attend(hidden)

@@ -40,9 +40,17 @@ Greedy by default. `do_sample=True` (HF generate's `temperature` /
 index per decode step, or per verify round). A fixed submission order
 reproduces its tokens on one device; the stream is the port's own
 (`eval.generate`), not the JAX package's. With `speculative=True` it is
-exact speculative sampling (`pld_round(sample=...)`). A device mesh
-(`mesh=`) waits for the parallel slice of the port and raises
-`NotImplementedError`.
+exact speculative sampling (`pld_round(sample=...)`).
+
+Tensor parallelism (`mesh=`, a (dp, tp) mesh with dp 1): the LLM's
+weights are split by the Megatron rules (`parallel.sharding.shard_params`,
+unless the model already is a shard of this mesh) and the KV cache (with
+the int8 cache's scales) holds this rank's num_kv_heads / tp heads, or
+every kv head, replicated, where they do not divide by tp. Every
+rank runs the same host scheduler on the same submissions: admission,
+chunking and the drafts depend on the ids alone, and the logits are
+gathered to the whole vocabulary before any argmax or draw, so no rank
+diverges. The towers and packers are replicated.
 """
 
 from __future__ import annotations
@@ -120,8 +128,15 @@ class ServingEngine:
         device="cuda",
     ):
         if mesh is not None:
-            raise NotImplementedError("mesh= waits for the parallel slice of "
-                                      "the port")
+            from hsenet_torch.parallel.mesh import axis_size
+            from hsenet_torch.parallel.sharding import shard_params
+
+            if axis_size(mesh, "dp") > 1:
+                raise ValueError("the engine shards tensor-parallel only "
+                                 "(tp); for dp-style scaling run one engine "
+                                 "per replica")
+            if model.__dict__.get("mesh") is not mesh:
+                shard_params(model, mesh)
         if do_sample and rng is None:
             raise ValueError("do_sample=True requires rng=")
         self.device = resolve_device(device)

@@ -27,6 +27,14 @@ def masked_lm_loss(
     """Causal-LM cross-entropy in f32; returns (loss, token_accuracy), both
     means over the positions whose label is not -100 (0 when there is
     none)."""
+    loss_sum, hits, count = _masked_lm_sums(logits, labels, shift)
+    denom = count.clamp(min=1)
+    return loss_sum / denom, hits / denom
+
+
+def _masked_lm_sums(logits, labels, shift):
+    """(summed cross-entropy, correct argmax count, counted positions) over
+    the positions whose (shifted) label is not -100."""
     if shift:
         logits = logits[:, :-1]
         labels = labels[:, 1:]
@@ -35,10 +43,26 @@ def masked_lm_loss(
     ce = F.cross_entropy(
         logits.float().flatten(0, 1), safe_labels.flatten(), reduction="none"
     ).view(safe_labels.shape)
-    denom = valid.sum().clamp(min=1)
-    loss = torch.where(valid, ce, 0.0).sum() / denom
     hits = valid & (logits.argmax(dim=-1) == safe_labels)
-    return loss, hits.sum() / denom
+    return torch.where(valid, ce, 0.0).sum(), hits.sum(), valid.sum()
+
+
+def masked_lm_loss_global(logits: torch.Tensor, labels: torch.Tensor, group,
+                          dp: int, shift: bool = True):
+    """`masked_lm_loss` of the global batch whose rows are split over the
+    data-parallel `group` of `dp` ranks: (loss_to_differentiate, loss,
+    token_accuracy). The loss is the token mean over the whole global batch
+    (the JAX package's `sum() / denom` over global arrays), so the summed
+    loss and the token count are both summed over the group. The first item
+    is this rank's summed loss over the global count, times dp: its
+    gradient averaged over dp is the gradient of the global loss."""
+    from hsenet_torch.parallel.mesh import all_reduce
+
+    local, hits, count = _masked_lm_sums(logits, labels, shift)
+    totals = all_reduce(torch.stack([local.detach(), hits.float(),
+                                     count.float()]), group)
+    denom = totals[2].clamp(min=1)
+    return local * dp / denom, totals[0] / denom, totals[1] / denom
 
 
 def clip_contrastive_loss(

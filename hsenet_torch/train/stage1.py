@@ -4,10 +4,15 @@ every parameter, one AdamW update.
 
 As in the JAX package the step always draws its dropout stream from
 (rng, step): the trainer passes `fold_seed(seed, step)` and the step seeds
-its generator from that and the state's step count. The data-parallel mesh
-and the sequence-parallel loss (the JAX package's `mesh` and `loss_fn`
-hooks, `parallel/sp.py`) come with the port's SP slice; this step runs on
-one card.
+its generator from that and the state's step count.
+
+Over a data-parallel mesh (a model that `parallel.sharding.shard_params`
+placed) the loss is the global one: every rank all-gathers the features
+of the whole batch with a gradient (`parallel.mesh.gather_with_grad`, whose
+backward sums each shard's gradient over the ranks) and computes the same
+(B, B) logits; the train step's mean over dp then gives the single-card
+gradient. The sequence-parallel loss (`parallel/sp.py`) waits for ROADMAP
+§A11.
 """
 
 from __future__ import annotations
@@ -19,11 +24,27 @@ import torch
 from torch import nn
 
 from hsenet_torch.models.layers import dropout_rng
+from hsenet_torch.parallel.mesh import gather_with_grad
 from hsenet_torch.train.losses import clip_contrastive_loss, retrieval_accuracy
 from hsenet_torch.train.train_state import AdamW
 from hsenet_torch.train.vlm import make_masked_train_step
 
 Batch = Dict[str, torch.Tensor]
+
+
+def global_features(model: nn.Module, *features: torch.Tensor,
+                    grad: bool = True):
+    """Each (B_local, D) tensor gathered over the model's dp ranks to the
+    global batch (rank order), with a gradient unless `grad` is False;
+    unchanged without a dp axis."""
+    from hsenet_torch.parallel.mesh import all_gather, axis_group, axis_size
+
+    mesh = model.__dict__.get("mesh")
+    if axis_size(mesh, "dp") == 1:
+        return features
+    group = axis_group(mesh, "dp")
+    return tuple(gather_with_grad(f, group, 0) if grad
+                 else all_gather(f, group, 0) for f in features)
 
 
 def stage1_loss_fn(model: nn.Module, batch: Batch,
@@ -37,6 +58,8 @@ def stage1_loss_fn(model: nn.Module, batch: Batch,
             batch["image"], batch["input_ids"], batch.get("attention_mask"),
             deterministic=generator is None,
         )
+    image_features, text_features = global_features(
+        model, image_features, text_features)
     loss, logits_i, _ = clip_contrastive_loss(image_features, text_features,
                                               scale)
     metrics = {

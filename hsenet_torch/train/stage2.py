@@ -12,8 +12,11 @@ numpy, keyed by a sha1 of the sample) and the step takes them from the
 batch (`teacher_image_features`, `teacher_text_features`), with the
 teacher's logit scale read once when the step is made.
 
-The dropout stream is drawn from (rng, step) in every step, as in stage 1;
-the data-parallel mesh and the SP loss hooks come with the port's SP slice.
+The dropout stream is drawn from (rng, step) in every step, as in stage 1.
+Over a data-parallel mesh both logit matrices are the global (B, B) ones,
+as in stage 1: the student's features are gathered with a gradient, the
+teacher's (recomputed or cached) without. The SP loss hooks wait for
+ROADMAP §A11.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from hsenet_torch.train.losses import (
     relation_weight,
     retrieval_accuracy,
 )
+from hsenet_torch.train.stage1 import global_features
 from hsenet_torch.train.train_state import AdamW
 from hsenet_torch.train.vlm import make_masked_train_step
 
@@ -47,6 +51,7 @@ def _student_loss(student: nn.Module, cfg: CLIPConfig, batch: Batch,
             batch["image"], batch["input_ids"], batch.get("attention_mask"),
             batch["image_2d"], deterministic=generator is None,
         )
+    s_img, s_txt = global_features(student, s_img, s_txt)
     loss_cl, s_logits_i, s_logits_t = clip_contrastive_loss(s_img, s_txt,
                                                              s_scale)
     loss_rel = relation_regulation_loss(t_logits_i, t_logits_t, s_logits_i,
@@ -75,6 +80,7 @@ def stage2_loss_fn(student: nn.Module, teacher: nn.Module, cfg: CLIPConfig,
             batch["image"], batch["input_ids"], batch.get("attention_mask"),
             deterministic=True,
         )
+        t_img, t_txt = global_features(student, t_img, t_txt, grad=False)
         _, t_logits_i, t_logits_t = clip_contrastive_loss(t_img, t_txt, t_scale)
     return _student_loss(student, cfg, batch, step, generator, t_logits_i,
                          t_logits_t)
@@ -86,10 +92,10 @@ def stage2_loss_fn_cached(student: nn.Module, cfg: CLIPConfig,
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Like `stage2_loss_fn`, with the teacher's features taken from the
     batch: no teacher forward in the step."""
-    _, t_logits_i, t_logits_t = clip_contrastive_loss(
-        batch["teacher_image_features"], batch["teacher_text_features"],
-        teacher_scale,
-    )
+    t_img, t_txt = global_features(student, batch["teacher_image_features"],
+                                   batch["teacher_text_features"], grad=False)
+    _, t_logits_i, t_logits_t = clip_contrastive_loss(t_img, t_txt,
+                                                      teacher_scale)
     return _student_loss(student, cfg, batch, step, generator, t_logits_i,
                          t_logits_t)
 

@@ -18,13 +18,20 @@ update:
 Parameters are updated in place. Freezing is `requires_grad=False` on the
 leaves the mask leaves out, which also keeps autograd from computing
 their gradients.
+
+Over a (dp, tp) mesh (`TrainState.create(..., mesh=)`) the train step
+averages the gradients over dp (`reduce_gradients`) and takes the global
+norm over every shard once (`global_norm(..., model=)`). Under ZeRO-1
+(`parallel/zero.shard_opt_state`) each dp rank holds its slice of m and v,
+updates that slice of the parameter and all-gathers the parameter.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -73,9 +80,17 @@ def make_schedule(cfg: TrainConfig) -> Schedule:
 
 @dataclass
 class AdamWState:
+    """Adam's count and moments, one per trainable leaf in order. Under
+    ZeRO-1 `zero1_dims[i]` is the dim along which leaf i's moments hold
+    only this dp rank's slice (None: whole), over `zero1_group`."""
+
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+    zero1_dims: Optional[List[Optional[int]]] = None
+    zero1_group: object = None
+    zero1_rank: int = 0
+    zero1_size: int = 1
 
 
 class AdamW:
@@ -117,15 +132,24 @@ class AdamW:
         # scalar, so the step never waits on the host)
         clip = torch.where(grad_norm < cfg.max_grad_norm, 1.0,
                            cfg.max_grad_norm / grad_norm)
-        for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
+        dims = state.zero1_dims or [None] * len(params)
+        for p, g, mu, nu, dim in zip(params, grads, state.mu, state.nu, dims):
             g = g.to(p.dtype).mul_(clip)
+            whole = p
+            if dim is not None:  # ZeRO-1: this rank's slice only
+                g = g.chunk(state.zero1_size, dim=dim)[state.zero1_rank]
+                p = p.chunk(state.zero1_size, dim=dim)[state.zero1_rank].clone()
             mu.mul_(cfg.adam_b1).add_(g, alpha=1.0 - cfg.adam_b1)
             nu.mul_(cfg.adam_b2).addcmul_(g, g, value=1.0 - cfg.adam_b2)
             update = (mu / c1).div_((nu / c2).sqrt_().add_(cfg.adam_eps))
             if cfg.weight_decay:
                 update.add_(p, alpha=cfg.weight_decay)
             p.sub_(update, alpha=lr)
-        return AdamWState(count, state.mu, state.nu)
+            if dim is not None:
+                from hsenet_torch.parallel.mesh import all_gather
+
+                whole.copy_(all_gather(p, state.zero1_group, dim))
+        return dataclasses.replace(state, count=count)
 
 
 def make_optimizer(cfg: TrainConfig,
@@ -135,9 +159,55 @@ def make_optimizer(cfg: TrainConfig,
     return AdamW(cfg, trainable_mask)
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32."""
-    return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+def global_norm(grads: List[torch.Tensor], names: Sequence[str] = (),
+                model: Optional[nn.Module] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32. With `model`
+    sharded over a mesh (`parallel/sharding.py`) and `names` the grads'
+    leaves, the squares of a split leaf are summed over the ranks that
+    split it, so every rank holds the norm of the full gradients."""
+    dims = model.__dict__.get("shard_dims", {}) if model is not None else {}
+    if not dims:
+        return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    from hsenet_torch.parallel.mesh import all_reduce, axis_group
+
+    mesh = model.mesh
+    # squares by the axes a leaf is split over: none, tp, dp, both
+    sums = torch.zeros(4, dtype=torch.float32, device=grads[0].device)
+    for name, g in zip(names, grads):
+        tp_dim, dp_dim = dims.get(name, (None, None))
+        sums[(tp_dim is not None) + 2 * (dp_dim is not None)] += g.float().pow(2).sum()
+    dp_part = all_reduce(sums[2:], axis_group(mesh, "dp"))
+    tp_part = all_reduce(torch.stack([sums[1], dp_part[1]]),
+                         axis_group(mesh, "tp"))
+    return torch.sqrt(sums[0] + dp_part[0] + tp_part.sum())
+
+
+def reduce_gradients(grads: List[torch.Tensor], names: Sequence[str],
+                     model: nn.Module, mesh) -> List[torch.Tensor]:
+    """The mean over dp of every rank's gradients: one summed all-reduce of
+    the whole leaves, flattened together per dtype, divided by dp. A
+    dp-split (FSDP) leaf's gradient already holds the sum over dp (its
+    gather's backward scatters it), so it is only divided."""
+    from hsenet_torch.parallel.mesh import all_reduce, axis_group, axis_size
+
+    dp = axis_size(mesh, "dp")
+    if dp == 1:
+        return grads
+    dims = model.__dict__.get("shard_dims", {})
+    out = list(grads)
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, (name, g) in enumerate(zip(names, grads)):
+        if dims.get(name, (None, None))[1] is not None:
+            out[i] = g / dp
+        else:
+            groups.setdefault(g.dtype, []).append(i)
+    for idx in groups.values():
+        flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
+                          axis_group(mesh, "dp"))
+        flat.div_(dp)
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out
 
 
 @dataclass
@@ -150,8 +220,13 @@ class TrainState:
     params: Dict[str, nn.Parameter]
     opt_state: AdamWState
     model: Optional[nn.Module] = None
+    mesh: object = None
 
     @classmethod
-    def create(cls, model: nn.Module, tx: AdamW) -> "TrainState":
+    def create(cls, model: nn.Module, tx: AdamW, mesh=None) -> "TrainState":
+        """The state over `model`'s trainable leaves; `mesh` (a (dp, tp)
+        `DeviceMesh`, `parallel/mesh.py`) makes the train step average the
+        gradients over dp."""
         params = tx.trainable(model)
-        return cls(step=0, params=params, opt_state=tx.init(params), model=model)
+        return cls(step=0, params=params, opt_state=tx.init(params), model=model,
+                   mesh=mesh)

@@ -18,6 +18,14 @@ generator, and draws its augmentations from a CPU generator seeded with
 fast-forwarded on resume (before the prefetcher wraps the batches), a run
 restored from a checkpoint at step k consumes exactly the batches and
 randomness an unbroken run would have.
+
+Over a (dp, tp) mesh (`mesh=`) every rank runs this loop on its own rows
+(the CLI's loader shards the global batch over dp) and the train step
+reduces the metrics, so every rank holds the single-card values. Rank 0
+alone logs and prints; every rank calls the eval hook (a tensor-parallel
+model needs all its ranks) and the checkpoint save, which gathers the
+shards and writes from rank 0 (`utils.checkpoint`). Each dp rank draws
+its augmentations from its own stream.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 from hsenet_torch.configs import AugmentConfig, TrainConfig
 from hsenet_torch.data.augment import augment_batch
 from hsenet_torch.data.prefetch import DevicePrefetcher, default_place
+from hsenet_torch.parallel.mesh import axis_rank, axis_size, is_main_process
 from hsenet_torch.train.train_state import TrainState
 from hsenet_torch.train.vlm import fold_seed
 
@@ -158,6 +167,7 @@ class Trainer:
         checkpoint_manager=None,
         hooks: Optional[TrainerHooks] = None,
         augment: Optional[AugmentConfig] = None,
+        mesh=None,
     ):
         self.train_step = train_step
         self.state = state
@@ -169,6 +179,9 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
         self.device = next(iter(state.params.values())).device
         self._profiler = None
+        dp = axis_size(mesh, "dp")
+        self._stream = (axis_rank(mesh, "dp"),) if dp > 1 else ()
+        self._main = is_main_process()
 
     def _start_profile(self) -> None:
         from torch.profiler import ProfilerActivity, profile
@@ -201,7 +214,7 @@ class Trainer:
         if self.augment is None or "image" not in batch:
             return batch
         gen = torch.Generator().manual_seed(
-            fold_seed(self.cfg.seed, step, AUGMENT_STREAM))
+            fold_seed(self.cfg.seed, step, AUGMENT_STREAM, *self._stream))
         return {**batch, "image": augment_batch(batch["image"], gen, self.augment)}
 
     def fit(self, total_steps: Optional[int] = None) -> TrainState:
@@ -261,16 +274,16 @@ class Trainer:
                     )
                     t_last = now
                     self.history.append({"step": step, **row})
-                    if self.hooks.on_log:
+                    if self._main and self.hooks.on_log:
                         self.hooks.on_log(step, row)
-                    else:
+                    elif self._main:
                         msg = ", ".join(f"{k}={v:.4f}" for k, v in row.items())
                         print(f"step {step}: {msg}", flush=True)
 
                 if (self.hooks.on_eval and self.cfg.eval_every
                         and step % self.cfg.eval_every == 0):
                     eval_metrics = self.hooks.on_eval(step, self.state)
-                    if eval_metrics:
+                    if eval_metrics and self._main:
                         print(f"eval @ {step}: {eval_metrics}", flush=True)
 
                 if self.ckpt is not None and (

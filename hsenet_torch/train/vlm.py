@@ -20,8 +20,15 @@ import torch
 from torch import nn
 
 from hsenet_torch.models.layers import dropout_rng
-from hsenet_torch.train.losses import masked_lm_loss
-from hsenet_torch.train.train_state import AdamW, TrainState, global_norm
+from hsenet_torch.train.losses import masked_lm_loss, masked_lm_loss_global
+from hsenet_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from hsenet_torch.parallel.sharding import fsdp_gathered
+from hsenet_torch.train.train_state import (
+    AdamW,
+    TrainState,
+    global_norm,
+    reduce_gradients,
+)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -69,8 +76,22 @@ def vlm_loss_fn(model: nn.Module, batch: Batch,
             batch["input_ids"], batch.get("image"), batch.get("image_2d"),
             kv_lens=kv_lens, deterministic=generator is None,
         )
+    dp_group = _dp_group(model)
+    if dp_group is not None:
+        grad_loss, loss, acc = masked_lm_loss_global(
+            logits, batch["labels"], *dp_group)
+        return grad_loss, {"loss": loss, "token_acc": acc}
     loss, acc = masked_lm_loss(logits, batch["labels"])
     return loss, {"loss": loss, "token_acc": acc}
+
+
+def _dp_group(model: nn.Module):
+    """(group, size) of the model's data-parallel axis where it has one of
+    more than one rank (`parallel.sharding.shard_params` records the
+    mesh), else None."""
+    mesh = model.__dict__.get("mesh")
+    dp = axis_size(mesh, "dp")
+    return None if dp == 1 else (axis_group(mesh, "dp"), dp)
 
 
 def vlm_seg_loss_fn(model: nn.Module, batch: Batch,
@@ -87,14 +108,29 @@ def vlm_seg_loss_fn(model: nn.Module, batch: Batch,
             batch["input_ids"], batch["image"], batch.get("image_2d"),
             kv_lens=kv_lens, deterministic=generator is None,
         )
-    lm_loss, acc = masked_lm_loss(logits, batch["labels"])
     segs = batch["seg"]  # (B, 1, D, H, W), zeros where a row has none
     has_seg = (segs.sum(dim=(1, 2, 3, 4)) > 0).float()
     per_row = torch.stack([
         binary_dice_loss(seg_logits[i:i + 1], segs[i:i + 1])
         + masked_bce_loss(seg_logits[i:i + 1], segs[i:i + 1])
         for i in range(segs.shape[0])])
-    seg_loss = (per_row * has_seg).sum() / has_seg.sum().clamp_min(1.0)
+    seg_sum = (per_row * has_seg).sum()
+    dp_group = _dp_group(model)
+    if dp_group is not None:  # both means run over the global batch
+        from hsenet_torch.parallel.mesh import all_reduce
+
+        grad_lm, lm_loss, acc = masked_lm_loss_global(
+            logits, batch["labels"], *dp_group)
+        totals = all_reduce(torch.stack([seg_sum.detach(), has_seg.sum()]),
+                            dp_group[0])
+        rows = totals[1].clamp_min(1.0)
+        seg_loss = totals[0] / rows
+        loss = lm_loss + seg_loss
+        return grad_lm + seg_sum * dp_group[1] / rows, {
+            "loss": loss, "lm_loss": lm_loss, "seg_loss": seg_loss,
+            "token_acc": acc}
+    lm_loss, acc = masked_lm_loss(logits, batch["labels"])
+    seg_loss = seg_sum / has_seg.sum().clamp_min(1.0)
     loss = lm_loss + seg_loss
     return loss, {"loss": loss, "lm_loss": lm_loss, "seg_loss": seg_loss,
                   "token_acc": acc}
@@ -116,7 +152,8 @@ def make_vlm_eval_fn(model: nn.Module, seg: bool = False):
         for batch in loader:
             dev = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
                    if k in keys}
-            _, metrics = loss_fn(model, dev)
+            with fsdp_gathered(model):
+                _, metrics = loss_fn(model, dev)
             rows.append({k: float(v) for k, v in metrics.items()})
         if not rows:
             return {}
@@ -149,24 +186,37 @@ def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1,
     > 1` splits the batch into that many equal microbatches along dim 0 and
     averages their gradients and metrics (the reference's
     gradient_accumulation_steps; only sound for losses that decompose per
-    sample)."""
+    sample).
 
-    def grads_of(params, batch, generator, step):
-        loss, metrics = (loss_fn(batch, step, generator) if takes_step
-                         else loss_fn(batch, generator))
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    With `state.mesh` the batch is this dp rank's rows, each microbatch
+    the rank's share of the global microbatch; the loss function reduces
+    its metrics over dp, the gradients are averaged over dp and their norm
+    taken over every shard. An FSDP model (`parallel/sharding.py`) is
+    gathered around the loss."""
+
+    def grads_of(params, batch, generator, step, model):
+        with fsdp_gathered(model):
+            loss, metrics = (loss_fn(batch, step, generator) if takes_step
+                             else loss_fn(batch, generator))
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch: Batch, rng: Optional[int] = None):
         params = list(state.params.values())
+        names = list(state.params)
+        model = state.model if state.model is not None else nn.Module()
+        # dp ranks draw their own rows' dropout; tp ranks of one replica
+        # draw the same masks (the replicated activations stay equal)
+        dp = axis_size(state.mesh, "dp")
+        rank = (axis_rank(state.mesh, "dp"),) if dp > 1 else ()
 
         def generator(*stream):
             if rng is None:
                 return None
             return torch.Generator(device=params[0].device).manual_seed(
-                fold_seed(rng, state.step, *stream)
+                fold_seed(rng, state.step, *stream, *rank)
             )
 
         if grad_accum > 1:
@@ -174,15 +224,18 @@ def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1,
             grads, rows = None, []
             for i in range(grad_accum):
                 micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                g, m = grads_of(params, micro, generator(i), state.step)
+                g, m = grads_of(params, micro, generator(i), state.step, model)
                 grads = g if grads is None else [a.add_(b) for a, b in zip(grads, g)]
                 rows.append(m)
             grads = [g.div_(grad_accum) for g in grads]
             metrics = {k: torch.stack([m[k].float() for m in rows]).mean()
                        for k in rows[0]}
         else:
-            grads, metrics = grads_of(params, batch, generator(), state.step)
-        metrics["grad_norm"] = global_norm(grads)
+            grads, metrics = grads_of(params, batch, generator(), state.step,
+                                      model)
+        if state.mesh is not None:
+            grads = reduce_gradients(grads, names, model, state.mesh)
+        metrics["grad_norm"] = global_norm(grads, names, model)
         opt_state = tx.step(params, grads, state.opt_state, metrics["grad_norm"])
         return dataclasses.replace(state, step=state.step + 1,
                                    opt_state=opt_state), metrics

@@ -14,6 +14,11 @@ template's device. Nothing beyond PyTorch is needed to read or write one.
   * `save_params` / `restore_params`: one state dict in one file (the
     converters' output and `--checkpoint`'s input). An existing path is
     refused unless `overwrite=True`.
+    Over a mesh the saved state is always the full, gathered one: `save`
+    gathers every tensor- or data-parallel shard and ZeRO-1 slice (every
+    rank calls it) and rank 0 writes; `restore` reads the file on every
+    rank and cuts each leaf to the rank's shard, so `--resume` works
+    across layouts.
   * `filter_tree`, `save_vlm_deltas`, `load_vlm_deltas`: the projector,
     LoRA and embedding leaves only (`LaMedTrainer._save`,
     lamed_trainer.py:20-24), selected by a regex over the state dict's
@@ -22,6 +27,7 @@ template's device. Nothing beyond PyTorch is needed to read or write one.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -31,7 +37,8 @@ from typing import Dict, List, Mapping, Optional
 
 import torch
 
-from hsenet_torch.train.train_state import AdamWState, TrainState
+from hsenet_torch.parallel.mesh import barrier, is_main_process
+from hsenet_torch.train.train_state import TrainState
 from hsenet_torch.utils.convert import graft_params
 
 _STATE_FILE = "state.pt"
@@ -105,13 +112,19 @@ class CheckpointManager:
         final = os.path.join(self.directory, str(step))
         if os.path.exists(final) and not force:
             raise FileExistsError(f"step {step} exists in {self.directory}")
+        mu, nu = _full_moments(state)
         payload = {
             "step": int(state.step),
-            "params": {k: _host(v) for k, v in state.params.items()},
+            "params": {k: _host(_full_leaf(state, k, v))
+                       for k, v in state.params.items()},
             "opt_state": {"count": int(state.opt_state.count),
-                          "mu": [_host(t) for t in state.opt_state.mu],
-                          "nu": [_host(t) for t in state.opt_state.nu]},
+                          "mu": [_host(t) for t in mu],
+                          "nu": [_host(t) for t in nu]},
         }
+        if not is_main_process():
+            if not self.async_save:
+                barrier()
+            return
         if config is not None:
             with open(os.path.join(self.directory, "config.json"), "w") as f:
                 json.dump(config, f, indent=2, default=str)
@@ -121,6 +134,7 @@ class CheckpointManager:
             self._thread.start()
         else:
             self._write(final, payload)
+            barrier()  # the step is on disk before any rank goes on
 
     def _write_guarded(self, final: str, payload: dict) -> None:
         try:
@@ -166,8 +180,13 @@ class CheckpointManager:
         if len(saved["mu"]) != len(opt.mu) or len(saved["nu"]) != len(opt.nu):
             raise ValueError(f"{path}: {len(saved['mu'])} optimizer moments, "
                              f"template {len(opt.mu)}")
-        pairs = [(f"params.{k}", payload["params"][k], params[k]) for k in params]
-        pairs += [(f"opt_state.{m}.{i}", s, t) for m in ("mu", "nu")
+        names = list(params)
+        pairs = [(f"params.{k}", _local_leaf(state_template, k,
+                                             payload["params"][k]), params[k])
+                 for k in names]
+        pairs += [(f"opt_state.{m}.{i}",
+                   _local_leaf(state_template, names[i], s, i), t)
+                  for m in ("mu", "nu")
                   for i, (s, t) in enumerate(zip(saved[m], getattr(opt, m)))]
         with torch.no_grad():
             for name, src, dst in pairs:
@@ -176,8 +195,50 @@ class CheckpointManager:
                                     f"template {dst.dtype}")
                 dst.copy_(_check_like(name, src, dst))
         return TrainState(step=int(payload["step"]), params=params,
-                          opt_state=AdamWState(int(saved["count"]), opt.mu, opt.nu),
-                          model=state_template.model)
+                          opt_state=dataclasses.replace(
+                              opt, count=int(saved["count"])),
+                          model=state_template.model, mesh=state_template.mesh)
+
+
+def _zero1_extra(state: TrainState, i: int):
+    opt = state.opt_state
+    if opt.zero1_dims is None or opt.zero1_dims[i] is None:
+        return None
+    return opt.zero1_dims[i], opt.zero1_group
+
+
+def _full_leaf(state: TrainState, name: str, t: torch.Tensor,
+               i: Optional[int] = None) -> torch.Tensor:
+    """A parameter (or, with its index `i`, an Adam moment) gathered from
+    its shards; itself on one card."""
+    if state.model is None or state.mesh is None:
+        return t
+    from hsenet_torch.parallel.sharding import gather_leaf
+
+    return gather_leaf(state.model, name, t,
+                       None if i is None else _zero1_extra(state, i))
+
+
+def _full_moments(state: TrainState):
+    names = list(state.params)
+    opt = state.opt_state
+    return ([_full_leaf(state, names[i], t, i) for i, t in enumerate(opt.mu)],
+            [_full_leaf(state, names[i], t, i) for i, t in enumerate(opt.nu)])
+
+
+def _local_leaf(state: TrainState, name: str, full: torch.Tensor,
+                i: Optional[int] = None) -> torch.Tensor:
+    """The inverse of `_full_leaf`: this rank's shard of a saved leaf."""
+    if state.model is None or state.mesh is None:
+        return full
+    from hsenet_torch.parallel.sharding import split_leaf
+
+    local = split_leaf(state.model, name, full)
+    extra = None if i is None else _zero1_extra(state, i)
+    if extra is not None:
+        opt = state.opt_state
+        local = local.chunk(opt.zero1_size, dim=extra[0])[opt.zero1_rank]
+    return local
 
 
 def save_params(path: str, state: Mapping[str, torch.Tensor], *,

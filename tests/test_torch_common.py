@@ -113,7 +113,9 @@ def test_importing_the_port_loads_no_jax():
         "hsenet_torch.cli.preprocess_ct, hsenet_torch.models.segvol, "
         "hsenet_torch.models.swin, hsenet_torch.eval.sliding_window, "
         "hsenet_torch.eval.segmentation, hsenet_torch.train.legacy_clip, "
-        "hsenet_torch.utils.boxes, hsenet_torch.data.registry; "
+        "hsenet_torch.utils.boxes, hsenet_torch.data.registry, "
+        "hsenet_torch.parallel.mesh, hsenet_torch.parallel.sharding, "
+        "hsenet_torch.parallel.zero; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'flax', 'hsenet_tpu'))]; print(bad); sys.exit(1 if bad else 0)"
     )

@@ -433,8 +433,13 @@ def test_retrieval_needs_synthetic():
      # sampling is ported; as in the JAX CLI it refuses the engine
      (["--task", "mrg", "--do-sample", "--engine"], AssertionError,
       "--engine eval is greedy-only"),
-     (["--task", "vqa", "--dp", "2"], NotImplementedError, "§A9"),
-     (["--task", "mrg", "--tp", "2"], NotImplementedError, "§A9")],
+     # --dp / --tp run over torchrun's ranks (test_torch_parallel_cli.py);
+     # in a one-process world they raise the JAX create_mesh's mesh-size
+     # error
+     (["--task", "vqa", "--dp", "2"], ValueError,
+      "mesh 2x1 needs more than 1 devices"),
+     (["--task", "mrg", "--tp", "2"], ValueError,
+      "mesh 1x2 needs more than 1 devices")],
     ids=["seg", "rec", "do-sample", "dp", "tp"],
 )
 def test_cli_options_of_later_slices_raise(flags, error, match):

@@ -12,6 +12,7 @@ where it applies, the int8 cache.
 import dataclasses
 import json
 import time
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -349,17 +350,20 @@ def test_latency_stats_and_backdating(llm):
 
 @pytest.mark.parametrize(
     "kwargs,error,match",
-    # a mesh waits for the parallel slice; sampling (plain and speculative)
-    # raises as the JAX engine does without its seed, and builds with one
+    # sampling (plain and speculative) raises as the JAX engine does
+    # without its seed, and builds with one; a mesh with a dp axis above 1
+    # is refused (the engine shards over tp only: a tp mesh runs in
+    # test_torch_parallel_tp.py)
     [(dict(speculative=True, do_sample=True), ValueError, "requires rng="),
      (dict(do_sample=True), ValueError, "requires rng="),
-     (dict(mesh=object()), NotImplementedError, "parallel")],
+     (dict(mesh=SimpleNamespace(shape=(2, 1), mesh_dim_names=("dp", "tp"))),
+      ValueError, "tensor-parallel only")],
     ids=["speculative", "do_sample", "mesh"],
 )
 def test_engine_options_of_later_slices_raise(llm, kwargs, error, match):
     with pytest.raises(error, match=match):
         ServingEngine(llm["tm"], eos_token_id=2, device="cpu", **kwargs)
-    if error is ValueError:
+    if "mesh" not in kwargs:
         eng = ServingEngine(llm["tm"], eos_token_id=2, device="cpu", rng=0,
                             cache_dtype=torch.float32, **LLM_KW, **kwargs)
         eng.submit(llm["prompts"][0], 3)
@@ -428,9 +432,11 @@ def test_cli_rejects_caches_with_llm_only(flag, capsys):
 
 @pytest.mark.parametrize(
     "flags,error,match",
-    # --tp waits for the parallel slice; --do-sample (with --speculative
-    # too) refuses a temperature of 0 as the JAX CLI does
-    [(["--tp", "2"], NotImplementedError, "parallel"),
+    # --tp 2 in a one-process world raises the JAX create_mesh's mesh-size
+    # error (over two ranks it serves: test_torch_parallel_tp.py);
+    # --do-sample (with --speculative too) refuses a temperature of 0 as
+    # the JAX CLI does
+    [(["--tp", "2"], ValueError, "mesh 1x2 needs more than 1 devices"),
      (["--speculative", "--do-sample", "--temperature", "0"], ValueError,
       "temperature must be > 0"),
      (["--do-sample", "--temperature", "0"], ValueError, "temperature must be > 0")],

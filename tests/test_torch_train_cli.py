@@ -292,15 +292,38 @@ def test_resume_auto_is_bit_equal_to_an_unbroken_run(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "cli,flags",
-    [(tcli1, ["--sp", "2"]), (tcli1, ["--zero1"]), (tcli1, ["--dp", "2"]),
-     (tcli1, ["--tp", "2"]), (tcli2, ["--sp", "2"]), (tcli2, ["--zero1"])],
+    "cli,flags,error,match",
+    # --zero1 runs (one process: no dp axis to split the moments over, so
+    # the run is the plain one); --dp / --tp above 1 in a one-process world
+    # raise the JAX create_mesh's mesh-size error; --sp waits for §A11
+    [(tcli1, ["--sp", "2"], NotImplementedError, "§A11"),
+     (tcli1, ["--zero1"], None, None),
+     (tcli1, ["--dp", "2"], ValueError, "mesh 2x1 needs more than 1 devices"),
+     (tcli1, ["--tp", "2"], ValueError, "mesh 1x2 needs more than 1 devices"),
+     (tcli2, ["--sp", "2"], NotImplementedError, "§A11"),
+     (tcli2, ["--zero1"], None, None)],
     ids=["stage1-sp", "stage1-zero1", "stage1-dp", "stage1-tp", "stage2-sp",
          "stage2-zero1"],
 )
-def test_flags_of_the_parallel_slice_raise(cli, flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="§A9"):
-        cli.main(TINY_ARGS + flags + ["--output-dir", str(tmp_path)], device="cpu")
+def test_flags_of_the_parallel_slice_raise(cli, flags, error, match, tmp_path):
+    args = [a for a in TINY_ARGS if a not in ("--dp", "1")]
+    if error is not None:
+        with pytest.raises(error, match=match):
+            cli.main(args + flags + ["--output-dir", str(tmp_path)], device="cpu")
+        return
+    runs = []
+    for extra in ([], flags):
+        with recording(None, ttrainer) as (hist, _):
+            state = cli.main(args + STEPS + extra + ["--output-dir",
+                                                     str(tmp_path / str(len(runs)))],
+                             device="cpu")
+        runs.append((hist[0], state))
+    (plain, plain_state), (zero1, zero1_state) = runs
+    assert zero1 and [{k: v for k, v in r.items() if k != "steps_per_sec"}
+                      for r in zero1] == [
+        {k: v for k, v in r.items() if k != "steps_per_sec"} for r in plain]
+    for k, v in plain_state.params.items():
+        assert torch.equal(zero1_state.params[k], v), k
 
 
 @pytest.mark.parametrize("cli", [tcli1, tcli2], ids=["stage1", "stage2"])

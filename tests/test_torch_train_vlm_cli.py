@@ -195,10 +195,14 @@ def test_resume_auto_is_bit_equal_to_an_unbroken_run(tmp_path):
 @pytest.mark.parametrize(
     "flags,item",
     # --task seg is ported, with and without --online-slice-features: it
-    # trains (test_torch_seg_vlm.py holds its losses to the JAX CLI's)
+    # trains (test_torch_seg_vlm.py holds its losses to the JAX CLI's).
+    # --fsdp and --zero1 run: in one process there is no dp axis to split
+    # over, so each equals the plain run; --tp 2 in a one-process world
+    # raises the JAX create_mesh's mesh-size error; --pp and --sp wait for
+    # ROADMAP §A11
     [(["--task", "seg"], None), (["--online-slice-features", "--task", "seg"], None),
-     (["--pp", "2"], "§A9"), (["--sp", "2"], "§A9"), (["--fsdp"], "§A9"),
-     (["--zero1"], "§A9"), (["--tp", "2"], "§A9")],
+     (["--pp", "2"], "§A11"), (["--sp", "2"], "§A11"), (["--fsdp"], "plain"),
+     (["--zero1"], "plain"), (["--tp", "2"], "mesh 1x2 needs more than 1 devices")],
     ids=["seg", "online-slices", "pp", "sp", "fsdp", "zero1", "tp"],
 )
 def test_flags_of_later_slices_raise(flags, item, tmp_path):
@@ -209,7 +213,19 @@ def test_flags_of_later_slices_raise(flags, item, tmp_path):
         assert state.step == 1 and state.model.config.seg_enable
         assert runs[0][0]["seg_loss"] > 0
         return
-    with pytest.raises(NotImplementedError, match=item):
+    if item == "plain":
+        logs = []
+        for extra in ([], flags):
+            with recording(None, ttrainer) as (runs, _):
+                tvlm.main(BASE + extra + ["--total-steps", "2", "--output-dir",
+                                          str(tmp_path / str(len(logs)))],
+                          device="cpu")
+            logs.append([{k: v for k, v in r.items() if k != "steps_per_sec"}
+                         for r in runs[0]])
+        assert len(logs[1]) == 2 and logs[1] == logs[0]
+        return
+    error = ValueError if item.startswith("mesh") else NotImplementedError
+    with pytest.raises(error, match=item):
         tvlm.main(BASE + flags + ["--output-dir", str(tmp_path)], device="cpu")
 
 
