@@ -336,12 +336,24 @@ In order:
 16g. the parallel slice at VLMConfig() (all 32 LLM layers): [dist-world1]
    the training CLIs with --zero1 / --fsdp and evaluate --dp 1 --tp 1 in a
    one-rank NCCL group against plain runs; [dist-tp2] serve --tp 2 and
-   [dist-dp2] (a CLIP step, train_vlm --dp 2 with --zero1 and --fsdp,
-   evaluate --dp 2) as two ranks on the one card over gloo (`chip_smoke.py
+   [dist-dp2] (a CLIP step, train_vlm --dp 2 with --zero1 and --fsdp at 8
+   LLM layers, evaluate --dp 2) as two ranks on the one card over gloo (`chip_smoke.py
    --dist-rank`), each against one process beside a wrong variant that
    must miss (the row-parallel all-reduce left out, the feature gather
    without gradient, ranks keeping their own gradients, ranks keeping
-   their own ids); FSDP's step peak of device memory below ZeRO-1's;
+   their own ids); FSDP's step peak of device memory below ZeRO-1's, and
+   with --int8-base the split int8 codes' peak below the whole codes';
+   then the sixteenth slice as two ranks on the card over gloo:
+   [dist-pp2] `train_vlm --pp 2 --n-micro 2` (16 layers a stage) for 3
+   steps against [dist-world1]'s plain run's losses and LoRA gradients, beside the stages
+   swapped (must miss), each stage's flash launches, step peak and step
+   time, then `evaluate` on the model its vlm_deltas make; [dist-sp2] the
+   CLIP towers over the ring (train_clip_stage1 --sp 2 at 1025 tokens a
+   rank, train_clip_stage2 --sp 2 --cached-teacher), train_vlm --sp 2 (400
+   tokens a rank) and the fine-patch tower at 16,385 tokens with query
+   blocks, each against one process's run, and the ring at the tower's
+   and at the decoder's attention shape; a ring that never reads its
+   neighbours' chunks must miss in train_vlm --sp 2 and in both rings;
    [kernel-tp] B5 at the tp = 2 shards and B1 / B3 at the new shapes;
 17. prints one JSON line of kernel numbers, then as its last line
    {"ok": true, "device": {...}}.
@@ -7670,6 +7682,9 @@ def run_remat_dots(model, names, params, batch):
 
 # the dist phases run the CLIs' models at VLMConfig(), all 32 LLM layers
 DIST_STEPS = 2
+# [dist-pp2]'s train_vlm runs; [dist-world1]'s plain VLM run takes as many
+# and the other parallel VLM runs read its first steps
+PP_STEPS = 3
 DIST_WORLD1_RTOL = 1e-3  # a one-rank group against the plain run
 DIST_REL_TOL = 5e-2  # two ranks against one process (relative L2, bf16)
 # the trained leaves' move (trained - initial) against one process's: an
@@ -7677,11 +7692,24 @@ DIST_REL_TOL = 5e-2  # two ranks against one process (relative L2, bf16)
 # whose gradient rounding carries across 0 moves the other way; a quarter
 # of the move is far above that and far below a move of other gradients
 DIST_MOVE_TOL = 0.25
+# [dist-dp2]'s VLM runs cut the LLM to this depth: under FSDP two ranks on
+# one card gather every layer through the host (gloo), ~0.5 s a layer a
+# step; the other phases keep all 32 layers
+DP2_LLM_LAYERS = 8
 DIST_TIMEOUT = 600  # seconds a world of two ranks may take
 DIST_SERVE_REQUESTS = 4
 DIST_SERVE_NEW = 24
 DIST_EVAL_NEW = 16
 DIST_CLIP_SEED = 51
+# [dist-sp2]'s fine-patch tower: the query block of each hop of the ring
+# (at 8,193 tokens a rank, a (1024, 8193) f32 score block a head)
+SP_LONG_BLOCK_Q = 1024
+SP_LONG_BATCH = 1  # [dist-sp2]'s fine-patch tower, one volume
+# [dist-sp2]'s CLIP CLI runs: K/V of 1025 tokens a rank cross the host
+# every hop (gloo), ~10 s a step at batch 24
+SP_CLIP_BATCH = 4
+SP_CAUSAL_LENS = (800, 613)  # [dist-sp2]'s causal ring check, by row
+PP_EVAL_NEW = 4  # [dist-pp2]'s evaluate on the run's deltas
 # B5 at Phi-4-mini's tensor-parallel shards (tp = 2): (K, N) of q, k and v,
 # gate and up (column-parallel: N / 2), o and down (row-parallel: K / 2)
 TP_MATVEC_SHAPES = {"tp2_q_3072x1536": (3072, 1536), "tp2_kv_3072x512": (3072, 512),
@@ -7720,12 +7748,12 @@ def dist_vlm_config():
     return build_vlm_config(argparse.Namespace(synthetic=False))
 
 
-def dist_vlm_model():
-    """The training CLIs' VLM (`build_vlm_config`: VLMConfig() with LoRA)
-    with every dropout rate at 0, drawn on the card from train_vlm's
-    default seed, for `train_vlm.main(model=)`: dp ranks draw their own
-    dropout masks, so the runs compared across layouts train without
-    dropout."""
+def dist_vlm_model(llm_layers=None):
+    """The training CLIs' VLM (`build_vlm_config`: VLMConfig() with LoRA,
+    its LLM cut to `llm_layers` layers if given) with every dropout rate at
+    0, drawn on the card from train_vlm's default seed, for
+    `train_vlm.main(model=)`: dp ranks draw their own dropout masks, so the
+    runs compared across layouts train without dropout."""
     import dataclasses
     import functools
 
@@ -7739,8 +7767,9 @@ def dist_vlm_model():
         cfg, vision=dataclasses.replace(cfg.vision, dropout_rate=0.0,
                                         slice_dropout_rate=0.0),
         packer=dataclasses.replace(cfg.packer, dropout_rate=0.0),
-        llm=dataclasses.replace(cfg.llm, lora=dataclasses.replace(
-            cfg.llm.lora, dropout_rate=0.0)))
+        llm=dataclasses.replace(cfg.llm, num_layers=llm_layers or cfg.llm.num_layers,
+                                lora=dataclasses.replace(cfg.llm.lora,
+                                                         dropout_rate=0.0)))
     return random_model(functools.partial(HSENetVLM, remat=True), cfg,
                         dtype=torch.bfloat16, device="cuda", seed=42)
 
@@ -7792,10 +7821,10 @@ def write_dist_data(root):
     return paths
 
 
-def dist_train_argv(paths, kind, out):
+def dist_train_argv(paths, kind, out, total=DIST_STEPS):
     # lr 1e-3: the second step (the first runs at the warmup's 0) moves a
     # leaf by about 1e-3, well above the runs' rounding
-    steps = ["--total-steps", str(DIST_STEPS), "--log-every", "1", "--eval-every", "0",
+    steps = ["--total-steps", str(total), "--log-every", "1", "--eval-every", "0",
              "--checkpoint-every", "1000", "--remat", "--learning-rate", "1e-3",
              "--data-root", paths["root"], "--output-dir", out]
     if kind == "clip":
@@ -7874,7 +7903,13 @@ def move_rel(got, want, before):
 class recorded_lora_grads:
     """Within the block, each VLM train step's gradients of the LoRA leaves,
     as the step's norm reads them (after the dp reduction), land in the
-    list in bf16 on the host."""
+    list in bf16 on the host. With `leaves`, `self.leaves` gets the LoRA
+    leaves as each step found them (f32 on the host): from the second step
+    on, the leaves the step before trained."""
+
+    def __init__(self, leaves=False):
+        self.keep_leaves = leaves
+        self.leaves = []
 
     def __enter__(self):
         import torch
@@ -7887,6 +7922,9 @@ class recorded_lora_grads:
         def spy(grads, names, model):
             steps.append({n: g.detach().to(torch.bfloat16).cpu()
                           for n, g in zip(names, grads) if "lora_" in n})
+            if self.keep_leaves:
+                self.leaves.append({n: p.detach().float().cpu() for n, p in
+                                    model.named_parameters() if "lora_" in n})
             return real(grads, names, model)
 
         tvlm.global_norm = spy
@@ -7908,7 +7946,9 @@ def logged(rec, key="loss"):
 
 def run_dist_world1(card, paths):
     """[dist-world1]: at VLMConfig(), the plain runs (no process group) of
-    train_clip_stage1, train_vlm and evaluate (batch 1), then in a one-rank
+    train_clip_stage1, train_vlm (PP_STEPS steps, the LoRA leaves recorded
+    after each: the reference of every parallel VLM run) and evaluate
+    (batch 1), then in a one-rank
     NCCL group train_clip_stage1 --zero1, train_vlm --zero1 and --fsdp and
     evaluate --dp 1 --tp 1 (train_vlm on `dist_vlm_model`, without dropout):
     the losses and the trained leaves within DIST_WORLD1_RTOL of the plain
@@ -7917,7 +7957,8 @@ def run_dist_world1(card, paths):
     (numbers, flash launches by shape of the counted runs, the LLM's batch
     lengths by batch size, the plain VLM run's record, the plain eval's
     metrics, its first batch's prompt lengths, the plain VLM run's LoRA
-    leaves and each step's LoRA gradients)."""
+    leaves after DIST_STEPS and after each step, and each step's LoRA
+    gradients)."""
     import os
 
     import torch
@@ -7943,12 +7984,19 @@ def run_dist_world1(card, paths):
     def vlm_main(argv):
         return train_vlm.main(argv, model=dist_vlm_model())
 
-    with recorded_lora_grads() as plain_grads:
+    # the one plain VLM run of the parallel phases: PP_STEPS steps, each
+    # step's LoRA gradients and the LoRA leaves after it; the DIST_STEPS-step
+    # runs read its first steps
+    spy = recorded_lora_grads(leaves=True)
+    with spy as plain_grads:
         vlm, vlm_rec = dist_train("dist-world1 vlm plain", vlm_main,
                                   dist_train_argv(paths, "mrg",
-                                                  os.path.join(root, "w1_vlm")),
+                                                  os.path.join(root, "w1_vlm"),
+                                                  PP_STEPS),
                                   snapshot=("lora_",))
-    plain_vlm = {k: v.cpu() for k, v in trained(vlm).items() if "lora_" in k}
+    by_step = spy.leaves[1:] + [{k: v.cpu() for k, v in trained(vlm).items()
+                                 if "lora_" in k}]
+    plain_vlm = by_step[DIST_STEPS - 1]
     del vlm
     gc.collect()
     torch.cuda.empty_cache()
@@ -7993,12 +8041,14 @@ def run_dist_world1(card, paths):
         raise AssertionError(f"[dist-world1] the group's backend is {backend}, not nccl")
     for name, (rec, params, plain_rec, plain) in runs.items():
         add(rec["shapes"])
-        loss_rel = losses_rel(logged(rec), logged(plain_rec))
+        # the plain run's first steps: the VLM's ran PP_STEPS
+        plain_losses = logged(plain_rec)[:len(logged(rec))]
+        loss_rel = losses_rel(logged(rec), plain_losses)
         rel = trainable_rel(params, plain)
         before = {k: v for k, v in plain_rec["before"].items() if k in plain}
         wrong = trainable_rel(before, {k: plain[k] for k in before})
         print(f"[dist-world1] {name}: losses {logged(rec)} against the plain run's "
-              f"{logged(plain_rec)}: max relative difference {loss_rel:.3e}; the "
+              f"{plain_losses}: max relative difference {loss_rel:.3e}; the "
               f"trained leaves ({len(plain)}) at relative L2 {rel:.3e} (limit "
               f"{DIST_WORLD1_RTOL}); wrong variant, the leaves before training: "
               f"{wrong:.3e}; device memory peak {rec['peak_gb']:.2f} GB, in the "
@@ -8008,7 +8058,7 @@ def run_dist_world1(card, paths):
             raise AssertionError(f"[dist-world1] {name} is not the plain run")
         if wrong <= DIST_WORLD1_RTOL:
             raise AssertionError(f"[dist-world1] the limit passes untrained leaves ({name})")
-        numbers[name] = {"losses": logged(rec), "plain_losses": logged(plain_rec),
+        numbers[name] = {"losses": logged(rec), "plain_losses": plain_losses,
                          "loss_rel": loss_rel, "params_rel": rel, "wrong_rel": wrong,
                          "wall_s": rec["wall_s"], "step_ms": rec["step_ms"],
                          "peak_gb": rec["peak_gb"], "step_peak_gb": rec["step_peak_gb"],
@@ -8021,7 +8071,7 @@ def run_dist_world1(card, paths):
         raise AssertionError("[dist-world1] evaluate's reports differ in the group")
     numbers["evaluate"] = {"equal": same}
     return (numbers, shapes, lens, vlm_rec, plain_eval, eval_lens,
-            {"leaves": plain_vlm, "grads": plain_grads})
+            {"leaves": plain_vlm, "by_step": by_step, "grads": plain_grads})
 
 
 def free_port() -> int:
@@ -8305,10 +8355,11 @@ def gather_keeping_own(x, group, dim=0):
 
 def dist_child_dp2(root):
     """Rank of [dist-dp2]: the CLIP stage-1 step at batch 24 (12 rows a rank)
-    and with the wrong gather; train_vlm --dp 2 with --zero1, with --fsdp,
-    and with --zero1 where each rank keeps its own gradients (the wrong
-    variant), each against the one-process run's LoRA gradients and
-    trained LoRA leaves (`vlm_ref.pt`); evaluate --dp 2 (and with each
+    and with the wrong gather; train_vlm --dp 2 at DP2_LLM_LAYERS layers with
+    --zero1, with --fsdp, with --fsdp --int8-base (one step) and with
+    --zero1 where each rank keeps its own gradients (the wrong variant),
+    each against the one-process run's LoRA gradients and trained LoRA
+    leaves (`vlm_ref_dp2.pt`); evaluate --dp 2 (and with each
     rank's own ids beside zeros in place of the gathered ones, the wrong
     variant)."""
     import os
@@ -8351,16 +8402,17 @@ def dist_child_dp2(root):
     gc.collect()
     torch.cuda.empty_cache()
 
-    ref = torch.load(os.path.join(root, "vlm_ref.pt"), weights_only=True)
+    ref = torch.load(os.path.join(root, "vlm_ref_dp2.pt"), weights_only=True)
 
     def vlm_main(argv):
-        return train_vlm.main(argv, model=dist_vlm_model())
+        return train_vlm.main(argv, model=dist_vlm_model(DP2_LLM_LAYERS))
 
-    def vlm_run(tag, flags, *patches):
+    def vlm_run(tag, flags, *patches, n_steps=DIST_STEPS):
         with recorded_lora_grads() as steps, patched(*patches):
             state, rec = dist_train(f"dist-dp2 vlm {tag}", vlm_main,
                                     dist_train_argv(paths, "mrg", os.path.join(
-                                        root, f"dp2_{tag}{rank}")) + ["--dp", "2", *flags])
+                                        root, f"dp2_{tag}{rank}"), n_steps)
+                                    + ["--dp", "2", *flags])
         model = state.model
         leaves = {k: gather_leaf(model, k, v).detach().cpu()
                   for k, v in model.state_dict().items() if "lora_" in k}
@@ -8382,6 +8434,9 @@ def dist_child_dp2(root):
 
     res["vlm"] = vlm_run("zero1", ["--zero1"])
     res["vlm_fsdp"] = vlm_run("fsdp", ["--fsdp"])
+    # --int8-base under FSDP, one step: the int8 codes and scales split
+    # over dp as the float leaves are
+    res["vlm_fsdp_int8"] = vlm_run("fsdp-int8", ["--fsdp", "--int8-base"], n_steps=1)
     res["vlm_wrong"] = vlm_run("local-grads", ["--zero1"], (
         tvlm, "reduce_gradients", lambda grads, names, model, mesh: grads))
     del ref
@@ -8404,9 +8459,9 @@ def run_dist_dp2(card, paths, world1):
     24 (12 rows a rank) against one process's at batch 24: loss and every
     gradient (relative L2 over all leaves) within DIST_REL_TOL, where the
     gather that keeps only the rank's own rows' gradient must miss.
-    train_vlm --dp 2 with --zero1 and with --fsdp (on `dist_vlm_model`,
-    without dropout) against [dist-world1]'s plain run (two reports of their
-    own, one a rank): losses and gradient
+    train_vlm --dp 2 with --zero1 and with --fsdp on `dist_vlm_model` cut to
+    DP2_LLM_LAYERS LLM layers, without dropout, against that model's plain
+    run here (two reports of their own, one a rank): losses and gradient
     norms within DIST_REL_TOL; each step's LoRA gradients (--zero1) within
     DIST_REL_TOL and the trained LoRA leaves' move within DIST_MOVE_TOL,
     where a real run whose ranks keep their own gradients must miss both;
@@ -8422,8 +8477,26 @@ def run_dist_dp2(card, paths, world1):
     plain_vlm, plain_eval, plain_lora = world1[3], world1[4], world1[6]
     torch.save({"before": {k: v for k, v in plain_vlm["before"].items()
                            if k in plain_lora["leaves"]},
-                "leaves": plain_lora["leaves"], "grads": plain_lora["grads"]},
+                "leaves": plain_lora["leaves"], "by_step": plain_lora["by_step"],
+                "grads": plain_lora["grads"]},
                os.path.join(root, "vlm_ref.pt"))
+    # the --dp 1 run's losses and step peak, for [dist-pp2] and [dist-sp2]
+    torch.save({"losses": logged(plain_vlm), "step_peak_gb": plain_vlm["step_peak_gb"]},
+               os.path.join(root, "vlm_plain.pt"))
+    # this phase's VLM runs train the model cut to DP2_LLM_LAYERS: its plain run
+    from hsenet_torch.cli import train_vlm
+
+    with recorded_lora_grads() as grads:
+        state, plain_vlm = dist_train(
+            "dist-dp2 vlm plain", lambda argv: train_vlm.main(
+                argv, model=dist_vlm_model(DP2_LLM_LAYERS)),
+            dist_train_argv(paths, "mrg", os.path.join(root, "dp2_plain")),
+            snapshot=("lora_",))
+    leaves = {k: v.detach().cpu() for k, v in state.params.items() if "lora_" in k}
+    torch.save({"before": {k: v for k, v in plain_vlm["before"].items() if k in leaves},
+                "leaves": leaves, "grads": grads},
+               os.path.join(root, "vlm_ref_dp2.pt"))
+    del state, leaves, grads
     model = build_clip_model(clip_config(), DIST_CLIP_SEED)
     loss, grads = clip_step_grads(model, dist_clip_batch())
     torch.save({"loss": loss.item(),
@@ -8453,15 +8526,17 @@ def run_dist_dp2(card, paths, world1):
             m["grad_norm"] for _, m in run["logged"]]
         l_rel, n_rel = losses_rel(got, want), losses_rel(got_n, want_n)
         g_rel = None if run["grad_rel"] is None else max(run["grad_rel"])
+        want_k, want_nk = want[:len(got)], want_n[:len(got)]
         vlm[key] = {"losses": got, "grad_norms": got_n, "loss_rel": l_rel,
                     "grad_norm_rel": n_rel, "lora_grad_rel": run["grad_rel"],
                     "lora_params_rel": run["params_rel"],
                     "lora_move_rel": run["move_rel"], "wall_s": run["wall_s"],
                     "step_ms": run["step_ms"], "peak_gb": run["peak_gb"],
                     "step_peak_gb": run["step_peak_gb"]}
-        print(f"[dist-dp2] train_vlm --dp 2 {name}: losses {got} against --dp 1's "
-              f"{want} (max relative {l_rel:.3e}), gradient norms {got_n} against "
-              f"{want_n} (max relative {n_rel:.3e}); LoRA gradients by step at "
+        print(f"[dist-dp2] train_vlm --dp 2 {name} ({DP2_LLM_LAYERS} LLM layers): "
+              f"losses {got} against --dp 1's "
+              f"{want_k} (max relative {l_rel:.3e}), gradient norms {got_n} against "
+              f"{want_nk} (max relative {n_rel:.3e}); LoRA gradients by step at "
               f"relative L2 {run['grad_rel']} (limit {DIST_REL_TOL}); trained LoRA "
               f"leaves at relative L2 {run['params_rel']:.3e}, their move from the "
               f"initial leaves at {run['move_rel']:.3e} of --dp 1's (limit "
@@ -8486,6 +8561,20 @@ def run_dist_dp2(card, paths, world1):
           f"{two['vlm']['step_peak_gb']:.2f} GB")
     if not two["vlm_fsdp"]["step_peak_gb"] < two["vlm"]["step_peak_gb"]:
         raise AssertionError("[dist-dp2] FSDP's step peak is not below ZeRO-1's")
+    # the frozen projections: bf16 split over two ranks hold what int8
+    # codes held whole on every rank would; split int8 codes hold half that
+    split = two["vlm_fsdp_int8"]
+    int8_losses = [m["loss"] for _, m in split["logged"]]
+    print(f"[dist-dp2] train_vlm --dp 2 --fsdp --int8-base ({DP2_LLM_LAYERS} LLM "
+          f"layers), one step: step peak of "
+          f"device memory a rank {split['step_peak_gb']:.2f} GB with the int8 codes "
+          f"and scales split over dp, against --fsdp's "
+          f"{two['vlm_fsdp']['step_peak_gb']:.2f} GB (bf16 projections split); "
+          f"loss {int8_losses}; step {[round(t, 1) for t in split['step_ms']]} ms")
+    if not (split["step_peak_gb"] < two["vlm_fsdp"]["step_peak_gb"]
+            and all(map(math.isfinite, int8_losses))):
+        raise AssertionError("[dist-dp2] --fsdp --int8-base's step peak is not "
+                             "below --fsdp's: the int8 codes are not split")
     same = two["eval"] == plain_eval
     wrong_same = two["eval_wrong"] == plain_eval
     print(f"[dist-dp2] evaluate --dp 2: reports and generated ids equal to "
@@ -8498,9 +8587,519 @@ def run_dist_dp2(card, paths, world1):
                "clip_one_process_loss": loss.item(),
                "vlm_plain": {"losses": want, "grad_norms": want_n,
                              "step_peak_gb": plain_vlm["step_peak_gb"]},
+               "vlm_fsdp_int8": {"losses": int8_losses,
+                                 **{k: split[k] for k in ("step_peak_gb", "peak_gb",
+                                                          "step_ms")}},
                **vlm, "evaluate_equal": same,
                "note": "two ranks share one card over gloo: times are no dp speed"}
     return numbers, two
+
+
+# ---- the sixteenth slice: [dist-pp2], [dist-sp2] ----
+
+def gathered_counts(counts):
+    """Every rank's `counts` (a dict), in rank order."""
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, counts)
+    return every
+
+
+def kept_dist_train(tag, main, argv, keep, snapshot=()):
+    """`dist_train`, with the run's `vlm_deltas` copied to `keep` (rank 0
+    writes it) before its output directory goes."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    out = argv[argv.index("--output-dir") + 1]
+    real = shutil.rmtree
+
+    def keep_then_remove(path, *args, **kwargs):
+        if os.path.abspath(path) == os.path.abspath(out) and dist.get_rank() == 0:
+            shutil.copy(os.path.join(out, "vlm_deltas"), keep)
+        return real(path, *args, **kwargs)
+
+    with patched((shutil, "rmtree", keep_then_remove)):
+        return dist_train(tag, main, argv, snapshot)
+
+
+def dist_child_pp2(root):
+    """Rank of [dist-pp2]: train_vlm --pp 2 --n-micro 2 at VLMConfig() (16
+    layers a stage) for PP_STEPS steps on `dist_vlm_model`, each step's
+    LoRA gradients and the trained LoRA leaves gathered over the stages;
+    the same with the stages swapped (stage 0 holding the upper half of the
+    layers and running it first) for one step; each stage's flash launches
+    by shape, step peak and step times."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from hsenet_torch.cli import train_vlm
+    from hsenet_torch.parallel import pipeline as tpp
+
+    with open(os.path.join(root, "paths.json")) as f:
+        paths = json.load(f)
+    rank = dist.get_rank()
+
+    def vlm_main(argv):
+        return train_vlm.main(argv, model=dist_vlm_model())
+
+    def run(tag, steps, *patches):
+        argv = dist_train_argv(paths, "mrg", os.path.join(root, f"pp2_{tag}{rank}"))
+        argv[argv.index("--total-steps") + 1] = str(steps)
+        with recorded_lora_grads() as grads, patched(*patches):
+            state, rec = kept_dist_train(
+                f"dist-pp2 vlm {tag}", vlm_main, argv + ["--pp", "2", "--n-micro", "2"],
+                os.path.join(root, f"pp2_{tag}_deltas"))
+        model = state.model
+        grads = [tpp.gather_stages(model, g) for g in grads]
+        leaves = tpp.gather_stages(model, {k: v.detach().cpu() for k, v in
+                                           model.state_dict().items() if "lora_" in k})
+        held = sorted({int(k.split(".")[3]) for k in model.state_dict()
+                       if k.startswith("llm.decoder.layers.")})
+        every = gathered_counts({"shapes": rec["shapes"], "held": held,
+                                 "step_peak_gb": rec["step_peak_gb"],
+                                 "peak_gb": rec["peak_gb"], "step_ms": rec["step_ms"]})
+        out = {"logged": rec["logged"], "grads": grads, "leaves": leaves,
+               "stages": every, "lens": rec["lens"], "wall_s": rec["wall_s"]}
+        del state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    res = {"run": run("train", PP_STEPS)}
+    real = tpp.stage_layers
+    res["swapped"] = run("swapped", 1, (tpp, "stage_layers",
+                                        lambda n, pp, s: real(n, pp, pp - 1 - s)))
+    return res
+
+
+def run_dist_pp2(card, paths):
+    """[dist-pp2]: two ranks on the one card. train_vlm --pp 2 --n-micro 2
+    at VLMConfig() (all 32 layers, 16 a stage; a microbatch 1 x 24 heads x
+    800 tokens) for PP_STEPS steps against [dist-world1]'s plain run (--dp
+    1, `vlm_ref.pt`): losses and each step's LoRA gradients within DIST_REL_TOL,
+    the trained LoRA leaves' move within DIST_MOVE_TOL; the stages swapped
+    must miss the gradients. Each stage's flash launches by shape (B1 with
+    the log-sum-exp, B3), step peak of device memory against one process's,
+    step time. Then `evaluate` (batch 1) on `dist_vlm_model` with the run's
+    vlm_deltas loaded, whose LoRA leaves must be the ones the stages
+    trained. Returns (numbers, the flash launches by shape of both ranks'
+    runs)."""
+    import os
+
+    import torch
+
+    from hsenet_torch.cli.evaluate import main as evaluate_main
+    from hsenet_torch.utils.checkpoint import load_vlm_deltas
+
+    root = paths["root"]
+    # [dist-world1]'s plain run, PP_STEPS steps
+    ref = torch.load(os.path.join(root, "vlm_ref.pt"), weights_only=True)
+    ref["leaves"] = ref["by_step"][PP_STEPS - 1]
+    plain = torch.load(os.path.join(root, "vlm_plain.pt"), weights_only=True)
+    two = run_ranks("dist-pp2", root)
+    run, wrong = two["run"], two["swapped"]
+    got = [m["loss"] for _, m in run["logged"]]
+    l_rel = losses_rel(got, plain["losses"])
+    g_rel = [trainable_rel(g, w) for g, w in zip(run["grads"], ref["grads"])]
+    lora = {k: v for k, v in run["leaves"].items()}
+    m_rel = move_rel(lora, ref["leaves"], ref["before"])
+    w_rel = trainable_rel(wrong["grads"][0], ref["grads"][0])
+    shapes = {}
+    for stage, st in enumerate(run["stages"]):
+        for k, n in st["shapes"].items():
+            shapes[k] = shapes.get(k, 0) + n
+        print(f"[dist-pp2] stage {stage} holds layers {st['held'][0]}-{st['held'][-1]}; "
+              f"flash launches by (kernel, B, H, Sq, Skv, d): {st['shapes']}; step "
+              f"peak of device memory {st['step_peak_gb']:.2f} GB (one process's "
+              f"{plain['step_peak_gb']:.2f} GB), peak {st['peak_gb']:.2f} GB; steps "
+              f"{[round(t, 1) for t in st['step_ms']]} ms (two ranks sharing one "
+              f"card over gloo)")
+    print(f"[dist-pp2] on {card}: train_vlm --pp 2 --n-micro 2: losses {got} against "
+          f"--dp 1's {plain['losses']} (max relative {l_rel:.3e}); LoRA gradients by "
+          f"step at relative L2 {[f'{x:.3e}' for x in g_rel]} (limit "
+          f"{DIST_REL_TOL}); the trained LoRA leaves' move at {m_rel:.3e} of --dp "
+          f"1's (limit {DIST_MOVE_TOL}); wrong variant, the stages swapped: step-1 "
+          f"LoRA gradients at {w_rel:.3e}; wall {run['wall_s']:.1f} s")
+    if not (l_rel <= DIST_REL_TOL and max(g_rel) <= DIST_REL_TOL
+            and m_rel <= DIST_MOVE_TOL):
+        raise AssertionError("[dist-pp2] train_vlm --pp 2 is not --dp 1")
+    if w_rel <= DIST_REL_TOL:
+        raise AssertionError("[dist-pp2] the limit passes the stages swapped")
+    layers = dist_vlm_config().llm.num_layers
+    if [st["held"] for st in run["stages"]] != [list(range(layers // 2)),
+                                                list(range(layers // 2, layers))]:
+        raise AssertionError("[dist-pp2] the stages do not hold half the layers each")
+    for st in run["stages"]:
+        kinds = {k[0] for k in st["shapes"]}
+        if not {"flash_fwd_lse", "flash_bwd"} <= kinds:
+            raise AssertionError(f"[dist-pp2] a stage launched no B1 with the "
+                                 f"log-sum-exp or no B3: {sorted(kinds)}")
+
+    model = dist_vlm_model()
+    deltas = os.path.join(root, "pp2_train_deltas")
+    model.load_state_dict(load_vlm_deltas(deltas, model.state_dict()), strict=True)
+    # the fresh model holds its LoRA leaves in bf16, the run f32 masters
+    same = all(torch.equal(v.cpu(), lora[k].to(v.dtype))
+               for k, v in model.state_dict().items() if "lora_" in k)
+    t0 = time.perf_counter()
+    import contextlib
+    import io
+
+    argv = dist_eval_argv(paths, 1)
+    argv[argv.index("--max-new-tokens") + 1] = str(PP_EVAL_NEW)
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics = evaluate_main(argv, model=model)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[dist-pp2] evaluate on the model of the run's vlm_deltas: "
+          f"{metrics['num_samples']} samples in {eval_s:.2f} s, bleu "
+          f"{metrics.get('bleu')}; its LoRA leaves are the stages' trained ones: "
+          f"{same}")
+    if not (same and metrics["num_samples"] > 0):
+        raise AssertionError("[dist-pp2] the run's vlm_deltas are not its trained "
+                             "model")
+    numbers = {"losses": got, "plain_losses": plain["losses"], "loss_rel": l_rel,
+               "lora_grad_rel": g_rel, "lora_move_rel": m_rel, "wrong_rel": w_rel,
+               "stages": [{k: st[k] for k in ("held", "step_peak_gb", "peak_gb",
+                                              "step_ms")} for st in run["stages"]],
+               "plain_step_peak_gb": plain["step_peak_gb"], "wall_s": run["wall_s"],
+               "evaluate_samples": metrics["num_samples"], "evaluate_s": eval_s,
+               "note": "two ranks share one card over gloo: no pp speed, no NCCL"}
+    return numbers, shapes, run["lens"]
+
+
+def long_tower():
+    """[dist-sp2]'s fine-patch tower: the stage-1 ViT of [clip-long]
+    (16,385 tokens), its volumes and a fixed cotangent of its tokens."""
+    import torch
+
+    cfg = clip_config(patch_size=CLIP_LONG_PATCH)
+    vit = build_clip_model(cfg, seed=4).vision_encoder
+    image = torch.as_tensor(clip_batch(cfg, SP_LONG_BATCH, "clip", seed=24)["image"]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    w = torch.randn(SP_LONG_BATCH, cfg.vision.seq_len, cfg.vision.hidden_size,
+                    generator=gen, device="cuda")
+    return vit, image, w
+
+
+def long_attention_inputs():
+    """q, k, v at the fine-patch tower's attention shape (1 x 12 x 16,385 x
+    64, bf16) from a seed: random scores are far from uniform, so a ring
+    that misses keys shows (a random tower attends nearly uniformly)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    return [torch.randn(SP_LONG_BATCH, 12, 16385, 64, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(3)]
+
+
+def sp_long_attention(mesh):
+    """`long_attention_inputs` through the ring at this rank (its chunk of
+    the sequence padded to a multiple of the group, query blocks of
+    SP_LONG_BLOCK_Q), the chunks gathered and the padding stripped."""
+    from hsenet_torch.ops.ring_attention import local_chunk, pad_to_multiple, ring_attention
+    from hsenet_torch.parallel.mesh import axis_group, axis_size, gather_from_group
+
+    group = axis_group(mesh, "sp")
+    q, k, v = (local_chunk(pad_to_multiple(t, axis_size(mesh, "sp"), 2), group, 2)
+               for t in long_attention_inputs())
+    out = ring_attention(q, k, v, group=group, kv_len=16385, block_q=SP_LONG_BLOCK_Q)
+    return gather_from_group(out, group, 2)[:, :, :16385]
+
+
+def causal_ring_inputs():
+    """q (2 x 24 x 800 x 128), k and v (2 x 8 x 800 x 128), bf16 from a
+    seed, and per-row lengths: the shape of Phi-4-mini's attention in
+    train_vlm --sp 2 at batch 2, random scores far from uniform."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(79)
+    q, k, v = (torch.randn(2, h, 800, 128, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for h in (24, 8, 8))
+    return q, k, v, torch.tensor(SP_CAUSAL_LENS, dtype=torch.int32, device="cuda")
+
+
+def sp_causal_attention(mesh):
+    """`causal_ring_inputs` through the causal ring at this rank (the
+    unexpanded kv heads travel, each row's kv_lens masks its keys), the
+    chunks gathered."""
+    from hsenet_torch.ops.ring_attention import local_chunk, ring_attention
+    from hsenet_torch.parallel.mesh import axis_group, gather_from_group
+
+    group = axis_group(mesh, "sp")
+    q, k, v, lens = causal_ring_inputs()
+    q, k, v = (local_chunk(t, group, 2) for t in (q, k, v))
+    out = ring_attention(q, k, v, group=group, kv_lens=lens, causal=True)
+    return gather_from_group(out, group, 2)
+
+
+def tower_grads(vit, tokens, w):
+    import torch
+
+    params = dict(vit.named_parameters())
+    grads = torch.autograd.grad((tokens.float() * w).sum(), list(params.values()))
+    return dict(zip(params, grads))
+
+
+def sp_train_argv(paths, kind, out, total=DIST_STEPS):
+    """`dist_train_argv`, the CLIP runs at SP_CLIP_BATCH."""
+    argv = dist_train_argv(paths, kind, out, total)
+    if kind == "clip":
+        argv[argv.index("--batch-size") + 1] = str(SP_CLIP_BATCH)
+    return argv
+
+
+def dist_child_sp2(root):
+    """Rank of [dist-sp2] on a (dp 1, sp 2) mesh: train_clip_stage1 --sp 2
+    (1025 tokens a rank), train_clip_stage2 --sp 2 --cached-teacher and
+    train_vlm --sp 2 (its LoRA gradients and trained leaves), and one step
+    of it with a ring whose hops never rotate; the fine-patch tower's tokens
+    and gradients at 16,385 tokens (8,193 a rank, query blocks of
+    SP_LONG_BLOCK_Q); the ring at the tower's attention shape and the
+    causal ring at the decoder's, each also with the ring that never
+    rotates; each with its step or pass peak of device memory."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from hsenet_torch.cli import train_clip_stage1, train_clip_stage2, train_vlm
+    from hsenet_torch.configs import MeshConfig
+    from hsenet_torch.ops import ring_attention as tring
+    from hsenet_torch.parallel import mesh as pmesh
+    from hsenet_torch.parallel.sp import sp_encode_tokens
+    from hsenet_torch.train.train_state import sum_over_sp
+
+    with open(os.path.join(root, "paths.json")) as f:
+        paths = json.load(f)
+    rank = dist.get_rank()
+    res = {}
+    mesh = pmesh.create_mesh(MeshConfig(dp=1, sp=2), device="cuda")
+    broken = (tring, "ppermute", lambda x, group, shift=1: x)
+
+    def cli(tag, main, kind, flags, steps=DIST_STEPS, grads=False, patches=()):
+        argv = sp_train_argv(paths, kind, os.path.join(root, f"sp2_{tag}{rank}"),
+                             steps)
+        with recorded_lora_grads() as lora, patched(*patches):
+            state, rec = dist_train(f"dist-sp2 {tag}", main, argv + ["--sp", "2", *flags])
+        out = {"logged": rec["logged"], "shapes": rec["shapes"], "lens": rec["lens"],
+               "step_ms": rec["step_ms"], "step_peak_gb": rec["step_peak_gb"],
+               "peak_gb": rec["peak_gb"], "wall_s": rec["wall_s"]}
+        if grads:
+            out["grads"] = list(lora)
+            out["leaves"] = {k: v.detach().cpu() for k, v in
+                             state.model.state_dict().items() if "lora_" in k}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def vlm_main(argv):
+        return train_vlm.main(argv, model=dist_vlm_model())
+
+    res["stage1"] = cli("stage1", train_clip_stage1.main, "clip", [])
+    res["stage2"] = cli("stage2", train_clip_stage2.main, "clip", ["--cached-teacher"])
+    res["vlm"] = cli("vlm", vlm_main, "mrg", [], grads=True)
+    res["vlm_broken"] = cli("vlm-broken", vlm_main, "mrg", [], steps=1, grads=True,
+                            patches=(broken,))
+
+    vit, image, w = long_tower()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens = sp_encode_tokens(vit, mesh, image, block_q=SP_LONG_BLOCK_Q)
+    grads = tower_grads(vit, tokens, w)
+    names = list(grads)
+    grads = dict(zip(names, sum_over_sp(list(grads.values()), names, ("",), mesh)))
+    torch.cuda.synchronize()
+    long_ref = torch.load(os.path.join(root, "long_ref.pt"), weights_only=True)
+    res["long"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "tokens_rel": trainable_rel({"t": tokens.detach()},
+                                               {"t": long_ref["tokens"]}),
+                   "grads_rel": trainable_rel(grads, long_ref["grads"])}
+    del tokens, grads
+    with torch.no_grad():
+        attn = sp_long_attention(mesh)
+        res["long"]["attention_rel"] = trainable_rel({"a": attn},
+                                                     {"a": long_ref["attention"]})
+        with patched(broken):
+            attn = sp_long_attention(mesh)
+        res["long"]["attention_wrong_rel"] = trainable_rel(
+            {"a": attn}, {"a": long_ref["attention"]})
+        attn = sp_causal_attention(mesh)
+        res["causal"] = {"rel": trainable_rel({"a": attn}, {"a": long_ref["causal"]})}
+        with patched(broken):
+            attn = sp_causal_attention(mesh)
+        res["causal"]["wrong_rel"] = trainable_rel({"a": attn},
+                                                   {"a": long_ref["causal"]})
+    res["peaks"] = gathered_counts({"long": res["long"]["peak_gb"]}
+                                   | {k: res[k]["step_peak_gb"] for k in
+                                      ("stage1", "stage2", "vlm")})
+    return res
+
+
+def run_dist_sp2(card, paths):
+    """[dist-sp2]: two ranks on the one card over a (dp 1, sp 2) ring, each
+    check against one process's run:
+      * train_clip_stage1 --sp 2 (2049 tokens, 1025 a rank) and
+        train_clip_stage2 --sp 2 --cached-teacher (the cache filled over the
+        ring), at batch SP_CLIP_BATCH, against one process's runs here;
+      * train_vlm --sp 2 (800 tokens, 400 a rank) against --dp 1's losses,
+        LoRA gradients and trained leaves' move (`vlm_ref.pt`), where one
+        step with a ring whose hops never rotate (each rank reads only its
+        own chunk: at sp 2, the ring without its last hop) must miss;
+      * the causal ring at Phi-4-mini's attention shape (GQA, per-row
+        kv_lens) on random q, k, v against one process's flash over the
+        expanded heads, where that broken ring must miss;
+      * the fine-patch tower at 16,385 tokens (8,193 a rank, query blocks of
+        SP_LONG_BLOCK_Q), one forward and backward: tokens and gradients
+        against one process's flash run; each rank's peak beside it;
+      * the ring at the tower's attention shape on random q, k, v against
+        one process's flash, where the broken ring must miss. A random
+        tower attends nearly uniformly (and a CLIP gradient at random init
+        is rounding noise between two bf16 paths: on the card a CLIP step's
+        gradients read 3.5e-2 from one process's with the ring and 4.8e-2
+        without its last hop, the fine-patch tower's tokens 8.87e-3 and
+        1.04e-2), so the towers' and the CLIP CLIs' checks cannot tell the
+        broken ring apart; random scores and the decoder's LoRA gradients
+        can.
+    Returns (numbers, the flash launches by shape of both ranks' CLI runs,
+    their LLM batch lengths)."""
+    import os
+
+    import torch
+
+    from hsenet_torch.cli import train_clip_stage1, train_clip_stage2
+
+    root = paths["root"]
+    plain_clip = {}
+    for key, main, flags in (("stage1", train_clip_stage1.main, []),
+                             ("stage2", train_clip_stage2.main, ["--cached-teacher"])):
+        state, plain_clip[key] = dist_train(
+            f"dist-sp2 {key} plain", main,
+            sp_train_argv(paths, "clip", os.path.join(root, f"sp2_{key}_plain")) + flags)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    vit, image, w = long_tower()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens = vit(image)
+    grads = tower_grads(vit, tokens, w)
+    torch.cuda.synchronize()
+    long_ms = (time.perf_counter() - t0) * 1e3
+    long_peak = torch.cuda.max_memory_allocated() / 1e9
+    from hsenet_torch.ops.attention import flash_attention
+
+    with torch.no_grad():
+        attention = flash_attention(*long_attention_inputs())
+        q, k, v, lens = causal_ring_inputs()
+        g = q.shape[1] // k.shape[1]  # query heads per kv head
+        causal = flash_attention(q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+                                 kv_lens=lens, causal=True)
+    torch.save({"tokens": tokens.detach().to(torch.bfloat16).cpu(),
+                "grads": {k: g.to(torch.bfloat16).cpu() for k, g in grads.items()},
+                "attention": attention.cpu(), "causal": causal.cpu()},
+               os.path.join(root, "long_ref.pt"))
+    del vit, image, w, tokens, grads, attention, q, k, v, causal
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    two = run_ranks("dist-sp2", root)
+    ref = torch.load(os.path.join(root, "vlm_ref.pt"), weights_only=True)
+    plain = torch.load(os.path.join(root, "vlm_plain.pt"), weights_only=True)
+    plain["losses"] = plain["losses"][:DIST_STEPS]
+    checks, numbers = [], {}
+    print(f"[dist-sp2] on {card}:")
+    for key, label in (("stage1", "train_clip_stage1 --sp 2"),
+                       ("stage2", "train_clip_stage2 --sp 2 --cached-teacher")):
+        want = logged(plain_clip[key])
+        run = two[key]
+        got = logged(run)
+        rel = losses_rel(got, want)
+        print(f"[dist-sp2] {label} at batch {SP_CLIP_BATCH}: losses {got} against one "
+              f"process's {want} (max "
+              f"relative {rel:.3e}, limit {DIST_REL_TOL}); step peak "
+              f"{run['step_peak_gb']:.2f} GB a rank; steps "
+              f"{[round(t, 1) for t in run['step_ms']]} ms")
+        checks.append((label, rel <= DIST_REL_TOL, True))
+        numbers[key] = {"losses": got, "plain_losses": want, "loss_rel": rel,
+                        "step_ms": run["step_ms"], "step_peak_gb": run["step_peak_gb"],
+                        "wall_s": run["wall_s"]}
+    for key in ("stage1", "stage2"):
+        numbers[key]["plain_step_peak_gb"] = plain_clip[key]["step_peak_gb"]
+    run = two["vlm"]
+    got = logged(run)
+    l_rel = losses_rel(got, plain["losses"])
+    g_rel = [trainable_rel(g, r) for g, r in zip(run["grads"], ref["grads"])]
+    m_rel = move_rel(run["leaves"], ref["leaves"], ref["before"])
+    b_rel = trainable_rel(two["vlm_broken"]["grads"][0], ref["grads"][0])
+    print(f"[dist-sp2] train_vlm --sp 2 (400 tokens a rank): losses {got} against "
+          f"--dp 1's {plain['losses']} (max relative {l_rel:.3e}); LoRA "
+          f"gradients by step at relative L2 {[f'{x:.3e}' for x in g_rel]} (limit "
+          f"{DIST_REL_TOL}); the trained LoRA leaves' move at {m_rel:.3e} (limit "
+          f"{DIST_MOVE_TOL}); step peak {run['step_peak_gb']:.2f} GB a rank (one "
+          f"process's {plain['step_peak_gb']:.2f} GB); steps "
+          f"{[round(t, 1) for t in run['step_ms']]} ms; wrong variant, the decoder's "
+          f"ring never rotating: step-1 LoRA gradients at {b_rel:.3e}")
+    checks.append(("train_vlm --sp 2", l_rel <= DIST_REL_TOL and max(g_rel) <= DIST_REL_TOL
+                   and m_rel <= DIST_MOVE_TOL, b_rel > DIST_REL_TOL))
+    numbers["vlm"] = {"losses": got, "plain_losses": plain["losses"], "loss_rel": l_rel,
+                      "lora_grad_rel": g_rel, "lora_move_rel": m_rel, "wrong_rel": b_rel,
+                      "step_ms": run["step_ms"], "step_peak_gb": run["step_peak_gb"],
+                      "plain_step_peak_gb": plain["step_peak_gb"], "wall_s": run["wall_s"]}
+    lg = two["long"]
+    print(f"[dist-sp2] the fine-patch tower at 16,385 tokens, batch {SP_LONG_BATCH}, "
+          f"8,193 a rank in query blocks of {SP_LONG_BLOCK_Q}: one forward and "
+          f"backward, tokens at relative L2 {lg['tokens_rel']:.3e} and gradients at "
+          f"{lg['grads_rel']:.3e} of one process's flash run (limit {DIST_REL_TOL}); "
+          f"{lg['ms']:.1f} ms a rank (one process "
+          f"{long_ms:.1f} ms); peak of device memory by rank "
+          f"{[round(p['long'], 2) for p in two['peaks']]} GB, one process's "
+          f"{long_peak:.2f} GB")
+    print(f"[dist-sp2] the ring at the tower's attention shape ({SP_LONG_BATCH} x 12 x "
+          f"16,385 x 64, "
+          f"random bf16 q, k, v) against one process's flash: relative L2 "
+          f"{lg['attention_rel']:.3e} (limit {DIST_REL_TOL}); wrong variant, the ring "
+          f"never rotating: {lg['attention_wrong_rel']:.3e}")
+    cz = two["causal"]
+    print(f"[dist-sp2] the causal ring at Phi-4-mini's attention shape (2 x 24 x 800 "
+          f"x 128 queries, 8 kv heads, kv_lens {list(SP_CAUSAL_LENS)}, random bf16 q, "
+          f"k, v) against one process's flash over the expanded heads: relative L2 "
+          f"{cz['rel']:.3e} (limit {DIST_REL_TOL}); wrong variant, the ring never "
+          f"rotating: {cz['wrong_rel']:.3e}")
+    checks.append(("the causal ring", cz["rel"] <= DIST_REL_TOL,
+                   cz["wrong_rel"] > DIST_REL_TOL))
+    numbers["causal"] = cz
+    checks.append(("the fine-patch tower", lg["tokens_rel"] <= DIST_REL_TOL
+                   and lg["grads_rel"] <= DIST_REL_TOL
+                   and lg["attention_rel"] <= DIST_REL_TOL,
+                   lg["attention_wrong_rel"] > DIST_REL_TOL))
+    numbers["long"] = {**lg, "one_process_ms": long_ms, "one_process_peak_gb": long_peak,
+                       "peaks_by_rank": two["peaks"]}
+    print(f"[dist-sp2] peaks of device memory by rank (GB): {two['peaks']}")
+    for label, held, wrong_missed in checks:
+        if not held:
+            raise AssertionError(f"[dist-sp2] {label} is not one process's")
+        if not wrong_missed:
+            raise AssertionError(f"[dist-sp2] the limit passes the broken ring ({label})")
+    shapes = {}
+    for key in ("stage1", "stage2", "vlm"):
+        for k, n in two[key]["shapes"].items():
+            shapes[k] = shapes.get(k, 0) + 2 * n  # the ranks launch alike
+    numbers["note"] = "two ranks share one card over gloo: no sp speed, no NCCL"
+    return numbers, shapes, two["vlm"]["lens"]
 
 
 def check_tp_kernels(dist_shapes, known, lens, fwd_lens):
@@ -8578,7 +9177,8 @@ def dist_child(argv) -> int:
     phase, root = argv
     try:
         dist.init_process_group("gloo", init_method="env://")
-        res = {"dist-tp2": dist_child_tp2, "dist-dp2": dist_child_dp2}[phase](root)
+        res = {"dist-tp2": dist_child_tp2, "dist-dp2": dist_child_dp2,
+               "dist-pp2": dist_child_pp2, "dist-sp2": dist_child_sp2}[phase](root)
         if dist.get_rank() == 0:
             torch.save(res, os.path.join(root, f"{phase}.pt"))
         dist.barrier()
@@ -8613,9 +9213,19 @@ def run_dist(card):
         gc.collect()
         torch.cuda.empty_cache()
         dp2_numbers, dp2 = run_dist_dp2(card, paths, world1)
+        lap("[dist-world1], [dist-tp2], [dist-dp2]")
+        gc.collect()
+        torch.cuda.empty_cache()
+        pp2_numbers, pp2_shapes, pp2_lens = run_dist_pp2(card, paths)
+        lap("[dist-pp2]")
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp2_numbers, sp2_shapes, sp2_lens = run_dist_sp2(card, paths)
+        lap("[dist-sp2]")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    numbers = {"world1": world1[0], "tp2": tp2_numbers, "dp2": dp2_numbers}
+    numbers = {"world1": world1[0], "tp2": tp2_numbers, "dp2": dp2_numbers,
+               "pp2": pp2_numbers, "sp2": sp2_numbers}
     # launches by shape: [dist-world1]'s counted runs, two ranks' of each
     # two-rank run (rank 0's counts, twice: the ranks launch alike)
     shapes = dict(world1[1])
@@ -8623,14 +9233,20 @@ def run_dist(card):
                    dp2["vlm"]["shapes"], dp2["vlm_fsdp"]["shapes"], dp2["eval_shapes"]):
         for k, n in counts.items():
             shapes[k] = shapes.get(k, 0) + 2 * n
+    # the pipeline's stages (each rank's own counts) and the ring's CLI runs
+    for counts in (pp2_shapes, sp2_shapes):
+        for k, n in counts.items():
+            shapes[k] = shapes.get(k, 0) + n
     steps = tp2["steps"] + MAX_NEW_TOKENS - 1
     matvec_counts = {name: 2 * per_layer * tp2["model_layers"] * steps
                      for name, per_layer in TP_MATVEC_PER_LAYER.items()}
     if sum(matvec_counts.values()) != 2 * (tp2["matvec"] + tp2["gen_matvec"]):
         raise AssertionError("[dist-tp2] B5 launches by shard shape do not add up")
     lens = dict(world1[2])
-    for n in dp2["vlm"]["lens"]:
+    for n in (*dp2["vlm"]["lens"], *pp2_lens, *sp2_lens):
         lens.setdefault(len(n), n)
+    # the pipeline's microbatch of one row: the first batch's first row
+    lens.setdefault(1, pp2_lens[0][:1])
     # the forward-only shapes' valid lengths: the tp engine's first request,
     # the evaluations' first batch (one row a call)
     fwd_lens = {(1, 12): (len(dist_requests(dist_vlm_config())[0]["prompt_ids"]),),
@@ -8860,7 +9476,7 @@ def main() -> int:
      dist_fwd_lens) = run_dist(card)
     gc.collect()
     torch.cuda.empty_cache()
-    lap("[dist-world1], [dist-tp2], [dist-dp2]")
+    lap("[dist] the parallel phases' end")
     tp_matvec, dist_kernels, dist_index = check_tp_kernels(
         dist_shapes, known_seg, dist_lens, dist_fwd_lens)
     lap("[kernel-tp]")
@@ -9018,7 +9634,11 @@ def main() -> int:
             "[clip-masked] steps (masked_ and the clip_ shapes); the parallel "
             "slice's runs ([dist-world1]'s seven CLI runs, the two ranks' "
             "serve --tp 2 and generate of [dist-tp2], the CLIP step, train_vlm "
-            "--dp 2 --zero1 and evaluate --dp 2 of [dist-dp2]; tp2_, dist_ and "
+            "--dp 2 --zero1 and --fsdp and evaluate --dp 2 of [dist-dp2]; the "
+            "sixteenth slice's: both stages of [dist-pp2]'s train_vlm --pp 2 "
+            "(its microbatch at dist_llm_1x24x800) and both ranks of "
+            "[dist-sp2]'s three --sp 2 CLI runs (BERT and the towers outside the "
+            "ring); tp2_, dist_ and "
             "_dp2 shapes, forward-only dist_ shapes timed at every key valid): "
             "per-launch times at each shape x its launches there")
     jax_fa = "hsenet_tpu/ops/flash_attention.py"

@@ -1,15 +1,16 @@
 """What the port's entry points share: the training CLIs' arguments and
 their run configuration (`add_train_args`, `train_config_from_args`,
 `dtype_from_args`, `dump_config`, `resolve_resume_dir`,
-`restore_or_fresh`, `load_tokenizer`), the process mesh of `--dp` / `--tp`
-(`mesh_from_args`, `loader_shard`, `maybe_zero1`), the VLM configurations
-of a run, models with random weights for runs that need no checkpoint,
-and the restore of a `--checkpoint` into such a model.
+`restore_or_fresh`, `load_tokenizer`), the process mesh of `--dp`,
+`--tp`, `--pp` and `--sp` (`mesh_from_args`, `loader_shard`,
+`maybe_zero1`), the VLM configurations of a run, models with random
+weights for runs that need no checkpoint, and the restore of a
+`--checkpoint` into such a model.
 
 Launched by `torchrun --nproc-per-node N -m hsenet_torch.cli.<cli>`, a CLI
-joins the process group and builds the (dp, tp) mesh; run as one plain
-process with `--dp` and `--tp` at 1 it takes the single-card path. `--pp`
-and `--sp` raise until ROADMAP §A11 (`refuse_parallel_flags`)."""
+joins the process group and builds the (dp, tp), (dp, pp) or (dp, sp) mesh
+of its flags; run as one plain process with `--dp`, `--tp`, `--pp` and
+`--sp` at 1 it takes the single-card path."""
 
 from __future__ import annotations
 
@@ -82,28 +83,18 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--profile-stop", type=int, default=4)
 
 
-def refuse_parallel_flags(args) -> None:
-    """Raise for pipeline and sequence parallelism, which wait for a later
-    slice of the port (ROADMAP §A11)."""
-    for flag, what in (
-        (getattr(args, "pp", 1) > 1, f"--pp {getattr(args, 'pp', 1)}"),
-        (getattr(args, "sp", 1) > 1, f"--sp {getattr(args, 'sp', 1)}"),
-    ):
-        if flag:
-            raise NotImplementedError(
-                f"{what} waits for a later slice of the port (ROADMAP §A11)")
-
-
 def mesh_from_args(args, device):
-    """The (dp, tp) `DeviceMesh` of `--dp` / `--tp` (`parallel/mesh.py`):
-    joins the process group that torchrun's environment names, if any.
-    None for one process at --dp -1 or 1 and --tp 1; a mesh larger than
-    the group raises ValueError, `--pp` / `--sp` NotImplementedError."""
+    """The `DeviceMesh` of `--dp` with `--tp`, `--pp` or `--sp`
+    (`parallel/mesh.py`): joins the process group that torchrun's
+    environment names, if any. None for one process at --dp -1 or 1 and the
+    others at 1; a mesh larger than the group, or pp / sp with another
+    inner axis, raises ValueError."""
     from hsenet_torch.parallel.mesh import create_mesh, init_distributed
 
-    refuse_parallel_flags(args)
     init_distributed(device)
-    return create_mesh(MeshConfig(dp=args.dp, tp=args.tp), device=device)
+    return create_mesh(MeshConfig(dp=args.dp, tp=args.tp,
+                                  pp=getattr(args, "pp", 1),
+                                  sp=getattr(args, "sp", 1)), device=device)
 
 
 def loader_shard(mesh, batch_size: int):

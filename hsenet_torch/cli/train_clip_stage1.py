@@ -24,8 +24,9 @@ encoder: the VLM's `tower_stage1` graft) with `utils.checkpoint.save_params`.
 --nproc-per-node N -m hsenet_torch.cli.train_clip_stage1 ...`: each dp rank
 loads its rows of the --batch-size global batch and the contrastive loss
 is the global one (`train/stage1.py`); the CLIP has no LLM, so tp ranks
-hold replicas. --sp above 1 waits for ROADMAP §A11 and raises
-`NotImplementedError`.
+hold replicas. `--sp N` splits the vision tower's tokens over N ranks of a
+(dp, sp) mesh, attention a ring (`parallel/sp.py`); the ranks of one sp
+group read the same rows.
 """
 
 from __future__ import annotations
@@ -178,8 +179,10 @@ def main(argv=None, *, device="cuda", model=None):
     p = argparse.ArgumentParser()
     add_train_args(p)
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence parallelism over the ViT's tokens "
-                        "(waits for ROADMAP §A11)")
+                   help="sequence parallelism: shard the ViT's token axis "
+                        "over an 'sp' mesh axis (ring attention, "
+                        "parallel/sp.py); tower dropout inside the ring "
+                        "draws each chunk's own masks")
     add_clip_args(p)
     p.add_argument("--tokenizer", default="", help="HF tokenizer path")
     args = p.parse_args(argv)
@@ -227,9 +230,14 @@ def main(argv=None, *, device="cuda", model=None):
         return CTRateCLIPDataset(data_args, tokenizer, args.manifest, "validation")
 
     on_eval = retrieval_eval_hook(model, args, loader, val_dataset)
-    return train_and_export(model, make_stage1_train_step(model, tx), state,
-                            lambda: loader, args, train_cfg, ckpt, on_eval,
-                            mesh)
+    if args.sp > 1:
+        from hsenet_torch.parallel.sp import make_sp_stage1_train_step
+
+        step_fn = make_sp_stage1_train_step(model, tx, mesh)
+    else:
+        step_fn = make_stage1_train_step(model, tx)
+    return train_and_export(model, step_fn, state, lambda: loader, args,
+                            train_cfg, ckpt, on_eval, mesh)
 
 
 if __name__ == "__main__":

@@ -19,8 +19,9 @@ features from a `TeacherCache`. The exports are stage 1's: `<out>/clip_params`
 and `<out>/tower_params`. `--dp`, `--tp` and `--zero1` run as in stage 1:
 the teacher is replicated on every rank, each dp rank recomputes (or
 caches) the teacher's features of its own rows, and both the contrastive
-and the relation loss run over the global (B, B) logits. --sp above 1
-waits for ROADMAP §A11 and raises `NotImplementedError`.
+and the relation loss run over the global (B, B) logits. `--sp N` splits
+both vision towers' tokens over N ranks of a (dp, sp) mesh, attention a
+ring (`parallel/sp.py`), the cached teacher's fill included.
 """
 
 from __future__ import annotations
@@ -104,8 +105,11 @@ def main(argv=None, *, device="cuda", model=None):
     p.add_argument("--stage1-checkpoint", default="",
                    help="params path of the pretrained stage-1 CLIP (teacher)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence parallelism over both towers' tokens "
-                        "(waits for ROADMAP §A11)")
+                   help="sequence parallelism: shard both towers' token "
+                        "axes over an 'sp' mesh axis (ring attention, "
+                        "parallel/sp.py::make_sp_stage2_train_step); the "
+                        "student's dropout inside the ring draws each "
+                        "chunk's own masks")
     p.add_argument("--cached-teacher", action="store_true",
                    help="precompute/cache frozen-teacher embeddings per "
                         "sample instead of re-running the teacher forward "
@@ -174,9 +178,26 @@ def main(argv=None, *, device="cuda", model=None):
     state = restore_or_fresh(state, args, ckpt)
     if is_main_process():
         dump_config(args.output_dir, student_cfg, train_cfg)
-    step_fn = make_stage2_train_step(model, teacher, student_cfg, tx,
-                                     cached_teacher=args.cached_teacher)
-    batches = (CachedTeacherLoader(loader, TeacherCache(make_teacher_embed_fn(teacher)))
+    if args.sp > 1:
+        from hsenet_torch.parallel.sp import (
+            make_sp_stage2_train_step,
+            make_sp_teacher_embed_fn,
+        )
+
+        step_fn = make_sp_stage2_train_step(model, teacher, student_cfg, tx,
+                                            mesh, args.cached_teacher)
+        # the cache's fill rides the ring too: at the token counts --sp is
+        # for, one rank's dense teacher forward would not fit. Its ring
+        # collectives must not interleave with the step's, so the batches
+        # are drawn on the training thread (no device prefetch)
+        embed_fn = make_sp_teacher_embed_fn(teacher, mesh)
+        if args.cached_teacher:
+            train_cfg = dataclasses.replace(train_cfg, device_prefetch=0)
+    else:
+        step_fn = make_stage2_train_step(model, teacher, student_cfg, tx,
+                                         cached_teacher=args.cached_teacher)
+        embed_fn = make_teacher_embed_fn(teacher)
+    batches = (CachedTeacherLoader(loader, TeacherCache(embed_fn))
                if args.cached_teacher else loader)
 
     def val_dataset():

@@ -34,9 +34,14 @@ seg manifests carry no slice features, so it pairs with
 rows of the --batch-size global batch (its share of each --grad-accum
 microbatch), the LM loss is the token mean over the global microbatch,
 the LLM is split over tp by the Megatron rules and, with --fsdp, every
-large parameter over dp as well (`parallel/sharding.py`). The JAX CLI's
-refusals of bad combinations come first; --pp and --sp wait for ROADMAP
-§A11 and raise `NotImplementedError`.
+large parameter over dp as well (`parallel/sharding.py`). `--pp N
+--n-micro M` splits the decoder's layers into N GPipe stages over M
+microbatches (`parallel/pipeline.py`; the layers must divide by N; each
+layer is recomputed in the backward whatever --remat says); `--sp
+N` splits the decoder's tokens over N ranks, attention a causal ring
+(`parallel/sp.py`; --task mrg and vqa). Both compose with --dp, and LoRA
+dropout runs off inside them. The JAX CLI's refusals of bad combinations
+come first.
 """
 
 from __future__ import annotations
@@ -102,6 +107,7 @@ def main(argv=None, *, device="cuda", model=None):
     )
     from hsenet_torch.utils.checkpoint import (
         CheckpointManager,
+        is_vlm_delta,
         load_vlm_deltas,
         save_vlm_deltas,
     )
@@ -129,16 +135,21 @@ def main(argv=None, *, device="cuda", model=None):
                         "reference's HF gradient_accumulation_steps); "
                         "batch-size must divide evenly")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline-parallel stages (waits for ROADMAP §A11)")
+                   help="pipeline-parallel stages for the LLM decoder "
+                        "(GPipe over a 'pp' mesh axis, parallel/pipeline.py;"
+                        " requires --tp 1, composes with --dp)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence parallelism for the LLM decoder (waits for "
-                        "ROADMAP §A11)")
+                   help="sequence parallelism for the LLM decoder: shard "
+                        "the token axis over an 'sp' mesh axis (causal "
+                        "ring attention, parallel/sp.py). LoRA dropout "
+                        "runs off inside the ring (as with --pp)")
     p.add_argument("--fsdp", action="store_true",
                    help="shard parameters (and thus optimizer moments) over "
                         "the dp axis, composed with --tp "
                         "(parallel/sharding.py::shard_params_fsdp)")
     p.add_argument("--n-micro", type=int, default=2,
-                   help="microbatches per pipeline tick group (with --pp)")
+                   help="microbatches per pipeline tick group (per dp "
+                        "replica); bubble = (pp-1)/(n_micro+pp-1)")
     p.add_argument("--int8-base", action="store_true",
                    help="store the FROZEN LLM base projections int8 "
                         "(per-output-channel scales) and train LoRA on top "
@@ -237,8 +248,9 @@ def main(argv=None, *, device="cuda", model=None):
         state = {k: v for k, v in state.items() if k not in llm}
         state.update(quantize_kernels_int8(llm))
         del llm
+        # the model's own config: a caller's model may differ from the flags'
         cfg = dataclasses.replace(
-            cfg, llm=dataclasses.replace(cfg.llm, quant_int8=True))
+            model.config, llm=dataclasses.replace(model.config.llm, quant_int8=True))
         del model
         model = build(cfg, dtype=dtype, device=device)
     model.load_state_dict(state, strict=True)
@@ -248,6 +260,12 @@ def main(argv=None, *, device="cuda", model=None):
     to_training_dtypes(model, mask)
     if mesh is not None:
         (shard_params_fsdp if args.fsdp else shard_params)(model, mesh)
+    if args.pp > 1:
+        from hsenet_torch.parallel.pipeline import shard_params_pp
+
+        # the decoder's layers staged over pp; the JAX CLI's assert is a
+        # ValueError here
+        shard_params_pp(model, mesh)
 
     tx = make_optimizer(train_cfg, trainable_mask=mask)
     ckpt = CheckpointManager(args.output_dir, async_save=args.async_save)
@@ -257,10 +275,21 @@ def main(argv=None, *, device="cuda", model=None):
     main_rank = is_main_process()
     if main_rank:
         dump_config(args.output_dir, cfg, train_cfg)
-    step_fn = make_vlm_train_step(model, tx, grad_accum=args.grad_accum,
-                                  seg=seg)
+    eval_loss = None
+    if args.pp > 1:
+        from hsenet_torch.parallel.pipeline import make_pp_vlm_train_step, pp_vlm_loss_fn
 
-    evaluate = make_vlm_eval_fn(model, seg=seg)
+        step_fn = make_pp_vlm_train_step(model, tx, mesh, n_micro=args.n_micro)
+        eval_loss = functools.partial(pp_vlm_loss_fn, n_micro=args.n_micro)
+    elif args.sp > 1:
+        from hsenet_torch.parallel.sp import make_sp_vlm_train_step
+
+        step_fn = make_sp_vlm_train_step(model, tx, mesh)
+    else:
+        step_fn = make_vlm_train_step(model, tx, grad_accum=args.grad_accum,
+                                      seg=seg)
+
+    evaluate = make_vlm_eval_fn(model, seg=seg, loss_fn=eval_loss)
     val_cache = {}  # the validation loader is built once
 
     def on_eval(step, eval_state):
@@ -286,7 +315,8 @@ def main(argv=None, *, device="cuda", model=None):
     trainer = Trainer(step_fn, train_state, lambda: loader, train_cfg,
                       checkpoint_manager=ckpt, hooks=hooks, mesh=mesh)
     train_state = trainer.fit()
-    final = full_state_dict(model)
+    # the deltas of the whole model (every pipeline stage's layers too)
+    final = full_state_dict(model, keep=is_vlm_delta)
     if main_rank:
         hooks.on_log.close()
         save_vlm_deltas(f"{args.output_dir}/vlm_deltas", final)

@@ -312,8 +312,10 @@ class VLMConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Process mesh layout. dp: data parallel; tp: tensor parallel (LLM);
-    pp: pipeline parallel and sp: sequence parallel (ROADMAP §A11, not in
-    the port yet). dp = -1 means every process left over: world // tp."""
+    pp: pipeline parallel (the LLM decoder's layers in stages); sp:
+    sequence parallel (the tokens in chunks over a ring). pp and sp compose
+    with dp only. dp = -1 means every process left over: world // (tp, pp
+    or sp)."""
 
     dp: int = -1
     tp: int = 1

@@ -219,13 +219,21 @@ class SelfAttention(nn.Module):
         self.qkv = _dense(hidden, 3 * hidden, bias=qkv_bias, **kw)
         self.out_proj = _dense(hidden, hidden, **kw)
 
-    def forward(self, x: torch.Tensor, *,
+    def forward(self, x: torch.Tensor, sp=None, *,
                 deterministic: bool = True) -> torch.Tensor:
+        """`sp` (an `ops.ring_attention.RingArgs`): x is this rank's chunk
+        of the sequence, and attention is the ring over the sp group."""
         q, k, v = (
             rearrange(t, "b s (n d) -> b n s d", n=self.num_heads)
             for t in self.qkv(x).chunk(3, dim=-1)
         )
-        out = multi_head_attention(q, k, v)
+        if sp is not None:
+            from hsenet_torch.ops.ring_attention import ring_attention
+
+            out = ring_attention(q, k, v, group=sp.group, kv_len=sp.kv_len,
+                                 block_q=sp.block_q)
+        else:
+            out = multi_head_attention(q, k, v)
         out = self.out_proj(rearrange(out, "b n s d -> b s (n d)"))
         return dropout(out, self.dropout_rate, deterministic)
 
@@ -247,9 +255,9 @@ class TransformerBlock(nn.Module):
         self.mlp = MlpBlock(hidden, mlp_dim, hidden, dropout_rate=dropout_rate,
                             gelu_approx=gelu_approx, **kw)
 
-    def forward(self, x: torch.Tensor, *,
+    def forward(self, x: torch.Tensor, sp=None, *,
                 deterministic: bool = True) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), deterministic=deterministic)
+        x = x + self.attn(self.norm1(x), sp, deterministic=deterministic)
         return x + self.mlp(self.norm2(x), deterministic=deterministic)
 
 

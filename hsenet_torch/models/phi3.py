@@ -247,11 +247,14 @@ class Phi3Block(nn.Module):
         dense("up_proj", h, cfg.intermediate_size)
         dense("down_proj", cfg.intermediate_size, h)
 
-    def forward(self, x, cos, sin, kv_lens, layer_cache=None, *,
+    def forward(self, x, cos, sin, kv_lens, layer_cache=None, sp=None, *,
                 deterministic: bool = True):
         """layer_cache: None, (k, v, lengths) with k/v (B, Hkv, T, D), or
         for an int8 cache (k, v, k_scale, v_scale, lengths); written in
-        place."""
+        place. `sp` (a `RingArgs`): sequence-parallel training, x this
+        rank's token chunk, cos/sin at its global positions, kv_lens the
+        rows' global lengths; attention is the causal ring, the unexpanded
+        kv heads travelling it (no cache)."""
         cfg = self.config
 
         def proj(name, t):
@@ -270,7 +273,14 @@ class Phi3Block(nn.Module):
         v = rearrange(v, "b s (n d) -> b n s d", n=cfg.num_kv_heads)
         q, k = apply_rope(q, k, cos, sin, cfg.rotary_dim)
 
-        if layer_cache is None:
+        if sp is not None:
+            from hsenet_torch.ops.ring_attention import ring_attention
+
+            if layer_cache is not None:
+                raise ValueError("sp is a training path: no KV cache")
+            attn = ring_attention(q, k, v, group=sp.group, kv_lens=kv_lens,
+                                  causal=True, block_q=sp.block_q)
+        elif layer_cache is None:
             k, v = self._local_kv(k, q), self._local_kv(v, q)
             attn = multi_head_attention(q, k, v, kv_lens=kv_lens, causal=True)
         else:
@@ -338,20 +348,36 @@ class Phi3Decoder(nn.Module):
                 kv_lens: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None,
                 positions: Optional[torch.Tensor] = None,
-                deterministic: bool = True,
+                deterministic: bool = True, sp=None,
+                sp_global_len: Optional[int] = None,
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+        """`sp` (a `RingArgs`) with `sp_global_len`: sequence-parallel
+        training (`parallel/sp.py`). `inputs_embeds` is this rank's
+        contiguous token chunk and `kv_lens` the rows' global lengths; the
+        positions are rank * S_local + arange(S_local), the LongRoPE
+        factors are chosen from the true global length, and attention is
+        the causal ring."""
         cfg = self.config
         x = inputs_embeds.to(self.dtype)
         b, s, _ = x.shape
         steps = torch.arange(s, device=x.device)[None, :]
-        if positions is None:
+        if sp is not None:
+            if cache is not None or positions is not None:
+                raise ValueError("sp is a training path: no cache, no positions")
+            if kv_lens is None or sp_global_len is None:
+                raise ValueError("sp needs the rows' global kv_lens and "
+                                 "sp_global_len")
+            positions = (sp.rank * s + steps).expand(b, s)
+        elif positions is None:
             positions = (
                 cache.lengths[:, None] + steps if cache is not None
                 else steps.expand(b, s)
             )
         # the LongRoPE choice depends on the longest reachable position:
-        # the cache capacity in generation, the sequence length otherwise
-        total_len = cache.k.shape[3] if cache is not None else s
+        # the cache capacity in generation, the true global length under sp
+        # (the ring's padding must not flip it), the sequence length otherwise
+        total_len = (cache.k.shape[3] if cache is not None
+                     else sp_global_len if sp is not None else s)
         ext_factors, attn_scaling = _longrope_params(cfg, total_len)
         cos, sin = _rope_cos_sin(
             positions, cfg.rotary_dim, cfg.rope_theta,
@@ -363,7 +389,7 @@ class Phi3Decoder(nn.Module):
         remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if remat:
-                x = checkpointed(layer, x, cos, sin, kv_lens,
+                x = checkpointed(layer, x, cos, sin, kv_lens, None, sp,
                                  deterministic=deterministic,
                                  policy=cfg.remat_policy)
                 continue
@@ -374,7 +400,7 @@ class Phi3Decoder(nn.Module):
                                cache.v_scale[i], cache.lengths)
             else:
                 layer_cache = (cache.k[i], cache.v[i], cache.lengths)
-            x = layer(x, cos, sin, kv_lens, layer_cache,
+            x = layer(x, cos, sin, kv_lens, layer_cache, sp,
                       deterministic=deterministic)
         if cache is not None:
             cache.lengths = cache.lengths + (1 if s == 1 else kv_lens)

@@ -70,16 +70,17 @@ class TransformerTower(nn.Module):
         )
         self.norm = LayerNorm(hidden, device=device)
 
-    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+    def forward(self, x: torch.Tensor, sp=None, *, deterministic: bool = True,
                 skip_final_norm: bool = False) -> torch.Tensor:
         """The blocks, then the final LayerNorm unless `skip_final_norm`
-        (the masked stream of `MaskedViT3D` applies its own)."""
+        (the masked stream of `MaskedViT3D` applies its own); with `sp` (a
+        `RingArgs`) x is this rank's token chunk and attention the ring."""
         remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
-                x = checkpointed(block, x, deterministic=deterministic)
+                x = checkpointed(block, x, sp, deterministic=deterministic)
             else:
-                x = block(x, deterministic=deterministic)
+                x = block(x, sp, deterministic=deterministic)
         return x if skip_final_norm else self.norm(x)
 
 
@@ -117,9 +118,21 @@ class ViT3D(nn.Module):
 
     def forward(self, volume: torch.Tensor,
                 slice_features: Optional[torch.Tensor] = None,
-                *, deterministic: bool = True, return_scores: bool = False):
+                *, deterministic: bool = True, return_scores: bool = False,
+                sp_group=None, sp_block_q: Optional[int] = None):
         """volume (B, C, D, H, W) in [0, 1]; slice_features (B, 32, 768)
-        for the 2E3 encoder -> (B, seq_len, hidden) f32."""
+        for the 2E3 encoder -> (B, seq_len, hidden) f32.
+
+        Sequence parallel over `sp_group` (`parallel/sp.py`): the patch
+        embedding and the 2E3 scoring (its cross-attention reads the 32
+        slice tokens, not the other patches) run on every rank; the tokens
+        after the CLS concat are padded to a multiple of the group's size,
+        each rank keeps its contiguous chunk, and the tower runs with ring
+        attention (`sp_block_q`: its query block), the padding masked as
+        keys. Returns this rank's (B, S_padded / sp, hidden) chunk; the
+        padded tail's rows are values the caller strips. Every parameter's
+        gradient is then this rank's share, summed over the group by the
+        train step."""
         cfg = self.config
         x = self.patch_embed(volume, deterministic=deterministic)
         scores = None
@@ -135,7 +148,17 @@ class ViT3D(nn.Module):
         if cfg.classification:
             cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
             x = torch.cat([cls, x], dim=1)
-        x = self.tower(x, deterministic=deterministic)
+        sp = None
+        if sp_group is not None:
+            import torch.distributed as dist
+
+            from hsenet_torch.ops.ring_attention import RingArgs, pad_to_multiple
+
+            sp = RingArgs(sp_group, kv_len=x.shape[1], block_q=sp_block_q)
+            size = dist.get_world_size(sp_group)
+            x = pad_to_multiple(x, size, dim=1)
+            x = x.chunk(size, dim=1)[dist.get_rank(sp_group)]
+        x = self.tower(x, sp, deterministic=deterministic)
         if return_scores:
             return x, scores
         return x

@@ -1,5 +1,5 @@
-"""The (dp, tp) process mesh and its collectives (the port of the JAX
-package's parallel/mesh.py).
+"""The process mesh and its collectives (the port of the JAX package's
+parallel/mesh.py): ("dp", "tp"), ("dp", "pp") or ("dp", "sp").
 
 The JAX package runs one SPMD program over every device and XLA inserts
 the collectives. The port runs one process per device, launched by
@@ -14,15 +14,23 @@ collectives are explicit:
     autograd collectives below;
   * the global contrastive loss gathers every rank's features with
     `gather_with_grad`, whose backward sums the gradients of each shard
-    over the ranks: the reference's `torch.distributed.nn.all_gather`.
+    over the ranks: the reference's `torch.distributed.nn.all_gather`;
+  * pipeline parallel (`parallel/pipeline.py`): each pp rank holds a stage
+    of the decoder's layers, activations travel stage to stage, and the
+    last stage's hidden states reach every stage through `broadcast_from`;
+  * sequence parallel (`parallel/sp.py`): each sp rank holds a contiguous
+    chunk of the tokens, and ring attention rotates K/V with `ppermute`.
+
+pp and sp compose with dp only, as in the JAX package: the pp (or sp)
+axis is the inner one, so a stage's (or a ring's) ranks are neighbours.
 
 `init_distributed` joins the process group that torchrun's environment
 describes (NCCL on the card, gloo on the CPU); a caller that has joined a
 group of its own (two ranks sharing one card need gloo) keeps it. `create_mesh`
-returns a `DeviceMesh` with axes ("dp", "tp"), or None where no process
-group exists and the mesh is 1 x 1: then every caller takes the
-single-card path unchanged. Nothing falls back: a failed group or a
-missing collective raises.
+returns a `DeviceMesh` with axes ("dp", "tp"), ("dp", "pp") or ("dp", "sp"),
+or None where no process group exists and the mesh is 1 x 1: then every
+caller takes the single-card path unchanged. An axis the mesh lacks has
+size 1. Nothing falls back: a failed group or a missing collective raises.
 
 Gloo takes host tensors only for most collectives, so a collective over
 a gloo group stages a CUDA tensor through host memory.
@@ -59,23 +67,31 @@ def init_distributed(device, *, init_method: Optional[str] = None) -> bool:
 
 
 def create_mesh(config: Optional[MeshConfig] = None, device="cuda"):
-    """A `DeviceMesh` ("dp", "tp") over every process of the group, or None
-    for a 1 x 1 mesh without a group. dp = -1 takes world // tp. A mesh
-    that needs more processes than the group has raises ValueError with
-    the JAX package's message; so does one that leaves processes out."""
+    """A `DeviceMesh` over every process of the group: ("dp", "pp") where
+    pp is above 1, ("dp", "sp") where sp is, else ("dp", "tp"); None for a
+    1 x 1 mesh without a group. dp = -1 takes world // (the inner axis).
+    pp and sp compose with dp only; the JAX package's asserts of that, and
+    of a mesh that needs more processes than the group has, are ValueErrors
+    with its messages here; so is a mesh that leaves processes out."""
     config = config or MeshConfig()
-    if config.pp > 1 or config.sp > 1:
-        raise NotImplementedError(
-            "pp and sp wait for a later slice of the port (ROADMAP §A11)")
+    if config.pp > 1:
+        if config.tp != 1 or config.sp != 1:
+            raise ValueError("pp composes with dp only (pipeline.py)")
+        inner, names = config.pp, ("dp", "pp")
+    elif config.sp > 1:
+        if config.tp != 1:
+            raise ValueError("sp composes with dp only (parallel/sp.py)")
+        inner, names = config.sp, ("dp", "sp")
+    else:
+        inner, names = config.tp, tuple(config.axis_names)
     n = dist.get_world_size() if dist.is_initialized() else 1
-    tp = config.tp
-    dp = config.dp if config.dp > 0 else n // tp
-    if dp < 1 or dp * tp > n:
-        raise ValueError(f"mesh {max(dp, 1)}x{tp} needs more than {n} devices")
+    dp = config.dp if config.dp > 0 else n // inner
+    if dp < 1 or dp * inner > n:
+        raise ValueError(f"mesh {max(dp, 1)}x{inner} needs more than {n} devices")
     if not dist.is_initialized():
         return None
-    if dp * tp != n:
-        raise ValueError(f"mesh {dp}x{tp} leaves {n - dp * tp} of {n} "
+    if dp * inner != n:
+        raise ValueError(f"mesh {dp}x{inner} leaves {n - dp * inner} of {n} "
                          "processes without a place")
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -83,20 +99,23 @@ def create_mesh(config: Optional[MeshConfig] = None, device="cuda"):
     # use; a gloo group (CPU ranks, or ranks sharing one card) takes "cpu"
     device_type = (torch.device(device).type if dist.get_backend() == "nccl"
                    else "cpu")
-    return init_device_mesh(device_type, (dp, tp),
-                            mesh_dim_names=tuple(config.axis_names))
+    return init_device_mesh(device_type, (dp, inner), mesh_dim_names=names)
 
 
 def axis_size(mesh, axis: str) -> int:
-    """The size of `axis` ("dp" or "tp"); 1 without a mesh."""
-    if mesh is None:
+    """The size of `axis` ("dp", "tp", "pp" or "sp"); 1 without a mesh or
+    where the mesh has no such axis."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
         return 1
     return mesh.shape[mesh.mesh_dim_names.index(axis)]
 
 
 def axis_rank(mesh, axis: str) -> int:
-    """This process's coordinate along `axis`; 0 without a mesh."""
-    return 0 if mesh is None else mesh.get_local_rank(axis)
+    """This process's coordinate along `axis`; 0 without a mesh or such an
+    axis."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank(axis)
 
 
 def axis_group(mesh, axis: str):
@@ -158,6 +177,58 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         return out.movedim(0, dim)
     total = all_reduce(t, group)
     return total.chunk(size, dim=dim)[rank].contiguous()
+
+
+def broadcast(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Rank `src`'s (a rank of `group`) `t` on every rank of the group, as a
+    new tensor; `t` gives the shape and dtype on the others."""
+    root = dist.get_global_rank(group, src)
+    out = t.detach().contiguous()
+    if _staged(group, out):
+        host = out.cpu()
+        dist.broadcast(host, root, group=group)
+        return host.to(t.device)
+    out = out.clone()
+    dist.broadcast(out, root, group=group)
+    return out
+
+
+def send(t: torch.Tensor, group, dst: int, tag: int = 0) -> None:
+    """Send `t` to rank `dst` of `group` (blocking)."""
+    src = t.detach().contiguous()
+    dist.send(src.cpu() if _staged(group, src) else src,
+              dist.get_global_rank(group, dst), group=group, tag=tag)
+
+
+def recv(like: torch.Tensor, group, src: int, tag: int = 0) -> torch.Tensor:
+    """A tensor of `like`'s shape, dtype and device, received from rank
+    `src` of `group`."""
+    buf = torch.empty(like.shape, dtype=like.dtype,
+                      device="cpu" if _staged(group, like) else like.device)
+    dist.recv(buf, dist.get_global_rank(group, src), group=group, tag=tag)
+    return buf.to(like.device)
+
+
+def _rotate(t: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """Each rank i's `t` lands on rank (i + shift) mod n of `group`: one
+    send and one receive a rank, posted together (`batch_isend_irecv`), so
+    no order of the ring deadlocks."""
+    n = dist.get_world_size(group)
+    if shift % n == 0:
+        return t.detach().clone()
+    i = dist.get_rank(group)
+    out = t.detach().contiguous()
+    staged = _staged(group, out)
+    if staged:
+        out = out.cpu()
+    buf = torch.empty_like(out)
+    ops = [dist.P2POp(dist.isend, out, dist.get_global_rank(group, (i + shift) % n),
+                      group),
+           dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, (i - shift) % n),
+                      group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return buf.to(t.device) if staged else buf
 
 
 def broadcast_object(obj, src: int = 0):
@@ -225,6 +296,49 @@ class _GatherWithGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return reduce_scatter(grad.contiguous(), ctx.group, ctx.dim), None, None
+
+
+class _PPermute(torch.autograd.Function):
+    """The JAX package's ppermute by a shift: rank i's tensor goes to rank
+    (i + shift) mod n; the backward rotates the cotangent the other way
+    (its transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _rotate(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _rotate(grad, ctx.group, -ctx.shift), None, None
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    """Rank `src`'s tensor on every rank of the group (the JAX package's
+    psum of a value masked to one rank). Every rank goes on to compute the
+    same loss from it, so the gradient is that loss's once: the source
+    keeps its own cotangent and the others pass zeros."""
+
+    @staticmethod
+    def forward(ctx, x, group, src):
+        ctx.is_src = dist.get_rank(group) == src
+        return broadcast(x, group, src)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.is_src else torch.zeros_like(grad)), None, None
+
+
+def ppermute(x, group, shift: int = 1):
+    """Rank i of `group` receives the `x` of rank (i - shift) mod n, with
+    the transposed rotation as its gradient."""
+    return _PPermute.apply(x, group, shift)
+
+
+def broadcast_from(x, group, src: int):
+    """Rank `src`'s `x` on every rank of `group`; its gradient reaches the
+    source once."""
+    return _BroadcastFrom.apply(x, group, src)
 
 
 def copy_to_group(x, group):

@@ -48,12 +48,16 @@ recomputation under remat, else a saved-tensor hook that keeps the shard
 in place of the full weight). The rest of the model (towers, packers,
 embedding, LM head, final norm) is gathered for the whole loss and its
 backward: the train step enters `fsdp_gathered(model)` around them. So the
-step holds the shards, the root's full weights and one layer's. int8
-buffers stay whole.
+step holds the shards, the root's full weights and one layer's. The int8
+codes and their scales (buffers here, params in the JAX package) are split
+and gathered as the float leaves are, without a gradient.
 
 `full_state_dict` gathers every split leaf back to its full shape (for
 checkpoints and exports); `split_leaf` cuts a full leaf to this rank's
-shard (for a restore).
+shard (for a restore). Under a pipeline a rank holds some of the
+decoder's layers: `gather_model_leaves` completes a rank's leaves to the
+whole model's, and `keep_rank_leaves` picks a rank's out of the whole
+model's.
 """
 
 from __future__ import annotations
@@ -155,16 +159,18 @@ def _reference_axis_order(name: str, leaf: torch.Tensor) -> List[int]:
 def make_fsdp_specs(model: nn.Module, mesh, *,
                     min_size: int = FSDP_MIN_SIZE) -> Dict[str, Spec]:
     """The TP specs plus "dp" on the largest dim still whole (ties go to
-    the earlier axis of the JAX leaf) of every parameter of at least
-    `min_size` elements whose size there divides by dp. The port has no
-    scan axis: each decoder layer is its own leaf."""
+    the earlier axis of the JAX leaf) of every leaf of at least `min_size`
+    elements whose size there divides by dp: parameters and buffers (the
+    int8 codes and their scales) alike, as the JAX package splits every
+    leaf of its tree. The port has no scan axis: each decoder layer is its
+    own leaf."""
     dp = axis_size(mesh, "dp")
     base = make_param_specs(model)
-    params = dict(model.named_parameters())
+    leaves = _leaves(model)
     specs = {}
     for name, spec in base.items():
-        leaf = params.get(name)
-        if leaf is None or dp == 1 or leaf.numel() < min_size:
+        leaf = leaves[name]
+        if dp == 1 or leaf.dim() == 0 or leaf.numel() < min_size:
             specs[name] = spec
             continue
         full = list(spec) + [None] * (leaf.dim() - len(spec))
@@ -296,7 +302,7 @@ def shard_params_fsdp(model: nn.Module, mesh, *,
         return model
     rank = axis_rank(mesh, "dp")
     dims = _shard_dims(model)
-    params = dict(model.named_parameters())
+    leaves = _leaves(model)
     # the specs are those of the full model: a tp-split dim counts at its
     # local size, as the divisibility was checked on the full one
     split = []
@@ -304,7 +310,7 @@ def shard_params_fsdp(model: nn.Module, mesh, *,
         if "dp" not in spec:
             continue
         dim = spec.index("dp")
-        params[name].data = _split(params[name], dim, rank, dp)
+        _replace_leaf(model, name, _split(leaves[name], dim, rank, dp))
         dims[name] = (dims.get(name, (None, None))[0], dim)
         split.append((name, dim))
     fsdp = _FSDP(axis_group(mesh, "dp"))
@@ -354,24 +360,27 @@ class _FSDP:
 @contextlib.contextmanager
 def _gathered(module: nn.Module, leaves, group, live=None) -> Iterator[None]:
     """Inside, each of `module`'s split leaves [(name, dim)] reads as its
-    full tensor (gathered with a gradient where the shard trains); `live`
-    records the full tensors' storages meanwhile."""
+    full tensor (gathered with a gradient where the shard trains; a buffer,
+    such as the int8 codes, without); `live` records the full tensors'
+    storages meanwhile."""
     swapped = []
     try:
         for name, dim in leaves:
             owner, attr = _owner(module, name)
-            shard = owner._parameters[attr]
+            slots = owner._parameters if attr in owner._parameters \
+                else owner._buffers
+            shard = slots[attr]
             full = gather_with_grad(shard, group, dim) if shard.requires_grad \
                 else all_gather(shard, group, dim)
-            owner._parameters[attr] = full
+            slots[attr] = full
             ptr = full.untyped_storage().data_ptr()
-            swapped.append((owner, attr, shard, ptr))
+            swapped.append((slots, attr, shard, ptr))
             if live is not None:
                 live[ptr] = (shard, dim)
         yield
     finally:
-        for owner, attr, shard, ptr in swapped:
-            owner._parameters[attr] = shard
+        for slots, attr, shard, ptr in swapped:
+            slots[attr] = shard
             if live is not None:
                 live.pop(ptr, None)
 
@@ -423,11 +432,35 @@ def is_sharded(model: nn.Module) -> bool:
     return bool(_shard_dims(model))
 
 
-def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The model's state dict with every split leaf gathered (a collective:
-    every rank calls it). An unsharded model's own state dict."""
-    state = model.state_dict()
-    if not is_sharded(model):
-        return state
-    return {name: gather_leaf(model, name, t) for name, t in state.items()}
+def gather_model_leaves(model: nn.Module, leaves: Dict[str, object]
+                        ) -> Dict[str, object]:
+    """`leaves` (name -> a whole leaf, or a tuple of tensors such as a leaf
+    with its optimizer moments) of this rank's part of the model, completed
+    to the whole model's in its order: under a pipeline every stage's layer
+    leaves, the other stages' as host copies (a collective: every rank
+    calls it). Itself otherwise."""
+    from hsenet_torch.parallel.pipeline import gather_stages
+
+    return gather_stages(model, leaves)
+
+
+def keep_rank_leaves(model: nn.Module, leaves: Dict[str, object]
+                     ) -> Dict[str, object]:
+    """The inverse of `gather_model_leaves`: of the whole model's `leaves`,
+    those this rank's part of the model holds."""
+    from hsenet_torch.parallel.pipeline import own_stage
+
+    return own_stage(model, leaves)
+
+
+def full_state_dict(model: nn.Module, keep=None) -> Dict[str, torch.Tensor]:
+    """The model's state dict with every split leaf gathered, and under a
+    pipeline every stage's layers, in the full model's order (a collective:
+    every rank calls it); `keep(name)` picks the leaves (all by default).
+    An unsharded model's own state dict."""
+    state = {k: v for k, v in model.state_dict().items()
+             if keep is None or keep(k)}
+    if is_sharded(model):
+        state = {name: gather_leaf(model, name, t) for name, t in state.items()}
+    return gather_model_leaves(model, state)
 

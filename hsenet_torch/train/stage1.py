@@ -11,8 +11,8 @@ placed) the loss is the global one: every rank all-gathers the features
 of the whole batch with a gradient (`parallel.mesh.gather_with_grad`, whose
 backward sums each shard's gradient over the ranks) and computes the same
 (B, B) logits; the train step's mean over dp then gives the single-card
-gradient. The sequence-parallel loss (`parallel/sp.py`) waits for ROADMAP
-§A11.
+gradient. The sequence-parallel step, with the vision tower over the ring,
+is `parallel.sp.make_sp_stage1_train_step`.
 """
 
 from __future__ import annotations

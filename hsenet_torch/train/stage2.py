@@ -15,8 +15,8 @@ teacher's logit scale read once when the step is made.
 The dropout stream is drawn from (rng, step) in every step, as in stage 1.
 Over a data-parallel mesh both logit matrices are the global (B, B) ones,
 as in stage 1: the student's features are gathered with a gradient, the
-teacher's (recomputed or cached) without. The SP loss hooks wait for
-ROADMAP §A11.
+teacher's (recomputed or cached) without. The sequence-parallel step,
+with both towers over the ring, is `parallel.sp.make_sp_stage2_train_step`.
 """
 
 from __future__ import annotations
@@ -52,6 +52,14 @@ def _student_loss(student: nn.Module, cfg: CLIPConfig, batch: Batch,
             batch["image_2d"], deterministic=generator is None,
         )
     s_img, s_txt = global_features(student, s_img, s_txt)
+    return student_terms(cfg, s_img, s_txt, s_scale, step, t_logits_i,
+                         t_logits_t)
+
+
+def student_terms(cfg: CLIPConfig, s_img, s_txt, s_scale, step: int,
+                  t_logits_i, t_logits_t):
+    """The student's loss and metrics from its global features and the
+    teacher's logits: contrastive loss plus the weighted relation MSE."""
     loss_cl, s_logits_i, s_logits_t = clip_contrastive_loss(s_img, s_txt,
                                                              s_scale)
     loss_rel = relation_regulation_loss(t_logits_i, t_logits_t, s_logits_i,

@@ -19,9 +19,11 @@ Parameters are updated in place. Freezing is `requires_grad=False` on the
 leaves the mask leaves out, which also keeps autograd from computing
 their gradients.
 
-Over a (dp, tp) mesh (`TrainState.create(..., mesh=)`) the train step
-averages the gradients over dp (`reduce_gradients`) and takes the global
-norm over every shard once (`global_norm(..., model=)`). Under ZeRO-1
+Over a mesh (`TrainState.create(..., mesh=)`) the train step averages the
+gradients over dp (`reduce_gradients`), sums those of the sequence-parallel
+ring's leaves over sp (`sum_over_sp`) and takes the global norm over every
+shard once (`global_norm(..., model=)`; a pipeline stage's own layers
+count once each). Under ZeRO-1
 (`parallel/zero.shard_opt_state`) each dp rank holds its slice of m and v,
 updates that slice of the parameter and all-gathers the parameter.
 """
@@ -166,6 +168,16 @@ def global_norm(grads: List[torch.Tensor], names: Sequence[str] = (),
     leaves, the squares of a split leaf are summed over the ranks that
     split it, so every rank holds the norm of the full gradients."""
     dims = model.__dict__.get("shard_dims", {}) if model is not None else {}
+    stage = model.__dict__.get("pipeline") if model is not None else None
+    if stage is not None:
+        # a pipeline stage's own layers' squares are summed over pp; the
+        # replicated leaves' gradients are alike on every stage
+        from hsenet_torch.parallel.mesh import all_reduce
+
+        own = torch.zeros(2, dtype=torch.float32, device=grads[0].device)
+        for name, g in zip(names, grads):
+            own[int(stage.holds(name))] += g.float().pow(2).sum()
+        return torch.sqrt(own[0] + all_reduce(own[1:], stage.group)[0])
     if not dims:
         return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
     from hsenet_torch.parallel.mesh import all_reduce, axis_group
@@ -205,6 +217,29 @@ def reduce_gradients(grads: List[torch.Tensor], names: Sequence[str],
         flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
                           axis_group(mesh, "dp"))
         flat.div_(dp)
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out
+
+
+def sum_over_sp(grads: List[torch.Tensor], names: Sequence[str],
+                region: Sequence[str], mesh) -> List[torch.Tensor]:
+    """`grads` with those of the leaves named under one of the `region`
+    prefixes summed over the mesh's sp axis (one flat all-reduce per
+    dtype): inside the sequence-parallel ring each rank's gradient of such
+    a leaf covers its own token chunk only."""
+    from hsenet_torch.parallel.mesh import all_reduce, axis_group, axis_size
+
+    if axis_size(mesh, "sp") == 1:
+        return grads
+    out = list(grads)
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, (name, g) in enumerate(zip(names, grads)):
+        if name.startswith(tuple(region)):
+            groups.setdefault(g.dtype, []).append(i)
+    for idx in groups.values():
+        flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
+                          axis_group(mesh, "sp"))
         for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
             out[i] = part.view_as(grads[i])
     return out

@@ -28,6 +28,7 @@ from hsenet_torch.train.train_state import (
     TrainState,
     global_norm,
     reduce_gradients,
+    sum_over_sp,
 )
 
 Batch = Dict[str, torch.Tensor]
@@ -76,12 +77,17 @@ def vlm_loss_fn(model: nn.Module, batch: Batch,
             batch["input_ids"], batch.get("image"), batch.get("image_2d"),
             kv_lens=kv_lens, deterministic=generator is None,
         )
+    return lm_loss_terms(model, logits, batch["labels"])
+
+
+def lm_loss_terms(model: nn.Module, logits: torch.Tensor, labels: torch.Tensor):
+    """(loss to differentiate, {"loss", "token_acc"}) of the masked LM loss,
+    the token mean over the global batch where the model has a dp axis."""
     dp_group = _dp_group(model)
     if dp_group is not None:
-        grad_loss, loss, acc = masked_lm_loss_global(
-            logits, batch["labels"], *dp_group)
+        grad_loss, loss, acc = masked_lm_loss_global(logits, labels, *dp_group)
         return grad_loss, {"loss": loss, "token_acc": acc}
-    loss, acc = masked_lm_loss(logits, batch["labels"])
+    loss, acc = masked_lm_loss(logits, labels)
     return loss, {"loss": loss, "token_acc": acc}
 
 
@@ -136,12 +142,15 @@ def vlm_seg_loss_fn(model: nn.Module, batch: Batch,
                   "token_acc": acc}
 
 
-def make_vlm_eval_fn(model: nn.Module, seg: bool = False):
+def make_vlm_eval_fn(model: nn.Module, seg: bool = False,
+                     loss_fn: Optional[Callable] = None):
     """Held-out eval: `evaluate(loader) -> {"val_loss", "val_token_acc"}`
     (with `seg`, through `vlm_seg_loss_fn`, also "val_lm_loss" and
     "val_seg_loss"), means over the loader's batches, deterministic (no
-    dropout)."""
-    loss_fn = vlm_seg_loss_fn if seg else vlm_loss_fn
+    dropout). `loss_fn(model, batch)` replaces the plain loss (the
+    pipeline's, whose stages hold a part of the decoder each)."""
+    if loss_fn is None:
+        loss_fn = vlm_seg_loss_fn if seg else vlm_loss_fn
     keys = ("input_ids", "labels", "attention_mask", "image", "image_2d") + (
         ("seg",) if seg else ())
     device = next(model.parameters()).device
@@ -172,7 +181,8 @@ def fold_seed(seed: int, *data: int) -> int:
 
 
 def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1,
-                           takes_step: bool = False):
+                           takes_step: bool = False,
+                           sp_region: Tuple[str, ...] = ()):
     """`train_step(state, batch, rng=None) -> (state, metrics)`: the
     gradient of `loss_fn(batch, generator) -> (loss, metrics)` over the
     state's trainable leaves, one AdamW update, and the global norm of those
@@ -192,7 +202,9 @@ def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1,
     the rank's share of the global microbatch; the loss function reduces
     its metrics over dp, the gradients are averaged over dp and their norm
     taken over every shard. An FSDP model (`parallel/sharding.py`) is
-    gathered around the loss."""
+    gathered around the loss. Over an sp mesh (`parallel/sp.py`) the
+    leaves whose names start with one of `sp_region` ran inside the ring on
+    this rank's tokens: their gradients are summed over sp."""
 
     def grads_of(params, batch, generator, step, model):
         with fsdp_gathered(model):
@@ -235,6 +247,8 @@ def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1,
                                       model)
         if state.mesh is not None:
             grads = reduce_gradients(grads, names, model, state.mesh)
+            if sp_region:
+                grads = sum_over_sp(grads, names, sp_region, state.mesh)
         metrics["grad_norm"] = global_norm(grads, names, model)
         opt_state = tx.step(params, grads, state.opt_state, metrics["grad_norm"])
         return dataclasses.replace(state, step=state.step + 1,

@@ -18,7 +18,10 @@ template's device. Nothing beyond PyTorch is needed to read or write one.
     gathers every tensor- or data-parallel shard and ZeRO-1 slice (every
     rank calls it) and rank 0 writes; `restore` reads the file on every
     rank and cuts each leaf to the rank's shard, so `--resume` works
-    across layouts.
+    across layouts. Where a rank holds part of the model's leaves (a
+    pipeline stage), `save` collects the whole model's leaves and their
+    moments in its order and `restore` keeps the rank's own
+    (`parallel/sharding.py`).
   * `filter_tree`, `save_vlm_deltas`, `load_vlm_deltas`: the projector,
     LoRA and embedding leaves only (`LaMedTrainer._save`,
     lamed_trainer.py:20-24), selected by a regex over the state dict's
@@ -110,16 +113,25 @@ class CheckpointManager:
         unless `force`, which replaces it."""
         self.wait()
         final = os.path.join(self.directory, str(step))
-        if os.path.exists(final) and not force:
+        exists = os.path.exists(final)
+        # every rank has looked before rank 0 writes the step: a rank that
+        # looked after would find it and raise where the others do not
+        barrier()
+        if exists and not force:
             raise FileExistsError(f"step {step} exists in {self.directory}")
         mu, nu = _full_moments(state)
+        leaves = {k: (_full_leaf(state, k, v), m, n)
+                  for (k, v), m, n in zip(state.params.items(), mu, nu)}
+        if state.model is not None:
+            from hsenet_torch.parallel.sharding import gather_model_leaves
+
+            leaves = gather_model_leaves(state.model, leaves)
         payload = {
             "step": int(state.step),
-            "params": {k: _host(_full_leaf(state, k, v))
-                       for k, v in state.params.items()},
+            "params": {k: _host(v[0]) for k, v in leaves.items()},
             "opt_state": {"count": int(state.opt_state.count),
-                          "mu": [_host(t) for t in mu],
-                          "nu": [_host(t) for t in nu]},
+                          "mu": [_host(v[1]) for v in leaves.values()],
+                          "nu": [_host(v[2]) for v in leaves.values()]},
         }
         if not is_main_process():
             if not self.async_save:
@@ -174,20 +186,26 @@ class CheckpointManager:
         path = os.path.join(self.directory, str(step), _STATE_FILE)
         payload = torch.load(path, map_location="cpu", weights_only=True)
         params = state_template.params
-        _check_keys(payload["params"], params, path)
         opt = state_template.opt_state
         saved = payload["opt_state"]
-        if len(saved["mu"]) != len(opt.mu) or len(saved["nu"]) != len(opt.nu):
-            raise ValueError(f"{path}: {len(saved['mu'])} optimizer moments, "
-                             f"template {len(opt.mu)}")
+        full = list(payload["params"])  # the whole model's, in its order
+        if len(saved["mu"]) != len(full) or len(saved["nu"]) != len(full):
+            raise ValueError(f"{path}: {len(saved['mu'])} optimizer moments "
+                             f"for {len(full)} leaves")
+        leaves = {k: (payload["params"][k], m, n)
+                  for k, m, n in zip(full, saved["mu"], saved["nu"])}
+        if state_template.model is not None:
+            from hsenet_torch.parallel.sharding import keep_rank_leaves
+
+            leaves = keep_rank_leaves(state_template.model, leaves)
+        _check_keys(leaves, params, path)
         names = list(params)
-        pairs = [(f"params.{k}", _local_leaf(state_template, k,
-                                             payload["params"][k]), params[k])
-                 for k in names]
+        pairs = [(f"params.{k}", _local_leaf(state_template, k, leaves[k][0]),
+                  params[k]) for k in names]
         pairs += [(f"opt_state.{m}.{i}",
-                   _local_leaf(state_template, names[i], s, i), t)
-                  for m in ("mu", "nu")
-                  for i, (s, t) in enumerate(zip(saved[m], getattr(opt, m)))]
+                   _local_leaf(state_template, k, leaves[k][j], i), t)
+                  for j, m in ((1, "mu"), (2, "nu"))
+                  for i, (k, t) in enumerate(zip(names, getattr(opt, m)))]
         with torch.no_grad():
             for name, src, dst in pairs:
                 if src.dtype != dst.dtype:
@@ -283,6 +301,11 @@ def filter_tree(state: Mapping[str, torch.Tensor], pattern: str
 # (seg_projector + the grafted SegVol); "\.embed\." is the JAX package's
 # "/embed/" over dotted names: the LLM's token table, not `patch_embed`
 _VLM_DELTA_RX = r"(mm_projector|lora_[ab]|\.embed\.|seg_projector|seg_module)"
+
+
+def is_vlm_delta(name: str) -> bool:
+    """Whether the leaf `name` is in the VLM finetune's trainable set."""
+    return re.search(_VLM_DELTA_RX, "." + name) is not None
 
 
 def save_vlm_deltas(path: str, state: Mapping[str, torch.Tensor]) -> None:

@@ -28,7 +28,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def spawn(directory, cases, world=2, timeout=600):
     """Run `cases` on `world` gloo ranks; [results of rank r for r in
     range(world)]. A rank that fails fails the caller with its output."""
+    return launch(directory, cases, world, timeout)()
+
+
+def launch(directory, cases, world=2, timeout=600):
+    """Start `cases` on `world` gloo ranks and return at once: a function
+    that waits for them and returns `spawn`'s result (the caller works
+    meanwhile)."""
     directory = str(directory)
+    os.makedirs(directory, exist_ok=True)
     torch.save(cases, os.path.join(directory, "cases.pt"))
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
@@ -38,18 +46,29 @@ def spawn(directory, cases, world=2, timeout=600):
         [sys.executable, os.path.abspath(__file__), str(r), str(world), directory],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
         for r in range(world)]
-    outs = [p.communicate(timeout=timeout)[0].decode() for p in procs]
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{out[-6000:]}"
-    return [torch.load(os.path.join(directory, f"out{r}.pt"), weights_only=False)
-            for r in range(world)]
+
+    def collect():
+        try:
+            outs = [p.communicate(timeout=timeout)[0].decode() for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        failed = [f"rank {r} failed:\n{out[-4000:]}"
+                  for r, (p, out) in enumerate(zip(procs, outs)) if p.returncode]
+        assert not failed, "\n".join(failed)
+        return [torch.load(os.path.join(directory, f"out{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+    return collect
 
 
-def _mesh(dp, tp):
+def _mesh(dp, tp=1, pp=1, sp=1):
     from hsenet_torch.configs import MeshConfig
     from hsenet_torch.parallel.mesh import create_mesh
 
-    return create_mesh(MeshConfig(dp=dp, tp=tp), device="cpu")
+    return create_mesh(MeshConfig(dp=dp, tp=tp, pp=pp, sp=sp), device="cpu")
 
 
 def _rank():
@@ -308,6 +327,31 @@ def case_fsdp_layers(p):
     return out
 
 
+def case_fsdp_int8(p):
+    """The int8-base VLM's loss and LoRA gradients under FSDP at dp = 2
+    (`min_size=0`): the codes and scales each rank holds, the loss and the
+    full gradients (averaged over dp)."""
+    from hsenet_torch.parallel.sharding import (
+        fsdp_gathered,
+        gather_leaf,
+        shard_params_fsdp,
+    )
+    from hsenet_torch.train.train_state import reduce_gradients
+    from hsenet_torch.train.vlm import vlm_loss_fn
+
+    mesh = _mesh(2, 1)
+    model = shard_params_fsdp(copy.deepcopy(p["model"]), mesh, min_size=0)
+    batch = _tensors(p["batch"], slice(_rank(), None, 2))
+    params = {n: q for n, q in model.named_parameters() if q.requires_grad}
+    with fsdp_gathered(model):
+        loss, metrics = vlm_loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    grads = reduce_gradients(list(grads), list(params), model, mesh)
+    return {"loss": metrics["loss"].detach(),
+            "codes": {n: tuple(b.shape) for n, b in model.named_buffers()},
+            "grads": {n: gather_leaf(model, n, g) for n, g in zip(params, grads)}}
+
+
 def _save_and_restore(state, directory):
     """Save `state` through `CheckpointManager` (the gathered state, written
     by rank 0), wipe this rank's shards, restore them from the file: whether
@@ -352,6 +396,320 @@ def case_dp_generate(p):
         gen = make_data_parallel_generate(gen, mesh)
         call = {"rng": p["rng"]} if kw else {}
         out[name] = gen(*args, **call)
+    return out
+
+
+# ---- sequence and pipeline parallelism ----
+
+@contextlib.contextmanager
+def _recorded_grads():
+    """Within the block, each train step's gradients by name, as its norm
+    reads them (after the dp mean, the sp sum), land in the list."""
+    import hsenet_torch.train.vlm as tvlm
+
+    steps, real = [], tvlm.global_norm
+
+    def spy(grads, names, model):
+        steps.append({n: g.detach().clone() for n, g in zip(names, grads)})
+        return real(grads, names, model)
+
+    tvlm.global_norm = spy
+    try:
+        yield steps
+    finally:
+        tvlm.global_norm = real
+
+
+def _steps(make_step, model, train_cfg, batch, n, mask=None, mesh=None,
+           rng=None):
+    """`n` steps of `make_step(tx)` from a fresh state: (metrics by step,
+    each step's gradients, the trained leaves gathered over the stages)."""
+    from hsenet_torch.parallel.pipeline import gather_stages
+    from hsenet_torch.train.train_state import TrainState, make_optimizer
+
+    tx = make_optimizer(train_cfg, trainable_mask=mask)
+    state = TrainState.create(model, tx, mesh=mesh)
+    step, rows = make_step(tx), []
+    with _recorded_grads() as grads:
+        for _ in range(n):
+            state, m = step(state, batch) if rng is None else step(state, batch, rng)
+            rows.append({k: float(v) for k, v in m.items()})
+    params = gather_stages(model, {k: v.detach().clone()
+                                   for k, v in state.params.items()})
+    return {"metrics": rows, "grads": [gather_stages(model, g) for g in grads],
+            "params": params}
+
+
+def _dp_rows(batch, mesh):
+    """This dp rank's contiguous rows of the global batch."""
+    from hsenet_torch.parallel.mesh import axis_rank, axis_size
+
+    n = len(next(iter(batch.values()))) // axis_size(mesh, "dp")
+    r = axis_rank(mesh, "dp")
+    return _tensors(batch, slice(r * n, (r + 1) * n))
+
+
+def case_ring(p):
+    """Ring attention at sp = 4: each sub-case's output chunk and, where
+    it has a cotangent `w`, the gradients of sum(out * w) by q, k, v (this
+    rank's chunks)."""
+    from hsenet_torch.ops.ring_attention import ring_attention
+
+    mesh = _mesh(1, sp=4)
+    group = mesh.get_group("sp")
+    r = _rank()
+    out = {}
+    for name, c in p.items():
+        full = [torch.as_tensor(c[k]) for k in ("q", "k", "v")]
+        n = full[0].shape[2] // 4
+        loc = [t[:, :, r * n:(r + 1) * n].clone().requires_grad_() for t in full]
+        kw = {k: (torch.as_tensor(v) if k == "kv_lens" else v)
+              for k, v in c.get("kwargs", {}).items()}
+        y = ring_attention(*loc, group=group, **kw)
+        res = {"out": y.detach()}
+        if "w" in c:
+            w = torch.as_tensor(c["w"])[:, :, r * n:(r + 1) * n]
+            res["grads"] = torch.autograd.grad((y * w).sum(), loc)
+        out[name] = res
+    return out
+
+
+def case_sp_encode(p):
+    """The ViT3D over the ring at (dp 2, sp 2), plain and slice-guided:
+    the tokens of this dp rank's rows."""
+    from hsenet_torch.parallel.sp import make_sp_encode_fn
+
+    mesh = _mesh(2, sp=2)
+    out = {}
+    for name, c in p.items():
+        encode = make_sp_encode_fn(c["model"], mesh)
+        rows = _dp_rows(c["inputs"], mesh)
+        with torch.no_grad():
+            out[name] = encode(rows["volume"], rows.get("slices"))
+    return out
+
+
+def case_sp_steps(p):
+    """The sp train steps at (dp 2, sp 2) and the port's plain steps on the
+    global batch: stage 1, stage 2 (teacher recomputed and cached, and the
+    cache's fill over the ring), the causal LM and the VLM."""
+    from hsenet_torch.parallel import sp as tsp
+    from hsenet_torch.parallel.sharding import shard_params
+    from hsenet_torch.train import stage1 as tstage1
+    from hsenet_torch.train import stage2 as tstage2
+    from hsenet_torch.train.vlm import (
+        make_masked_train_step,
+        make_vlm_train_step,
+        to_training_dtypes,
+        vlm_trainable_mask,
+    )
+
+    mesh = _mesh(2, sp=2)
+    cfg = p["train_cfg"]
+    out = {}
+
+    def placed(model):
+        model = copy.deepcopy(model)
+        to_training_dtypes(model, {n: True for n, _ in model.named_parameters()})
+        return shard_params(model, mesh)
+
+    clip = p["clip"]
+    rows = _dp_rows(clip["batch"], mesh)
+    whole = _tensors(clip["batch"])
+    m = placed(clip["stage1"])
+    out["stage1"] = _steps(lambda tx: tsp.make_sp_stage1_train_step(m, tx, mesh),
+                           m, cfg, rows, 2, mesh=mesh, rng=7)
+    plain = copy.deepcopy(clip["stage1"])
+    to_training_dtypes(plain, {n: True for n, _ in plain.named_parameters()})
+    out["stage1_plain"] = _steps(lambda tx: tstage1.make_stage1_train_step(plain, tx),
+                                 plain, cfg, whole, 2, rng=7)
+    teacher = clip["stage1"]
+    fill = tsp.make_sp_teacher_embed_fn(teacher, mesh)
+    host = {k: np.asarray(v)[_dp_slice(clip["batch"], mesh)]
+            for k, v in clip["batch"].items()}
+    out["fill"] = {k: v.detach() for k, v in fill(host).items()}
+    cached = _tensors(tstage2.TeacherCache(fill).attach(host))
+    for mode, batch in (("recomputed", rows), ("cached", cached)):
+        m = placed(clip["stage2"])
+        out[f"stage2_{mode}"] = _steps(
+            lambda tx: tsp.make_sp_stage2_train_step(
+                m, teacher, clip["cfg2"], tx, mesh, mode == "cached"),
+            m, cfg, batch, 2, mesh=mesh, rng=7)
+    plain = copy.deepcopy(clip["stage2"])
+    to_training_dtypes(plain, {n: True for n, _ in plain.named_parameters()})
+    out["stage2_plain"] = _steps(
+        lambda tx: tstage2.make_stage2_train_step(plain, teacher, clip["cfg2"], tx),
+        plain, cfg, whole, 2, rng=7)
+
+    lm = p["lm"]
+    rows, whole = _dp_rows(lm["batch"], mesh), _tensors(lm["batch"])
+    m = placed(lm["model"])
+    out["lm"] = _steps(lambda tx: tsp.make_sp_causal_lm_train_step(m, tx, mesh),
+                       m, cfg, rows, 2, mesh=mesh)
+    m = placed(lm["model"])
+    out["lm_block"] = _steps(
+        lambda tx: tsp.make_sp_causal_lm_train_step(m, tx, mesh, block_q=2),
+        m, cfg, rows, 1, mesh=mesh)
+    plain = placed_plain = copy.deepcopy(lm["model"])
+    to_training_dtypes(plain, {n: True for n, _ in plain.named_parameters()})
+
+    def lm_loss(batch, generator=None):
+        from hsenet_torch.train.losses import masked_lm_loss
+
+        lens = batch["attention_mask"].sum(-1).to(torch.int32)
+        logits, _ = placed_plain(batch["input_ids"], kv_lens=lens)
+        loss, acc = masked_lm_loss(logits, batch["labels"])
+        return loss, {"loss": loss, "token_acc": acc}
+
+    out["lm_plain"] = _steps(lambda tx: make_masked_train_step(lm_loss, tx),
+                             plain, cfg, whole, 2)
+
+    vlm = p["vlm"]
+    rows, whole = _dp_rows(vlm["batch"], mesh), _tensors(vlm["batch"])
+    for name, model, batch, make in (
+            ("vlm", vlm["model"], rows,
+             lambda mm: (lambda tx: tsp.make_sp_vlm_train_step(mm, tx, mesh))),
+            ("vlm_plain", vlm["model"], whole,
+             lambda mm: (lambda tx: make_vlm_train_step(mm, tx)))):
+        mm = copy.deepcopy(model)
+        mask = vlm_trainable_mask(mm)
+        to_training_dtypes(mm, mask)
+        if name == "vlm":
+            shard_params(mm, mesh)
+        out[name] = _steps(make(mm), mm, cfg, batch, 2, mask=mask,
+                           mesh=mesh if name == "vlm" else None)
+    return out
+
+
+def _dp_slice(batch, mesh):
+    from hsenet_torch.parallel.mesh import axis_rank, axis_size
+
+    n = len(next(iter(batch.values()))) // axis_size(mesh, "dp")
+    r = axis_rank(mesh, "dp")
+    return slice(r * n, (r + 1) * n)
+
+
+def case_pp(p):
+    """The pipeline at (dp 1, pp 4) and (dp 2, pp 2): the causal LM's
+    logits; its masked-LM loss and gradients (every stage's leaves
+    gathered); its train step and the VLM's, each against the port's plain
+    step; which leaves each stage holds; the divisibility error."""
+    from hsenet_torch.parallel import pipeline as tpp
+    from hsenet_torch.parallel.sharding import shard_params
+    from hsenet_torch.train.losses import masked_lm_loss
+    from hsenet_torch.train.train_state import reduce_gradients
+    from hsenet_torch.train.vlm import (
+        lm_loss_terms,
+        make_masked_train_step,
+        make_vlm_train_step,
+        to_training_dtypes,
+        vlm_trainable_mask,
+    )
+
+    out = {}
+    lm = p["lm"]
+    ids, kv = torch.as_tensor(lm["ids"]), torch.as_tensor(lm["kv_lens"])
+
+    def staged(model, mesh, mask=None):
+        model = copy.deepcopy(model)
+        to_training_dtypes(model, mask or {n: True for n, _ in model.named_parameters()})
+        shard_params(model, mesh)
+        return tpp.shard_params_pp(model, mesh)
+
+    mesh4 = _mesh(1, pp=4)
+    m = staged(lm["model"], mesh4)
+    fwd = tpp.make_pp_causal_lm_forward(m, mesh4, n_micro=2)
+    with torch.no_grad():
+        out["logits"] = fwd(ids, kv)
+    out["held"] = sorted(n for n, _ in m.named_parameters() if ".layers." in n)
+    out["specs"] = tpp.make_pp_specs(m)
+
+    mesh = _mesh(2, pp=2)
+    m = staged(lm["model"], mesh)
+    fwd = tpp.make_pp_causal_lm_forward(m, mesh, n_micro=2)
+    rows = _dp_rows({"ids": lm["ids"][:4], "kv_lens": lm["kv_lens"][:4],
+                     "labels": lm["labels"][:4]}, mesh)
+    # the loss of the global batch, the gradients averaged over dp
+    loss, metrics = lm_loss_terms(m, fwd(rows["ids"], rows["kv_lens"]),
+                                  rows["labels"])
+    names = [n for n, q in m.named_parameters()]
+    grads = torch.autograd.grad(loss, [q for _, q in m.named_parameters()])
+    grads = reduce_gradients(list(grads), names, m, mesh)
+    out["loss"] = metrics["loss"]
+    out["grads"] = tpp.gather_stages(m, dict(zip(names, grads)))
+
+    cfg = p["train_cfg"]
+    batch = lm["batch"]
+    m = staged(lm["model"], mesh)
+    out["lm"] = _steps(
+        lambda tx: tpp.make_pp_causal_lm_train_step(m, tx, mesh, n_micro=2),
+        m, cfg, _dp_rows(batch, mesh), 2, mesh=mesh)
+    plain = copy.deepcopy(lm["model"])
+    to_training_dtypes(plain, {n: True for n, _ in plain.named_parameters()})
+
+    def lm_loss(b, generator=None):
+        lens = b["attention_mask"].sum(-1).to(torch.int32)
+        logits, _ = plain(b["input_ids"], kv_lens=lens)
+        loss, acc = masked_lm_loss(logits, b["labels"])
+        return loss, {"loss": loss, "token_acc": acc}
+
+    out["lm_plain"] = _steps(lambda tx: make_masked_train_step(lm_loss, tx),
+                             plain, cfg, _tensors(batch), 2)
+
+    vlm = p["vlm"]
+    mask = vlm_trainable_mask(vlm["model"])
+    m = staged(vlm["model"], mesh, mask)
+    out["vlm"] = _steps(
+        lambda tx: tpp.make_pp_vlm_train_step(m, tx, mesh, n_micro=2),
+        m, cfg, _dp_rows(vlm["batch"], mesh), 2, mask=mask, mesh=mesh)
+    out["vlm_towers_whole"] = sorted(
+        n for n, _ in m.named_parameters() if n.startswith("vision_tower.")) == \
+        sorted(n for n, _ in vlm["model"].named_parameters()
+               if n.startswith("vision_tower."))
+    plain = copy.deepcopy(vlm["model"])
+    to_training_dtypes(plain, mask)
+    out["vlm_plain"] = _steps(lambda tx: make_vlm_train_step(plain, tx), plain,
+                              cfg, _tensors(vlm["batch"]), 2, mask=mask)
+
+    try:
+        tpp.shard_params_pp(copy.deepcopy(p["odd"]), mesh4)
+        out["odd"] = None
+    except ValueError as e:
+        out["odd"] = str(e)
+    return out
+
+
+def case_clip_clis(p):
+    """`case_resume_cli` of each item of `p`."""
+    return [case_resume_cli(item) for item in p]
+
+
+def case_resume_cli(p):
+    """Training CLI runs in order, each through `main` with its argv and a
+    fresh copy of the model: every run's logged history, final step and
+    the keys of the vlm_deltas file it wrote."""
+    import importlib
+
+    cli = importlib.import_module(p["cli"])
+    if hasattr(cli, "build_vlm_config"):
+        cli.build_vlm_config = _without_vlm_dropout(cli.build_vlm_config)
+    if p.get("no_slice_dropout"):
+        import functools
+
+        import hsenet_torch.cli.train_clip_stage1 as tcli1
+
+        tcli1.ViT3DConfig = functools.partial(tcli1.ViT3DConfig,
+                                              slice_dropout_rate=0.0)
+    out = []
+    for argv in p["runs"]:
+        with _recorded_fit() as runs, \
+                contextlib.redirect_stdout(open(os.devnull, "w")):
+            state = cli.main(argv, device="cpu", model=copy.deepcopy(p["model"]))
+        torch.distributed.barrier()  # rank 0 has written the run's files
+        deltas = os.path.join(argv[argv.index("--output-dir") + 1], "vlm_deltas")
+        out.append({"history": runs[0], "step": state.step,
+                    "deltas": sorted(torch.load(deltas, weights_only=True))
+                    if os.path.exists(deltas) else None})
     return out
 
 

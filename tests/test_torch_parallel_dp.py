@@ -27,8 +27,11 @@ test reads its case.
     parameters and moments.
   * `make_data_parallel_generate` over a ragged batch of 3: the greedy ids
     equal the JAX wrapper's, and sampled ids equal one process's.
+  * FSDP over the int8-base VLM: the codes and scales split over dp, and
+    the loss and LoRA gradients equal one process's.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -52,7 +55,9 @@ from hsenet_tpu.train.vlm import make_vlm_train_step as jax_vlm_step
 from hsenet_tpu.train.vlm import vlm_trainable_mask as jax_mask
 from hsenet_torch.bridge import flax_to_torch
 from hsenet_torch.eval.generate import make_greedy_generate
+from hsenet_torch.models.lora import quantize_kernels_int8
 from hsenet_torch.models.mllm import HSENetVLM
+from hsenet_torch.train.vlm import to_training_dtypes, vlm_loss_fn, vlm_trainable_mask
 from test_torch_clip import CLIP1, CLIP2, TRAIN_CFG, _batch, _jax_args, _port
 from test_torch_common import TINY_VLM, fill_zero_inits, to_torch_config
 
@@ -112,6 +117,7 @@ def world(tmp_path_factory):
         ("fsdp_layers", dict(model=_vlm_port(vparams), batch=vbatch)),
         ("dp_generate", dict(model=_vlm_port(vparams), gen_kwargs=GEN_KW,
                              sample=SAMPLE, rng=11, **gen_in)),
+        ("fsdp_int8", dict(model=_int8_port(vparams), batch=vbatch)),
     ]
     ranks = spawn(root, cases)
 
@@ -157,7 +163,49 @@ def world(tmp_path_factory):
     one = make_greedy_generate(_vlm_port(vparams), **GEN_KW, **SAMPLE)
     ref["sampled_one_process"] = one(*[torch.as_tensor(gen_in[k]) for k in (
         "ids", "kv_lens", "image", "image_2d")], rng=11)
+    model = _int8_port(vparams)
+    loss, metrics = vlm_loss_fn(model, {k: torch.as_tensor(v) for k, v in vbatch.items()})
+    params = {n: q for n, q in model.named_parameters() if q.requires_grad}
+    grads = torch.autograd.grad(loss, list(params.values()))
+    ref["int8"] = dict(loss=float(metrics["loss"]), grads=dict(zip(params, grads)),
+                       codes={n: tuple(b.shape) for n, b in model.named_buffers()})
     return dict(ranks=ranks, jax=ref, root=root)
+
+
+def _int8_port(params):
+    """The port's tiny VLM with the LLM's projections int8 (`--int8-base`)
+    and the trainable leaves as f32 masters, frozen base."""
+    model = _vlm_port(params)
+    state = model.state_dict()
+    llm = {k: v for k, v in state.items() if k.startswith("llm.")}
+    state = {**{k: v for k, v in state.items() if k not in llm},
+             **quantize_kernels_int8(llm)}
+    cfg = to_torch_config(TINY_VLM)
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, quant_int8=True))
+    model = HSENetVLM(cfg, dtype=torch.float32, device="cpu")
+    model.load_state_dict(state, strict=True)
+    mask = vlm_trainable_mask(model)
+    return to_training_dtypes(model, mask)
+
+
+def test_fsdp_splits_and_gathers_the_int8_codes(world):
+    """Under FSDP the int8 codes and their scales are split over dp like the
+    float leaves (each rank holds half of every code matrix) and gathered
+    without a gradient: the loss and the LoRA gradients are one process's
+    (the JAX package splits these leaves too, test_torch_parallel_specs.py)."""
+    want = world["jax"]["int8"]
+    for r in world["ranks"]:
+        got = r["fsdp_int8"]
+        assert set(got["codes"]) == set(want["codes"])
+        halved = [n for n, shape in got["codes"].items()
+                  if shape != want["codes"][n]]
+        assert halved and all(n.endswith(("weight_q", "weight_scale"))
+                              for n in halved)
+        assert all(n in halved for n in want["codes"] if n.endswith("weight_q"))
+        np.testing.assert_allclose(float(got["loss"]), want["loss"], rtol=1e-5)
+        for n, g in got["grads"].items():
+            np.testing.assert_allclose(g.numpy(), want["grads"][n].numpy(),
+                                       atol=1e-5, rtol=1e-4, err_msg=n)
 
 
 def _assert_grads(got, want):

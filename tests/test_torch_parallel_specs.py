@@ -200,11 +200,9 @@ def _fsdp_compare(shapes, model, dp, tp, min_size, stacked_floor=False):
     want_tp = mapped_dims(shapes, jspecs, "tp", shrink)
     specs = tsh.make_fsdp_specs(model, port_mesh(dp, tp), min_size=min_size)
     got_dp, got_tp = port_dims(specs, "dp"), port_dims(specs, "tp")
-    sizes = {n: p.numel() for n, p in model.named_parameters()}
+    sizes = {n: t.numel() for n, t in model.state_dict(keep_vars=True).items()}
     floor_only = []
     for name, dim in want_dp.items():
-        if name not in sizes:  # buffers (int8 codes) stay whole in the port
-            continue
         if not _column_bias(name):
             assert got_tp[name] == want_tp[name], name
         if stacked_floor and sizes[name] < min_size and dim is not None:
@@ -235,6 +233,32 @@ def test_fsdp_specs_match_jax_at_production_shapes(production):
     # only per-layer leaves of stacked blocks fall under the floor here
     assert floor_only and all(".layers." in n or ".blocks." in n
                               for n in floor_only)
+
+
+def test_fsdp_specs_of_int8_leaves_match_jax(production):
+    """The int8 codes and their scales (buffers in the port, params in the
+    JAX package) take the JAX package's FSDP specs: at toy size every leaf
+    (`min_size=0`), at `VLMConfig()` shapes those above the floor."""
+    jm = JaxVLM(TINY_VLM, dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, jm.init(
+        jax.random.PRNGKey(0), jnp.ones((1, 12), jnp.int32),
+        jnp.ones((1, 1, 4, 16, 16)), jnp.ones((1, 2, 16))))["params"]
+    params["llm"] = quantize_embed_int8(quantize_kernels_int8(params["llm"]))
+    qcfg = dataclasses.replace(TINY_VLM, llm=dataclasses.replace(
+        TINY_VLM.llm, quant_int8=True, quant_int8_embed=True))
+    model = HSENetVLM(to_torch_config(qcfg), dtype=torch.float32, device="meta")
+    assert _fsdp_compare(params, model, dp=2, tp=2, min_size=0) == []
+    specs = tsh.make_fsdp_specs(model, port_mesh(2, 2), min_size=0)
+    assert specs["llm.decoder.layers.0.q_proj.weight_q"] == ("tp", "dp")
+    assert specs["llm.decoder.layers.0.o_proj.weight_scale"] == ("dp",)
+    assert specs["llm.embed.embedding_q"] == ("tp", "dp")
+    shapes, model = production["int8"]
+    floor_only = _fsdp_compare(shapes, model, dp=8, tp=1,
+                               min_size=tsh.FSDP_MIN_SIZE, stacked_floor=True)
+    assert all(".layers." in n or ".blocks." in n for n in floor_only)
+    specs = tsh.make_fsdp_specs(model, port_mesh(8, 1))
+    assert "dp" in specs["llm.decoder.layers.0.down_proj.weight_q"]
+    assert "dp" in specs["llm.embed.embedding_q"]
 
 
 def test_zero1_spec_for_matches_jax():
@@ -324,9 +348,16 @@ def test_mesh_sizes_without_a_group():
         with pytest.raises(ValueError) as port_err:
             tmesh.create_mesh(jcfg_to_port(dp=dp, tp=tp))
         assert str(port_err.value) == str(jax_err.value)
-    for kw in ({"pp": 2}, {"sp": 2}):
-        with pytest.raises(NotImplementedError, match="§A11"):
+    # the (dp, pp) and (dp, sp) meshes: their sizes, and pp / sp composed
+    # with tp or with each other, raise the JAX asserts' messages
+    for kw in ({"dp": 1, "pp": 2}, {"dp": 1, "sp": 2}, {"dp": 2, "pp": 2},
+               {"dp": 1, "pp": 2, "tp": 2}, {"dp": 1, "sp": 2, "tp": 2},
+               {"dp": 1, "pp": 2, "sp": 2}):
+        with pytest.raises(AssertionError) as jax_err:
+            jmesh.create_mesh(jcfg.MeshConfig(**kw), devices=one)
+        with pytest.raises(ValueError) as port_err:
             tmesh.create_mesh(jcfg_to_port(**kw))
+        assert str(port_err.value) == str(jax_err.value)
 
 
 def _jax_dp_rest(tp, devices):

@@ -294,13 +294,14 @@ def test_resume_auto_is_bit_equal_to_an_unbroken_run(tmp_path):
 @pytest.mark.parametrize(
     "cli,flags,error,match",
     # --zero1 runs (one process: no dp axis to split the moments over, so
-    # the run is the plain one); --dp / --tp above 1 in a one-process world
-    # raise the JAX create_mesh's mesh-size error; --sp waits for §A11
-    [(tcli1, ["--sp", "2"], NotImplementedError, "§A11"),
+    # the run is the plain one); --dp / --tp / --sp above 1 in a
+    # one-process world raise the JAX create_mesh's mesh-size error (the
+    # (dp, sp) mesh: --sp runs over four ranks in test_torch_sp.py)
+    [(tcli1, ["--sp", "2"], ValueError, "mesh 1x2 needs more than 1 devices"),
      (tcli1, ["--zero1"], None, None),
      (tcli1, ["--dp", "2"], ValueError, "mesh 2x1 needs more than 1 devices"),
      (tcli1, ["--tp", "2"], ValueError, "mesh 1x2 needs more than 1 devices"),
-     (tcli2, ["--sp", "2"], NotImplementedError, "§A11"),
+     (tcli2, ["--sp", "2"], ValueError, "mesh 1x2 needs more than 1 devices"),
      (tcli2, ["--zero1"], None, None)],
     ids=["stage1-sp", "stage1-zero1", "stage1-dp", "stage1-tp", "stage2-sp",
          "stage2-zero1"],

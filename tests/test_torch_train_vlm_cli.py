@@ -17,6 +17,7 @@ LoRA dropout 0.05) must be bit-equal to an unbroken run.
 import argparse
 import contextlib
 import dataclasses
+import io
 import os
 
 import jax
@@ -128,6 +129,21 @@ def test_losses_equal_jax(mrg, tmp_path, flags):
     assert_losses_equal(got, want)
 
 
+def test_int8_base_keeps_the_given_models_config(tmp_path):
+    """--int8-base rebuilds a model passed to `main` from that model's own
+    config (here its LLM cut to one layer), not from the flags'."""
+    cfg = without_dropout(build_vlm_config)(argparse.Namespace(synthetic=True))
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=1))
+    model = HSENetVLM(cfg, dtype=torch.float32, device="cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = tvlm.main(BASE + ["--total-steps", "1", "--int8-base",
+                                  "--output-dir", str(tmp_path)],
+                          device="cpu", model=model)
+    llm = state.model.config.llm
+    assert llm.num_layers == len(state.model.llm.decoder.layers) == 1
+    assert llm.quant_int8 and state.model.config.vision == cfg.vision
+
+
 def test_int8_base_codes_and_trainable_leaves(mrg, tmp_path):
     """The JAX CLI's codes (its `quantize_kernels_int8` of the same float
     init), unchanged by training; only the trainable leaves move; the losses
@@ -197,11 +213,13 @@ def test_resume_auto_is_bit_equal_to_an_unbroken_run(tmp_path):
     # --task seg is ported, with and without --online-slice-features: it
     # trains (test_torch_seg_vlm.py holds its losses to the JAX CLI's).
     # --fsdp and --zero1 run: in one process there is no dp axis to split
-    # over, so each equals the plain run; --tp 2 in a one-process world
-    # raises the JAX create_mesh's mesh-size error; --pp and --sp wait for
-    # ROADMAP §A11
+    # over, so each equals the plain run; --tp 2, --pp 2 and --sp 2 in a
+    # one-process world raise the JAX create_mesh's mesh-size error (the
+    # pipeline and the ring run over four ranks in test_torch_pipeline_pp.py
+    # and test_torch_sp.py)
     [(["--task", "seg"], None), (["--online-slice-features", "--task", "seg"], None),
-     (["--pp", "2"], "§A11"), (["--sp", "2"], "§A11"), (["--fsdp"], "plain"),
+     (["--pp", "2"], "mesh 1x2 needs more than 1 devices"),
+     (["--sp", "2"], "mesh 1x2 needs more than 1 devices"), (["--fsdp"], "plain"),
      (["--zero1"], "plain"), (["--tp", "2"], "mesh 1x2 needs more than 1 devices")],
     ids=["seg", "online-slices", "pp", "sp", "fsdp", "zero1", "tp"],
 )
