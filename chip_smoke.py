@@ -246,6 +246,30 @@ In order:
    96), prefill logits within 5e-2 of the plain sdpa path, med2e3 served
    through the engine without caches; QFormer's B1 shapes checked and
    timed;
+11g. [export] the exports and tools, on the models of [main] and [serve]
+   (no new model is built for it): `export_encode` of [main]'s bf16
+   `HSENetVLM(VLMConfig())` at batch 2 right after [main] (the towers' and
+   packers' weights passed as the params dict), and, after [serve-sample]
+   and before [spec], `export_greedy_decode` of [serve]'s int8 Phi-4-mini at
+   [main]'s prompts (2 x 320, kv (300, 320)) and 16 new tokens; each
+   artifact is saved and then loaded and called in a child process that
+   imports torch, the kernels' operators and the loader only and fails if
+   `hsenet_torch.models` (or JAX) was imported. It checks the op nodes in
+   both graphs (24 `hsenet_torch.flash_fwd` in the encode, 32 in the
+   prefill, 224 `hsenet_torch.quant_matvec` in the decode step), no weight
+   inside any program, the child's launches equal to the live calls' (B1
+   24 and 32, B5 224 a decode step), the features within B1's row
+   tolerance of the live encode's and the tokens equal to the live
+   generate's or parting at a near-tie; prints export, load and call times
+   against eager, the artifacts' bytes, the encode's MFU
+   (`utils.profiling`), and a B5 call's host time through the registered
+   op against a direct call. Then `export_hf_phi3` at Phi-4-mini's width
+   cut to 2 layers: [serve]'s int8 state dequantised and a LoRA model on
+   those weights merged, each through `convert_hf_phi3` into an f32 model
+   whose prefill logits must be the source's (beside a wrong variant that
+   must miss), the card's export equal to the CPU's within 1e-6 a tensor;
+   [kernel-export] times B1 at the exported prefill's shape (a cache of 336
+   slots) and B5 at its decode steps' 2 rows;
 12. [kernel] / [kernel-bwd] / [kernel-time] (flash_fwd and flash_bwd, the
    latter beside the old dQ + dK/dV pair) at the CLIP paths' shapes: the
    tower at batch 24 (24 x 12 x 2049, d 64) and BERT (24 x 12 x 128, valid
@@ -336,7 +360,7 @@ In order:
 16g. the parallel slice at VLMConfig() (all 32 LLM layers): [dist-world1]
    the training CLIs with --zero1 / --fsdp and evaluate --dp 1 --tp 1 in a
    one-rank NCCL group against plain runs; [dist-tp2] serve --tp 2 and
-   [dist-dp2] (a CLIP step, train_vlm --dp 2 with --zero1 and --fsdp at 8
+   [dist-dp2] (a CLIP step, train_vlm --dp 2 with --zero1 and --fsdp at 4
    LLM layers, evaluate --dp 2) as two ranks on the one card over gloo (`chip_smoke.py
    --dist-rank`), each against one process beside a wrong variant that
    must miss (the row-parallel all-reduce left out, the feature gather
@@ -1263,7 +1287,7 @@ def time_matvec_cold(tag, name, k, n, gen, library, rows=(8, 1)):
     entries in turns (new/old/old/new), the bound, the plain version, a
     bf16 matmul on a converted copy and, where `library`,
     `torch._weight_int8pack_mm`. Returns (results, yardstick) by key:
-    `name` at M = 8, `name_m1` at M = 1."""
+    `name` at M = 8, `name_m<M>` at another M."""
     import torch
 
     from hsenet_torch.ops import quant_matvec as tqm
@@ -1302,7 +1326,7 @@ def time_matvec_cold(tag, name, k, n, gen, library, rows=(8, 1)):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "mbytes": nbytes / 1e6, "gflop": 2 * m * k * n / 1e9, "rows": m,
         }
-        key = name if m == 8 else f"{name}_m1"
+        key = name if m == 8 else f"{name}_m{m}"
         r = results[key] = {"max_abs_err": new_err, "ms": (turns[0] + turns[3]) / 2,
                             "old_ms": (turns[1] + turns[2]) / 2, **shared}
         yardstick[key] = {"max_abs_err": old_err, "ms": r["old_ms"], **shared}
@@ -2411,8 +2435,8 @@ def check_f32_kernels(path_shapes):
 
 def run_main_path(card: str):
     """The full-width main path. Returns the flash launches of one
-    generate run, in all and at each path shape, and the main path's
-    numbers."""
+    generate run, in all and at each path shape, the main path's numbers
+    and the model ([export] exports its encode)."""
     import torch
 
     from hsenet_torch.configs import VLMConfig
@@ -2572,7 +2596,7 @@ def run_main_path(card: str):
           f"generate end to end {generate_ms:.1f} ms, peak memory "
           f"{peak_gb:.2f} GB")
     print(f"[main] first tokens: {tokens[:, :8].tolist()}")
-    return launches, by_shape, numbers
+    return launches, by_shape, numbers, model
 
 
 def training_batch(cfg):
@@ -7695,7 +7719,7 @@ DIST_MOVE_TOL = 0.25
 # [dist-dp2]'s VLM runs cut the LLM to this depth: under FSDP two ranks on
 # one card gather every layer through the host (gloo), ~0.5 s a layer a
 # step; the other phases keep all 32 layers
-DP2_LLM_LAYERS = 8
+DP2_LLM_LAYERS = 4
 DIST_TIMEOUT = 600  # seconds a world of two ranks may take
 DIST_SERVE_REQUESTS = 4
 DIST_SERVE_NEW = 24
@@ -9189,6 +9213,467 @@ def dist_child(argv) -> int:
     return 0
 
 
+# the seventeenth slice: exports and tools. The exported encode and greedy
+# decode run in a child process that imports torch, the kernels' operators
+# and the loader only (never hsenet_torch.models): the serving side of an
+# artifact
+EXPORT_BATCH = 2  # the exported encode's batch, [main]'s volumes
+EXPORT_NEW_TOKENS = 16  # the exported greedy decode's budget
+EXPORT_DECODE_RUNS = 2  # timed calls of the eager and the exported decode
+EXPORT_TIMEOUT = 600  # seconds the child may take
+EXPORT_CONST_MAX = 256  # elements of a constant in a program (the smallest
+# weight the programs read, a norm's or a bias's, has 768)
+HF_LAYERS = 2  # the HF exports' decoder depth (full width)
+HF_ROWS, HF_TOKENS = 2, 64  # the HF round trips' prefill
+HF_LORA_B_STD = 0.0625  # the adapters' B, so that the delta moves the logits
+HF_EXACT_REL = 1e-6  # the card's export against the CPU's, each tensor
+MATVEC_DISPATCH_CALLS = 2000  # host time a call, direct and through the op
+EXPORT_CHILD = r'''
+import os, statistics, sys, time
+import torch
+from hsenet_torch.ops import flash_attention as tfa
+from hsenet_torch.ops import quant_matvec as tqm
+from hsenet_torch.utils import export as tex
+
+work = sys.argv[1]
+runs = {"encode": int(sys.argv[2]), "decode": int(sys.argv[3])}
+out, calls = {}, {}
+for name in ("encode", "decode"):
+    t = time.perf_counter()
+    fn = tex.load_exported_file(f"{work}/{name}.pt2")
+    load_s = time.perf_counter() - t
+    args = torch.load(f"{work}/{name}_inputs.pt", map_location="cuda",
+                      weights_only=True)
+    torch.cuda.synchronize()
+    tfa.reset_launch_counts()
+    tqm.reset_launch_counts()
+    result = fn(*args)  # counted
+    torch.cuda.synchronize()
+    counts = {**tfa.launches, **tqm.launches, **tqm.fma_launches}
+    out[name] = {"result": result.cpu(), "counts": counts, "load_s": load_s,
+                 "nodes": fn.op_nodes(), "lifted": fn.lifted()}
+    calls[name] = (fn, args)
+# the timed calls wait until the card is this process's alone
+deadline = time.perf_counter() + float(sys.argv[4])
+while not os.path.exists(f"{work}/go"):
+    if time.perf_counter() > deadline:
+        sys.exit("export child: no go")
+    time.sleep(0.05)
+for name, (fn, args) in calls.items():
+    walls = []
+    for _ in range(runs[name]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    out[name]["wall_ms"] = statistics.median(walls)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax",
+                "hsenet_tpu") or m.startswith("hsenet_torch.models"))
+out["modules_loaded"] = loaded
+torch.save(out, f"{work}/child.pt")
+print("export child: loaded", len(sys.modules), "modules; of the model code:",
+      loaded)
+sys.exit(1 if loaded else 0)
+'''
+
+
+def export_encode_live(card: str, model, work: str):
+    """[export], the encode half, on [main]'s bf16 `HSENetVLM(VLMConfig())`:
+    `export_encode` of its towers and packers at batch 2 (the weights given
+    as the part of the state they read), the artifact and its inputs saved
+    under `work` for the child; the live encode's features, B1 launches (24:
+    two towers of 12 blocks at 2 x 12 x 2049 x 64) and wall beside them."""
+    import torch
+
+    from hsenet_torch.utils import export as tex
+
+    cfg = model.config
+    params = {k: v for k, v in model.state_dict().items()
+              if k.startswith(("vision_tower.", "mm_projector.", "mm_projector2."))}
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    volume = torch.rand((EXPORT_BATCH, 1, *cfg.vision.image_size), generator=gen,
+                        device="cuda")
+    slices = torch.randn((EXPORT_BATCH, cfg.vision.num_slices,
+                          cfg.vision.slice_feature_dim), generator=gen,
+                         device="cuda")
+    with torch.inference_mode():
+        model.encode_images_only(volume, slices)
+        reset_counts()
+        live = model.encode_images_only(volume, slices)
+        torch.cuda.synchronize()
+        counts = export_counts()
+        eager_ms = median_wall_ms(lambda: model.encode_images_only(volume, slices))
+    t0 = time.perf_counter()
+    blob = tex.export_encode(model, params, batch=EXPORT_BATCH)
+    export_s = time.perf_counter() - t0
+    tex.save_exported(f"{work}/encode.pt2", blob)
+    torch.save((params, volume, slices), f"{work}/encode_inputs.pt")
+    n_params = sum(v.numel() for v in params.values())
+    print(f"[export] encode of HSENetVLM(VLMConfig()) at batch {EXPORT_BATCH}, "
+          f"{n_params / 1e6:.1f} M weights passed as the params dict: exported "
+          f"in {export_s:.1f} s, {len(blob) / 1e6:.2f} MB; live encode "
+          f"{eager_ms:.2f} ms, launches {counts}")
+    return {"live": live.float().cpu(), "counts": counts, "export_s": export_s,
+            "bytes": len(blob), "eager_ms": eager_ms}
+
+
+def export_counts():
+    """The kernels' launch counts since the last reset, by entry."""
+    from hsenet_torch.ops import flash_attention as tfa
+    from hsenet_torch.ops import quant_matvec as tqm
+
+    return {**tfa.launches, **tqm.launches, **tqm.fma_launches}
+
+
+def export_prompts(cfg):
+    """[main]'s prompts: B = 2 rows of BOS + 256 image placeholders + text,
+    valid lengths 300 and 320, right-padded."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(3, 100000, (len(KV_LENS), PROMPT_LEN), generator=gen,
+                        device="cuda")
+    ids[:, 0] = 1
+    ids[:, 1:1 + cfg.num_image_tokens] = IM_PATCH_TOKEN_ID
+    for row, n in enumerate(KV_LENS):
+        ids[row, n:] = 0
+    return ids.to(torch.int32), torch.tensor(KV_LENS, dtype=torch.int32,
+                                             device="cuda")
+
+
+def export_decode_live(card: str, cfg, model, work: str):
+    """[export], the decode half, on [serve]'s int8 Phi-4-mini (32 layers,
+    int8 projections and embedding): `export_greedy_decode` at [main]'s
+    prompts (2 x 320, kv (300, 320)) and 16 new tokens, the artifact and its
+    inputs saved under `work`; the live generate's tokens, launches (B1 32
+    in the prefill, B5 224 a decode step) and wall beside them. Then the
+    host time of one B5 call through the registered op against a direct
+    call of the kernel's wrapper."""
+    import torch
+
+    from hsenet_torch.eval.generate import make_greedy_generate_llm_only
+    from hsenet_torch.ops import quant_matvec as tqm
+    from hsenet_torch.utils import export as tex
+
+    llm = model.llm
+    params = llm.state_dict()
+    ids, kv = export_prompts(cfg)
+    generate = make_greedy_generate_llm_only(
+        llm, max_new_tokens=EXPORT_NEW_TOKENS, eos_token_id=EOS_TOKEN_ID)
+    generate(ids, kv)
+    reset_counts()
+    live = generate(ids, kv)
+    torch.cuda.synchronize()
+    counts = export_counts()
+    eager_ms = median_wall_ms(lambda: generate(ids, kv), runs=EXPORT_DECODE_RUNS)
+    t0 = time.perf_counter()
+    blob = tex.export_greedy_decode(
+        llm, params, max_new_tokens=EXPORT_NEW_TOKENS, prompt_len=PROMPT_LEN,
+        batch=len(KV_LENS), eos_token_id=EOS_TOKEN_ID)
+    export_s = time.perf_counter() - t0
+    tex.save_exported(f"{work}/decode.pt2", blob)
+    t0 = time.perf_counter()
+    torch.save((params, ids, kv), f"{work}/decode_inputs.pt")
+    save_s = time.perf_counter() - t0
+    print(f"[export] greedy decode of [serve]'s int8 Phi-4-mini "
+          f"({cfg.llm.num_layers} layers), prompts 2 x {PROMPT_LEN} kv "
+          f"{KV_LENS}, {EXPORT_NEW_TOKENS} new tokens: exported in "
+          f"{export_s:.1f} s (the prefill and one decode step), "
+          f"{len(blob) / 1e6:.2f} MB; live generate {eager_ms:.1f} ms, "
+          f"launches {counts}; its weights written for the child in "
+          f"{save_s:.1f} s")
+
+    # the op's dispatch: host time a call, B5 at the q projection's shape and
+    # 2 rows, through the registered op and by a direct call of the kernel's
+    # wrapper, in turns (direct, op, op, direct)
+    q_proj = llm.decoder.layers[0].q_proj
+    x = torch.randn(len(KV_LENS), cfg.llm.hidden_size, device="cuda",
+                    dtype=torch.bfloat16)
+    args = (x, q_proj.weight_q, q_proj.weight_scale)
+
+    def host_us(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(MATVEC_DISPATCH_CALLS):
+            fn(*args)
+        host = (time.perf_counter() - t) / MATVEC_DISPATCH_CALLS * 1e6
+        torch.cuda.synchronize()
+        return host
+
+    with torch.inference_mode():
+        host_us(tqm.quant_matvec_op)
+        turns = [host_us(f) for f in (tqm.quant_matvec_kernel, tqm.quant_matvec_op,
+                                      tqm.quant_matvec_op, tqm.quant_matvec_kernel)]
+    dispatch = {"direct_us": (turns[0] + turns[3]) / 2,
+                "op_us": (turns[1] + turns[2]) / 2}
+    dispatch["op_added_us"] = dispatch["op_us"] - dispatch["direct_us"]
+    per_step = 7 * cfg.llm.num_layers
+    print(f"[export] B5 dispatch on {card}: host time a call at M=2, K x N "
+          f"{cfg.llm.hidden_size} x {cfg.llm.q_dim}, {MATVEC_DISPATCH_CALLS} "
+          f"calls, in turns direct/op/op/direct: "
+          + " / ".join(f"{t:.2f}" for t in turns)
+          + f" us; the op adds {dispatch['op_added_us']:.2f} us a call, "
+          f"{dispatch['op_added_us'] * per_step / 1e3:.3f} ms a decode step "
+          f"({per_step} calls)")
+    return {"live": live.cpu(), "counts": counts, "export_s": export_s,
+            "bytes": len(blob), "eager_ms": eager_ms, "save_s": save_s,
+            "ids": ids, "kv_lens": kv, "dispatch": dispatch}
+
+
+def run_export_child(card: str, cfg, model, work: str, enc, dec, meanwhile):
+    """[export]: the child process loads and calls both artifacts on the
+    card (counting their launches) while this process runs `meanwhile()`;
+    then the child times its calls alone on the card. The checks: op nodes
+    in both graphs (24 flash_fwd in the encode, 32 in the prefill, 224
+    quant_matvec in the decode step), no weight inside any program, the
+    child's launches equal to the live calls' (B1 24 and 32, B5 224 a decode
+    step), features within B1's row tolerance of the live ones, tokens
+    equal to the live generate's or parting at a near-tie; export, load and
+    call times against eager, and the encode's MFU. Returns the numbers and
+    what `meanwhile` returned."""
+    import torch
+
+    from hsenet_torch.utils.profiling import mfu, vit3d_encode_flops
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", EXPORT_CHILD, work, "5", str(EXPORT_DECODE_RUNS),
+         str(EXPORT_TIMEOUT)],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        during = meanwhile()
+        Path(work, "go").touch()
+        stdout, stderr = proc.communicate(timeout=EXPORT_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    child_s = time.perf_counter() - t0
+    print(stdout.strip())
+    if proc.returncode != 0:
+        raise AssertionError(f"[export] the child failed (rc {proc.returncode}):\n"
+                             f"{stderr[-4000:]}")
+    got = torch.load(f"{work}/child.pt", weights_only=True)
+    layers = cfg.llm.num_layers
+    want_nodes = {
+        "encode": {"fn": {"hsenet_torch.flash_fwd.default": 2 * cfg.vision.num_layers}},
+        "decode": {"prefill": {"hsenet_torch.flash_fwd.default": layers},
+                   "step": {"hsenet_torch.quant_matvec.default": 7 * layers}},
+    }
+    steps = EXPORT_NEW_TOKENS - 1
+    want_counts = {"encode": {"flash_fwd_wgmma": 2 * cfg.vision.num_layers},
+                   "decode": {"flash_fwd_wgmma": layers,
+                              "quant_matvec": 7 * layers * steps}}
+    numbers = {}
+    for name, live in (("encode", enc), ("decode", dec)):
+        g = got[name]
+        # a lifted parameter or buffer (-1), or a constant the size of a
+        # weight, would be state inside the artifact (the export itself
+        # refuses a constant that shares a weight's storage)
+        held = g["lifted"]
+        weights = {prog: [k for k, n in h.items() if n < 0 or n >= EXPORT_CONST_MAX]
+                   for prog, h in held.items()}
+        nonzero = lambda c: {k: n for k, n in c.items() if n}  # noqa: E731
+        print(f"[export] {name}: op nodes {g['nodes']} (expected "
+              f"{want_nodes[name]}); held besides the graph {held}; child "
+              f"launches {nonzero(g['counts'])}, live {nonzero(live['counts'])} "
+              f"(expected {want_counts[name]}); load {g['load_s']:.1f} s, call "
+              f"{g['wall_ms']:.2f} ms against eager {live['eager_ms']:.2f} ms "
+              f"(x{g['wall_ms'] / live['eager_ms']:.3f})")
+        if g["nodes"] != want_nodes[name]:
+            raise AssertionError(f"[export] {name}: op nodes {g['nodes']}")
+        if any(weights.values()):
+            raise AssertionError(f"[export] {name}: the artifact holds {weights}")
+        if nonzero(g["counts"]) != nonzero(live["counts"]) or \
+                nonzero(g["counts"]) != want_counts[name]:
+            raise AssertionError(f"[export] {name}: launches differ")
+        numbers[name] = {"export_s": live["export_s"], "load_s": g["load_s"],
+                         "bytes": live["bytes"], "wall_ms": g["wall_ms"],
+                         "eager_ms": live["eager_ms"],
+                         "launches": nonzero(g["counts"])}
+
+    # the features: each row's error a share of its largest |live| value
+    feats, ref = got["encode"]["result"], enc["live"]
+    max_abs, row_rel, ok = compare(feats, ref)
+    print(f"[export] encode features {tuple(feats.shape)} against the live "
+          f"encode: max abs {max_abs:.3e}, max err / row's max |live| "
+          f"{row_rel:.3e} (tol {KERNEL_ROW_TOL})")
+    if not ok or feats.shape != ref.shape:
+        raise AssertionError("[export] the exported encode disagrees with the live one")
+    numbers["encode"]["max_row_rel_err"] = row_rel
+
+    # the tokens: equal, or parting where the chosen token lies in a near-tie
+    tokens, want = got["decode"]["result"], dec["live"]
+    if tokens.shape != want.shape or tokens.dtype != torch.int32:
+        raise AssertionError(f"[export] decode tokens {tuple(tokens.shape)} "
+                             f"{tokens.dtype}, live {tuple(want.shape)}")
+    parted = []
+    for row, n in enumerate(KV_LENS):
+        pos, div = greedy_divergences(
+            cfg, model.llm, dec["ids"][row:row + 1, :n].long(),
+            tokens[row].tolist(), want[row].tolist())
+        parted += [(row, *d[1:]) for d in div]
+    check_near_ties("export", parted)
+    print(f"[export] decode tokens equal to the live generate's in "
+          f"{int((tokens == want).all(dim=1).sum())} of {len(KV_LENS)} rows; "
+          f"first tokens {tokens[:, :6].tolist()}")
+    numbers["decode"]["rows_parted"] = len(parted)
+
+    # the encode's model FLOPs utilisation: two towers at batch 2
+    flops = 2 * vit3d_encode_flops(EXPORT_BATCH, cfg.vision)
+    numbers["encode"]["mfu"] = {
+        "exported": mfu(flops, numbers["encode"]["wall_ms"] / 1e3),
+        "eager": mfu(flops, enc["eager_ms"] / 1e3), "tflop": flops / 1e12}
+    print(f"[export] encode MFU on {card} (towers only, {flops / 1e12:.3f} TFLOP "
+          f"a call, against 989 TFLOP/s bf16): exported "
+          f"{numbers['encode']['mfu']['exported']:.2%}, eager "
+          f"{numbers['encode']['mfu']['eager']:.2%} (wall clock)")
+    numbers["child_s"] = child_s
+    numbers["dispatch"] = dec["dispatch"]
+    return numbers, during
+
+
+def hf_logits(model, ids):
+    import torch
+
+    with torch.inference_mode():
+        logits, _ = model(ids)
+    return logits.float()
+
+
+def run_hf_exports(card: str, cfg, model):
+    """[export] the HF exports at full width, the decoder cut to 2 layers:
+    [serve]'s int8 state (2 layers) exported dequantised and a LoRA model on
+    those weights (r 16, alpha 32, f32 adapters) exported merged, each
+    through the port's `convert_hf_phi3` into a plain f32 model whose prefill
+    logits must be the source model's (LOGITS_REL_L2), beside a wrong
+    variant that must miss (each projection's output channels shifted by
+    one; the adapters left out, which is the dequantised model); and each
+    export on the card equal to the CPU's export of the same weights within
+    HF_EXACT_REL a tensor."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hsenet_torch.configs import LoRAConfig
+    from hsenet_torch.models.phi3 import Phi3ForCausalLM, convert_hf_phi3
+    from hsenet_torch.utils.export_hf import export_hf_phi3
+
+    int8_cfg = dataclasses.replace(cfg.llm, num_layers=HF_LAYERS)
+    float_cfg = dataclasses.replace(int8_cfg, quant_int8=False,
+                                    quant_int8_embed=False)
+    lora_cfg = dataclasses.replace(float_cfg, lora=LoRAConfig(dropout_rate=0.0))
+    kept = tuple(f"decoder.layers.{i}." for i in range(HF_LAYERS))
+    int8_state = {k: v for k, v in model.llm.state_dict().items()
+                  if not k.startswith("decoder.layers.") or k.startswith(kept)}
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    ids = torch.randint(3, 100000, (HF_ROWS, HF_TOKENS), generator=gen,
+                        device="cuda")
+
+    def built(c, state):
+        m = Phi3ForCausalLM(c, dtype=torch.float32, device="cuda")
+        m.load_state_dict(state, strict=True)
+        return m.eval()
+
+    def exported(state, c):
+        """The export on the card, held against the CPU's export."""
+        t0 = time.perf_counter()
+        on_card = export_hf_phi3(state, c)
+        card_s = time.perf_counter() - t0
+        on_cpu = export_hf_phi3({k: v.cpu() for k, v in state.items()}, c)
+        if sorted(on_card) != sorted(on_cpu):
+            raise AssertionError("[export] the card's and the CPU's HF exports "
+                                 "hold other tensors")
+        worst = max(0.0 if np.array_equal(on_card[k], on_cpu[k]) else
+                    float(np.abs(on_card[k] - on_cpu[k]).max()
+                          / max(float(np.abs(on_cpu[k]).max()), 1e-30))
+                    for k in on_cpu)
+        return on_card, card_s, worst
+
+    numbers = {}
+    # int8, dequantised; the wrong variant shifts the converted model's
+    # projections by one output channel
+    sd, card_s, worst = exported(int8_state, int8_cfg)
+    base = convert_hf_phi3(sd, float_cfg)
+    want = hf_logits(built(int8_cfg, int8_state), ids)
+    dequantised = built(float_cfg, base)
+    deq_logits = hf_logits(dequantised, ids)
+    with torch.no_grad():
+        for name, p in dequantised.named_parameters():
+            if name.endswith("_proj.weight"):
+                p.copy_(p.roll(1, dims=0))
+    numbers["int8_dequantised"] = {
+        "rel_l2": rel_l2(deq_logits, want),
+        "wrong_rel_l2": rel_l2(hf_logits(dequantised, ids), want),
+        "card_vs_cpu": worst, "export_s": card_s, "tensors": len(sd)}
+    del dequantised
+    # LoRA, merged: the dequantised weights as the base, f32 adapters drawn
+    # from a seed with B non-zero
+    lora_state = {k: v.to("cuda") for k, v in base.items()}
+    for name in list(lora_state):
+        if name.endswith("_proj.weight"):
+            out_dim, in_dim = lora_state[name].shape
+            prefix = name[: -len("weight")]
+            lora_state[prefix + "lora_a"] = torch.randn(
+                in_dim, 16, generator=gen, device="cuda") / in_dim ** 0.5
+            lora_state[prefix + "lora_b"] = torch.randn(
+                16, out_dim, generator=gen, device="cuda") * HF_LORA_B_STD
+    sd, card_s, worst = exported(lora_state, lora_cfg)
+    want = hf_logits(built(lora_cfg, lora_state), ids)
+    numbers["lora_merged"] = {
+        "rel_l2": rel_l2(hf_logits(built(float_cfg, convert_hf_phi3(sd, float_cfg)),
+                                   ids), want),
+        "wrong_rel_l2": rel_l2(deq_logits, want),
+        "card_vs_cpu": worst, "export_s": card_s, "tensors": len(sd)}
+    del base, lora_state, sd
+    for what, r in numbers.items():
+        print(f"[export] export_hf_phi3 on {card}, {what}, Phi-4-mini width at "
+              f"{HF_LAYERS} layers: {r['tensors']} tensors in {r['export_s']:.1f} "
+              f"s; prefill logits ({HF_ROWS} x {HF_TOKENS}) through "
+              f"convert_hf_phi3 against the source model: rel L2 "
+              f"{r['rel_l2']:.3e} (tol {LOGITS_REL_L2}), wrong variant "
+              f"({'output channels shifted by one' if what.startswith('int8') else 'adapters left out'}) "
+              f"{r['wrong_rel_l2']:.3e}; card against CPU export, worst tensor "
+              f"{r['card_vs_cpu']:.3e} (tol {HF_EXACT_REL})")
+        if not r["rel_l2"] <= LOGITS_REL_L2:
+            raise AssertionError(f"[export] {what}: the exported model's logits "
+                                 "disagree")
+        if r["wrong_rel_l2"] <= LOGITS_REL_L2:
+            raise AssertionError(f"[export] {what}: the logits limit passes the "
+                                 "wrong variant")
+        if not r["card_vs_cpu"] <= HF_EXACT_REL:
+            raise AssertionError(f"[export] {what}: the card's HF export differs "
+                                 f"from the CPU's: {r['card_vs_cpu']:.3e}")
+    return numbers
+
+
+def check_export_kernels():
+    """[kernel-export]: B1 at the exported decode's prefill (2 x 24 x 320
+    over a cache of 336 slots, d 128, causal, kv (300, 320)) and B5 at its
+    decode steps' 2 rows, at Phi-4-mini's four (K, N), codes read cold
+    ([kernel-matvec] holds B5 at 2 rows against its plain version): B1 held
+    against its plain version, each timed beside the bound, the plain
+    version and the library call. Returns (B1 by shape, B5 by shape,
+    B5's CUDA-core yardstick by shape)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    skv = PROMPT_LEN + EXPORT_NEW_TOKENS
+    name = f"export_prefill_{len(KV_LENS)}x24x{PROMPT_LEN}x{skv}"
+    flash = {name: b1_case("kernel-export", name, len(KV_LENS), 24, PROMPT_LEN,
+                           skv, 128, KV_LENS, True, gen)}
+    library = int8pack_registered()
+    matvec, yardstick = {}, {}
+    for shape, (k, n) in MATVEC_SHAPES.items():
+        r, y = time_matvec_cold("kernel-export", shape, k, n, gen, library,
+                                rows=(len(KV_LENS),))
+        matvec.update(r)
+        yardstick.update(y)
+    return flash, matvec, yardstick
+
+
 def run_dist(card):
     """The parallel slice's two-rank and one-rank phases on a temporary
     directory: [dist-world1], [dist-tp2], [dist-dp2]. Returns (numbers, the
@@ -9330,16 +9815,22 @@ def main() -> int:
     lap("[kernel-matvec], [kernel-pv], [encode-w8a8]")
     gc.collect()
     torch.cuda.empty_cache()
-    launches, counts, numbers = run_main_path(card)
+    launches, counts, numbers, main_model = run_main_path(card)
+    # [export], the encode half: the artifact of [main]'s model, run later
+    # in a child process beside the decode artifact
+    export_root = tempfile.mkdtemp(prefix="hsenet_export_")
+    export_enc = export_encode_live(card, main_model, export_root)
+    del main_model
     gc.collect()
     torch.cuda.empty_cache()
+    lap("[main], [export] encode")
     train_counts, train_numbers = run_train_path(card)
     gc.collect()
     torch.cuda.empty_cache()
     grad_numbers = check_train_grads()
     gc.collect()
     torch.cuda.empty_cache()
-    lap("[main], [train], [train-grads]")
+    lap("[train], [train-grads]")
     # the evaluation CLI on a manifest at full width (one model for its
     # four runs), B1 at the shapes it launched, then the checkpoint and
     # converter paths on that model
@@ -9367,12 +9858,28 @@ def main() -> int:
     # and speculative engines' tokens, seeds, speculative sampling
     sample_serve = run_serve_sample(card, serve_cfg, serve_model, serve_tokens,
                                     spec_tokens, spec_engine)
+    # [export], the decode half on [serve]'s model (before [spec], whose
+    # ceiling run overwrites its LLM's weights), the child process that runs
+    # both artifacts, the HF exports, then B1 and B5 at the shapes the
+    # exported decode launched that no phase above timed
+    lap("[serve] ... [serve-sample]")
+    export_dec = export_decode_live(card, serve_cfg, serve_model, export_root)
+    # the HF exports run while the child process loads the artifacts
+    export_numbers, export_numbers["hf"] = run_export_child(
+        card, serve_cfg, serve_model, export_root, export_enc, export_dec,
+        lambda: run_hf_exports(card, serve_cfg, serve_model))
+    shutil.rmtree(export_root, ignore_errors=True)
+    del export_enc, export_dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    export_flash, export_matvec, export_matvec_old = check_export_kernels()
+    lap("[export]")
     spec_numbers = run_spec(card, serve_cfg, serve_model)
     spec_numbers["engine"] = spec_engine
     del serve_model
     gc.collect()
     torch.cuda.empty_cache()
-    lap("[serve] ... [spec], [serve-sample]")
+    lap("[spec]")
     sample_numbers = run_sample(card)
     spec_law_numbers = run_spec_law(card)
     cli_sample_numbers = run_cli_sample(card)
@@ -9573,6 +10080,16 @@ def main() -> int:
         dist_counts[kernel][shape] = dist_counts[kernel].get(shape, 0) + n
     dist_numbers["launches_by_shape"] = dist_counts
     matvec_counts.update(tp_matvec_counts)
+    # the exported encode and decode, as the child process counted them: the
+    # towers at the tower shape, the prefill at its capacity of 336 slots,
+    # the decode steps at 2 rows
+    fwd_counts["tower"] += export_numbers["encode"]["launches"]["flash_fwd_wgmma"]
+    fwd_counts.update({name: 32 for name in export_flash})
+    export_m2 = {f"{name}_m2": 32 * per_layer * (EXPORT_NEW_TOKENS - 1)
+                 for name, per_layer in MATVEC_PER_LAYER.items()}
+    if sum(export_m2.values()) != export_numbers["decode"]["launches"]["quant_matvec"]:
+        raise AssertionError("[export] quant_matvec launches by shape do not add up")
+    matvec_counts.update(export_m2)
     # the f32 launches by shape: the two [cli-serve] runs and one step of
     # [train-f32]
     f32_counts = {k: {} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -9665,14 +10182,17 @@ def main() -> int:
                **eval_kernels, **train_cli_kernels["flash_fwd"], **vit2d_kernels,
                **llama_flash, **qformer_kernels, **seg_kernels["flash_fwd"],
                **train_seg_kernels["flash_fwd"], **rec_kernels,
-               **dist_kernels["flash_fwd"]},
+               **dist_kernels["flash_fwd"], **export_flash},
               fwd_counts, note + "; one W8A8 encode at its batch-8 tower shape "
               "and the speculative engine's admissions ([spec]'s one prefill "
               "is left out); the six [serve-sample] runs' admissions; the "
               "[llama] engines' admissions at their one launch shape (timed at "
               "the median prompt length); QFormer's attentions in [variants] "
               "(head dim 96 at the kernel's 128, copies included; the other "
-              "[variants] launches are held there, not summed here); bf16 and "
+              "[variants] launches are held there, not summed here); [export]'s "
+              "exported encode (at the tower shape) and exported decode's "
+              "prefill (export_prefill_, a cache of 336 slots), as the child "
+              "process that ran the artifacts counted them; bf16 and "
               "f16, every path's launches counted under "
               "flash_fwd_wgmma; old_ms under shapes is the mma.sync "
               "csrc/flash_fwd.cu's bf16 build at the same shape (a yardstick "
@@ -9723,14 +10243,17 @@ def main() -> int:
               f32_note + "; plain and library times compute dQ, dK and dV"),
         entry("quant_matvec", "hsenet_torch/csrc/quant_matvec.cu",
               "hsenet_tpu/ops/quant_matvec.py:42",
-              {**matvec, **llama_matvec, **tp_matvec}, matvec_counts,
+              {**matvec, **llama_matvec, **tp_matvec, **export_matvec},
+              matvec_counts,
               "the tensor-core entry hsenet_quant_matvec_mma (every bf16 call); "
               "sums over the decode steps of the closed and open serving loops "
               "and the four counted non-speculative [serve-sample] runs at 8 "
               "slots, the [llama] greedy and sampled engines at 8 slots (the "
               "llama_ shapes) and the converted 2-layer Llama at 1 slot (the "
               "llama_ _m1 shapes), the two ranks' decode steps of [dist-tp2]'s "
-              "serve --tp 2 and generate at the tp2_ shard shapes: per-launch "
+              "serve --tp 2 and generate at the tp2_ shard shapes, [export]'s "
+              "exported decode steps at 2 rows (the _m2 shapes, counted by the "
+              "child process that ran the artifact): per-launch "
               "times at each (K, N), codes read cold, x its "
               "launches there; library is a matmul on a bf16 copy of the weight; "
               "old_ms under shapes is the CUDA-core entry timed in turns with "
@@ -9738,7 +10261,8 @@ def main() -> int:
               "card's PyTorch has no CUDA kernel for it); Phi-4-mini's _m1 "
               "shapes (M = 1) and the LM head's table are on no counted path"),
         entry("quant_matvec_fma", "hsenet_torch/csrc/quant_matvec.cu",
-              "hsenet_tpu/ops/quant_matvec.py:42", {**matvec_old, **fma_shapes},
+              "hsenet_tpu/ops/quant_matvec.py:42",
+              {**matvec_old, **fma_shapes, **export_matvec_old},
               fma_counts,
               "the CUDA-core entry hsenet_quant_matvec_fma: its f32 build is "
               "the f32 route, launched by [ckpt]'s served run (serve --quant-int8 "
@@ -9776,6 +10300,7 @@ def main() -> int:
                       "segvol": segvol_numbers, "cli_train_seg": train_seg_numbers,
                       "cli_evaluate_seg": eval_seg_numbers,
                       "clip_masked": masked_numbers, "dist": dist_numbers,
+                      "export": export_numbers,
                       "seg_launches_by_shape": seg_counts, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -9,7 +9,10 @@ CUDA tensor it launches `csrc/flash_fwd_wgmma.cu` (bf16 and f16: wgmma,
 TMA and a producer warpgroup, 64- or 128-row query tiles chosen by
 `forward_query_tile`) or `csrc/flash_fwd.cu` (f32: TF32 mma.sync); on a
 CPU tensor it runs `flash_attention_reference`. It never falls from one to
-the other.
+the other. Every forward goes through the registered operator
+`hsenet_torch::flash_fwd` (`ops/library.py`), whose CUDA implementation
+launches the kernel and whose CPU implementation runs the plain version,
+so eager code and a `torch.export`ed graph take one path.
 
 The kernels take bf16, f16 or f32 operands (one dtype for q, k, v; f32
 runs TF32 products, see `csrc/flash_common.cuh`) at any head_dim. Their
@@ -64,7 +67,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from hsenet_torch.ops import _build
+from hsenet_torch.ops import _build, library
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)  # the native widths of bf16 and f16
 F32_HEAD_DIMS = (64, 128)  # the native widths of f32; above them, wide
@@ -351,9 +354,7 @@ def _launch(name: str, pointers, dims, strided, causal, sm_scale, q,
 
 def _bshd(batch, seq, heads, d, like) -> torch.Tensor:
     """An empty (B, H, S, D) view of a (B, S, H, D) buffer."""
-    return torch.empty(
-        (batch, seq, heads, d), dtype=like.dtype, device=like.device
-    ).permute(0, 2, 1, 3)
+    return like.new_empty((batch, seq, heads, d)).permute(0, 2, 1, 3)
 
 
 def _fwd_launch(name, q, k, v, kv, q_off, causal, sm_scale, with_lse, extra=()):
@@ -536,16 +537,57 @@ def _plain_forward(q, k, v, kv, q_off, causal, sm_scale, with_lse):
     return out if with_lse else (out, None)
 
 
+def _flash_fwd_cuda(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+    """`hsenet_torch::flash_fwd` on CUDA tensors: the forward kernel."""
+    out, lse = _forward_kernel(q, k, v, kv, q_off, causal, sm_scale, with_lse)
+    return out, _no_lse(q) if lse is None else lse
+
+
+def _flash_fwd_cpu(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+    """`hsenet_torch::flash_fwd` on CPU tensors: the plain version, its
+    output in the kernel's (B, S, H, D) layout."""
+    out, lse = _plain_forward(q, k, v, kv, q_off, causal, sm_scale, with_lse)
+    batch, heads, sq, d = q.shape
+    return (_bshd(batch, sq, heads, d, q).copy_(out),
+            _no_lse(q) if lse is None else lse.contiguous())
+
+
+def _flash_fwd_fake(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+    """`hsenet_torch::flash_fwd`'s shapes and strides."""
+    batch, heads, sq, d = q.shape
+    lse = (q.new_empty((batch, heads, sq), dtype=torch.float32) if with_lse
+           else _no_lse(q))
+    return _bshd(batch, sq, heads, d, q), lse
+
+
+def _no_lse(q) -> torch.Tensor:
+    """The op's lse output when none is asked for."""
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+flash_fwd_op = library.define(
+    "flash_fwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor kv_lens, Tensor q_offset, "
+    "bool causal, float sm_scale, bool with_lse) -> (Tensor, Tensor)",
+    cuda=_flash_fwd_cuda, cpu=_flash_fwd_cpu, fake=_flash_fwd_fake,
+)
+
+
+def _forward_op(q, k, v, kv, q_off, causal, sm_scale, with_lse):
+    """`hsenet_torch::flash_fwd` with `_forward_kernel`'s signature."""
+    out, lse = flash_fwd_op(q, k, v, kv, q_off, causal, sm_scale, with_lse)
+    return out, lse if with_lse else None
+
+
 def _forward(q, k, v, kv, q_off, causal, sm_scale, with_lse):
-    """(out, lse or None) at the kernel width: the forward kernel on CUDA
-    tensors, its plain version on CPU tensors."""
+    """(out, lse or None) at the kernel width through `hsenet_torch::
+    flash_fwd`: the forward kernel on CUDA tensors, its plain version on CPU
+    tensors."""
     if q.device.type == "cuda":
         check_operands(q, k, v)
-        fn = _forward_kernel
-    else:
-        fn = _plain_forward
     return with_head_dim_padded(
-        fn, q, k, v, kv, q_off, causal, sm_scale=sm_scale, with_lse=with_lse
+        _forward_op, q, k, v, kv, q_off, causal, sm_scale=sm_scale,
+        with_lse=with_lse
     )
 
 

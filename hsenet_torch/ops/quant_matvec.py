@@ -25,11 +25,14 @@ kernel's function (f32 accumulate, f32 scale, one cast) is taken when
 
 every other call takes the model's plain expression
 `(x @ W^T) * scale` in x's dtype, which is also the gradient path. Inside
-the rule a CPU tensor runs `quant_matvec_int8_reference`, and a CUDA
-tensor launches one entry of `csrc/quant_matvec.cu`: bf16 x the tensor-core
-kernel (`hsenet_quant_matvec_mma`, cut as `mma_plan` states), f32 x
-the CUDA-core kernel (`hsenet_quant_matvec_fma`, exact f32 products). The
-call never falls from one to another. The CUDA-core kernel's bf16 build
+the rule the call goes through the registered operator
+`hsenet_torch::quant_matvec` (`ops/library.py`), so eager code and a
+`torch.export`ed graph take one path: a CPU tensor runs
+`quant_matvec_int8_reference`, and a CUDA tensor launches one entry of
+`csrc/quant_matvec.cu`: bf16 x the tensor-core kernel
+(`hsenet_quant_matvec_mma`, cut as `mma_plan` states), f32 x the CUDA-core
+kernel (`hsenet_quant_matvec_fma`, exact f32 products). The call never
+falls from one to another. The CUDA-core kernel's bf16 build
 (`quant_matvec_fma_kernel`) is the yardstick chip_smoke.py times the
 tensor-core kernel against; no path launches it.
 """
@@ -44,7 +47,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from hsenet_torch.ops import _build
+from hsenet_torch.ops import _build, library
 
 KERNEL = "quant_matvec"  # the source, and the count of its tensor-core entry
 FMA = "quant_matvec_fma"  # the count of its CUDA-core entry
@@ -243,16 +246,37 @@ def quant_matvec_kernel(x: torch.Tensor, w_q: torch.Tensor,
     return quant_matvec_mma_kernel(x, w_q, scale)
 
 
+def _quant_matvec_cuda(x, w_q, scale):
+    """`hsenet_torch::quant_matvec` on CUDA tensors: the kernel of x's
+    dtype."""
+    return quant_matvec_kernel(x, w_q, scale)
+
+
+def _quant_matvec_cpu(x, w_q, scale):
+    """`hsenet_torch::quant_matvec` on CPU tensors: the plain version."""
+    return quant_matvec_int8_reference(x, w_q, scale)
+
+
+def _quant_matvec_fake(x, w_q, scale):
+    """`hsenet_torch::quant_matvec`'s shape."""
+    return x.new_empty((x.shape[0], w_q.shape[0]))
+
+
+quant_matvec_op = library.define(
+    "quant_matvec", "(Tensor x, Tensor w_q, Tensor scale) -> Tensor",
+    cuda=_quant_matvec_cuda, cpu=_quant_matvec_cpu, fake=_quant_matvec_fake,
+)
+
+
 def quant_matvec_int8(x: torch.Tensor, w_q: torch.Tensor,
                       scale: torch.Tensor) -> torch.Tensor:
     """(..., K) @ int8 (N, K)^T * scale -> (..., N), by the dispatch rule
-    of the module docstring."""
+    of the module docstring; inside the rule through `hsenet_torch::
+    quant_matvec`."""
     if not in_kernel_rule(x, w_q):
         return plain_expression(x, w_q, scale)
-    if x.device.type == "cpu":
-        return quant_matvec_int8_reference(x, w_q, scale)
     lead = x.shape[:-1]
-    y = quant_matvec_kernel(x.reshape(-1, x.shape[-1]).contiguous(), w_q, scale)
+    y = quant_matvec_op(x.reshape(-1, x.shape[-1]).contiguous(), w_q, scale)
     return y.reshape(*lead, w_q.shape[0])
 
 

@@ -1,1 +1,1 @@
-"""Utilities of the port: weight converters."""
+"""Utilities of the port: weight converters, checkpoints, exports and profiling."""
