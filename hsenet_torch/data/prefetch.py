@@ -25,6 +25,8 @@ from typing import Callable, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from hsenet_torch.utils.profiling import span
+
 
 # the producer thread's name
 PRODUCER_NAME = "DevicePrefetcher"
@@ -110,12 +112,14 @@ class DevicePrefetcher:
         t.start()
         try:
             while True:
-                item = q.get()
-                if item is None:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                yield self.hand_over(item) if self.hand_over else item
+                with span("data.wait"):
+                    item = q.get()
+                    if item is None:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    batch = self.hand_over(item) if self.hand_over else item
+                yield batch
         finally:
             stop.set()
             # bounded drain: a producer blocked inside the loader's

@@ -24,6 +24,7 @@ from hsenet_torch.configs import CLIPConfig
 from hsenet_torch.models.bert import BertEncoder
 from hsenet_torch.models.layers import Dense
 from hsenet_torch.models.vit import MaskedViT3D, ViT3D
+from hsenet_torch.utils.profiling import span
 
 
 def _l2_normalise(x: torch.Tensor) -> torch.Tensor:
@@ -56,21 +57,23 @@ class CLIPModel(nn.Module):
                      pooled: bool = True) -> torch.Tensor:
         """(B, projection_dim) L2-normalised image features (every token's
         with `pooled=False`)."""
-        feats = self.vision_encoder(volume, slice_features,
-                                    deterministic=deterministic)
-        if pooled:
-            feats = feats[:, 0]  # CLS
-        return _l2_normalise(self.mm_vision_proj(feats))
+        with span("model.vision"):
+            feats = self.vision_encoder(volume, slice_features,
+                                        deterministic=deterministic)
+            if pooled:
+                feats = feats[:, 0]  # CLS
+            return _l2_normalise(self.mm_vision_proj(feats))
 
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: Optional[torch.Tensor] = None, *,
                     deterministic: bool = True, pooled: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(projected + normalised features, raw last_hidden_state)."""
-        hidden = self.language_encoder(input_ids, attention_mask,
-                                       deterministic=deterministic)
-        feats = hidden[:, 0] if pooled else hidden
-        return _l2_normalise(self.mm_language_proj(feats)), hidden
+        with span("model.text"):
+            hidden = self.language_encoder(input_ids, attention_mask,
+                                           deterministic=deterministic)
+            feats = hidden[:, 0] if pooled else hidden
+            return _l2_normalise(self.mm_language_proj(feats)), hidden
 
     def scale(self) -> torch.Tensor:
         s = self.logit_scale

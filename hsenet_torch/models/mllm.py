@@ -45,6 +45,7 @@ from hsenet_torch.models.phi3 import KVCache, Phi3ForCausalLM
 from hsenet_torch.models.projector import Med2E3Projector, build_projector
 from hsenet_torch.models.segvol import SegVol
 from hsenet_torch.models.vit import DualVisionTower, OnlineSliceFeatures
+from hsenet_torch.utils.profiling import span
 
 
 def splice_image_embeds(token_embeds: torch.Tensor,
@@ -126,25 +127,26 @@ class HSENetVLM(nn.Module):
                 raise ValueError(
                     f"the 2D trunk's features ({width} wide) do not fit the "
                     f"2E3 tower's cross-attention ({self.config.vision.hidden_size})")
-            with torch.no_grad():  # the frozen trunk
+            with span("model.vision"), torch.no_grad():  # the frozen trunk
                 slice_features = self.slice_encoder(volume,
                                                     deterministic=deterministic)
-        with torch.set_grad_enabled(
+        with span("model.vision"), torch.set_grad_enabled(
             torch.is_grad_enabled() and not self.config.stop_tower_gradients
         ):
             feats = self.vision_tower(volume, slice_features,
                                       deterministic=deterministic)
-        if self.config.tower_mode == "dual_vits":
-            f1, f2 = feats
-            proj2 = self.mm_projector2 or self.mm_projector
-            return torch.cat([
-                self.mm_projector(f1, deterministic=deterministic),
-                proj2(f2, deterministic=deterministic),
-            ], dim=1)
-        if self.config.tower_mode == "med2e3":
-            return self.mm_projector(feats, slice_features, text_embeds,
-                                     deterministic=deterministic)
-        return self.mm_projector(feats, deterministic=deterministic)
+        with span("model.projector"):
+            if self.config.tower_mode == "dual_vits":
+                f1, f2 = feats
+                proj2 = self.mm_projector2 or self.mm_projector
+                return torch.cat([
+                    self.mm_projector(f1, deterministic=deterministic),
+                    proj2(f2, deterministic=deterministic),
+                ], dim=1)
+            if self.config.tower_mode == "med2e3":
+                return self.mm_projector(feats, slice_features, text_embeds,
+                                         deterministic=deterministic)
+            return self.mm_projector(feats, deterministic=deterministic)
 
     def multimodal_embeds(self, input_ids: torch.Tensor,
                           volume: Optional[torch.Tensor],

@@ -57,6 +57,7 @@ from hsenet_torch.configs import Phi3Config
 from hsenet_torch.models.layers import checkpointed
 from hsenet_torch.models.lora import LoRADense, QuantEmbed
 from hsenet_torch.ops.attention import multi_head_attention
+from hsenet_torch.utils.profiling import span
 
 # prefill chunks shorter than this take the plain sdpa, as in the JAX package
 FLASH_MIN_QUERY = 64
@@ -435,31 +436,33 @@ class Phi3ForCausalLM(nn.Module):
     tp = None  # parallel.sharding.TPGroup once the model is a TP shard
 
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
-        if self.tp is None:
-            return self.embed(input_ids).to(self.dtype)
-        from hsenet_torch.parallel.mesh import reduce_from_group
+        with span("model.llm"):
+            if self.tp is None:
+                return self.embed(input_ids).to(self.dtype)
+            from hsenet_torch.parallel.mesh import reduce_from_group
 
-        # vocabulary-split table: look up the ids this rank holds, zeros
-        # for the others, and sum the rows over tp
-        rows = (self.embed.embedding_q if self.config.quant_int8_embed
-                else self.embed.weight).shape[0]
-        local = input_ids.long() - self.tp.rank * rows
-        inside = (local >= 0) & (local < rows)
-        out = self.embed(local.clamp(0, rows - 1)).to(self.dtype)
-        out = torch.where(inside[..., None], out, torch.zeros(
-            (), dtype=self.dtype, device=out.device))
-        return reduce_from_group(out, self.tp.group)
+            # vocabulary-split table: look up the ids this rank holds, zeros
+            # for the others, and sum the rows over tp
+            rows = (self.embed.embedding_q if self.config.quant_int8_embed
+                    else self.embed.weight).shape[0]
+            local = input_ids.long() - self.tp.rank * rows
+            inside = (local >= 0) & (local < rows)
+            out = self.embed(local.clamp(0, rows - 1)).to(self.dtype)
+            out = torch.where(inside[..., None], out, torch.zeros(
+                (), dtype=self.dtype, device=out.device))
+            return reduce_from_group(out, self.tp.group)
 
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Logits over the whole vocabulary; a TP shard computes its
         vocabulary slice and all-gathers the rest, so every rank holds the
         same logits."""
-        if self.tp is not None:
-            from hsenet_torch.parallel.mesh import copy_to_group, gather_from_group
+        with span("model.head_loss"):
+            if self.tp is not None:
+                from hsenet_torch.parallel.mesh import copy_to_group, gather_from_group
 
-            local = self._logits(copy_to_group(hidden, self.tp.group))
-            return gather_from_group(local, self.tp.group, -1)
-        return self._logits(hidden)
+                local = self._logits(copy_to_group(hidden, self.tp.group))
+                return gather_from_group(local, self.tp.group, -1)
+            return self._logits(hidden)
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
         tied = self.config.tie_word_embeddings
@@ -477,18 +480,19 @@ class Phi3ForCausalLM(nn.Module):
                       return_hidden: bool = False):
         """(logits, cache), and with `return_hidden` the final normed hidden
         states of every position as a third item."""
-        hidden, cache = self.decoder(
-            inputs_embeds, kv_lens=kv_lens, cache=cache, positions=positions,
-            deterministic=deterministic,
-        )
-        full_hidden = hidden
-        if last_token_only:
-            if kv_lens is not None and hidden.shape[1] > 1:
-                idx = (kv_lens.long() - 1).clamp(min=0)
-                rows = torch.arange(hidden.shape[0], device=hidden.device)
-                hidden = hidden[rows, idx.to(hidden.device)][:, None]
-            else:
-                hidden = hidden[:, -1:]
+        with span("model.llm"):
+            hidden, cache = self.decoder(
+                inputs_embeds, kv_lens=kv_lens, cache=cache, positions=positions,
+                deterministic=deterministic,
+            )
+            full_hidden = hidden
+            if last_token_only:
+                if kv_lens is not None and hidden.shape[1] > 1:
+                    idx = (kv_lens.long() - 1).clamp(min=0)
+                    rows = torch.arange(hidden.shape[0], device=hidden.device)
+                    hidden = hidden[rows, idx.to(hidden.device)][:, None]
+                else:
+                    hidden = hidden[:, -1:]
         logits = self.compute_logits(hidden)
         if return_hidden:
             return logits, cache, full_hidden

@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from hsenet_torch.utils.profiling import span
+
 IGNORE_INDEX = -100
 
 
@@ -27,9 +29,10 @@ def masked_lm_loss(
     """Causal-LM cross-entropy in f32; returns (loss, token_accuracy), both
     means over the positions whose label is not -100 (0 when there is
     none)."""
-    loss_sum, hits, count = _masked_lm_sums(logits, labels, shift)
-    denom = count.clamp(min=1)
-    return loss_sum / denom, hits / denom
+    with span("model.head_loss"):
+        loss_sum, hits, count = _masked_lm_sums(logits, labels, shift)
+        denom = count.clamp(min=1)
+        return loss_sum / denom, hits / denom
 
 
 def _masked_lm_sums(logits, labels, shift):
@@ -58,11 +61,12 @@ def masked_lm_loss_global(logits: torch.Tensor, labels: torch.Tensor, group,
     gradient averaged over dp is the gradient of the global loss."""
     from hsenet_torch.parallel.mesh import all_reduce
 
-    local, hits, count = _masked_lm_sums(logits, labels, shift)
-    totals = all_reduce(torch.stack([local.detach(), hits.float(),
-                                     count.float()]), group)
-    denom = totals[2].clamp(min=1)
-    return local * dp / denom, totals[0] / denom, totals[1] / denom
+    with span("model.head_loss"):
+        local, hits, count = _masked_lm_sums(logits, labels, shift)
+        totals = all_reduce(torch.stack([local.detach(), hits.float(),
+                                         count.float()]), group)
+        denom = totals[2].clamp(min=1)
+        return local * dp / denom, totals[0] / denom, totals[1] / denom
 
 
 def clip_contrastive_loss(

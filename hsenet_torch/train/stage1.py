@@ -28,6 +28,7 @@ from hsenet_torch.parallel.mesh import gather_with_grad
 from hsenet_torch.train.losses import clip_contrastive_loss, retrieval_accuracy
 from hsenet_torch.train.train_state import AdamW
 from hsenet_torch.train.vlm import make_masked_train_step
+from hsenet_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -60,8 +61,9 @@ def stage1_loss_fn(model: nn.Module, batch: Batch,
         )
     image_features, text_features = global_features(
         model, image_features, text_features)
-    loss, logits_i, _ = clip_contrastive_loss(image_features, text_features,
-                                              scale)
+    with span("model.head_loss"):
+        loss, logits_i, _ = clip_contrastive_loss(image_features,
+                                                  text_features, scale)
     metrics = {
         "loss": loss,
         "retrieval_acc": retrieval_accuracy(logits_i),

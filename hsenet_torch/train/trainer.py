@@ -30,6 +30,7 @@ its augmentations from its own stream.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import struct
@@ -46,6 +47,7 @@ from hsenet_torch.data.prefetch import DevicePrefetcher, default_place
 from hsenet_torch.parallel.mesh import axis_rank, axis_size, is_main_process
 from hsenet_torch.train.train_state import TrainState
 from hsenet_torch.train.vlm import fold_seed
+from hsenet_torch.utils.profiling import profiled_spans
 
 # the augmentation's stream beside the step's dropout stream
 AUGMENT_STREAM = 0x617567
@@ -189,6 +191,8 @@ class Trainer:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        self._spans = contextlib.ExitStack()  # spans on while it records
+        self._spans.enter_context(profiled_spans())
         self._profiler = profile(activities=activities)
         self._profiler.start()
         self._profile_from = self.state.step
@@ -199,6 +203,7 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._profiler.stop()
+        self._spans.close()
         os.makedirs(self.cfg.profile_dir, exist_ok=True)
         self._profiler.export_chrome_trace(os.path.join(
             self.cfg.profile_dir, f"steps_{self._profile_from}-{self.state.step}."

@@ -30,6 +30,7 @@ from hsenet_torch.train.train_state import (
     reduce_gradients,
     sum_over_sp,
 )
+from hsenet_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -208,14 +209,20 @@ def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1,
 
     def grads_of(params, batch, generator, step, model):
         with fsdp_gathered(model):
-            loss, metrics = (loss_fn(batch, step, generator) if takes_step
-                             else loss_fn(batch, generator))
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            with span("train.forward"):
+                loss, metrics = (loss_fn(batch, step, generator) if takes_step
+                                 else loss_fn(batch, generator))
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch: Batch, rng: Optional[int] = None):
+        with span("train.step"):
+            return _train_step(state, batch, rng)
+
+    def _train_step(state: TrainState, batch: Batch, rng: Optional[int]):
         params = list(state.params.values())
         names = list(state.params)
         model = state.model if state.model is not None else nn.Module()
@@ -249,8 +256,10 @@ def make_masked_train_step(loss_fn: Callable, tx: AdamW, *, grad_accum: int = 1,
             grads = reduce_gradients(grads, names, model, state.mesh)
             if sp_region:
                 grads = sum_over_sp(grads, names, sp_region, state.mesh)
-        metrics["grad_norm"] = global_norm(grads, names, model)
-        opt_state = tx.step(params, grads, state.opt_state, metrics["grad_norm"])
+        with span("train.optimizer"):
+            metrics["grad_norm"] = global_norm(grads, names, model)
+            opt_state = tx.step(params, grads, state.opt_state,
+                                metrics["grad_norm"])
         return dataclasses.replace(state, step=state.step + 1,
                                    opt_state=opt_state), metrics
 
