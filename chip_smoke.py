@@ -289,7 +289,11 @@ In order:
    teacher: 4 steps with the teacher recomputed, 4 served by a
    `TeacherCache` (hits and misses counted), launches checked by step;
 15. [clip-grads] one stage-1 step's gradients at batch 6 through the kernels
-   against the plain sdpa path, per group, beside two planted faults;
+   against the plain sdpa path, per group, beside two planted faults; the
+   fused optimizer (`ops/multi_tensor.py`) at CLIP's trained leaves: the
+   routes and launches of the main path's last warm step, one norm and
+   update against the per-leaf loop from one state, and its time beside
+   the bound, the loop and torch._fused_adamw_;
 16. [clip-long] the stage-1 step at `--patch-size 2 8 8` (16,385 tower
    tokens), batch 2: launches at that shape, finite losses, a non-zero
    gradient in every tower block, step time, peak memory and a profile;
@@ -552,6 +556,14 @@ CLIP2_STEPS = 4
 # [clip-grads]: the plain sdpa path holds 1.2 GB of f32 scores a layer at 6
 CLIP_GRADS_BATCH = 6
 CLIP_GRADS_WARM_STEPS = 5
+# the fused optimizer against the per-leaf loop from one state (the bits
+# agree on an H100; the kernel tests' limits): each of p, mu and nu within
+# this share of the loop's value, the norm within NORM_REL of the loop's
+FUSED_ADAMW_REL = 2e-6
+FUSED_NORM_REL = 1e-6
+# bytes an element: the norm reads g; the update reads g, p, mu, nu and
+# writes p, mu, nu, all f32
+FUSED_ADAMW_BYTES = 32
 # [clip-long]: the finer patching of `--patch-size 2 8 8`, a (16, 32, 32)
 # grid: 16,384 patches + CLS, where the TPU streams the flash forward and
 # backward; batch 2, the least at which the contrastive loss has a gradient
@@ -3621,7 +3633,7 @@ def check_clip_grads():
     import torch
 
     from hsenet_torch.configs import TrainConfig
-    from hsenet_torch.ops import attention
+    from hsenet_torch.ops import attention, multi_tensor
     from hsenet_torch.ops import flash_attention as tfa
     from hsenet_torch.train.stage1 import make_stage1_train_step, stage1_loss_fn
     from hsenet_torch.train.train_state import TrainState, make_optimizer
@@ -3638,8 +3650,17 @@ def check_clip_grads():
     tx = make_optimizer(TrainConfig(learning_rate=1e-4, warmup_ratio=0.0,
                                     schedule="constant"))
     state, step = TrainState.create(model, tx), make_stage1_train_step(model, tx)
-    for _ in range(CLIP_GRADS_WARM_STEPS):
+    for i in range(CLIP_GRADS_WARM_STEPS):
+        if i == CLIP_GRADS_WARM_STEPS - 1:  # the main path's step, counted
+            multi_tensor.reset_launch_counts()
         state, metrics = step(state, batch, 0)
+    routes, launches = dict(multi_tensor.routes), dict(multi_tensor.launches)
+    n_leaves = len(list(model.parameters()))
+    print(f"[clip-grads] one step's optimizer: routes {routes}, launches {launches}")
+    if routes != {"fused": n_leaves, "per_leaf": 0} or launches != {
+            "sum_squares": 1, "leaf_sums": 1, "adamw": 1}:
+        raise AssertionError("the CLIP step's optimizer did not take the fused "
+                             "route in three launches")
     print(f"[clip-grads] after {CLIP_GRADS_WARM_STEPS} steps on the batch: loss "
           f"{float(metrics['loss']):.4f}")
     names, params = zip(*model.named_parameters())
@@ -3660,6 +3681,8 @@ def check_clip_grads():
         return rel
 
     loss_k, g_k = grads()
+    optimizer = check_fused_optimizer(tx, state.opt_state, params, g_k,
+                                      launches)
     try:
         attention.set_flash_mode("never")
         loss_p, g_p = grads()
@@ -3696,7 +3719,116 @@ def check_clip_grads():
             raise AssertionError(f"the CLIP gradient limit passes {fault}")
     del model, params, g_p
     return {"loss_kernel": loss_k, "loss_plain": loss_p, "grad_rel_l2": rel,
-            "planted_faults_rel_l2": wrong, "batch": CLIP_GRADS_BATCH}
+            "planted_faults_rel_l2": wrong, "batch": CLIP_GRADS_BATCH,
+            "optimizer_routes": routes, "kernel": optimizer}
+
+
+def check_fused_optimizer(tx, opt, params, grads, launches):
+    """[clip-grads]' check of the fused optimizer (`ops/multi_tensor.py`) at
+    CLIP's trained leaves, from the state the warm steps left: the norm and
+    one update through the kernels against the per-leaf loop on copies of
+    the same inputs, then device times of one optimizer step: the kernels
+    (norm and update), the loop (`g.float().pow(2).sum()` a leaf and
+    `AdamW.update_per_leaf`), and the library's torch._foreach_norm with
+    torch._fused_adamw_ (a yardstick only: it decays p before the step, and
+    the clip goes in as its grad_scale). Returns the `kernels` entry."""
+    import torch
+
+    from hsenet_torch.train.train_state import AdamWState, global_norm
+
+    grads = list(grads)
+    n, leaves = sum(g.numel() for g in grads), len(grads)
+
+    def plain_norm(gs):
+        return torch.sqrt(sum(g.float().pow(2).sum() for g in gs))
+
+    def copies():
+        return ([p.detach().clone() for p in params], [m.clone() for m in opt.mu],
+                [v.clone() for v in opt.nu])
+
+    norm, fused_norm = plain_norm(grads), global_norm(grads)
+    norm_rel = abs(fused_norm.item() - norm.item()) / norm.item()
+    fused, loop = copies(), copies()
+    # AdamW.step may overwrite its gradients (the CPU's route does)
+    tx.step(fused[0], [g.clone() for g in grads],
+            AdamWState(opt.count, fused[1], fused[2]), norm)
+    loop_grads = [g.clone() for g in grads]
+    loop_state = AdamWState(opt.count, loop[1], loop[2])
+    tx.update_per_leaf(list(zip(loop[0], loop_grads, loop[1], loop[2],
+                                [None] * leaves)), loop_state, norm)
+    max_abs, outside = 0.0, {}
+    for name, a_row, b_row in zip(("p", "mu", "nu"), fused, loop):
+        outside[name] = 0
+        for a, b in zip(a_row, b_row):
+            diff = (a - b).abs()
+            max_abs = max(max_abs, diff.max().item() if diff.numel() else 0.0)
+            outside[name] += int((diff > FUSED_ADAMW_REL * b.abs()).sum())
+    print(f"[clip-grads] fused optimizer at {leaves} leaves, {n} elements: norm "
+          f"{fused_norm.item():.6f} vs the loop's {norm.item():.6f} (rel "
+          f"{norm_rel:.2e}, tol {FUSED_NORM_REL}); elements beyond "
+          f"{FUSED_ADAMW_REL} of the loop's {outside}, max abs err {max_abs:.3e}")
+    if norm_rel > FUSED_NORM_REL or any(outside.values()):
+        raise AssertionError("the fused optimizer disagrees with the per-leaf loop")
+    # the loop and the library overwrite their gradients: time them on a
+    # copy, so that the phase's own gradients stay as they were
+    del loop_grads
+    grads = [g.clone() for g in grads]
+
+    def fused_step():
+        tx.step(fused[0], grads, AdamWState(opt.count, fused[1], fused[2]),
+                global_norm(grads))
+
+    def loop_step():
+        tx.update_per_leaf(list(zip(loop[0], grads, loop[1], loop[2],
+                                    [None] * leaves)), loop_state,
+                           plain_norm(grads))
+
+    ms = time_ms(fused_step)
+    # one loop a sleep: the host takes longer to queue it than it runs
+    plain_ms = time_ms(loop_step, reps=1, warmup=1, runs=3)
+    cfg = tx.cfg
+    lr = tx.coefficients(opt.count)[0]
+    steps = [torch.full((), float(opt.count), device=norm.device) for _ in grads]
+
+    def library_step():
+        total = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = torch.where(total < cfg.max_grad_norm, 1.0, total / cfg.max_grad_norm)
+        torch._fused_adamw_(loop[0], grads, loop[1], loop[2], [], steps, lr=lr,
+                            beta1=cfg.adam_b1, beta2=cfg.adam_b2,
+                            weight_decay=cfg.weight_decay, eps=cfg.adam_eps,
+                            amsgrad=False, maximize=False, grad_scale=scale)
+
+    try:
+        library_ms = time_ms(library_step)
+    except (AttributeError, RuntimeError, TypeError) as e:
+        print(f"[clip-grads] torch._fused_adamw_ not timed: {e}")
+        library_ms = None
+    bound_ms = FUSED_ADAMW_BYTES * n / PEAK_BYTES_PER_S * 1e3
+    print(f"[clip-grads] fused optimizer {ms:.3f} ms (bound {bound_ms:.3f} ms, "
+          f"{bound_ms / ms:.1%}), per-leaf loop {plain_ms:.3f} ms, foreach_norm + "
+          f"_fused_adamw_ {library_ms if library_ms is None else f'{library_ms:.3f}'} ms")
+    shape = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+             "library_ms": library_ms, "max_abs_err": max_abs, "leaves": leaves,
+             "elements": n, "launches": sum(launches.values())}
+    del fused, loop, steps, grads
+    return {
+        "name": "multi_tensor_adamw",
+        "route": "cuda",
+        "source": "hsenet_torch/csrc/multi_tensor_adamw.cu",
+        "replaces": "none: the JAX package leaves optax's chain(clip_by_global_norm, "
+                    "adamw) to XLA",
+        "launches": sum(launches.values()),
+        "max_abs_err": max_abs,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": library_ms,
+        "times_are": "one optimizer step at CLIP's trained leaves (the three "
+                     "launches: sum_squares_kernel, leaf_sums_kernel, "
+                     "adamw_kernel), from [clip-grads]' state; plain is the "
+                     "per-leaf norm and AdamW.update_per_leaf; library is "
+                     "torch._foreach_norm with torch._fused_adamw_ (another "
+                     "update: decay before the step)",
+        "shapes": {f"clip_{leaves}_leaves": shape},
+    }
 
 
 def run_clip_long(card: str):
@@ -10277,6 +10409,7 @@ def main() -> int:
                 pv_note + ("" if name == tpv.KERNEL else "; the mma.sync "
                            "yardstick of int8_pv_wgmma"))
           for name in (tpv.KERNEL, tpv.YARDSTICK)),
+        clip_grad_numbers.pop("kernel"),
     ]
     clip = {"stage1": stage1_numbers, "stage2": stage2_numbers,
             "grads": clip_grad_numbers, "long": long_numbers,

@@ -19,6 +19,20 @@ Parameters are updated in place. Freezing is `requires_grad=False` on the
 leaves the mask leaves out, which also keeps autograd from computing
 their gradients.
 
+Two routes compute this update, with the same arithmetic op for op (the
+same bits from the same grad_norm, measured on an H100). On the card every
+leaf takes the fused route (`ops/multi_tensor.py`,
+`csrc/multi_tensor_adamw.cu`): one launch updates all of them, and two
+launches give `global_norm` every gradient's sum of squares. A gradient of
+another dtype or strides goes in as a contiguous f32 copy, a strided
+param or moment as a contiguous copy written back after the launch, and a
+ZeRO-1 leaf as its slice, gathered after the launch; the masters and
+moments must be f32 there (`train/vlm.py` `to_training_dtypes`). On the
+CPU every leaf takes the per-leaf loop, `AdamW.update_per_leaf`, which is
+also the plain version the kernel is held to; its squares are
+`g.float().pow(2).sum()` a leaf. Nothing but the tensors' device chooses
+the route.
+
 Over a mesh (`TrainState.create(..., mesh=)`) the train step averages the
 gradients over dp (`reduce_gradients`), sums those of the sequence-parallel
 ring's leaves over sp (`sum_over_sp`) and takes the global norm over every
@@ -31,14 +45,16 @@ updates that slice of the parameter and all-gathers the parameter.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from hsenet_torch.configs import TrainConfig
+from hsenet_torch.ops import multi_tensor
 
 Schedule = Callable[[int], float]
 
@@ -120,22 +136,75 @@ class AdamW:
         zeros = [torch.zeros_like(p) for p in params.values()]
         return AdamWState(0, zeros, [torch.zeros_like(z) for z in zeros])
 
+    def coefficients(self, count: int):
+        """(lr, c1, c2) of the step from Adam's `count`: the schedule before
+        the increment, and the bias corrections 1 - b^(count + 1)."""
+        cfg = self.cfg
+        return (self.schedule(count), 1.0 - cfg.adam_b1 ** (count + 1),
+                1.0 - cfg.adam_b2 ** (count + 1))
+
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
              state: AdamWState, grad_norm: torch.Tensor) -> AdamWState:
         """Clip by `grad_norm` (the global norm of `grads`), then one AdamW
-        update of `params` in place. `grads` may be overwritten."""
+        update of `params` in place: on the card by the multi-tensor kernel,
+        on the CPU by `update_per_leaf`. `grads` may be overwritten."""
         cfg = self.cfg
-        lr = self.schedule(state.count)
-        count = state.count + 1
-        c1 = 1.0 - cfg.adam_b1 ** count
-        c2 = 1.0 - cfg.adam_b2 ** count
+        dims = state.zero1_dims or [None] * len(params)
+        leaves = list(zip(params, grads, state.mu, state.nu, dims))
+        if not multi_tensor.fused_route(grad_norm):
+            multi_tensor.routes["per_leaf"] += len(leaves)
+            self.update_per_leaf(leaves, state, grad_norm)
+            return dataclasses.replace(state, count=state.count + 1)
+        multi_tensor.routes["fused"] += len(leaves)
+        rows = ([], [], [], [])  # p, g, mu, nu as the kernel takes them
+        back = []  # (a strided param or moment, the copy the kernel updates)
+        gathers = []  # ZeRO-1: (the whole param, its split dim)
+        for i, (p, g, mu, nu, dim) in enumerate(leaves):
+            if not p.dtype is mu.dtype is nu.dtype is torch.float32:
+                raise TypeError(
+                    f"AdamW on the card takes f32 masters and moments "
+                    f"(to_training_dtypes); leaf {i} holds {p.dtype}, "
+                    f"{mu.dtype} and {nu.dtype}")
+            if dim is not None:  # ZeRO-1: this rank's slice only
+                gathers.append((p, dim))
+                p, g = (t.chunk(state.zero1_size, dim=dim)[state.zero1_rank]
+                        for t in (p, g))
+            rows[1].append(multi_tensor.as_f32(g))
+            for row, t in zip((rows[0], rows[2], rows[3]), (p, mu, nu)):
+                if not t.is_contiguous():
+                    back.append((t, t.contiguous()))
+                    t = back[-1][1]
+                row.append(t)
+        lr, c1, c2 = self.coefficients(state.count)
+        multi_tensor.adamw_(rows[0], rows[1], rows[2], rows[3], grad_norm,
+                            max_norm=cfg.max_grad_norm, b1=cfg.adam_b1,
+                            b2=cfg.adam_b2, eps=cfg.adam_eps,
+                            weight_decay=cfg.weight_decay, lr=lr, c1=c1, c2=c2)
+        for t, copy in back:
+            t.copy_(copy)
+        if gathers:
+            from hsenet_torch.parallel.mesh import all_gather
+
+            for whole, dim in gathers:
+                mine = whole.chunk(state.zero1_size, dim=dim)[state.zero1_rank]
+                whole.copy_(all_gather(mine, state.zero1_group, dim))
+        return dataclasses.replace(state, count=state.count + 1)
+
+    @torch.no_grad()
+    def update_per_leaf(self, leaves: Sequence[tuple], state: AdamWState,
+                        grad_norm: torch.Tensor) -> None:
+        """`step`'s update of `leaves`, each (param, grad, mu, nu, ZeRO-1
+        dim or None), one leaf at a time in plain PyTorch: the plain version
+        that the fused kernel is held to, and the route of every leaf on the
+        CPU. The grads are overwritten."""
+        cfg = self.cfg
+        lr, c1, c2 = self.coefficients(state.count)
         # scale by max/norm when norm >= max, else by exactly 1 (a device
         # scalar, so the step never waits on the host)
         clip = torch.where(grad_norm < cfg.max_grad_norm, 1.0,
                            cfg.max_grad_norm / grad_norm)
-        dims = state.zero1_dims or [None] * len(params)
-        for p, g, mu, nu, dim in zip(params, grads, state.mu, state.nu, dims):
+        for p, g, mu, nu, dim in leaves:
             g = g.to(p.dtype).mul_(clip)
             whole = p
             if dim is not None:  # ZeRO-1: this rank's slice only
@@ -151,7 +220,6 @@ class AdamW:
                 from hsenet_torch.parallel.mesh import all_gather
 
                 whole.copy_(all_gather(p, state.zero1_group, dim))
-        return dataclasses.replace(state, count=count)
 
 
 def make_optimizer(cfg: TrainConfig,
@@ -161,33 +229,47 @@ def make_optimizer(cfg: TrainConfig,
     return AdamW(cfg, trainable_mask)
 
 
+@functools.lru_cache(maxsize=16)
+def _class_masks(classes: Tuple[int, ...], n: int,
+                 device: torch.device) -> torch.Tensor:
+    """[n, len(classes)] bool, row c marking the leaves of class c: made
+    once per set of classes, so that a step copies nothing to the device
+    (a copy from host memory would wait for the whole backward)."""
+    index = torch.tensor(classes, device=device)
+    return torch.arange(n, device=device)[:, None] == index
+
+
 def global_norm(grads: List[torch.Tensor], names: Sequence[str] = (),
                 model: Optional[nn.Module] = None) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32. With `model`
+    """sqrt of the sum of squares of every element, in f32, from each
+    leaf's sum of squares (`multi_tensor.sum_of_squares`). With `model`
     sharded over a mesh (`parallel/sharding.py`) and `names` the grads'
     leaves, the squares of a split leaf are summed over the ranks that
     split it, so every rank holds the norm of the full gradients."""
+    squares = multi_tensor.sum_of_squares(grads)
     dims = model.__dict__.get("shard_dims", {}) if model is not None else {}
     stage = model.__dict__.get("pipeline") if model is not None else None
+    if stage is None and not dims:
+        return torch.sqrt(squares.sum())
+
+    def by_class(classes: List[int], n: int) -> torch.Tensor:
+        # a masked sum, not index_add_: its CUDA kernel adds by atomics
+        masks = _class_masks(tuple(classes), n, squares.device)
+        return torch.where(masks, squares, 0.0).sum(dim=1)
+
     if stage is not None:
         # a pipeline stage's own layers' squares are summed over pp; the
         # replicated leaves' gradients are alike on every stage
         from hsenet_torch.parallel.mesh import all_reduce
 
-        own = torch.zeros(2, dtype=torch.float32, device=grads[0].device)
-        for name, g in zip(names, grads):
-            own[int(stage.holds(name))] += g.float().pow(2).sum()
+        own = by_class([int(stage.holds(name)) for name in names], 2)
         return torch.sqrt(own[0] + all_reduce(own[1:], stage.group)[0])
-    if not dims:
-        return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
     from hsenet_torch.parallel.mesh import all_reduce, axis_group
 
     mesh = model.mesh
     # squares by the axes a leaf is split over: none, tp, dp, both
-    sums = torch.zeros(4, dtype=torch.float32, device=grads[0].device)
-    for name, g in zip(names, grads):
-        tp_dim, dp_dim = dims.get(name, (None, None))
-        sums[(tp_dim is not None) + 2 * (dp_dim is not None)] += g.float().pow(2).sum()
+    splits = [dims.get(name, (None, None)) for name in names]
+    sums = by_class([(tp is not None) + 2 * (dp is not None) for tp, dp in splits], 4)
     dp_part = all_reduce(sums[2:], axis_group(mesh, "dp"))
     tp_part = all_reduce(torch.stack([sums[1], dp_part[1]]),
                          axis_group(mesh, "tp"))
